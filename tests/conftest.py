@@ -19,3 +19,8 @@ except ImportError:
     _spec.loader.exec_module(_stub)
     sys.modules["hypothesis"] = _stub
     sys.modules["hypothesis.strategies"] = _stub.strategies
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips where there is none")

@@ -1,0 +1,141 @@
+"""The port stands alone and never falls back to the CPU unasked:
+``repro_torch`` imports neither JAX nor the JAX package, and without a CUDA
+card its entry points raise unless the caller passes ``device="cpu"``."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+PKG = SRC / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _modules():
+    return sorted(".".join(p.relative_to(SRC).with_suffix("").parts)
+                  .removesuffix(".__init__") for p in PKG.rglob("*.py"))
+
+
+def test_importing_every_module_loads_no_jax_or_repro():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(PKG)))
+def test_no_import_statement_names_jax_or_repro(path):
+    """Also the imports inside functions, which an import test never runs."""
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, (path, name)
+
+
+@pytest.fixture
+def no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the entry points rightly run on it")
+
+
+def test_entry_points_raise_without_a_card(no_card):
+    from repro_torch._compat import resolve_device
+    from repro_torch.configs import get_vision_config
+    from repro_torch.convert import params_from_jax
+    from repro_torch.core.formats import init_compressed
+    from repro_torch.core.pruning import SparsityConfig
+    from repro_torch.core.sparse_conv import conv_init
+    from repro_torch.core.sparse_linear import linear_init
+    from repro_torch.models.vision import synth_batch, vision_init
+
+    cfg = get_vision_config("resnet-tiny")
+    sp = SparsityConfig(sparsity=0.5, tile=8, min_dim=16,
+                        format="compressed_pallas")
+    gen = torch.Generator().manual_seed(0)
+    calls = [
+        lambda: resolve_device(None),
+        lambda: resolve_device("cuda"),
+        lambda: vision_init(cfg, 0),
+        lambda: synth_batch(cfg, 0, 2),
+        lambda: params_from_jax({"w": np.zeros((2, 2), np.float32)}),
+        lambda: conv_init(gen, 16, 16, 3, 3, sp),
+        lambda: linear_init(gen, 16, 16, sp),
+        lambda: init_compressed(gen, 72, 16, sp),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_kernel_launchers_never_take_cpu_tensors():
+    """A CPU tensor given to a kernel's launcher raises; it is never routed
+    to the plain version there, and no launch is counted."""
+    from repro_torch.kernels import KERNELS, reset_launch_counts
+    from repro_torch.kernels.colwise_nm import colwise_nm_matmul_strips_cuda
+    from repro_torch.kernels.conv_gemm import conv2d_fused_cuda
+    from repro_torch.kernels.im2col_pack import im2col_pack_cuda
+
+    reset_launch_counts()
+    x = torch.zeros((8, 1, 4, 4))
+    values = torch.zeros((2, 36, 8))
+    idx = torch.zeros((2, 36), dtype=torch.int32)
+    strips = torch.zeros((1, 72, 128))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        im2col_pack_cuda(x, 3, 3, 1, 1)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        colwise_nm_matmul_strips_cuda(strips, values, idx)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        conv2d_fused_cuda(x, values, idx, kh=3, kw=3, pad=1)
+    assert [k.launches for k in KERNELS] == [0, 0, 0]
+
+
+def test_cpu_wrappers_run_plain_versions_and_count_no_launch():
+    from repro_torch.kernels import KERNELS, reset_launch_counts
+    from repro_torch.kernels.conv_gemm import conv2d_sparse
+
+    reset_launch_counts()
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((8, 1, 6, 6)).astype(np.float32))
+    values = torch.from_numpy(rng.standard_normal((2, 36, 8)).astype(np.float32))
+    idx = torch.arange(0, 72, 2, dtype=torch.int32).repeat(2, 1)
+    for impl in (None, "im2col_sparse_pallas"):
+        y = conv2d_sparse(x, values, idx, kh=3, kw=3, pad=1, impl=impl)
+        assert tuple(y.shape) == (16, 1, 6, 6)
+    assert [k.launches for k in KERNELS] == [0, 0, 0]
+
+
+def test_unported_plans_and_layers_raise():
+    from repro_torch.core.sparse_linear import linear_apply
+    from repro_torch.kernels.conv_gemm import conv2d_sparse
+
+    x = torch.zeros((8, 1, 4, 4))
+    values = torch.zeros((2, 36, 8))
+    idx = torch.zeros((2, 36), dtype=torch.int32)
+    for impl in ("im2col_sparse_xla", "fused_banded_pallas",
+                 "two_kernel_pipelined", "dense_conv"):
+        with pytest.raises(ValueError, match="ROADMAP"):
+            conv2d_sparse(x, values, idx, kh=3, kw=3, pad=1, impl=impl)
+    layer = {"values": torch.zeros((1, 8, 10), device="meta"),
+             "idx": torch.zeros((1, 8), dtype=torch.int32, device="meta")}
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        linear_apply(layer, torch.zeros((2, 16), device="meta"))
