@@ -70,9 +70,10 @@ def conv_apply(params, x_cnhw: torch.Tensor, *, kh: int, kw: int,
                impl: Optional[str] = None) -> torch.Tensor:
     """Apply a layer created by ``conv_init`` to a CNHW map.
 
-    Compressed layers run ``conv2d_sparse`` under the plan ``impl`` names
-    (default: the fused kernel); masked and dense layers run the library
-    convolution on ``w`` (times ``mask``).  Returns CNHW [O, B, Ho, Wo].
+    Compressed layers run ``conv2d_sparse``: the plan dispatch resolves
+    for the conv's shape and device, or the one ``impl`` names; masked and
+    dense layers run the library convolution on ``w`` (times ``mask``).
+    Returns CNHW [O, B, Ho, Wo].
     """
     if "values" in params:
         y = conv2d_sparse(x_cnhw.contiguous(), params["values"], params["idx"],

@@ -14,7 +14,6 @@ import torch
 from repro_torch._compat import resolve_device
 from repro_torch.core import formats
 from repro_torch.core.pruning import SparsityConfig, colwise_nm_mask, rowwise_nm_mask
-from repro_torch.kernels.colwise_nm.ref import colwise_nm_matmul_ref
 
 
 def _dense_init(generator, d_in, d_out, dtype, scale):
@@ -52,19 +51,39 @@ def linear_init(generator: torch.Generator, d_in: int, d_out: int,
     return params
 
 
+def forward_compressed_xla(x: torch.Tensor, values: torch.Tensor,
+                           idx: torch.Tensor) -> torch.Tensor:
+    """Tiled gather + dense einsum, the twin of the JAX package's XLA path:
+    ``y[..., t*T:(t+1)*T] = x[..., idx[t]] @ values[t]``."""
+    n_tiles, _, tile = values.shape
+    xg = x[..., idx.long()]  # [..., n_tiles, k]
+    y = torch.einsum("...tk,tkf->...tf", xg, values)
+    return y.reshape(*x.shape[:-1], n_tiles * tile)
+
+
 def forward_masked(x: torch.Tensor, w: torch.Tensor,
                    mask: torch.Tensor) -> torch.Tensor:
     return x @ (w * mask.to(w.dtype))
 
 
-def linear_apply(params, x: torch.Tensor) -> torch.Tensor:
-    """Apply a layer created by ``linear_init`` to ``x`` [..., d_in]."""
+def linear_apply(params, x: torch.Tensor, *,
+                 impl: Optional[str] = None) -> torch.Tensor:
+    """Apply a layer created by ``linear_init`` to ``x`` [..., d_in].
+
+    A compressed layer runs the candidate ``repro_torch.dispatch`` resolves
+    for its shape and device (profile DB, else the heuristic: the sparse
+    linear kernel on the card, the gather-einsum on the CPU), or the one
+    ``impl`` names.  A candidate that cannot run raises.
+    """
     if "values" in params:
-        if x.device.type != "cpu":
-            raise NotImplementedError(
-                "compressed linear layers have no CUDA kernel yet: "
-                "colwise_nm_matmul_pallas is ROADMAP queue-2 item 1")
-        y = colwise_nm_matmul_ref(x, params["values"], params["idx"])
+        from repro_torch import dispatch
+
+        site = ("linear", x.shape, params["values"].shape, x.dtype, x.device)
+        spec = dispatch.site_impl(
+            site, lambda: dispatch.linear_key_from(
+                x.shape, params["values"].shape, x.dtype),
+            param_keys=("values", "idx"), force=impl, device=x.device)
+        y = spec.apply(params, x)
     elif "mask" in params:
         y = forward_masked(x, params["w"], params["mask"])
     else:

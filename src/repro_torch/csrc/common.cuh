@@ -19,7 +19,8 @@ constexpr int kDtypeBF16 = 1;
 
 // Threads of one block: each owns output columns j, j + kThreads, ... of a strip.
 constexpr int kThreads = 128;
-// Output rows (features of a tile) one thread accumulates in registers at once.
+// Output rows (features of a tile) one thread accumulates in registers at once
+// (repro_torch/kernels/_build.py::KROWS sizes shared memory with it).
 constexpr int kRows = 8;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -78,6 +79,25 @@ __device__ __forceinline__ bool tap_coords(int p, int ikh, int ikw, const ConvGe
 }
 
 __device__ __forceinline__ float quiet_nan() { return __int_as_float(0x7fc00000); }
+
+// Asynchronous global -> shared copies (sm_80+ cp.async).  A thread's copies
+// land once it has waited for their group; a __syncthreads() after the wait
+// makes every thread's copies visible to the block.  Both addresses must be
+// aligned to the copy's size.
+__device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem_src));
+}
+__device__ __forceinline__ void cp_async4(void* smem_dst, const void* gmem_src) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(gmem_src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+// Wait until at most N of this thread's committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
 
 // Launch-time check shared by the entry points: a kernel that needs more
 // than the default 48 KB of dynamic shared memory must opt in first.

@@ -118,16 +118,22 @@ class CudaKernel:
 
     ``launches`` rises by one for every successful launch and nowhere else,
     so a caller can reset it, run a path, and see which kernels it used.
+    A kernel built with ``sized_smem`` takes the launch's shared-memory bytes
+    from its wrapper (the C side refuses a size that is not its own layout's)
+    and keeps the last one in ``last_smem_bytes``.
     """
 
     def __init__(self, name: str, symbol: str, argtypes: Sequence, *,
-                 source: str, replaces: str):
+                 source: str, replaces: str, sized_smem: bool = False):
         self.name = name
         self.symbol = symbol
-        self.argtypes = [*argtypes, ctypes.c_void_p]  # + the CUDA stream
+        self.sized_smem = sized_smem
+        smem = [ctypes.c_longlong] if sized_smem else []
+        self.argtypes = [*argtypes, *smem, ctypes.c_void_p]  # + the CUDA stream
         self.source = source
         self.replaces = replaces
         self.launches = 0
+        self.last_smem_bytes = None
 
     @functools.cached_property
     def _fn(self):
@@ -137,9 +143,14 @@ class CudaKernel:
         fn.restype = ctypes.c_int
         return fn
 
-    def launch(self, device: torch.device, *args) -> None:
+    def launch(self, device: torch.device, *args, smem_bytes=None) -> None:
         """Launch on ``device``'s current stream; raise on any CUDA error
         the launch reports.  Does not synchronise."""
+        if (smem_bytes is not None) != self.sized_smem:
+            raise TypeError(f"{self.name}: smem_bytes is "
+                            f"{'required' if self.sized_smem else 'not taken'}")
+        if self.sized_smem:
+            args = (*args, int(smem_bytes))
         if len(args) + 1 != len(self.argtypes):
             raise TypeError(f"{self.name} takes {len(self.argtypes) - 1} "
                             f"arguments, got {len(args)}")
@@ -150,6 +161,7 @@ class CudaKernel:
             raise RuntimeError(f"{self.name} launch failed: CUDA error {err} "
                                f"({msg})")
         self.launches += 1
+        self.last_smem_bytes = smem_bytes
 
 
 def check_cuda_tensor(name: str, t: torch.Tensor, dtypes, ndim: int) -> None:
@@ -165,21 +177,29 @@ def check_cuda_tensor(name: str, t: torch.Tensor, dtypes, ndim: int) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def check_same_device(*tensors: torch.Tensor) -> None:
+    """Raise unless every operand lies on the first one's device."""
+    if any(t.device != tensors[0].device for t in tensors[1:]):
+        raise ValueError("the operands must be on one device")
+
+
 def check_compressed(values: torch.Tensor, idx: torch.Tensor,
-                     dtype: torch.dtype, block_k: int, smem_per_row: int) -> None:
+                     dtype: torch.dtype, block_k: int, smem_bytes: int) -> None:
     """Checks shared by the sparse-GEMM wrappers: ``values``/``idx`` on the
-    card in the packed layout, and one ``block_k`` chunk of staged rows
-    (``smem_per_row`` bytes each) within a block's shared memory."""
+    card in the packed layout, and the launch's shared memory, sized for
+    ``block_k`` staged rows, within a block's."""
     check_cuda_tensor("values", values, (dtype,), 3)
     check_cuda_tensor("idx", idx, (torch.int32,), 2)
     if tuple(idx.shape) != tuple(values.shape[:2]):
         raise ValueError(f"idx {tuple(idx.shape)} does not match values "
                          f"{tuple(values.shape)}")
-    if block_k <= 0 or block_k * smem_per_row > SMEM_BYTES:
-        raise ValueError(f"block_k={block_k} needs {block_k * smem_per_row} "
-                         f"bytes of shared memory; at most {SMEM_BYTES}")
+    if block_k <= 0 or smem_bytes > SMEM_BYTES:
+        raise ValueError(f"block_k={block_k} needs {smem_bytes} bytes of "
+                         f"shared memory; at most {SMEM_BYTES}")
 
 
 FLOAT_DTYPES = (torch.float32, torch.bfloat16)
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}  # csrc/common.cuh
 SMEM_BYTES = 227 * 1024  # shared memory one Hopper block may use
+KTHREADS = 128  # threads of one block (csrc/common.cuh kThreads)
+KROWS = 8  # output rows a thread accumulates at once (csrc/common.cuh kRows)

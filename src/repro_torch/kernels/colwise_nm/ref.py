@@ -30,3 +30,23 @@ def colwise_nm_matmul_strips_ref(strips: torch.Tensor, values: torch.Tensor,
     sel = strips[:, idx.long(), :].float()  # [S, n_tiles, k, V]
     y = torch.einsum("tkf,stkj->tfsj", values.float(), sel)
     return y.reshape(n_tiles * tile, n_strips * v).to(strips.dtype)
+
+
+def colwise_nm_matmul_strips_pipelined_ref(strips: torch.Tensor,
+                                           values: torch.Tensor,
+                                           idx: torch.Tensor, *,
+                                           hb: int = 2) -> torch.Tensor:
+    """The pipelined strip GEMM's plain version: the strips reference taken
+    chunk by chunk over ``hb`` strips, each chunk at origin
+    ``min(g*hb, S-hb)`` as in the TPU kernel, so the ragged last chunk
+    re-covers the tail of the one before and writes those columns again
+    with the same values."""
+    n_strips, _, v = strips.shape
+    n_tiles, _, tile = values.shape
+    hb = max(min(hb, n_strips), 1)
+    out = strips.new_empty((n_tiles * tile, n_strips * v))
+    for g in range(-(-n_strips // hb)):
+        o = min(g * hb, n_strips - hb)
+        out[:, o * v:(o + hb) * v] = colwise_nm_matmul_strips_ref(
+            strips[o:o + hb], values, idx)
+    return out

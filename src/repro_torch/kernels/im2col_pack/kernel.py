@@ -15,7 +15,8 @@ from repro_torch.kernels._build import CudaKernel, FLOAT_DTYPES, check_cuda_tens
 from repro_torch.kernels.im2col_pack.ref import out_size
 
 
-def tap_coords(p, *, ikh, ikw, stride, pad, b, h, w, ho, wo):
+def tap_coords(p, *, ikh, ikw, stride, pad, b, h, w, ho, wo,
+               band_origin=None, band_rows=None):
     """Source coordinates of flat output positions ``p`` at kernel tap
     (ikh, ikw).
 
@@ -23,6 +24,13 @@ def tap_coords(p, *, ikh, ikw, stride, pad, b, h, w, ho, wo):
     ``ikh``/``ikw`` broadcast against it.  Returns ``(valid, bc, ihc, iwc)``:
     the off-map / past-the-end mask and clamped (always in-bounds) batch, row
     and column coordinates.
+
+    Band mode (``band_origin``/``band_rows`` set), for the banded conv that
+    keeps only a row band of the ``[C, B*H, W]`` map: the row coordinate is
+    band-local in the flattened ``(batch*h)`` row space,
+    ``bb*h + ih - band_origin`` clamped to ``[0, band_rows)``, and the batch
+    coordinate is dropped; returns ``(valid, rowc, iwc)``.  ``band_origin``
+    may be a tensor that broadcasts against ``p``.
     """
     n_pos = b * ho * wo
     bb = p // (ho * wo)
@@ -32,15 +40,20 @@ def tap_coords(p, *, ikh, ikw, stride, pad, b, h, w, ho, wo):
     ih = oh * stride - pad + ikh
     iw = ow * stride - pad + ikw
     valid = (p < n_pos) & (ih >= 0) & (ih < h) & (iw >= 0) & (iw < w)
+    if band_origin is not None:
+        row = bb * h + ih - band_origin
+        return (valid, row.clamp(0, band_rows - 1), iw.clamp(0, w - 1))
     return (valid, bb.clamp(0, b - 1), ih.clamp(0, h - 1), iw.clamp(0, w - 1))
 
 
 def strip_tap_coords(s, *, v, ikh, ikw, stride, pad, b, h, w, ho, wo,
-                     device=None):
-    """:func:`tap_coords` over strip ``s``'s positions ``s*v + arange(v)``."""
+                     band_origin=None, band_rows=None, device=None):
+    """:func:`tap_coords` over strip ``s``'s positions ``s*v + arange(v)``
+    (band mode included)."""
     p = s * v + torch.arange(v, dtype=torch.int32, device=device)
     return tap_coords(p, ikh=ikh, ikw=ikw, stride=stride, pad=pad, b=b, h=h,
-                      w=w, ho=ho, wo=wo)
+                      w=w, ho=ho, wo=wo, band_origin=band_origin,
+                      band_rows=band_rows)
 
 
 IM2COL_PACK = CudaKernel(

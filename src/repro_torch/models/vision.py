@@ -15,6 +15,7 @@ from repro_torch._compat import resolve_device
 from repro_torch.configs.base import VisionConfig
 from repro_torch.core.sparse_conv import conv_apply, conv_init
 from repro_torch.core.sparse_linear import linear_apply, linear_init
+from repro_torch.kernels.im2col_pack.ref import out_size
 
 
 def _block_strides(cfg: VisionConfig):
@@ -117,3 +118,31 @@ def vision_accuracy(params, cfg: VisionConfig, x_cnhw: torch.Tensor,
                     labels: torch.Tensor, *, impl: Optional[str] = None) -> float:
     logits = vision_apply(params, cfg, x_cnhw, impl=impl)
     return float((logits.argmax(dim=-1) == labels).float().mean())
+
+
+def conv_hints(cfg: VisionConfig, batch: int = 1) -> Dict[str, Dict[str, int]]:
+    """Per-layer map-shape hints for ``dispatch.plan_params(conv_hints=...)``.
+
+    Walks the blocks with ``vision_apply``'s stride arithmetic, so every
+    planned conv token is the one ``conv_apply`` resolves at the call site.
+    Keys are layer-path substrings (``blocks[i]/conv1`` ...) as
+    ``dispatch.iter_op_layers`` names them.
+    """
+    h, w = cfg.image_hw
+    hints: Dict[str, Dict[str, int]] = {
+        "stem": {"h": h, "w": w, "batch": batch, "stride": 1, "pad": 1,
+                 "v": cfg.strip_v},
+    }
+    for i, (_si, _bi, stride, _ci, _co) in enumerate(_block_strides(cfg)):
+        hints[f"blocks[{i}]/conv1"] = {
+            "h": h, "w": w, "batch": batch, "stride": stride, "pad": 1,
+            "v": cfg.strip_v}
+        hints[f"blocks[{i}]/proj"] = {
+            "h": h, "w": w, "batch": batch, "stride": stride, "pad": 0,
+            "v": cfg.strip_v}
+        h = out_size(h, 3, stride, 1)
+        w = out_size(w, 3, stride, 1)
+        hints[f"blocks[{i}]/conv2"] = {
+            "h": h, "w": w, "batch": batch, "stride": 1, "pad": 1,
+            "v": cfg.strip_v}
+    return hints

@@ -52,6 +52,16 @@ def test_no_import_statement_names_jax_or_repro(path):
 
 
 @pytest.fixture
+def tdb(tmp_path):
+    """An empty profile DB for the port's dispatch."""
+    from repro_torch import dispatch
+
+    dispatch.set_db(dispatch.ProfileDB(path=tmp_path / "profile.json"))
+    yield
+    dispatch.set_db(None)
+
+
+@pytest.fixture
 def no_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the entry points rightly run on it")
@@ -91,8 +101,11 @@ def test_kernel_launchers_never_take_cpu_tensors():
     """A CPU tensor given to a kernel's launcher raises; it is never routed
     to the plain version there, and no launch is counted."""
     from repro_torch.kernels import KERNELS, reset_launch_counts
-    from repro_torch.kernels.colwise_nm import colwise_nm_matmul_strips_cuda
-    from repro_torch.kernels.conv_gemm import conv2d_fused_cuda
+    from repro_torch.kernels.colwise_nm import (
+        colwise_nm_matmul_cuda, colwise_nm_matmul_strips_cuda,
+        colwise_nm_matmul_strips_pipelined_cuda)
+    from repro_torch.kernels.conv_gemm import (
+        conv2d_fused_banded_cuda, conv2d_fused_cuda)
     from repro_torch.kernels.im2col_pack import im2col_pack_cuda
 
     reset_launch_counts()
@@ -105,11 +118,53 @@ def test_kernel_launchers_never_take_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         colwise_nm_matmul_strips_cuda(strips, values, idx)
     with pytest.raises(ValueError, match="CUDA tensor"):
+        colwise_nm_matmul_strips_pipelined_cuda(strips, values, idx)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        colwise_nm_matmul_cuda(torch.zeros((4, 72)), values, idx)
+    with pytest.raises(ValueError, match="CUDA tensor"):
         conv2d_fused_cuda(x, values, idx, kh=3, kw=3, pad=1)
-    assert [k.launches for k in KERNELS] == [0, 0, 0]
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        conv2d_fused_banded_cuda(x, values, idx, kh=3, kw=3, pad=1)
+    assert all(k.launches == 0 for k in KERNELS)
 
 
-def test_cpu_wrappers_run_plain_versions_and_count_no_launch():
+def test_wrappers_take_no_cpu_fallback_on_a_device_tensor(tdb):
+    """Only a CPU tensor runs a plain version: a tensor on any other device
+    goes to the kernel's launcher, which takes CUDA tensors alone (here a
+    ``meta`` tensor stands in for one on a card that is not there)."""
+    from repro_torch.core.sparse_linear import linear_apply
+    from repro_torch.kernels.colwise_nm import (
+        colwise_nm_matmul, colwise_nm_matmul_strips,
+        colwise_nm_matmul_strips_pipelined)
+    from repro_torch.kernels.conv_gemm import (
+        conv2d_fused, conv2d_fused_banded, conv2d_two_kernel,
+        conv2d_two_kernel_pipelined)
+
+    meta = dict(device="meta")
+    x = torch.zeros((8, 2, 6, 6), **meta)
+    values = torch.zeros((2, 36, 8), **meta)
+    idx = torch.zeros((2, 36), dtype=torch.int32, **meta)
+    strips = torch.zeros((1, 72, 128), **meta)
+    geo = dict(kh=3, kw=3, pad=1)
+    calls = [
+        lambda: colwise_nm_matmul(torch.zeros((4, 72), **meta), values, idx),
+        lambda: colwise_nm_matmul_strips(strips, values, idx),
+        lambda: colwise_nm_matmul_strips_pipelined(strips, values, idx),
+        lambda: conv2d_fused(x, values, idx, **geo),
+        lambda: conv2d_fused_banded(x, values, idx, **geo),
+        lambda: conv2d_two_kernel(x, values, idx, **geo),
+        lambda: conv2d_two_kernel_pipelined(x, values, idx, **geo),
+        lambda: linear_apply({"values": values, "idx": idx},
+                             torch.zeros((4, 72), **meta),
+                             impl="compressed_pallas"),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            call()
+
+
+def test_cpu_wrappers_run_plain_versions_and_count_no_launch(tdb):
+    from repro_torch import dispatch
     from repro_torch.kernels import KERNELS, reset_launch_counts
     from repro_torch.kernels.conv_gemm import conv2d_sparse
 
@@ -118,24 +173,33 @@ def test_cpu_wrappers_run_plain_versions_and_count_no_launch():
     x = torch.from_numpy(rng.standard_normal((8, 1, 6, 6)).astype(np.float32))
     values = torch.from_numpy(rng.standard_normal((2, 36, 8)).astype(np.float32))
     idx = torch.arange(0, 72, 2, dtype=torch.int32).repeat(2, 1)
-    for impl in (None, "im2col_sparse_pallas"):
+    impls = [None] + [s.name for s in dispatch.REGISTRY.candidates(
+        "conv", param_keys=("values", "idx"))]
+    for impl in impls:
         y = conv2d_sparse(x, values, idx, kh=3, kw=3, pad=1, impl=impl)
         assert tuple(y.shape) == (16, 1, 6, 6)
-    assert [k.launches for k in KERNELS] == [0, 0, 0]
+    assert all(k.launches == 0 for k in KERNELS)
 
 
-def test_unported_plans_and_layers_raise():
+def test_unported_plans_and_layers_raise(tdb):
+    """What still raises now that every conv plan and the compressed linear
+    run: a plan name no registry knows (``KeyError``, as the JAX dispatch
+    raises), and a forced plan that cannot execute the layer's params, such
+    as ``dense_conv`` on a compressed conv."""
     from repro_torch.core.sparse_linear import linear_apply
     from repro_torch.kernels.conv_gemm import conv2d_sparse
 
     x = torch.zeros((8, 1, 4, 4))
     values = torch.zeros((2, 36, 8))
     idx = torch.zeros((2, 36), dtype=torch.int32)
-    for impl in ("im2col_sparse_xla", "fused_banded_pallas",
-                 "two_kernel_pipelined", "dense_conv"):
-        with pytest.raises(ValueError, match="ROADMAP"):
+    with pytest.raises(KeyError, match="not a registered"):
+        conv2d_sparse(x, values, idx, kh=3, kw=3, pad=1, impl="no_such_plan")
+    for impl in ("dense_conv", "im2col_dense_gemm"):
+        with pytest.raises(KeyError, match="requires"):
             conv2d_sparse(x, values, idx, kh=3, kw=3, pad=1, impl=impl)
-    layer = {"values": torch.zeros((1, 8, 10), device="meta"),
-             "idx": torch.zeros((1, 8), dtype=torch.int32, device="meta")}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        linear_apply(layer, torch.zeros((2, 16), device="meta"))
+    layer = {"values": torch.zeros((1, 8, 16)),
+             "idx": torch.zeros((1, 8), dtype=torch.int32)}
+    with pytest.raises(KeyError, match="requires"):
+        linear_apply(layer, torch.zeros((2, 16)), impl="dense")
+    with pytest.raises(KeyError, match="not a registered"):
+        linear_apply(layer, torch.zeros((2, 16)), impl="fused_sparse_pallas")

@@ -24,10 +24,15 @@ PLANS = ["fused_sparse_pallas", "im2col_sparse_pallas"]
 
 @pytest.fixture
 def db(tmp_path):
+    """Empty profile DBs for both packages' dispatch."""
+    from repro_torch import dispatch as tdispatch
+
     d = ProfileDB(path=str(tmp_path / "profile.json"))
     dispatch.set_db(d)
+    tdispatch.set_db(tdispatch.ProfileDB(path=tmp_path / "torch_profile.json"))
     yield d
     dispatch.set_db(None)
+    tdispatch.set_db(None)
 
 
 def _images(cfg, batch, seed):
