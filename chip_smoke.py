@@ -22,7 +22,18 @@ Phases:
   5. linear : compressed linear layers (serving's sparsity config, tile 8
               and tile 12) through ``linear_apply``'s dispatch, by the
               heuristic and by a profile, against the plain version
-  6. report : one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
+  6. paged  : the paged-attention kernel against its plain version at
+              smollm-360m's serving shapes (H 15, KV 5, D 64, page size 16;
+              B 4 and 8; ragged lengths with 0, one page and a ragged last
+              page; shuffled page ids, trash-padded tables; one Sq 4 and one
+              bf16 case), with its bound and an SDPA yardstick
+  7. serve  : pruned smollm-360m at its published widths (32 layers, random
+              weights from the seed) served through ``Scheduler(paged=True)``:
+              8 synthetic requests, greedy; request, page-pool and
+              launch-count checks, a teacher-forced replay of every step
+              through the plain versions, host times per step and the
+              device time of one decode step
+  8. report : one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
               line last
 
 Run from the repository root:  python3 chip_smoke.py
@@ -61,6 +72,19 @@ N_PROFILES = 3  # profiles of the main path, to see whether the winners hold
 F32_RTOL = 1e-4   # of max|y|: the same sums taken in another order
 BF16_RTOL = 2e-2  # of max|y|: one bf16 rounding of the output, other sum order
 SEED = 0
+# phase 6: (B, Sq, lengths, dtype) at smollm-360m's heads and page size 16;
+# n_max = 10 pages, the serving phase's table width
+PAGED_H, PAGED_KV, PAGED_D, PAGED_PS, PAGED_NMAX = 15, 5, 64, 16, 10
+PAGED_CASES = [(4, 1, [0, 16, 37, 150], torch.float32),   # the decode step's
+               (8, 1, [0, 16, 37, 150, 1, 159, 64, 90], torch.float32),
+               (4, 4, [31, 0, 16, 100], torch.float32),   # causal new keys
+               (4, 1, [0, 16, 37, 150], torch.bfloat16)]
+# phase 7
+SERVE_SLOTS, SERVE_REQUESTS = 4, 8
+SERVE_PROMPTS, SERVE_BUDGETS = (16, 128), (16, 32)
+# teacher-forced replay through the plain versions: 32 layers of sums taken
+# in another order (the kernels' f32 accumulation vs cuBLAS and einsum)
+REPLAY_RTOL = 1e-3  # of max|logit| per step
 
 
 def check(cond: bool, msg: str) -> None:
@@ -339,6 +363,9 @@ LIBRARY_CALLS = {
                                           "strips, as for the strip GEMM",
     "conv2d_fused_banded": "F.conv2d on the dense masked weight, as for the "
                            "fused conv",
+    "paged_attention": "F.scaled_dot_product_attention on K/V pre-gathered "
+                       "to [B, H, n_max*ps + Sq, D] with a boolean mask; the "
+                       "gather is not timed",
 }
 KEYS = ("ms", "eager_ms", "plain_ms", "bound_ms", "library_ms")
 
@@ -611,7 +638,7 @@ def dispatch_host_cost(params, cfg, dev) -> None:
         def lookup():  # the site tuple and memo hit conv2d_sparse makes
             return dispatch.site_impl(
                 ("conv", x.shape, values.shape, x.dtype, x.device, kh, kw,
-                 stride, pad, cfg.strip_v), None, param_keys=SPARSE,
+                 stride, pad, cfg.strip_v, ""), None, param_keys=SPARSE,
                 force="fused_sparse_pallas", device=x.device)
 
         fns = {"direct": lambda: conv2d_fused(x, values, idx, **args),
@@ -704,6 +731,296 @@ def run_linear_path(dev) -> int:
     return launches
 
 
+def paged_problem(b, sq, lengths, dtype, dev, seed):
+    """Phase 6 operands: random q, new K/V and pages, a shuffled page table
+    padded with the trash page (the last physical page), int32 lengths."""
+    rng = np.random.default_rng(seed)
+    n_phys = b * PAGED_NMAX + 1
+
+    def f(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                                ).to(dev, dtype)
+
+    q = f(b, sq, PAGED_H, PAGED_D)
+    kn, vn = f(b, sq, PAGED_KV, PAGED_D), f(b, sq, PAGED_KV, PAGED_D)
+    kp = f(n_phys, PAGED_PS, PAGED_KV, PAGED_D)
+    vp = f(n_phys, PAGED_PS, PAGED_KV, PAGED_D)
+    pages = rng.permutation(b * PAGED_NMAX).reshape(b, PAGED_NMAX)
+    for i, n in enumerate(lengths):
+        pages[i, -(-n // PAGED_PS):] = n_phys - 1
+    return (q, kn, vn, kp, vp,
+            torch.from_numpy(pages.astype(np.int32)).to(dev),
+            torch.tensor(lengths, dtype=torch.int32, device=dev))
+
+
+def paged_bound(args, dtype) -> tuple:
+    """(ms, "bytes" | "operations") of one paged-attention call: the valid
+    cache rows of K and V, q, the new K/V and the output read or written
+    once, the tables and lengths; QK and PV over the valid rows."""
+    q, kn, vn, _, _, tables, lengths = args
+    b, sq, h, d = q.shape
+    kv = kn.shape[2]
+    cap = tables.shape[1] * PAGED_PS
+    rows = [min(int(n), cap) for n in lengths.tolist()]
+    isz = q.element_size()
+    nb = ((2 * sum(rows) * kv * d + 2 * q.numel() + kn.numel() + vn.numel())
+          * isz + 4 * (tables.numel() + lengths.numel()))
+    flops = sum(4 * h * d * (n + sq) * sq for n in rows)
+    return bound_ms(nb, flops, dtype)
+
+
+def check_paged_kernel(dev, tot):
+    """Phase 6: the paged-attention kernel against its plain version at
+    smollm-360m's serving shapes, with an SDPA yardstick."""
+    from repro_torch.kernels.flash_attn import (paged_attention_cuda,
+                                                paged_attention_ref)
+
+    for i, (b, sq, lengths, dtype) in enumerate(PAGED_CASES):
+        args = paged_problem(b, sq, lengths, dtype, dev, SEED + 20 + i)
+        q, kn, vn, kp, vp, tables, lens = args
+        rtol = F32_RTOL if dtype == torch.float32 else BF16_RTOL
+        tag = (f"B={b} Sq={sq} H={PAGED_H} KV={PAGED_KV} D={PAGED_D} "
+               f"ps={PAGED_PS} n_max={PAGED_NMAX} lengths={lengths} "
+               f"{str(dtype).replace('torch.', '')}")
+        y_p = paged_attention_ref(*args)
+        err = max_err(paged_attention_cuda(*args, page_size=PAGED_PS), y_p,
+                      f"paged_attention {tag}", rtol)
+        # the yardstick: K/V gathered to [B, H, n_max*ps + Sq, D] beforehand
+        g = PAGED_H // PAGED_KV
+        s_c = PAGED_NMAX * PAGED_PS
+
+        def heads(cache, new):
+            flat = cache[tables.long()].reshape(b, s_c, PAGED_KV, PAGED_D)
+            return (torch.cat([flat, new], 1).repeat_interleave(g, dim=2)
+                    .transpose(1, 2).contiguous())
+
+        k_all, v_all = heads(kp, kn), heads(vp, vn)
+        qh = q.transpose(1, 2).contiguous()
+        cache_ok = (torch.arange(s_c, device=dev)[None, None, :]
+                    < lens[:, None, None]).expand(b, sq, s_c)
+        ar = torch.arange(sq, device=dev)
+        new_ok = (ar[None, :] <= ar[:, None])[None].expand(b, sq, sq)
+        mask = torch.cat([cache_ok, new_ok], -1)[:, None]
+        library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qh, k_all, v_all, attn_mask=mask)
+        max_err(library().transpose(1, 2), y_p, f"SDPA yardstick {tag}", rtol)
+        r = measure(lambda: paged_attention_cuda(*args, page_size=PAGED_PS),
+                    lambda: paged_attention_ref(*args), library)
+        r["bound_ms"], by = paged_bound(args, dtype)
+        report(tot, "paged_attention", tag, r, by, err, dtype,
+               count=(b, sq) == (4, 1))
+    return tot
+
+
+LINEARS = (("attn", "q"), ("attn", "k"), ("attn", "v"), ("attn", "o"),
+           ("mlp", "gate"), ("mlp", "up"), ("mlp", "down"))
+
+
+def run_serving(dev) -> dict:
+    """Phase 7: pruned smollm-360m served at its published widths through
+    ``Scheduler(paged=True, alloc="reserve")``.  Returns the launch counts
+    of the served run."""
+    from repro_torch import dispatch
+    from repro_torch.configs import get_config
+    from repro_torch.core.pruning import SparsityConfig
+    from repro_torch.kernels import KERNELS, reset_launch_counts
+    from repro_torch.kernels.colwise_nm import colwise_nm_matmul_cuda
+    from repro_torch.kernels.flash_attn import paged_attention_cuda
+    from repro_torch.models import lm
+    from repro_torch.models import registry as reg
+    from repro_torch.models.blocks import layer_params
+    from repro_torch.serve import (Engine, Scheduler, latency_percentiles,
+                                   synthetic_trace)
+
+    cfg = get_config("smollm-360m").with_(sparsity=SparsityConfig(
+        sparsity=0.5, m=None, tile=None, format="compressed_pallas"))
+    t0 = time.perf_counter()
+    params = lm.lm_init(cfg, SEED, device=dev)
+    torch.cuda.synchronize()
+    layers = params["layers"]
+    check(all("values" in layers[a][n] for a, n in LINEARS),
+          "every q/k/v/o/gate/up/down layer is compressed")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"heads {cfg.n_heads}/{cfg.n_kv_heads}, head_dim "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} "
+          f"(padded {cfg.padded_vocab}), f32; sparsity 0.5, T = d_out; "
+          f"{n_params} stored values and indices, random from seed {SEED}, "
+          f"built in {time.perf_counter() - t0:.1f} s", flush=True)
+    db_path = PROFILE_DB.with_suffix(".serve.json")
+    db_path.unlink(missing_ok=True)
+    dispatch.set_db(dispatch.ProfileDB(path=db_path))
+    engine = Engine(cfg, params)
+    sched = Scheduler(engine, n_slots=SERVE_SLOTS, paged=True,
+                      page_size=PAGED_PS, alloc="reserve")
+    plan = engine.dispatch_plan
+    check(all(dispatch.REGISTRY.get("linear", n).backend == "cuda"
+              for n in plan.values()), f"the serving plan runs plain: {plan}")
+    print(f"  dispatch plan: {len(plan)} phase-tagged linear tokens, all "
+          f"{sorted(set(plan.values()))}", flush=True)
+    # warm-up (not counted): the first calls load the library and fill the
+    # dispatch memos
+    sched.run(synthetic_trace(2, seed=SEED + 1, vocab=cfg.vocab_size,
+                              prompt_lens=(8, 16), new_tokens=(2, 3)))
+
+    steps = []  # (kind, inputs, logits) of every step of the counted run
+    cache_shape = []
+    prefill, decode = engine.packed_prefill_step, engine.paged_decode_step
+
+    def rec_prefill(cache, packed, tables, *, page_size):
+        cache_shape[:] = cache["k"].shape
+        logits, cache = prefill(cache, packed, tables, page_size=page_size)
+        steps.append(("prefill", (packed, tables.copy()), logits.clone()))
+        return logits, cache
+
+    def rec_decode(cache, tokens, pos, tables, *, page_size):
+        inputs = (tokens.copy(), pos.copy(), tables.copy())
+        logits, cache = decode(cache, *inputs, page_size=page_size)
+        steps.append(("decode", inputs, logits.clone()))
+        return logits, cache
+
+    engine.packed_prefill_step, engine.paged_decode_step = rec_prefill, rec_decode
+    trace = synthetic_trace(SERVE_REQUESTS, seed=SEED, vocab=cfg.vocab_size,
+                            prompt_lens=SERVE_PROMPTS, new_tokens=SERVE_BUDGETS)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    comps = sched.run(trace)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k.name: k.launches for k in KERNELS if k.launches}
+    engine.packed_prefill_step, engine.paged_decode_step = prefill, decode
+    st = dict(sched.stats)
+
+    by_uid = {c.uid: c for c in comps}
+    check(sorted(by_uid) == [r.uid for r in trace], f"completions {sorted(by_uid)}")
+    for r in trace:
+        c = by_uid[r.uid]
+        check(c.status == "ok" and c.n_generated == r.max_new_tokens
+              and c.prompt_len == len(r.prompt)
+              and bool((c.tokens >= 0).all() and (c.tokens < cfg.vocab_size).all()),
+              f"request {r.uid}: {c.status}, {c.n_generated} of "
+              f"{r.max_new_tokens} tokens")
+    check(st["pages_mapped"] == 0, f"{st['pages_mapped']} pages leaked")
+    n_dec, n_pre = st["decode_steps"], st["prefill_calls"]
+    want = {"paged_attention": cfg.n_layers * n_dec,
+            "colwise_nm_matmul": len(LINEARS) * cfg.n_layers * (n_dec + n_pre)}
+    print(f"  served {len(comps)} requests (prompts {SERVE_PROMPTS}, budgets "
+          f"{SERVE_BUDGETS}, {SERVE_SLOTS} slots, page size {PAGED_PS}): "
+          f"{n_pre} packed prefills, {n_dec} decode steps, "
+          f"{st['generated_tokens']} tokens, every request 'ok' with its whole "
+          f"budget; page pool invariants hold, 0 pages mapped after the run "
+          f"(peak {st['pages_peak']}, {st['pages_stranded']} stranded)",
+          flush=True)
+    print(f"  launches in the served run: {counts} (want {want})", flush=True)
+    check(counts == want, f"serving launches {counts}, want {want}")
+    # exact counts: every attention and linear call launched its kernel, so
+    # no plain version ran on the card
+    print("  no plain version ran: every one of the "
+          f"{want['paged_attention']} attention and "
+          f"{want['colwise_nm_matmul']} linear calls launched its kernel",
+          flush=True)
+
+    decode_tokens = st["generated_tokens"] - len(comps)
+    p50, p99 = latency_percentiles(comps)
+    ttft = sorted(c.ttft_s for c in comps)
+    host_step_ms = st["decode_s"] / n_dec * 1e3
+    print(f"  host clock, each step synchronised by its token read: "
+          f"prefill {st['prefill_s'] / n_pre * 1e3:.3f} ms per packed prefill "
+          f"call; decode {host_step_ms:.3f} ms per step, "
+          f"{decode_tokens / st['decode_s']:.1f} tokens/s; run {wall:.3f} s; "
+          f"latency p50 {p50:.3f} s p99 {p99:.3f} s; TTFT p50 "
+          f"{ttft[len(ttft) // 2]:.3f} s", flush=True)
+
+    # teacher-forced replay: the kernel path's own inputs through the same
+    # steps with the plain versions forced, on a fresh cache
+    cache = reg.paged_cache_init_fn(cfg, cache_shape[1] - 1, PAGED_PS, dev)()
+    reset_launch_counts()
+    worst, agree, total = 0.0, 0, 0
+    with dispatch.force_scope(linear="compressed_xla",
+                              paged_attn="paged_attn_ref"):
+        for kind, inputs, logits_k in steps:
+            if kind == "prefill":
+                logits_p, cache = prefill(cache, *inputs, page_size=PAGED_PS)
+                live = torch.ones(logits_k.shape[0], dtype=torch.bool)
+            else:
+                logits_p, cache = decode(cache, *inputs, page_size=PAGED_PS)
+                live = torch.from_numpy(inputs[1] > 0)  # active slots
+            e = rel_err(logits_k, logits_p)
+            check(e <= REPLAY_RTOL, f"{kind} step: kernel vs plain logits {e}")
+            worst = max(worst, e)
+            same = engine.sample(logits_k).cpu() == engine.sample(logits_p).cpu()
+            agree += int(same[live].sum())
+            total += int(live.sum())
+    torch.cuda.synchronize()
+    check(all(k.launches == 0 for k in KERNELS), "the replay launched a kernel")
+    print(f"  teacher-forced replay of all {len(steps)} steps through the "
+          f"plain versions (paged_attn_ref, compressed_xla): max rel err of the "
+          f"logits {worst:.3e} <= {REPLAY_RTOL} of max|logit| ({cfg.n_layers} "
+          f"layers of sums in another order); sampled tokens agree {agree} of "
+          f"{total}",
+          flush=True)
+
+    # device time of one full-batch decode step, and its kernels alone
+    full = next((x for kind, x, _ in steps if kind == "decode"
+                 and bool((x[1] > 0).all())), None)
+    check(full is not None, "no decode step ran with every slot active")
+    tok_d, pos_d, tab_d = (torch.from_numpy(a).to(dev) for a in full)
+    with dispatch.phase_scope("decode"):
+        step_ms = time_ms(lambda: lm.paged_decode_step(
+            params, cfg, cache, tok_d, pos_d, tab_d, PAGED_PS), iters=3)
+    layer0 = layer_params(layers, 0)
+    rng = np.random.default_rng(SEED + 9)
+    lin_ms = 0.0
+    d_ins = {"o": cfg.padded_heads * cfg.resolved_head_dim, "down": cfg.d_ff}
+    for a, n in LINEARS:
+        vals, idx = layer0[a][n]["values"], layer0[a][n]["idx"]
+        d_in = d_ins.get(n, cfg.d_model)
+        x = torch.from_numpy(rng.standard_normal((SERVE_SLOTS, d_in),
+                                                 dtype=np.float32)).to(dev)
+        lin_ms += time_ms(lambda: colwise_nm_matmul_cuda(x, vals, idx))
+    kc, vc = cache["k"][0], cache["v"][0]
+    qd = torch.from_numpy(rng.standard_normal(
+        (SERVE_SLOTS, 1, cfg.padded_heads, cfg.resolved_head_dim),
+        dtype=np.float32)).to(dev)
+    knd = qd[:, :, :cfg.n_kv_heads].contiguous()
+    att_ms = time_ms(lambda: paged_attention_cuda(
+        qd, knd, knd, kc, vc, tab_d, pos_d, page_size=PAGED_PS))
+    h = torch.zeros((SERVE_SLOTS, 1, cfg.d_model), device=dev)
+    unembed_ms = time_ms(lambda: lm._unembed(params, cfg, h))
+    idle = max(0.0, 1 - step_ms / host_step_ms)
+    print(f"  one full-batch decode step ({SERVE_SLOTS} slots, lengths "
+          f"{full[1].tolist()}): device {step_ms:.4f} ms (CUDA graph replay of "
+          f"lm.paged_decode_step), host {host_step_ms:.4f} ms with sampling "
+          f"-> device idle share {idle:.3f}; kernels alone: "
+          f"{cfg.n_layers} x {lin_ms:.4f} ms of 7 linears = "
+          f"{cfg.n_layers * lin_ms:.4f} ms, {cfg.n_layers} x {att_ms:.4f} ms "
+          f"of paged attention = {cfg.n_layers * att_ms:.4f} ms, unembed "
+          f"{unembed_ms:.4f} ms", flush=True)
+    print("SERVE " + json.dumps({
+        "requests": len(comps), "prefill_calls": n_pre, "decode_steps": n_dec,
+        "generated_tokens": st["generated_tokens"],
+        "prefill_host_ms": st["prefill_s"] / n_pre * 1e3,
+        "decode_host_ms": host_step_ms,
+        "decode_tokens_per_s": decode_tokens / st["decode_s"],
+        "decode_step_device_ms": step_ms, "idle_share": idle,
+        "linear_ms_per_layer": lin_ms, "paged_ms_per_layer": att_ms,
+        "unembed_ms": unembed_ms, "replay_max_rel_err": worst,
+        "tokens_agree": [agree, total], "latency_p50_s": p50,
+        "latency_p99_s": p99, "run_s": wall}), flush=True)
+    dispatch.set_db(None)
+    db_path.unlink(missing_ok=True)
+    return counts
+
+
+def tree_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from tree_leaves(v)
+    else:
+        yield tree
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -753,7 +1070,16 @@ def main() -> int:
           flush=True)
     linear_launches = run_linear_path(dev)
 
-    print("== 6. report", flush=True)
+    print("== 6. paged-attention kernel at the serving shapes", flush=True)
+    print(f"  library_ms of paged_attention: {LIBRARY_CALLS['paged_attention']}",
+          flush=True)
+    check_paged_kernel(dev, tot)
+
+    print(f"== 7. serving: pruned smollm-360m, {SERVE_REQUESTS} requests "
+          "through Scheduler(paged=True)", flush=True)
+    serve_counts = run_serving(dev)
+
+    print("== 8. report", flush=True)
     launches = {
         "conv2d_fused": counts["default"]["conv2d_fused"],
         "im2col_pack": counts["im2col_sparse_pallas"]["im2col_pack"],
@@ -763,12 +1089,20 @@ def main() -> int:
             counts["fused_banded_pallas"]["conv2d_fused_banded"],
         "colwise_nm_matmul_strips_pipelined":
             counts["two_kernel_pipelined"]["colwise_nm_matmul_strips_pipelined"],
-        "colwise_nm_matmul": linear_launches,
+        "colwise_nm_matmul": serve_counts["colwise_nm_matmul"],
+        "paged_attention": serve_counts["paged_attention"],
     }
+    print(f"  the linear phase (5) launched colwise_nm_matmul {linear_launches} "
+          "times; the served run, whose count the kernel list carries, "
+          f"{launches['colwise_nm_matmul']}", flush=True)
     per = {"colwise_nm_matmul": "ms etc.: sum over the 960->2560 and "
                                 "2560->960 layers at 256 rows (T = d_out); "
-                                "launches: the linear phase, 4 layers each "
-                                "by the heuristic and by a profile"}
+                                "launches: the served smollm-360m run "
+                                "(7 per layer per step)",
+           "paged_attention": "ms etc.: B 4, Sq 1, f32, H 15, KV 5, D 64, "
+                              "page size 16 (the decode step's shape); "
+                              "launches: the served smollm-360m run (1 per "
+                              "layer per decode step)"}
     kernels = []
     for k in KERNELS:
         t = tot[k.name]

@@ -1,19 +1,33 @@
-"""Vision config registry (twin of ``repro/configs/__init__.py``'s vision
-half; the LM configs come with a later slice)."""
+"""Config registry (twin of ``repro/configs/__init__.py``): the LM configs
+the port serves, their reduced smoke variants, and the vision configs."""
 from __future__ import annotations
 
 import importlib
 from typing import List
 
-from repro_torch.configs.base import VisionConfig  # noqa: F401
+from repro_torch.configs.base import ModelConfig, VisionConfig  # noqa: F401
+
+_MODULES = {
+    "smollm-360m": "repro_torch.configs.smollm_360m",
+}
 
 _VISION_MODULES = {
     "resnet-tiny": "repro_torch.configs.resnet_tiny",
 }
 
 
+def list_archs() -> List[str]:
+    return list(_MODULES)
+
+
 def list_vision_archs() -> List[str]:
     return list(_VISION_MODULES)
+
+
+def get_config(name: str) -> ModelConfig:
+    if name not in _MODULES:
+        raise KeyError(f"unknown arch {name!r}; known: {list(_MODULES)}")
+    return importlib.import_module(_MODULES[name]).CONFIG
 
 
 def get_vision_config(name: str) -> VisionConfig:
@@ -21,3 +35,22 @@ def get_vision_config(name: str) -> VisionConfig:
         raise KeyError(
             f"unknown vision arch {name!r}; known: {list(_VISION_MODULES)}")
     return importlib.import_module(_VISION_MODULES[name]).CONFIG
+
+
+def smoke_config(name: str) -> ModelConfig:
+    """Reduced same-family config for CPU tests: small widths, two layers, a
+    tiny vocab that is not a multiple of 128 (so the padding is exercised);
+    the JAX package's ``smoke_config`` for the attention family."""
+    cfg = get_config(name)
+    return cfg.with_(
+        n_layers=2,
+        d_model=64,
+        n_heads=4,
+        n_kv_heads=max(1, min(cfg.n_kv_heads, 2)),
+        d_ff=96 if cfg.d_ff else 0,
+        vocab_size=503,
+        head_dim=16,
+        max_seq_len=64,
+        dtype="float32",
+        param_dtype="float32",
+    )

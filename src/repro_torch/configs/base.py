@@ -1,10 +1,62 @@
-"""Vision architecture config (twin of ``repro/configs/base.py::VisionConfig``)."""
+"""Architecture configs (twin of ``repro/configs/base.py``): ``ModelConfig``
+with the fields the attention family reads, and ``VisionConfig``."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 from repro_torch.core.pruning import DENSE, SparsityConfig
+
+
+def pad_to_multiple(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """A decoder-only attention LM: the JAX ``ModelConfig``'s fields that
+    its attention family reads, with the same defaults.  The MoE,
+    recurrent, encoder-decoder, M-RoPE and sharding fields wait for the
+    slices that port those families."""
+
+    name: str = "model"
+    family: str = "dense"
+    n_layers: int = 2
+    d_model: int = 128
+    n_heads: int = 2
+    n_kv_heads: int = 2
+    d_ff: int = 256
+    vocab_size: int = 256
+    head_dim: Optional[int] = None
+    qkv_bias: bool = False
+    use_rope: bool = True
+    rope_theta: float = 1e4
+    mlp_act: str = "swiglu"                # the port has SwiGLU only
+    norm: str = "rmsnorm"                  # the port has RMSNorm only
+    tie_embeddings: bool = False
+    sparsity: SparsityConfig = DENSE       # the paper's technique
+    dtype: str = "float32"                 # activation/compute dtype
+    param_dtype: str = "float32"
+    max_seq_len: int = 8192
+    tp: int = 1                            # tensor-parallel degree (head padding)
+    source: str = ""
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or (self.d_model // self.n_heads)
+
+    @property
+    def padded_heads(self) -> int:
+        """q heads padded up to a multiple of tp (zero o rows; exact)."""
+        return pad_to_multiple(self.n_heads, self.tp)
+
+    @property
+    def padded_vocab(self) -> int:
+        """vocab padded to a multiple of 128; sampling masks the padded ids."""
+        return pad_to_multiple(self.vocab_size, 128)
+
+    def with_(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -26,10 +26,19 @@ def _dense_init(generator, d_in, d_out, dtype, scale):
 def linear_init(generator: torch.Generator, d_in: int, d_out: int,
                 cfg: SparsityConfig, *, dtype=torch.float32,
                 use_bias: bool = False, scale: Optional[float] = None,
-                device=None) -> Dict[str, Any]:
+                mode: str = "concat", device=None) -> Dict[str, Any]:
     """Create a (possibly pruned) linear layer's params on ``device``
     (``None``: the CUDA card).  ``generator`` is a CPU generator, so the
-    weights do not depend on the device."""
+    weights do not depend on the device.
+
+    ``mode="reduce"`` marks a layer whose reduction dim a tensor-parallel
+    mesh would shard (the o and down projections).  The JAX package gives
+    such a layer its group-local format only under
+    ``SparsityConfig.shard_local_reduce``, which the port, on one card, does
+    not have: in either mode the layer takes the ordinary format.
+    """
+    if mode not in ("concat", "reduce"):
+        raise ValueError(f"mode must be 'concat' or 'reduce', got {mode!r}")
     dev = resolve_device(device)
     prune = cfg.applies_to(d_in, d_out)
     params: Dict[str, Any] = {}
@@ -71,18 +80,22 @@ def linear_apply(params, x: torch.Tensor, *,
     """Apply a layer created by ``linear_init`` to ``x`` [..., d_in].
 
     A compressed layer runs the candidate ``repro_torch.dispatch`` resolves
-    for its shape and device (profile DB, else the heuristic: the sparse
-    linear kernel on the card, the gather-einsum on the CPU), or the one
-    ``impl`` names.  A candidate that cannot run raises.
+    for its shape, device and serving phase (profile DB, else the heuristic:
+    the sparse linear kernel on the card, the gather-einsum on the CPU), or
+    the one ``impl`` (else an ambient ``dispatch.force_scope``) names.  A
+    candidate that cannot run raises.
     """
     if "values" in params:
         from repro_torch import dispatch
 
-        site = ("linear", x.shape, params["values"].shape, x.dtype, x.device)
+        phase = dispatch.current_phase()
+        site = ("linear", x.shape, params["values"].shape, x.dtype, x.device,
+                phase)
         spec = dispatch.site_impl(
             site, lambda: dispatch.linear_key_from(
-                x.shape, params["values"].shape, x.dtype),
-            param_keys=("values", "idx"), force=impl, device=x.device)
+                x.shape, params["values"].shape, x.dtype, phase=phase),
+            param_keys=("values", "idx"),
+            force=dispatch.forced_impl("linear", impl), device=x.device)
         y = spec.apply(params, x)
     elif "mask" in params:
         y = forward_masked(x, params["w"], params["mask"])

@@ -26,25 +26,79 @@ anyway, has no counterpart.  Profiling never happens inside a forward:
 :func:`plan_params` (with ``profile=True``) and :func:`ensure_profiled` fill
 the DB beforehand.  The port has no environment switches: the force, the
 profiling and the DB are arguments.  A candidate that fails to build or
-launch raises; nothing moves down the ladder quietly.
+launch raises; nothing moves down the ladder quietly.  Inside
+:func:`phase_scope` every key a call site forms carries the serving phase,
+so prefill and decode shapes are planned and profiled apart; inside
+:func:`force_scope` a call site that names no candidate runs the one the
+scope names for its op.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Iterable, Mapping, Optional
 
 from repro_torch._compat import resolve_device
 from repro_torch.dispatch.profiler import ProfileDB, TuningError, profile_op
 from repro_torch.dispatch.registry import (
+    DEFAULT_PAGE_SIZE,
     REGISTRY,
     ImplSpec,
     OpKey,
     conv_key,
     linear_key,
     linear_key_from,
+    paged_attn_key,
 )
 
 _DB: Optional[ProfileDB] = None
 _SITE_MEMO: Dict[tuple, ImplSpec] = {}
+# Ambient serving phase ("prefill" | "decode" | None) and forced candidates
+# ({op: name}).  The serving engine runs each step inside phase_scope, so
+# every call site in the model forms a phase-tagged key without a phase
+# argument threaded through the model; the call sites read both when they
+# form their keys.
+_PHASE: Optional[str] = None
+_FORCED: Dict[str, str] = {}
+
+
+@contextlib.contextmanager
+def phase_scope(phase: Optional[str]):
+    """Tag the dispatch lookups made in this scope with a serving phase."""
+    global _PHASE
+    prev = _PHASE
+    _PHASE = phase or None
+    try:
+        yield
+    finally:
+        _PHASE = prev
+
+
+def current_phase() -> str:
+    """The ambient serving phase ("" outside any phase_scope)."""
+    return _PHASE or ""
+
+
+@contextlib.contextmanager
+def force_scope(**impls: str):
+    """Run every call site of op ``op`` that names no candidate itself under
+    candidate ``impls[op]`` in this scope, e.g. ``force_scope(linear=
+    "compressed_xla", paged_attn="paged_attn_ref")`` to replay a model
+    through its plain versions on the card (the JAX package reads
+    ``REPRO_DISPATCH_FORCE`` for this; the port has no environment
+    switches)."""
+    global _FORCED
+    prev = _FORCED
+    _FORCED = {**prev, **impls}
+    try:
+        yield
+    finally:
+        _FORCED = prev
+
+
+def forced_impl(op: str, impl: Optional[str]) -> Optional[str]:
+    """``impl`` when the call site names one, else the ambient
+    :func:`force_scope` candidate of ``op`` (``None`` when there is none)."""
+    return impl if impl is not None else _FORCED.get(op)
 
 
 def get_db() -> ProfileDB:
@@ -165,8 +219,8 @@ def ensure_profiled(key: OpKey, *, param_keys=None,
 def linear_impl(x_shape, values_shape, dtype="float32", *,
                 force: Optional[str] = None, device=None) -> ImplSpec:
     """Implementation of a compressed linear layer from the activation and
-    values shapes."""
-    key = linear_key_from(x_shape, values_shape, dtype)
+    values shapes, in the ambient serving phase."""
+    key = linear_key_from(x_shape, values_shape, dtype, phase=current_phase())
     return best_impl(key, param_keys=("values", "idx"), force=force,
                      device=device)
 
@@ -219,6 +273,7 @@ def _match_conv_hint(conv_hints: Optional[Mapping[str, Mapping[str, int]]],
 
 def plan_params(params, *, batch_hint: int = 8, db: Optional[ProfileDB] = None,
                 profile: bool = False,
+                phase_hints: Optional[Mapping[str, int]] = None,
                 conv_hints: Optional[Mapping[str, Mapping[str, int]]] = None,
                 ) -> Dict[str, str]:
     """Build-time dispatch plan of a params tree: ``{token: impl name}``.
@@ -226,15 +281,19 @@ def plan_params(params, *, batch_hint: int = 8, db: Optional[ProfileDB] = None,
     Resolves each distinct OpKey of the tree's compressed layers and, with
     ``profile=True``, first profiles every token the DB lacks on the device
     the layer's params live on.  A linear layer is planned for
-    ``batch_hint`` operand rows.  Conv layers need the map shape, which is a
-    call-time property: ``conv_hints`` maps a layer-path substring to
-    ``{"h", "w", "batch", "stride", "pad", "v"}`` (``w`` defaults to ``h``,
+    ``batch_hint`` operand rows, or, with ``phase_hints`` (serving phase ->
+    operand rows, e.g. ``{"prefill": batch * prompt_len, "decode":
+    batch}``), once per phase under a phase-tagged key.  Conv layers need
+    the map shape, which is a call-time property: ``conv_hints`` maps a
+    layer-path substring to ``{"h", "w", "batch", "stride", "pad", "v"}``
+    (``w`` defaults to ``h``,
     ``stride`` to 1, ``pad`` to kh//2, ``batch`` to 1, ``v`` to 128; the
     longest matching key wins, ``""`` is the catch-all), and
     ``models.vision.conv_hints`` gives the exact per-layer hints.  A conv
     layer without a hint is skipped.
     """
     the_db = db if db is not None else get_db()
+    hints: Mapping[str, int] = phase_hints if phase_hints else {"": batch_hint}
     plan: Dict[str, str] = {}
 
     def plan_key(key: OpKey, device) -> None:
@@ -266,6 +325,27 @@ def plan_params(params, *, batch_hint: int = 8, db: Optional[ProfileDB] = None,
         # this lands in the call site's token whenever the kept rows reach
         # the top half of the reduction dim.
         d_in = int(idx.max()) + 1 if idx.numel() else k_kept
-        plan_key(linear_key(batch_hint, d_in, n_tiles * tile, k_kept, tile,
-                            dtype=values.dtype), values.device)
+        for ph, rows in hints.items():
+            plan_key(linear_key(rows, d_in, n_tiles * tile, k_kept, tile,
+                                dtype=values.dtype, phase=ph), values.device)
     return plan
+
+
+def choose_page_size(n_heads: int, kv_heads: int, head_dim: int,
+                     kv_capacity: int, *, q_rows: int = 8, dtype="float32",
+                     phase: str = "decode", db: Optional[ProfileDB] = None,
+                     profile: bool = False, device=None) -> int:
+    """The KV page size of a serving configuration (the cache-layout plan).
+
+    Resolves the unpinned planning key: with ``profile=True`` (or a warm
+    DB) the page sizes of ``PAGED_ATTN_GEOMETRY`` have been raced for this
+    shape on ``device`` and the winner's is returned; otherwise the
+    heuristic decides (``DEFAULT_PAGE_SIZE`` when the plain version wins,
+    as it does on the CPU).
+    """
+    key = paged_attn_key(q_rows, n_heads, kv_heads, head_dim, kv_capacity,
+                         page_size=0, dtype=dtype, phase=phase)
+    if profile:
+        ensure_profiled(key, param_keys=(), db=db, device=device)
+    spec = best_impl(key, param_keys=(), db=db, device=device)
+    return spec.geom("ps", 0) or DEFAULT_PAGE_SIZE

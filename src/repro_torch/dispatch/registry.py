@@ -1,8 +1,8 @@
 """Operator registry: the candidate implementations behind each logical op
-(twin of ``repro/dispatch/registry.py``, without its paged-attention family).
+(twin of ``repro/dispatch/registry.py``).
 
-A logical op (``linear``, ``conv``) maps to a list of :class:`ImplSpec`
-candidates, each declaring which param keys it executes from, a feasibility
+A logical op (``linear``, ``conv``, ``paged_attn``) maps to a list of
+:class:`ImplSpec` candidates, each declaring which param keys it executes from, a feasibility
 predicate over the :class:`OpKey`, its shared-memory footprint, how to apply
 it and how to build a synthetic benchmark of it for the profiler.  Candidate
 names, geometry suffixes and ``OpKey.token`` strings are the JAX registry's,
@@ -34,6 +34,11 @@ from repro_torch.kernels.conv_gemm import ops as conv_ops
 from repro_torch.kernels.conv_gemm.kernel import banded_smem_bytes, fused_smem_bytes
 from repro_torch.kernels.conv_gemm.plan import band_plan
 from repro_torch.kernels.conv_gemm.ref import conv2d_cnhw_ref
+from repro_torch.kernels.flash_attn.paged import (
+    paged_attention_cuda,
+    paged_attention_ref,
+    paged_smem_bytes,
+)
 from repro_torch.kernels.im2col_pack.ref import im2col_pack_ref, out_size
 
 
@@ -57,7 +62,7 @@ def bucket_dim(n: int) -> int:
 class OpKey:
     """Hashable identity of one operator instance (static shapes only)."""
 
-    op: str          # "linear" | "conv"
+    op: str          # "linear" | "conv" | "paged_attn"
     batch: int       # bucketed leading-dim rows (GEMM) / output positions (conv)
     d_in: int        # reduction dim (linear) / kh*kw*c (conv)
     d_out: int
@@ -65,15 +70,20 @@ class OpKey:
     tile: int        # output-feature tile width sharing one index set
     dtype: str = "f32"
     extra: Tuple[Tuple[str, int], ...] = ()
+    # serving-phase tag ("prefill" | "decode"); "" = phase-agnostic.  The
+    # same weights see [B*S]-row operands in prefill and [B]-row operands in
+    # decode, so a phase-tagged key gets its own profile-DB entry.
+    phase: str = ""
 
     @functools.cached_property
     def token(self) -> str:
-        """Stable string key for the profile DB (the JAX package's format
-        for a key without a serving-phase tag)."""
+        """Stable string key for the profile DB (the JAX package's format)."""
         base = (f"{self.op}|b{self.batch}|i{self.d_in}|o{self.d_out}"
                 f"|k{self.k_kept}|t{self.tile}|{self.dtype}")
         for k, v in self.extra:
             base += f"|{k}{v}"
+        if self.phase:
+            base += f"|ph:{self.phase}"
         return base
 
     def get(self, name: str, default: int = 0) -> int:
@@ -95,13 +105,14 @@ def _dtype_tag(dtype) -> str:
 
 
 def linear_key(batch: int, d_in: int, d_out: int, k_kept: int, tile: int,
-               dtype="float32") -> OpKey:
+               dtype="float32", phase: str = "") -> OpKey:
     return OpKey(op="linear", batch=bucket_batch(batch), d_in=bucket_dim(d_in),
-                 d_out=d_out, k_kept=k_kept, tile=tile, dtype=_dtype_tag(dtype))
+                 d_out=d_out, k_kept=k_kept, tile=tile, dtype=_dtype_tag(dtype),
+                 phase=phase)
 
 
 def linear_key_from(x_shape: Sequence[int], values_shape: Sequence[int],
-                    dtype="float32") -> OpKey:
+                    dtype="float32", phase: str = "") -> OpKey:
     """OpKey from an activation shape and a compressed values shape (only
     the trailing [n_tiles, k_kept, tile] of ``values_shape`` matter)."""
     n_tiles, k_kept, tile = values_shape[-3:]
@@ -109,12 +120,12 @@ def linear_key_from(x_shape: Sequence[int], values_shape: Sequence[int],
     for s in x_shape[:-1]:
         rows *= int(s)
     return linear_key(max(rows, 1), int(x_shape[-1]), int(n_tiles * tile),
-                      int(k_kept), int(tile), dtype)
+                      int(k_kept), int(tile), dtype, phase=phase)
 
 
 def conv_key(c: int, h: int, w: int, o: int, kh: int, kw: int, stride: int,
              pad: int, k_kept: int, tile: int, v: int = 128,
-             dtype="float32", batch: int = 1) -> OpKey:
+             dtype="float32", batch: int = 1, phase: str = "") -> OpKey:
     """OpKey for a conv operator instance; the map shape rides in ``extra``."""
     n_pos_h = (h + 2 * pad - kh) // stride + 1
     n_pos_w = (w + 2 * pad - kw) // stride + 1
@@ -124,6 +135,7 @@ def conv_key(c: int, h: int, w: int, o: int, kh: int, kw: int, stride: int,
         dtype=_dtype_tag(dtype),
         extra=(("b", batch), ("c", c), ("h", h), ("w", w), ("kh", kh),
                ("kw", kw), ("s", stride), ("p", pad), ("v", v)),
+        phase=phase,
     )
 
 
@@ -573,3 +585,123 @@ for _family, _apply_fn, _smem_for, _checks_for, _prio in (
             make_bench=functools.partial(_bench_conv, apply_fn=_apply),
             geometry=_geom,
         ))
+
+
+# ---------------------------------------------------------------------------
+# Paged attention (the serving tier's paged KV cache): page_size x block_q
+# geometry grid.  Page size is a cache-layout decision, so a key has two
+# flavours: a planning key (no "ps" extra) admits every geometry, which is
+# how choose_page_size picks the layout before the cache exists, and an
+# execution key (pinned "ps") admits the kernel geometries of that page size
+# and the plain version.
+# ---------------------------------------------------------------------------
+
+PAGED_ATTN_GEOMETRY = (
+    (("ps", 16), ("bq", 8)),
+    (("ps", 8), ("bq", 8)),
+    (("ps", 32), ("bq", 8)),
+    (("ps", 16), ("bq", 16)),
+)
+
+DEFAULT_PAGE_SIZE = dict(PAGED_ATTN_GEOMETRY[0])["ps"]
+
+
+def paged_attn_key(q_rows: int, n_heads: int, kv_heads: int, head_dim: int,
+                   kv_capacity: int, page_size: int = 0, dtype="float32",
+                   phase: str = "") -> OpKey:
+    """OpKey for one paged-attention instance.
+
+    ``page_size == 0`` builds the planning flavour; nonzero pins the physical
+    layout.  ``kv_capacity`` (table width x page size) is bucketed like
+    batch, so the DB is keyed by a bounded family of cache capacities.
+    """
+    extra = (("hd", head_dim), ("kvcap", bucket_batch(max(kv_capacity, 1))))
+    if page_size:
+        extra += (("ps", page_size),)
+    return OpKey(op="paged_attn", batch=bucket_batch(max(q_rows, 1)),
+                 d_in=head_dim, d_out=n_heads * head_dim, k_kept=kv_heads,
+                 tile=8, dtype=_dtype_tag(dtype), extra=extra, phase=phase)
+
+
+def _paged_smem_for(geom_ps: int, geom_bq: int):
+    def smem(key: OpKey) -> int:
+        hd, kv = key.get("hd", key.d_in), max(key.k_kept, 1)
+        h = key.d_out // max(hd, 1)
+        return paged_smem_bytes(geom_ps, hd, (h // kv) * geom_bq)
+
+    return smem
+
+
+def _paged_feasible_for(geom_ps: int, geom_bq: int):
+    def feasible(key: OpKey) -> Tuple[bool, str]:
+        hd, kv = key.get("hd"), key.k_kept
+        if hd <= 0 or kv <= 0:
+            return False, "paged geometry (hd, kv) missing from key extras"
+        h = key.d_out // hd
+        if h % kv != 0:
+            return False, f"H={h} not divisible by KV={kv} (head-map GQA)"
+        pinned = key.get("ps", 0)
+        if pinned and pinned != geom_ps:
+            return False, f"cache layout pinned to page size {pinned}"
+        smem = _paged_smem_for(geom_ps, geom_bq)(key)
+        if smem > SMEM_BYTES:
+            return False, f"shared memory {smem} > {SMEM_BYTES}"
+        return True, "ok"
+
+    return feasible
+
+
+def _synth_paged(key: OpKey, ps: int, device):
+    """Deterministic decode-shaped operands for a paged-attention bench:
+    three-quarter-full caches, so the last page is ragged."""
+    hd, kv = key.get("hd"), key.k_kept
+    h = key.d_out // hd
+    b = key.batch
+    n_max = -(-key.get("kvcap", 128) // ps)
+    p = b * n_max
+    q = _rand((b, 1, h, hd), 1, key.dtype, device)
+    kn = _rand((b, 1, kv, hd), 2, key.dtype, device)
+    vn = _rand((b, 1, kv, hd), 3, key.dtype, device)
+    kp = _rand((p + 1, ps, kv, hd), 4, key.dtype, device)
+    vp = _rand((p + 1, ps, kv, hd), 5, key.dtype, device)
+    tables = torch.arange(p, dtype=torch.int32, device=device).reshape(b, n_max)
+    lengths = torch.full((b,), max(key.get("kvcap", 128) * 3 // 4, 1),
+                         dtype=torch.int32, device=device)
+    return q, kn, vn, kp, vp, tables, lengths
+
+
+def _bench_paged_ref(key: OpKey, device):
+    ps = key.get("ps", 0) or DEFAULT_PAGE_SIZE
+    args = _synth_paged(key, ps, device)
+    return lambda: paged_attention_ref(*args)
+
+
+def _bench_paged_cuda(key: OpKey, device, geom_ps: int, geom_bq: int):
+    # the candidate's own page size, not the key's: a planning key races the
+    # physical layouts of every geometry
+    args = _synth_paged(key, geom_ps, device)
+    if device.type == "cpu":  # the plain version, as the other wrappers run
+        return lambda: paged_attention_ref(*args)
+    return lambda: paged_attention_cuda(*args, page_size=geom_ps,
+                                        block_q=geom_bq)
+
+
+REGISTRY.register(ImplSpec(
+    name="paged_attn_ref", op="paged_attn", backend="torch",
+    requires=frozenset(), priority=10,
+    feasible=_always, smem_bytes=_no_smem,
+    make_bench=_bench_paged_ref,
+))
+
+for _geom in PAGED_ATTN_GEOMETRY:
+    _gps, _gbq = dict(_geom)["ps"], dict(_geom)["bq"]
+    REGISTRY.register(ImplSpec(
+        name=geometry_name("paged_attn_pallas", _geom, PAGED_ATTN_GEOMETRY[0]),
+        op="paged_attn", backend="cuda",
+        requires=frozenset(), priority=5,
+        feasible=_paged_feasible_for(_gps, _gbq),
+        smem_bytes=_paged_smem_for(_gps, _gbq),
+        make_bench=functools.partial(_bench_paged_cuda, geom_ps=_gps,
+                                     geom_bq=_gbq),
+        geometry=_geom,
+    ))

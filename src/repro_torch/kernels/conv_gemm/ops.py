@@ -154,15 +154,19 @@ def conv2d_sparse(x_cnhw: torch.Tensor, values: torch.Tensor,
     cannot run raises.  Returns CNHW [O, B, Ho, Wo]."""
     from repro_torch import dispatch
 
+    phase = dispatch.current_phase()
+
     def make_key():
         c, b, h, w = x_cnhw.shape
         n_tiles, k_kept, tile = (int(s) for s in values.shape)
         return dispatch.conv_key(c, h, w, n_tiles * tile, kh, kw, stride, pad,
-                                 k_kept, tile, v=v, dtype=x_cnhw.dtype, batch=b)
+                                 k_kept, tile, v=v, dtype=x_cnhw.dtype, batch=b,
+                                 phase=phase)
 
     site = ("conv", x_cnhw.shape, values.shape, x_cnhw.dtype, x_cnhw.device,
-            kh, kw, stride, pad, v)
+            kh, kw, stride, pad, v, phase)
     spec = dispatch.site_impl(site, make_key, param_keys=("values", "idx"),
-                              force=impl, device=x_cnhw.device)
+                              force=dispatch.forced_impl("conv", impl),
+                              device=x_cnhw.device)
     return spec.apply({"values": values, "idx": idx}, x_cnhw, kh=kh, kw=kw,
                       stride=stride, pad=pad, v=v)

@@ -1,0 +1,225 @@
+"""GQA attention for the paged serving steps (twin of the serving half of
+``repro/models/attention.py``): the QKV/O projections with RoPE, packed
+multi-prompt prefill over one padding-free token stream, and one-token
+decode against a paged KV cache through the paged-attention kernel.
+
+GQA runs grouped (q reshaped [B, S, KV, G, D]) so the KV tensors are never
+expanded to H heads; only H % KV != 0 takes the head-mapped expansion.
+
+The paged cache is ``{"k", "v"}`` of ``[L, n_pages + 1, page_size, KV, D]``.
+The port writes the step's new K/V into it in place (the JAX package
+returns a new cache and donates the old one): the scheduler owns the cache
+alone, so nothing else holds the old value.
+"""
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+
+from repro_torch._compat import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.sparse_linear import linear_apply, linear_init
+from repro_torch.models.common import apply_rope, rope_cos_sin
+
+NEG = -1e30
+
+
+def attn_init(generator: torch.Generator, cfg: ModelConfig, device=None):
+    """QKV/O projections, each a (possibly compressed) linear layer; o is
+    reduce-oriented.  A dense o zeroes the padded heads' rows, so padding
+    changes nothing."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    h, kv = cfg.padded_heads, cfg.n_kv_heads
+    scfg = cfg.sparsity
+    opts = dict(dtype=getattr(torch, cfg.param_dtype), device=device)
+    p = {
+        "q": linear_init(generator, d, h * hd, scfg, use_bias=cfg.qkv_bias,
+                         **opts),
+        "k": linear_init(generator, d, kv * hd, scfg, use_bias=cfg.qkv_bias,
+                         **opts),
+        "v": linear_init(generator, d, kv * hd, scfg, use_bias=cfg.qkv_bias,
+                         **opts),
+        "o": linear_init(generator, h * hd, d, scfg, mode="reduce", **opts),
+    }
+    if cfg.n_heads != cfg.padded_heads and "w" in p["o"]:
+        w = p["o"]["w"].reshape(h, hd, d)
+        w[cfg.n_heads:] = 0.0
+    return p
+
+
+def _qkv(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    h, kv = cfg.padded_heads, cfg.n_kv_heads
+    q = linear_apply(params["q"], x).reshape(b, s, h, hd)
+    k = linear_apply(params["k"], x).reshape(b, s, kv, hd)
+    v = linear_apply(params["v"], x).reshape(b, s, kv, hd)
+    if cfg.use_rope:
+        cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    return q, k, v
+
+
+def _expand_kv(k: torch.Tensor, n_q_heads: int) -> torch.Tensor:
+    """Head-mapped expansion [B, S, KV, D] -> [B, S, H, D] for H % KV != 0."""
+    kvh = k.shape[2]
+    if n_q_heads == kvh:
+        return k
+    mapping = (torch.arange(n_q_heads, device=k.device) * kvh) // n_q_heads
+    return k[:, :, mapping]
+
+
+def _cached_attention(q, k_new, v_new, kc, vc, *, limit: torch.Tensor,
+                      causal: bool) -> torch.Tensor:
+    """softmax over (cache rows < limit[b]) ++ this step's new keys.
+
+    q [B, C, H, D]; k_new/v_new [B, C, KV, D]; kc/vc [B, S_max, KV, D];
+    limit [B] int32.  ``causal`` masks the new keys within the chunk (j <=
+    i); cache rows >= limit may hold junk and are always masked.  Returns
+    o [B, C, H, D].
+    """
+    b, c_len, h, d = q.shape
+    kvh, s_max = kc.shape[2], kc.shape[1]
+    scale = 1.0 / math.sqrt(d)
+    qi = torch.arange(c_len, device=q.device)
+    ki = torch.arange(s_max, device=q.device)
+    cache_ok = ki[None, :] < limit.to(q.device)[:, None]  # [B, S_max]
+    new_ok = ((qi[None, :] <= qi[:, None]) if causal and c_len > 1
+              else torch.ones((c_len, c_len), dtype=torch.bool,
+                              device=q.device))  # [Cq, Ck]
+
+    if h % kvh == 0:
+        g = h // kvh
+        qg = q.reshape(b, c_len, kvh, g, d)
+        s_c = torch.einsum("bqkgd,bskd->bkgqs", qg, kc.to(q.dtype)).float() * scale
+        s_c = torch.where(cache_ok[:, None, None, None, :], s_c, NEG)
+        s_n = torch.einsum("bqkgd,bskd->bkgqs", qg,
+                           k_new.to(q.dtype)).float() * scale
+        s_n = torch.where(new_ok, s_n, NEG)
+        w = torch.softmax(torch.cat([s_c, s_n], dim=-1), dim=-1).to(q.dtype)
+        o = torch.einsum("bkgqs,bskd->bqkgd", w[..., :s_max], vc.to(q.dtype))
+        o = o + torch.einsum("bkgqs,bskd->bqkgd", w[..., s_max:],
+                             v_new.to(q.dtype))
+        return o.reshape(b, c_len, h, d)
+
+    kx, vx = _expand_kv(kc, h).to(q.dtype), _expand_kv(vc, h).to(q.dtype)
+    kn, vn = _expand_kv(k_new, h).to(q.dtype), _expand_kv(v_new, h).to(q.dtype)
+    s_c = torch.einsum("bqhd,bshd->bhqs", q, kx).float() * scale
+    s_c = torch.where(cache_ok[:, None, None, :], s_c, NEG)
+    s_n = torch.einsum("bqhd,bshd->bhqs", q, kn).float() * scale
+    s_n = torch.where(new_ok, s_n, NEG)
+    w = torch.softmax(torch.cat([s_c, s_n], dim=-1), dim=-1).to(q.dtype)
+    o = torch.einsum("bhqs,bshd->bqhd", w[..., :s_max], vx)
+    return o + torch.einsum("bhqs,bshd->bqhd", w[..., s_max:], vn)
+
+
+# ---------------------------------------------------------------------------
+# Paged KV cache
+# ---------------------------------------------------------------------------
+
+
+def paged_cache_init(cfg: ModelConfig, n_pages: int, page_size: int,
+                     n_layers: int, dtype, device=None):
+    """Physical paged cache, [L, n_pages + 1, page_size, KV, D] per leaf.
+
+    The extra page at index ``n_pages`` is the trash page: padded table
+    entries name it, so inactive slots write there.  Its rows are junk and
+    every read masks them by the sequence's length.
+    """
+    kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    shape = (n_layers, n_pages + 1, page_size, kv, hd)
+    dev = resolve_device(device)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def page_rows(tables: torch.Tensor, seq_idx: torch.Tensor, pos: torch.Tensor,
+              page_size: int) -> torch.Tensor:
+    """Flat physical row of each (sequence, position) pair.
+
+    tables [n_slots, n_max] int32; seq_idx [N] slot of each token; pos [N]
+    logical position.  Returns [N] int32 rows of the ``[P * page_size]``-row
+    flattened cache.
+    """
+    pos = pos.to(torch.int32)
+    page_id = tables[seq_idx.long(), (pos // page_size).long()]
+    return page_id * page_size + pos % page_size
+
+
+def paged_cache_write(cache_k, cache_v, k_news, v_news, rows):
+    """Scatter the step's new K/V through page-table rows, in place.
+
+    cache_* [L, P, page_size, KV, D]; *_news [L, N, KV, D]; rows [N] (from
+    :func:`page_rows`).  Inactive slots' rows all name the trash page; which
+    of their duplicate writes lands there does not matter, as those rows are
+    never read.  Returns the two caches.
+    """
+    l, p, ps, kv, hd = cache_k.shape
+    r = rows.long()
+    cache_k.view(l, p * ps, kv, hd)[:, r] = k_news.to(cache_k.dtype)
+    cache_v.view(l, p * ps, kv, hd)[:, r] = v_news.to(cache_v.dtype)
+    return cache_k, cache_v
+
+
+def paged_attn_decode(params, cfg: ModelConfig, x: torch.Tensor,
+                      layer_cache: Tuple[torch.Tensor, torch.Tensor], *,
+                      pos: torch.Tensor, tables: torch.Tensor,
+                      page_size: int):
+    """One-token decode against a paged cache it only reads.
+
+    x [B, 1, d]; layer_cache (k_pages, v_pages) [P, page_size, KV, D]; pos
+    [B] int32 per-slot lengths; tables [B, n_max] int32.  Returns (out,
+    (k_new, v_new)): the caller scatters the new K/V through the tables
+    once, after the layer loop.
+    """
+    from repro_torch.kernels.flash_attn import paged_attention
+
+    b = x.shape[0]
+    q, k_new, v_new = _qkv(params, cfg, x, pos[:, None])
+    kc, vc = layer_cache
+    o = paged_attention(q, k_new, v_new, kc, vc, tables, pos,
+                        page_size=page_size)
+    return linear_apply(params["o"], o.reshape(b, 1, -1)), (k_new, v_new)
+
+
+def packed_sdpa(q, k, v, *, seq_ids: torch.Tensor) -> torch.Tensor:
+    """Block-diagonal causal attention over one packed token stream.
+
+    q [1, T, H, D]; k/v [1, T, KV, D]; seq_ids [T]: token t attends token s
+    iff they share a sequence and s <= t (prompts are contiguous in the
+    stream with rising positions, so stream order is causal order).
+    """
+    b, t, h, d = q.shape
+    kvh = k.shape[2]
+    scale = 1.0 / math.sqrt(d)
+    ar = torch.arange(t, device=q.device)
+    mask = (seq_ids[:, None] == seq_ids[None, :]) & (ar[None, :] <= ar[:, None])
+    if h % kvh == 0:
+        g = h // kvh
+        qg = q.reshape(b, t, kvh, g, d)
+        s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.to(q.dtype)).float() * scale
+        s = torch.where(mask, s, NEG)
+        w = torch.softmax(s, dim=-1).to(q.dtype)
+        o = torch.einsum("bkgqs,bskd->bqkgd", w, v.to(q.dtype))
+        return o.reshape(b, t, h, d)
+    kx, vx = _expand_kv(k, h).to(q.dtype), _expand_kv(v, h).to(q.dtype)
+    s = torch.einsum("bqhd,bshd->bhqs", q, kx).float() * scale
+    s = torch.where(mask, s, NEG)
+    w = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.einsum("bhqs,bshd->bqhd", w, vx)
+
+
+def attn_prefill_packed(params, cfg: ModelConfig, x: torch.Tensor, *,
+                        seq_ids: torch.Tensor, positions: torch.Tensor):
+    """Packed multi-prompt prefill through one layer (no cache read).
+
+    x [1, T, d] is the concatenated stream; seq_ids/positions [T].  Returns
+    (out [1, T, d], (k [1, T, KV, D], v)): the caller scatters every layer's
+    K/V through the page tables after the layer loop.
+    """
+    q, k_new, v_new = _qkv(params, cfg, x, positions[None, :])
+    o = packed_sdpa(q, k_new, v_new, seq_ids=seq_ids)
+    return linear_apply(params["o"], o.reshape(1, x.shape[1], -1)), (k_new, v_new)

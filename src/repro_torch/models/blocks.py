@@ -1,0 +1,71 @@
+"""The transformer block of the serving steps, and the stacked-layers
+layout (twin of ``repro/models/blocks.py``'s attention block).
+
+Every leaf of ``params["layers"]`` carries a leading ``[L, ...]`` axis, as
+the JAX package stacks its layers for ``scan``: the two trees compare leaf
+for leaf.  The layer loop takes ``t[l]`` views of the stacked leaves.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models.common import norm_apply, norm_init
+from repro_torch.models.mlp import mlp_apply, mlp_init
+
+
+def stack_layers(layers: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """Stack per-layer trees of one structure along a leading layers axis."""
+    first = layers[0]
+    if isinstance(first, dict):
+        return {k: stack_layers([t[k] for t in layers]) for k in first}
+    return torch.stack(layers)
+
+
+def layer_params(stacked, l: int):
+    """Layer ``l``'s params: views into the stacked leaves."""
+    if isinstance(stacked, dict):
+        return {k: layer_params(v, l) for k, v in stacked.items()}
+    return stacked[l]
+
+
+def block_init(generator: torch.Generator, cfg: ModelConfig, device=None):
+    dtype = getattr(torch, cfg.param_dtype)
+    return {
+        "ln1": norm_init(cfg.d_model, dtype, device),
+        "attn": attn.attn_init(generator, cfg, device),
+        "ln2": norm_init(cfg.d_model, dtype, device),
+        "mlp": mlp_init(generator, cfg, device),
+    }
+
+
+def block_paged_decode(params, cfg: ModelConfig, h, layer_cache, *, pos,
+                       tables, page_size: int):
+    """One-token decode through a block against a paged cache.
+
+    layer_cache (k_pages, v_pages) [P, page_size, KV, D]; pos [B]; tables
+    [B, n_max].  Returns (h, (k_new, v_new)); the caller scatters the new
+    K/V through the tables after the layer loop.
+    """
+    x = norm_apply(params["ln1"], h)
+    a, new_kv = attn.paged_attn_decode(params["attn"], cfg, x, layer_cache,
+                                       pos=pos, tables=tables,
+                                       page_size=page_size)
+    h = h + a
+    return h + mlp_apply(params["mlp"], cfg, norm_apply(params["ln2"], h)), new_kv
+
+
+def block_prefill_packed(params, cfg: ModelConfig, h, *, seq_ids, positions):
+    """Packed multi-prompt prefill through a block.
+
+    h [1, T, d] is the concatenated padding-free stream; seq_ids/positions
+    [T].  Returns (h, (k [1, T, KV, D], v)).
+    """
+    x = norm_apply(params["ln1"], h)
+    a, kv_new = attn.attn_prefill_packed(params["attn"], cfg, x,
+                                         seq_ids=seq_ids, positions=positions)
+    h = h + a
+    return h + mlp_apply(params["mlp"], cfg, norm_apply(params["ln2"], h)), kv_new

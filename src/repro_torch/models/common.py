@@ -1,0 +1,64 @@
+"""Shared LM components (twin of ``repro/models/common.py``): RMSNorm, RoPE
+and the token embedding."""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from repro_torch._compat import resolve_device
+
+
+def norm_init(d: int, dtype=torch.float32, device=None):
+    return {"scale": torch.ones((d,), dtype=dtype,
+                                device=resolve_device(device))}
+
+
+def norm_apply(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm in float32, returned in ``x``'s dtype."""
+    xf = x.float()
+    var = (xf * xf).mean(-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps) * params["scale"].float()
+    return y.to(x.dtype)
+
+
+def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32) / head_dim))
+
+
+@functools.lru_cache(maxsize=None)
+def _freqs_on(head_dim: int, theta: float, device: torch.device) -> torch.Tensor:
+    # copied to the device once, so a serving step copies nothing from the
+    # host (and can be captured in a CUDA graph)
+    return torch.from_numpy(rope_freqs(head_dim, theta)).to(device)
+
+
+def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float):
+    """positions [..., S] -> cos/sin [..., S, head_dim//2] (float32)."""
+    ang = positions.float()[..., None] * _freqs_on(head_dim, theta,
+                                                   positions.device)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x [B, S, H, D]; cos/sin [B, S, D/2], broadcast over heads.  Rotates
+    the pairs (x[..., :D/2], x[..., D/2:]), the NeoX convention of the
+    Llama family."""
+    d2 = x.shape[-1] // 2
+    x1, x2 = x[..., :d2].float(), x[..., d2:].float()
+    cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+def embed_init(generator: torch.Generator, vocab: int, d: int,
+               dtype=torch.float32, device=None) -> torch.Tensor:
+    """[vocab, d] N(0, 0.02^2) table; ``generator`` is a CPU generator."""
+    e = torch.randn((vocab, d), generator=generator, dtype=torch.float32) * 0.02
+    return e.to(resolve_device(device), dtype)
+
+
+def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    return table[ids.long()]

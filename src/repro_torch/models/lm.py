@@ -1,0 +1,118 @@
+"""The decoder-only LM's serving entry points (twin of the attention-pattern
+half of ``repro/models/lm.py``): init, packed prefill into a paged KV cache
+and one decode step against it.
+
+Neither step moves a tensor to the host: the caller reads only the logits
+it samples from.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from repro_torch._compat import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.blocks import (
+    block_init,
+    block_paged_decode,
+    block_prefill_packed,
+    layer_params,
+    stack_layers,
+)
+from repro_torch.models.common import embed_init, embed_lookup, norm_apply, norm_init
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    if not cfg.tie_embeddings:
+        raise NotImplementedError(
+            f"{cfg.name}: the port has tied embeddings only")
+    if cfg.norm != "rmsnorm":
+        raise NotImplementedError(f"{cfg.name}: the port has RMSNorm only")
+
+
+def lm_init(cfg: ModelConfig, seed: int, device=None) -> Dict[str, Any]:
+    """Random params from ``seed`` on ``device`` (``None``: the CUDA card),
+    drawn from a CPU generator so they do not depend on the device.  The
+    tree is the JAX package's: ``{"embed", "final_norm", "layers"}`` with
+    every layer leaf stacked on a leading [L] axis."""
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    dtype = getattr(torch, cfg.param_dtype)
+    return {
+        "embed": embed_init(gen, cfg.padded_vocab, cfg.d_model, dtype, dev),
+        "final_norm": norm_init(cfg.d_model, dtype, dev),
+        "layers": stack_layers([block_init(gen, cfg, dev)
+                                for _ in range(cfg.n_layers)]),
+    }
+
+
+def _embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    return embed_lookup(params["embed"], tokens).to(getattr(torch, cfg.dtype))
+
+
+def _unembed(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    """Tied unembedding: h [B, S, d] -> logits [B, S, padded_vocab]."""
+    _check_supported(cfg)
+    return torch.matmul(h, params["embed"].to(h.dtype).T)
+
+
+def paged_decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor,
+                      pos: torch.Tensor, tables: torch.Tensor, page_size: int):
+    """One decode step against a paged KV cache.
+
+    tokens [B, 1]; pos [B] int32 per-slot lengths; tables [B, n_max] int32;
+    ``cache`` leaves [L, P, page_size, KV, D] (P includes the trash page).
+    Returns (logits [B, 1, V], cache).  The layers only read the cache; one
+    scatter through the tables commits every layer's new K/V after the
+    loop (inactive slots' rows land on the trash page).
+    """
+    h = _embed_tokens(params, cfg, tokens)
+    b = tokens.shape[0]
+    pos = pos.to(torch.int32)
+    k_news, v_news = [], []
+    for l in range(cfg.n_layers):
+        h, (kn, vn) = block_paged_decode(
+            layer_params(params["layers"], l), cfg, h,
+            (cache["k"][l], cache["v"][l]), pos=pos, tables=tables,
+            page_size=page_size)
+        k_news.append(kn[:, 0])
+        v_news.append(vn[:, 0])
+    rows = attn_mod.page_rows(
+        tables, torch.arange(b, dtype=torch.int32, device=tokens.device), pos,
+        page_size)
+    attn_mod.paged_cache_write(cache["k"], cache["v"], torch.stack(k_news),
+                               torch.stack(v_news), rows)
+    h = norm_apply(params["final_norm"], h)
+    return _unembed(params, cfg, h), cache
+
+
+def prefill_packed(params, cfg: ModelConfig, cache, tokens: torch.Tensor,
+                   slot_ids: torch.Tensor, positions: torch.Tensor,
+                   tables: torch.Tensor, last_idx: torch.Tensor,
+                   page_size: int):
+    """Packed (padding-free) multi-prompt prefill into a paged cache.
+
+    tokens/slot_ids/positions [T]: several prompts concatenated into one
+    stream (``serve.kv_pages.pack_prompts``); tables [n_slots, n_max];
+    last_idx [n_new] stream index of each prompt's last token.  Attention is
+    block-diagonal causal over the stream, and only the ``n_new`` last rows
+    pay the unembedding.  Returns (logits [n_new, 1, V], cache with every
+    prompt's K/V written through its page table).
+    """
+    h = _embed_tokens(params, cfg, tokens[None, :])
+    k_news, v_news = [], []
+    for l in range(cfg.n_layers):
+        h, (kn, vn) = block_prefill_packed(
+            layer_params(params["layers"], l), cfg, h, seq_ids=slot_ids,
+            positions=positions)
+        k_news.append(kn[0])
+        v_news.append(vn[0])
+    rows = attn_mod.page_rows(tables, slot_ids, positions, page_size)
+    attn_mod.paged_cache_write(cache["k"], cache["v"], torch.stack(k_news),
+                               torch.stack(v_news), rows)
+    h = norm_apply(params["final_norm"], h)
+    h_last = h[0, last_idx.long()]  # [n_new, d]
+    return _unembed(params, cfg, h_last[:, None, :]), cache

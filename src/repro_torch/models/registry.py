@@ -1,0 +1,38 @@
+"""Model facade of the serving steps (twin of ``repro/models/registry.py``'s
+paged half): params, and the step functions the engine calls."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import lm as lm_mod
+
+
+def init_params(cfg: ModelConfig, seed: int, device=None):
+    """Random params from ``seed`` (the JAX package's tree layout)."""
+    return lm_mod.lm_init(cfg, seed, device)
+
+
+def paged_decode_fn(cfg: ModelConfig, page_size: int):
+    """Decode step against a paged KV cache: tokens [B, 1], pos [B],
+    tables [B, n_max]."""
+    return lambda params, cache, tokens, pos, tables: lm_mod.paged_decode_step(
+        params, cfg, cache, tokens, pos, tables, page_size)
+
+
+def prefill_packed_fn(cfg: ModelConfig, page_size: int):
+    """Packed padding-free prefill into a paged cache: one concatenated
+    [T]-token stream with per-token slot ids and positions."""
+    return lambda params, cache, tokens, slot_ids, positions, tables, last_idx: (
+        lm_mod.prefill_packed(params, cfg, cache, tokens, slot_ids, positions,
+                              tables, last_idx, page_size))
+
+
+def paged_cache_init_fn(cfg: ModelConfig, n_pages: int, page_size: int,
+                        device=None):
+    """Physical paged cache, [L, n_pages + 1, page_size, KV, D] per leaf
+    (the +1 is the trash page), on ``device``."""
+    return lambda: attn_mod.paged_cache_init(
+        cfg, n_pages, page_size, cfg.n_layers, getattr(torch, cfg.dtype),
+        device)

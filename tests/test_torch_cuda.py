@@ -10,11 +10,16 @@ kernels' 8-row register block, ``block_k`` chunking, strips wider than a
 block's 128 threads, ragged last strips and bands, and bf16; the sparse
 linear kernel also runs at smollm-360m's MLP widths.  The banded conv and
 the pipelined strip GEMM must give the same bits as the fused conv and the
-plain strip GEMM.
+plain strip GEMM.  The paged-attention kernel runs the CPU parity tests'
+cases and smollm-360m's serving shapes, the trash-page, empty-cache and
+bad-page-id cases, its rejections, dispatch on the card, and a served
+request of the smoke model.
 """
 import numpy as np
 import pytest
 import torch
+
+from _paged_cases import CASES as PAGED_CASES, case_id, case_kwargs, problem
 
 from repro_torch import dispatch
 from repro_torch.kernels import KERNELS, reset_launch_counts
@@ -34,6 +39,12 @@ from repro_torch.kernels.conv_gemm import (
     conv2d_fused_banded_ref,
     conv2d_fused_cuda,
     conv2d_fused_ref,
+)
+from repro_torch.kernels.flash_attn import (
+    PAGED_ATTENTION,
+    paged_attention,
+    paged_attention_cuda,
+    paged_attention_ref,
 )
 from repro_torch.kernels.im2col_pack import im2col_pack_cuda, im2col_pack_ref
 
@@ -256,11 +267,12 @@ def test_each_launch_counts_once(dev):
     colwise_nm_matmul_strips_pipelined_cuda(strips, values, idx)
     conv2d_fused_banded_cuda(x, values, idx, kh=3, kw=3, pad=1)
     colwise_nm_matmul_cuda(_x(1, 1, 4, 72, torch.float32, dev)[0, 0], values, idx)
+    paged_attention_cuda(*_paged(dev, torch.float32), page_size=8)
     torch.cuda.synchronize()
     assert {k.name: k.launches for k in KERNELS} == {
         "conv2d_fused": 2, "im2col_pack": 1, "colwise_nm_matmul_strips": 1,
         "colwise_nm_matmul": 1, "colwise_nm_matmul_strips_pipelined": 1,
-        "conv2d_fused_banded": 1}
+        "conv2d_fused_banded": 1, "paged_attention": 1}
 
 
 @pytest.mark.parametrize("kernel,op,name,args", [
@@ -427,3 +439,165 @@ def test_device_timer_times_a_kernel_launch(dev):
         lambda: conv2d_fused_cuda(x, values, idx, kh=3, kw=3, pad=1),
         device=dev)
     assert 0.0 < us < 1e4
+
+
+# ---------------------------------------------------------------------------
+# Paged attention
+# ---------------------------------------------------------------------------
+
+
+def _paged(dev, dtype, **kw):
+    """A paged problem on the card: float operands in ``dtype``."""
+    arrays = problem(**kw)
+    return tuple(torch.from_numpy(a).to(dev, dtype if a.dtype == np.float32
+                                        else torch.int32) for a in arrays)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", PAGED_CASES, ids=case_id)
+def test_paged_kernel_matches_plain(dev, case, dtype):
+    args = _paged(dev, dtype, **case_kwargs(case))
+    ps = case[6]
+    for block_q in (8, 16, 1):
+        got = paged_attention_cuda(*args, page_size=ps, block_q=block_q)
+        _close(got, paged_attention_ref(*args), dtype)
+
+
+def test_paged_trash_page_and_empty_cache(dev):
+    """Padded table entries name the trash page: whatever it holds, NaN
+    included, the output does not change.  An empty cache attends to the
+    new keys alone."""
+    kw = dict(b=3, sq=4, h=4, kv=2, d=16, n_pages=4, page_size=8,
+              lengths=[0, 9, 17])
+    finite = _paged(dev, torch.float32, trash_value=1e4, **kw)
+    poisoned = _paged(dev, torch.float32, trash_value=float("nan"), **kw)
+    want = paged_attention_ref(*finite)
+    got = paged_attention_cuda(*poisoned, page_size=8)
+    _close(got, want, torch.float32)
+    q, kn, vn, kp, vp, tables, lengths = finite
+    none = torch.zeros_like(lengths)
+    empty = paged_attention_cuda(q, kn, vn, kp, vp, tables, none, page_size=8)
+    own = paged_attention_ref(q, kn, vn, kp[:1] * 0, vp[:1] * 0,
+                              torch.zeros_like(tables[:, :1]), none)
+    _close(empty, own, torch.float32)
+
+
+def test_paged_bad_page_id_gives_nan_not_a_bad_read(dev):
+    q, kn, vn, kp, vp, tables, lengths = _paged(
+        dev, torch.float32, b=2, lengths=[20, 20])
+    tables[1, 1] = kp.shape[0]  # one past the last physical page
+    out = paged_attention_cuda(q, kn, vn, kp, vp, tables, lengths, page_size=8)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(out[1]).all()) and bool(torch.isfinite(out[0]).all())
+
+
+def test_paged_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    args = _paged(dev, torch.float32, h=3, kv=2)
+    with pytest.raises(ValueError, match="H % KV"):
+        paged_attention_cuda(*args, page_size=8)
+    args = _paged(dev, torch.float32)
+    with pytest.raises(ValueError, match="page_size"):
+        paged_attention_cuda(*args, page_size=16)
+    q, kn, vn, kp, vp, tables, lengths = args
+    with pytest.raises(TypeError, match="dtype"):
+        paged_attention_cuda(q, kn, vn, kp, vp, tables.long(), lengths,
+                             page_size=8)
+    with pytest.raises(TypeError, match="dtype"):
+        paged_attention_cuda(q, kn.bfloat16(), vn, kp, vp, tables, lengths,
+                             page_size=8)
+    strided = torch.cat([q, q], dim=2)[:, :, ::2]  # q's shape, not contiguous
+    with pytest.raises(ValueError, match="contiguous"):
+        paged_attention_cuda(strided, kn, vn, kp, vp, tables, lengths,
+                             page_size=8)
+
+
+def test_paged_dispatch_on_the_card(dev, tmp_path):
+    """On the card the paged family resolves among the kernel geometries
+    only: a page size with none raises; the plain version runs when
+    forced, and launches nothing."""
+    from repro_torch.dispatch import TuningError
+
+    dispatch.set_db(dispatch.ProfileDB(path=tmp_path / "profile.json"))
+    try:
+        args = _paged(dev, torch.float32, b=4, sq=1, h=15, kv=5, d=64,
+                      n_pages=10, page_size=16, lengths=[0, 16, 37, 150])
+        for ps, n_launch in ((16, 1), (8, 1), (32, 1)):
+            a = _paged(dev, torch.float32, b=2, h=15, kv=5, d=64,
+                       page_size=ps, lengths=[3, 20]) if ps != 16 else args
+            reset_launch_counts()
+            got = paged_attention(*a, page_size=ps)
+            torch.cuda.synchronize()
+            assert PAGED_ATTENTION.launches == n_launch
+            _close(got, paged_attention_ref(*a), torch.float32)
+        reset_launch_counts()
+        forced = paged_attention(*args, page_size=16, impl="paged_attn_ref")
+        with dispatch.force_scope(paged_attn="paged_attn_ref"):
+            scoped = paged_attention(*args, page_size=16)
+        torch.cuda.synchronize()
+        assert PAGED_ATTENTION.launches == 0
+        assert torch.equal(forced, scoped)
+        with pytest.raises(TuningError):
+            paged_attention(*_paged(dev, torch.float32, page_size=4),
+                            page_size=4)
+        assert dispatch.choose_page_size(15, 5, 64, 160, q_rows=4,
+                                         device=dev) == 16
+        ps = dispatch.choose_page_size(15, 5, 64, 160, q_rows=4, device=dev,
+                                       profile=True)
+        assert ps in {dict(g)["ps"] for g in dispatch.PAGED_ATTN_GEOMETRY}
+    finally:
+        dispatch.set_db(None)
+
+
+@pytest.mark.parametrize("name,sq", [("paged_attn_pallas", 1),
+                                     ("paged_attn_pallas@ps16_bq16", 16),
+                                     ("paged_attn_pallas@ps8_bq8", 8)])
+def test_paged_launch_smem_equals_the_feasibility_footprint(dev, name, sq):
+    spec = dispatch.REGISTRY.get("paged_attn", name)
+    ps, bq = spec.geom("ps"), spec.geom("bq")
+    args = _paged(dev, torch.float32, b=2, sq=sq, h=15, kv=5, d=64,
+                  page_size=ps, lengths=[5, 30])
+    key = dispatch.paged_attn_key(2 * sq, 15, 5, 64, 4 * ps, page_size=ps)
+    paged_attention_cuda(*args, page_size=ps, block_q=bq)
+    torch.cuda.synchronize()
+    assert spec.feasible(key)[0]
+    if sq >= bq:
+        assert PAGED_ATTENTION.last_smem_bytes == spec.smem_bytes(key)
+    else:
+        assert PAGED_ATTENTION.last_smem_bytes < spec.smem_bytes(key)
+
+
+def test_served_requests_launch_the_kernels(dev, tmp_path):
+    """The smoke model served on the card through the paged scheduler: each
+    decode step launches the paged kernel once per layer and every linear
+    layer its kernel, and the tokens are the plain CPU run's."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.pruning import SparsityConfig
+    from repro_torch.models.lm import lm_init
+    from repro_torch.serve import Engine, Scheduler, synthetic_trace
+
+    dispatch.set_db(dispatch.ProfileDB(path=tmp_path / "profile.json"))
+    try:
+        cfg = smoke_config("smollm-360m").with_(sparsity=SparsityConfig(
+            sparsity=0.5, m=None, tile=None, min_dim=16,
+            format="compressed_pallas"))
+        params = lm_init(cfg, 0, device="cpu")
+        trace = lambda: synthetic_trace(5, seed=1, vocab=cfg.vocab_size,  # noqa: E731
+                                        prompt_lens=(3, 20), new_tokens=(2, 9))
+        runs = {}
+        for where in ("cpu", "cuda"):
+            reset_launch_counts()
+            sched = Scheduler(Engine(cfg, _to(params, torch.device(where))),
+                              n_slots=3, paged=True, page_size=8)
+            runs[where] = {c.uid: c.tokens for c in sched.run(trace())}
+            torch.cuda.synchronize()
+            counts = {k.name: k.launches for k in KERNELS if k.launches}
+        st = sched.stats
+        assert counts == {
+            "paged_attention": cfg.n_layers * st["decode_steps"],
+            "colwise_nm_matmul": 7 * cfg.n_layers * (
+                st["decode_steps"] + st["prefill_calls"])}
+        assert runs["cpu"].keys() == runs["cuda"].keys()
+        for uid, toks in runs["cpu"].items():
+            assert np.array_equal(toks, runs["cuda"][uid]), uid
+    finally:
+        dispatch.set_db(None)

@@ -70,7 +70,7 @@ def _jax_params(cfg, seed):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("op", ["linear", "conv"])
+@pytest.mark.parametrize("op", ["linear", "conv", "paged_attn"])
 def test_candidates_match_the_jax_registry(op):
     mine = {s.name: s for s in REGISTRY.candidates(op)}
     theirs = {s.name: s for s in jdispatch.REGISTRY.candidates(op)}
@@ -82,7 +82,7 @@ def test_candidates_match_the_jax_registry(op):
         assert spec.geometry == ref.geometry, name
         assert spec.backend == {"pallas": "cuda", "xla": "torch"}[ref.backend]
         assert (spec.apply is None) == (ref.apply is None), name
-    assert REGISTRY.ops() == sorted(set(jdispatch.REGISTRY.ops()) - {"paged_attn"})
+    assert REGISTRY.ops() == sorted(jdispatch.REGISTRY.ops())
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

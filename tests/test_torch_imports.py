@@ -75,9 +75,15 @@ def test_entry_points_raise_without_a_card(no_card):
     from repro_torch.core.pruning import SparsityConfig
     from repro_torch.core.sparse_conv import conv_init
     from repro_torch.core.sparse_linear import linear_init
+    from repro_torch.configs import smoke_config
+    from repro_torch.dispatch import choose_page_size
+    from repro_torch.models.attention import paged_cache_init
+    from repro_torch.models.common import embed_init, norm_init
+    from repro_torch.models.lm import lm_init
     from repro_torch.models.vision import synth_batch, vision_init
 
     cfg = get_vision_config("resnet-tiny")
+    lm_cfg = smoke_config("smollm-360m")
     sp = SparsityConfig(sparsity=0.5, tile=8, min_dim=16,
                         format="compressed_pallas")
     gen = torch.Generator().manual_seed(0)
@@ -90,6 +96,11 @@ def test_entry_points_raise_without_a_card(no_card):
         lambda: conv_init(gen, 16, 16, 3, 3, sp),
         lambda: linear_init(gen, 16, 16, sp),
         lambda: init_compressed(gen, 72, 16, sp),
+        lambda: lm_init(lm_cfg, 0),
+        lambda: paged_cache_init(lm_cfg, 4, 8, 2, torch.float32),
+        lambda: norm_init(16),
+        lambda: embed_init(gen, 8, 4),
+        lambda: choose_page_size(4, 2, 16, 64),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -106,6 +117,7 @@ def test_kernel_launchers_never_take_cpu_tensors():
         colwise_nm_matmul_strips_pipelined_cuda)
     from repro_torch.kernels.conv_gemm import (
         conv2d_fused_banded_cuda, conv2d_fused_cuda)
+    from repro_torch.kernels.flash_attn import paged_attention_cuda
     from repro_torch.kernels.im2col_pack import im2col_pack_cuda
 
     reset_launch_counts()
@@ -125,6 +137,13 @@ def test_kernel_launchers_never_take_cpu_tensors():
         conv2d_fused_cuda(x, values, idx, kh=3, kw=3, pad=1)
     with pytest.raises(ValueError, match="CUDA tensor"):
         conv2d_fused_banded_cuda(x, values, idx, kh=3, kw=3, pad=1)
+    q = torch.zeros((1, 1, 4, 16))
+    kv = torch.zeros((1, 1, 2, 16))
+    pages = torch.zeros((2, 8, 2, 16))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        paged_attention_cuda(q, kv, kv, pages, pages,
+                             torch.zeros((1, 1), dtype=torch.int32),
+                             torch.zeros((1,), dtype=torch.int32), page_size=8)
     assert all(k.launches == 0 for k in KERNELS)
 
 
