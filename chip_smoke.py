@@ -30,10 +30,23 @@ Phases:
   7. serve  : pruned smollm-360m at its published widths (32 layers, random
               weights from the seed) served through ``Scheduler(paged=True)``:
               8 synthetic requests, greedy; request, page-pool and
-              launch-count checks, a teacher-forced replay of every step
-              through the plain versions, host times per step and the
-              device time of one decode step
-  8. report : one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
+              launch-count checks (the flash kernel launched 0 times), a
+              teacher-forced replay of every step through the plain
+              versions, host times per step and the device time of one
+              decode step
+  8. flash  : the flash-attention kernel against its plain version over the
+              JAX flash tests' sweep, the (5, 2) GQA map with the top-left
+              mask, and smollm-360m's scoring shape (B 4, S 2048, H 15,
+              KV 5, D 64), in f32 and bf16, with its bound and an SDPA
+              yardstick
+  9. score  : the same pruned smollm-360m scored under attn_impl="pallas"
+              through ``registry.loss_fn`` and ``forward_fn`` on 2 batches of
+              4 x 2048 tokens of the port's ``SyntheticLM``: exact launch
+              counts (32 flash and 224 linear launches per forward), logits
+              and NLL against a replay through the plain versions, host and
+              device ms per forward, tokens/s, idle share and the kernels'
+              shares of the device time
+ 10. report : one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
               line last
 
 Run from the repository root:  python3 chip_smoke.py
@@ -85,6 +98,20 @@ SERVE_PROMPTS, SERVE_BUDGETS = (16, 128), (16, 32)
 # teacher-forced replay through the plain versions: 32 layers of sums taken
 # in another order (the kernels' f32 accumulation vs cuBLAS and einsum)
 REPLAY_RTOL = 1e-3  # of max|logit| per step
+# phase 8: (B, Sq, Sk, H, KV, D, causal).  tests/test_flash_attn.py's sweep
+# in the Pallas kernel's [BH, S, D] layout (H = KV = 1), the (5, 2) GQA map
+# with the top-left mask at Sq > Sk, and the scoring forward's shape, which
+# the kernel list carries
+FLASH_CASES = [(2, 32, 32, 1, 1, 16, True), (1, 16, 48, 1, 1, 16, False),
+               (2, 24, 24, 1, 1, 32, True), (1, 8, 8, 1, 1, 16, True),
+               (3, 33, 17, 1, 1, 16, True), (2, 33, 17, 5, 2, 16, True),
+               (4, 2048, 2048, 15, 5, 64, True)]
+# JAX's flash TOL (tests/test_flash_attn.py), here of max|y|
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+# phase 9: 2 batches of 4 sequences of 2048 tokens (SmolLM's training
+# context), each scored by loss_fn and forward_fn
+SCORE_BATCH, SCORE_SEQ, SCORE_BATCHES = 4, 2048, 2
+SCORE_NLL_RTOL = 1e-4  # of the replay's NLL
 
 
 def check(cond: bool, msg: str) -> None:
@@ -366,21 +393,28 @@ LIBRARY_CALLS = {
     "paged_attention": "F.scaled_dot_product_attention on K/V pre-gathered "
                        "to [B, H, n_max*ps + Sq, D] with a boolean mask; the "
                        "gather is not timed",
+    "flash_attention": "F.scaled_dot_product_attention(is_causal=causal) on "
+                       "[B, H, S, D] with K/V pre-expanded to H heads (the "
+                       "transposes and the expansion not timed); timed where "
+                       "Sq == Sk or not causal, as SDPA aligns its causal "
+                       "mask bottom-right",
 }
 KEYS = ("ms", "eager_ms", "plain_ms", "bound_ms", "library_ms")
 
 
 def measure(kernel_fn, plain_fn, library_fn) -> dict:
     """Device times (CUDA graph replay) of the kernel, its plain version and
-    the library yardstick, and the kernel's eager per-call time."""
+    the library yardstick (``None`` where there is none), and the kernel's
+    eager per-call time."""
     return {"ms": time_ms(kernel_fn), "eager_ms": eager_ms(kernel_fn),
             "plain_ms": time_ms(plain_fn, iters=5),
-            "library_ms": time_ms(library_fn)}
+            "library_ms": None if library_fn is None else time_ms(library_fn)}
 
 
 def report(tot, kernel, tag, r, by, err, dtype, count=True):
+    lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.5f}"
     print(f"  {kernel:34s} {tag}: ms={r['ms']:.5f} eager_ms={r['eager_ms']:.5f}"
-          f" plain_ms={r['plain_ms']:.5f} library_ms={r['library_ms']:.5f}"
+          f" plain_ms={r['plain_ms']:.5f} library_ms={lib}"
           f" bound_ms={r['bound_ms']:.6f} ({by}) max_abs_err={err:.3e}",
           flush=True)
     if dtype != torch.float32 or not count:
@@ -816,21 +850,13 @@ LINEARS = (("attn", "q"), ("attn", "k"), ("attn", "v"), ("attn", "o"),
            ("mlp", "gate"), ("mlp", "up"), ("mlp", "down"))
 
 
-def run_serving(dev) -> dict:
-    """Phase 7: pruned smollm-360m served at its published widths through
-    ``Scheduler(paged=True, alloc="reserve")``.  Returns the launch counts
-    of the served run."""
-    from repro_torch import dispatch
+def pruned_smollm(dev):
+    """smollm-360m at its published widths, every q/k/v/o/gate/up/down
+    pruned to 50% (T = d_out), random weights from ``SEED`` on the card:
+    the model phases 7 and 9 serve and score."""
     from repro_torch.configs import get_config
     from repro_torch.core.pruning import SparsityConfig
-    from repro_torch.kernels import KERNELS, reset_launch_counts
-    from repro_torch.kernels.colwise_nm import colwise_nm_matmul_cuda
-    from repro_torch.kernels.flash_attn import paged_attention_cuda
     from repro_torch.models import lm
-    from repro_torch.models import registry as reg
-    from repro_torch.models.blocks import layer_params
-    from repro_torch.serve import (Engine, Scheduler, latency_percentiles,
-                                   synthetic_trace)
 
     cfg = get_config("smollm-360m").with_(sparsity=SparsityConfig(
         sparsity=0.5, m=None, tile=None, format="compressed_pallas"))
@@ -847,6 +873,25 @@ def run_serving(dev) -> dict:
           f"(padded {cfg.padded_vocab}), f32; sparsity 0.5, T = d_out; "
           f"{n_params} stored values and indices, random from seed {SEED}, "
           f"built in {time.perf_counter() - t0:.1f} s", flush=True)
+    return cfg, params
+
+
+def run_serving(dev, cfg, params) -> dict:
+    """Phase 7: pruned smollm-360m served at its published widths through
+    ``Scheduler(paged=True, alloc="reserve")``.  Returns the launch counts
+    of the served run."""
+    from repro_torch import dispatch
+    from repro_torch.kernels import KERNELS, reset_launch_counts
+    from repro_torch.kernels.colwise_nm import colwise_nm_matmul_cuda
+    from repro_torch.kernels.flash_attn import (FLASH_ATTENTION,
+                                                paged_attention_cuda)
+    from repro_torch.models import lm
+    from repro_torch.models import registry as reg
+    from repro_torch.models.blocks import layer_params
+    from repro_torch.serve import (Engine, Scheduler, latency_percentiles,
+                                   synthetic_trace)
+
+    layers = params["layers"]
     db_path = PROFILE_DB.with_suffix(".serve.json")
     db_path.unlink(missing_ok=True)
     dispatch.set_db(dispatch.ProfileDB(path=db_path))
@@ -912,8 +957,11 @@ def run_serving(dev) -> dict:
           f"budget; page pool invariants hold, 0 pages mapped after the run "
           f"(peak {st['pages_peak']}, {st['pages_stranded']} stranded)",
           flush=True)
-    print(f"  launches in the served run: {counts} (want {want})", flush=True)
+    print(f"  launches in the served run: {counts} (want {want}); flash "
+          f"attention {FLASH_ATTENTION.launches} (it is not on the serving "
+          "path)", flush=True)
     check(counts == want, f"serving launches {counts}, want {want}")
+    check(FLASH_ATTENTION.launches == 0, "the served run launched flash")
     # exact counts: every attention and linear call launched its kernel, so
     # no plain version ran on the card
     print("  no plain version ran: every one of the "
@@ -1013,6 +1061,178 @@ def run_serving(dev) -> dict:
     return counts
 
 
+def flash_bound(b, sq, sk, h, kv, d, causal, dtype) -> tuple:
+    """(ms, "bytes" | "operations") of one flash call: QK and PV over the
+    (causal) pairs, 4 * B*H * D per pair; Q, K, V (at KV heads) and O read
+    or written once."""
+    pairs = (sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk)
+    isz = torch.empty((), dtype=dtype).element_size()
+    nb = (2 * b * sq * h * d + 2 * b * sk * kv * d) * isz
+    return bound_ms(nb, 4 * b * h * d * pairs, dtype)
+
+
+def check_flash_kernel(dev, tot):
+    """Phase 8: the flash kernel against its plain version, f32 and bf16,
+    with its bound and an SDPA yardstick."""
+    from repro_torch.kernels.flash_attn import (flash_attention_cuda,
+                                                flash_attention_gqa_ref)
+
+    for i, (b, sq, sk, h, kv, d, causal) in enumerate(FLASH_CASES):
+        for dtype in (torch.float32, torch.bfloat16):
+            rng = np.random.default_rng(SEED + 40 + i)
+            q, k, v = (torch.from_numpy(rng.standard_normal(
+                shape, dtype=np.float32)).to(dev, dtype) for shape in (
+                    (b, sq, h, d), (b, sk, kv, d), (b, sk, kv, d)))
+            tag = (f"B={b} Sq={sq} Sk={sk} H={h} KV={kv} D={d} "
+                   f"{'causal' if causal else 'full'} "
+                   f"{str(dtype).replace('torch.', '')}")
+            want = flash_attention_gqa_ref(q, k, v, causal=causal)
+            err = max_err(flash_attention_cuda(q, k, v, causal=causal), want,
+                          f"flash_attention {tag}", FLASH_TOL[dtype])
+            library = None
+            if sq == sk or not causal:
+                mapping = (torch.arange(h, device=dev) * kv) // h
+                qh = q.transpose(1, 2).contiguous()
+                kh = k[:, :, mapping].transpose(1, 2).contiguous()
+                vh = v[:, :, mapping].transpose(1, 2).contiguous()
+                library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                    qh, kh, vh, is_causal=causal)
+                max_err(library().transpose(1, 2), want,
+                        f"SDPA yardstick {tag}", FLASH_TOL[dtype])
+            r = measure(lambda: flash_attention_cuda(q, k, v, causal=causal),
+                        lambda: flash_attention_gqa_ref(q, k, v, causal=causal),
+                        library)
+            r["bound_ms"], by = flash_bound(b, sq, sk, h, kv, d, causal, dtype)
+            report(tot, "flash_attention", tag, r, by, err, dtype,
+                   count=(b, sq, h) == (SCORE_BATCH, SCORE_SEQ, 15))
+    return tot
+
+
+def run_scoring(dev, cfg, params) -> dict:
+    """Phase 9: pruned smollm-360m scored under attn_impl="pallas" through
+    ``registry.loss_fn`` and ``forward_fn``, held against a replay through
+    the plain versions.  Returns the launch counts of the scored run."""
+    from repro_torch import dispatch
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels import KERNELS, reset_launch_counts
+    from repro_torch.kernels.colwise_nm import colwise_nm_matmul_cuda
+    from repro_torch.kernels.flash_attn import flash_attention_cuda
+    from repro_torch.models import lm
+    from repro_torch.models import registry as reg
+    from repro_torch.models.blocks import layer_params
+
+    cfg = cfg.with_(attn_impl="pallas")
+    cfg_plain = cfg.with_(attn_impl="naive")
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, batch=SCORE_BATCH,
+                                  seq_len=SCORE_SEQ, kind="uniform", seed=SEED))
+    batches = [{"tokens": torch.from_numpy(data.batch_at(i)["tokens"]).to(dev)}
+               for i in range(SCORE_BATCHES)]
+    n_tok = SCORE_BATCH * SCORE_SEQ
+    db_path = PROFILE_DB.with_suffix(".score.json")
+    db_path.unlink(missing_ok=True)
+    dispatch.set_db(dispatch.ProfileDB(path=db_path))
+    forward, loss = reg.forward_fn(cfg), reg.loss_fn(cfg)
+    with torch.no_grad():
+        forward(params, batches[0])  # warm-up: the dispatch memos at 8192 rows
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        outs = []
+        for batch in batches:
+            total, aux = loss(params, batch)
+            outs.append((forward(params, batch), aux["nll"], total))
+        torch.cuda.synchronize()
+        counts = {k.name: k.launches for k in KERNELS if k.launches}
+        n_fwd = 2 * SCORE_BATCHES
+        want = {"flash_attention": cfg.n_layers * n_fwd,
+                "colwise_nm_matmul": len(LINEARS) * cfg.n_layers * n_fwd}
+        print(f"  launches over {n_fwd} scoring forwards ({SCORE_BATCHES} "
+              f"batches x loss_fn and forward_fn): {counts} (want {want})",
+              flush=True)
+        check(counts == want, f"scoring launches {counts}, want {want}")
+        for logits, nll, total in outs:
+            check(tuple(logits.shape) == (SCORE_BATCH, SCORE_SEQ,
+                                          cfg.padded_vocab),
+                  f"logits shape {tuple(logits.shape)}")
+            check(bool(torch.isfinite(logits).all()), "non-finite logits")
+            check(bool(torch.isfinite(nll)) and float(total) == float(nll),
+                  f"loss {float(total)} vs nll {float(nll)} (aux is 0)")
+
+        # replay through the plain versions: naive attention, the
+        # gather-einsum linears
+        reset_launch_counts()
+        worst, nll_worst, nlls = 0.0, 0.0, []
+        with dispatch.force_scope(linear="compressed_xla"):
+            for (logits, nll, _), batch in zip(outs, batches):
+                e = rel_err(logits, reg.forward_fn(cfg_plain)(params, batch))
+                _, aux_p = reg.loss_fn(cfg_plain)(params, batch)
+                e_nll = abs(float(nll) - float(aux_p["nll"])) / float(aux_p["nll"])
+                check(e <= REPLAY_RTOL, f"scoring logits vs plain: {e}")
+                check(e_nll <= SCORE_NLL_RTOL, f"scoring NLL vs plain: {e_nll}")
+                worst, nll_worst = max(worst, e), max(nll_worst, e_nll)
+                nlls.append((float(nll), float(aux_p["nll"])))
+        torch.cuda.synchronize()
+        check(all(k.launches == 0 for k in KERNELS), "the replay launched a kernel")
+        print(f"  replay through the plain versions (attn_impl='naive', "
+              f"compressed_xla): max rel err of the logits {worst:.3e} <= "
+              f"{REPLAY_RTOL} of max|logit|; NLL kernel/plain {nlls} (rel err "
+              f"<= {nll_worst:.3e}; ln(vocab) = {np.log(cfg.vocab_size):.4f})",
+              flush=True)
+        del outs
+
+        batch = batches[0]
+        host = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            forward(params, batch)
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
+        host_ms = min(host)
+        dev_ms = time_ms(lambda: forward(params, batch), iters=1)
+        rng = np.random.default_rng(SEED + 50)
+        d, hd = cfg.d_model, cfg.resolved_head_dim
+        q = torch.from_numpy(rng.standard_normal(
+            (SCORE_BATCH, SCORE_SEQ, cfg.padded_heads, hd),
+            dtype=np.float32)).to(dev)
+        kv = q[:, :, :cfg.n_kv_heads].contiguous()
+        flash_ms = time_ms(lambda: flash_attention_cuda(q, kv, kv), iters=5)
+        layer0 = layer_params(params["layers"], 0)
+        d_ins = {"o": cfg.padded_heads * hd, "down": cfg.d_ff}
+        lin_ms = 0.0
+        for a, n in LINEARS:
+            vals, idx = layer0[a][n]["values"], layer0[a][n]["idx"]
+            x = torch.from_numpy(rng.standard_normal(
+                (n_tok, d_ins.get(n, d)), dtype=np.float32)).to(dev)
+            lin_ms += time_ms(lambda: colwise_nm_matmul_cuda(x, vals, idx),
+                              iters=5)
+        h = torch.from_numpy(rng.standard_normal(
+            (SCORE_BATCH, SCORE_SEQ, d), dtype=np.float32)).to(dev)
+        unembed_ms = time_ms(lambda: lm._unembed(params, cfg, h), iters=5)
+    idle = max(0.0, 1 - dev_ms / host_ms)
+    flash_share = cfg.n_layers * flash_ms / dev_ms
+    lin_share = cfg.n_layers * lin_ms / dev_ms
+    print(f"  one scoring forward ({SCORE_BATCH} x {SCORE_SEQ} tokens): host "
+          f"{host_ms:.3f} ms (best of {len(host)}, synchronised; "
+          f"{n_tok / host_ms * 1e3:.1f} tokens/s), device {dev_ms:.3f} ms "
+          f"(CUDA graph replay) -> device idle share {idle:.3f}; kernels "
+          f"alone: {cfg.n_layers} x {flash_ms:.4f} ms of flash attention = "
+          f"{cfg.n_layers * flash_ms:.3f} ms ({flash_share:.3f} of the device "
+          f"time), {cfg.n_layers} x {lin_ms:.4f} ms of 7 sparse linears = "
+          f"{cfg.n_layers * lin_ms:.3f} ms ({lin_share:.3f}), tied unembedding "
+          f"{unembed_ms:.3f} ms ({unembed_ms / dev_ms:.3f})", flush=True)
+    print("SCORE " + json.dumps({
+        "batch": SCORE_BATCH, "seq_len": SCORE_SEQ, "forwards": n_fwd,
+        "host_ms_per_forward": host_ms, "device_ms_per_forward": dev_ms,
+        "idle_share": idle, "tokens_per_s": n_tok / host_ms * 1e3,
+        "flash_ms_per_layer": flash_ms, "flash_share": flash_share,
+        "linear_ms_per_layer": lin_ms, "linear_share": lin_share,
+        "unembed_ms": unembed_ms, "replay_max_rel_err": worst,
+        "nll_max_rel_err": nll_worst, "nll": nlls}), flush=True)
+    dispatch.set_db(None)
+    db_path.unlink(missing_ok=True)
+    return counts
+
+
 def tree_leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1077,9 +1297,21 @@ def main() -> int:
 
     print(f"== 7. serving: pruned smollm-360m, {SERVE_REQUESTS} requests "
           "through Scheduler(paged=True)", flush=True)
-    serve_counts = run_serving(dev)
+    lm_cfg, lm_params = pruned_smollm(dev)
+    serve_counts = run_serving(dev, lm_cfg, lm_params)
 
-    print("== 8. report", flush=True)
+    print("== 8. flash-attention kernel at the sweep and scoring shapes",
+          flush=True)
+    print(f"  library_ms of flash_attention: {LIBRARY_CALLS['flash_attention']}",
+          flush=True)
+    check_flash_kernel(dev, tot)
+
+    print(f"== 9. scoring: pruned smollm-360m, attn_impl='pallas', "
+          f"{SCORE_BATCHES} batches of {SCORE_BATCH} x {SCORE_SEQ} tokens",
+          flush=True)
+    score_counts = run_scoring(dev, lm_cfg, lm_params)
+
+    print("== 10. report", flush=True)
     launches = {
         "conv2d_fused": counts["default"]["conv2d_fused"],
         "im2col_pack": counts["im2col_sparse_pallas"]["im2col_pack"],
@@ -1091,6 +1323,7 @@ def main() -> int:
             counts["two_kernel_pipelined"]["colwise_nm_matmul_strips_pipelined"],
         "colwise_nm_matmul": serve_counts["colwise_nm_matmul"],
         "paged_attention": serve_counts["paged_attention"],
+        "flash_attention": score_counts["flash_attention"],
     }
     print(f"  the linear phase (5) launched colwise_nm_matmul {linear_launches} "
           "times; the served run, whose count the kernel list carries, "
@@ -1102,7 +1335,11 @@ def main() -> int:
            "paged_attention": "ms etc.: B 4, Sq 1, f32, H 15, KV 5, D 64, "
                               "page size 16 (the decode step's shape); "
                               "launches: the served smollm-360m run (1 per "
-                              "layer per decode step)"}
+                              "layer per decode step)",
+           "flash_attention": "ms etc.: B 4, S 2048, H 15, KV 5, D 64, "
+                              "causal, f32 (the scoring forward's shape); "
+                              "launches: the scored smollm-360m run (1 per "
+                              "layer per forward)"}
     kernels = []
     for k in KERNELS:
         t = tot[k.name]

@@ -1,5 +1,6 @@
 """Config registry (twin of ``repro/configs/__init__.py``): the LM configs
-the port serves, their reduced smoke variants, and the vision configs."""
+the port serves and scores, their reduced smoke variants, and the vision
+configs."""
 from __future__ import annotations
 
 import importlib
@@ -9,6 +10,7 @@ from repro_torch.configs.base import ModelConfig, VisionConfig  # noqa: F401
 
 _MODULES = {
     "smollm-360m": "repro_torch.configs.smollm_360m",
+    "qwen2-0.5b": "repro_torch.configs.qwen2_0_5b",
 }
 
 _VISION_MODULES = {

@@ -29,6 +29,8 @@ class ModelConfig:
     vocab_size: int = 256
     head_dim: Optional[int] = None
     qkv_bias: bool = False
+    attn_impl: str = "naive"               # naive | chunked | pallas (flash kernel)
+    attn_chunk: int = 512
     use_rope: bool = True
     rope_theta: float = 1e4
     mlp_act: str = "swiglu"                # the port has SwiGLU only

@@ -1,7 +1,9 @@
-"""GQA attention for the paged serving steps (twin of the serving half of
-``repro/models/attention.py``): the QKV/O projections with RoPE, packed
-multi-prompt prefill over one padding-free token stream, and one-token
-decode against a paged KV cache through the paged-attention kernel.
+"""GQA attention (twin of ``repro/models/attention.py``'s attention
+family): the QKV/O projections with RoPE; full self-attention for the
+scoring forward (``attn_apply``: naive, chunked online-softmax, or the flash
+kernel under ``attn_impl="pallas"``); packed multi-prompt prefill over one
+padding-free token stream; and one-token decode against a paged KV cache
+through the paged-attention kernel.
 
 GQA runs grouped (q reshaped [B, S, KV, G, D]) so the KV tensors are never
 expanded to H heads; only H % KV != 0 takes the head-mapped expansion.
@@ -17,6 +19,7 @@ import math
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch._compat import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -70,6 +73,108 @@ def _expand_kv(k: torch.Tensor, n_q_heads: int) -> torch.Tensor:
         return k
     mapping = (torch.arange(n_q_heads, device=k.device) * kvh) // n_q_heads
     return k[:, :, mapping]
+
+
+def sdpa_gqa(q, k, v, *, causal: bool, q_offset=0,
+             kv_len=None) -> torch.Tensor:
+    """Scaled dot-product attention with native GQA grouping.
+
+    q [B, Sq, H, D]; k/v [B, Sk, KV, D]; query i sits at position
+    ``q_offset + i`` for the causal mask; ``kv_len`` [B] masks keys past
+    each sequence's length.  Returns [B, Sq, H, D].
+    """
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    scale = 1.0 / math.sqrt(d)
+    if h % kvh != 0:
+        k, v = _expand_kv(k, h), _expand_kv(v, h)
+        kvh = h
+    g = h // kvh
+    qg = q.reshape(b, sq, kvh, g, d)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k).float() * scale
+    if causal:
+        qi = torch.arange(sq, device=q.device)[:, None] + q_offset
+        ki = torch.arange(sk, device=q.device)[None, :]
+        scores = torch.where(ki <= qi, scores, NEG)
+    if kv_len is not None:
+        ki = torch.arange(sk, device=q.device).reshape(1, 1, 1, 1, sk)
+        scores = torch.where(ki < kv_len.reshape(b, 1, 1, 1, 1), scores, NEG)
+    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    o = torch.einsum("bkgqs,bskd->bqkgd", w, v)
+    return o.reshape(b, sq, h, d)
+
+
+def sdpa_gqa_chunked(q, k, v, *, causal: bool, q_offset=0, kv_len=None,
+                     chunk: int = 512) -> torch.Tensor:
+    """Blockwise attention: an online softmax over KV chunks of ``chunk``
+    keys, so the [Sq, Sk] scores never materialise.  Plain PyTorch, as
+    the JAX package leaves it to XLA; each chunk's K/V is expanded to the H
+    heads.  Same arguments and result as :func:`sdpa_gqa`.
+    """
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    scale = 1.0 / math.sqrt(d)
+    chunk = min(chunk, sk)
+    n_chunks = -(-sk // chunk)
+    pad = n_chunks * chunk - sk
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    mapping = ((torch.arange(h, device=q.device) * kvh) // h
+               if h % kvh else None)
+    qi = torch.arange(sq, device=q.device)[:, None] + q_offset  # [Sq, 1]
+    m = torch.full((b, h, sq), NEG, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, sq, h, d), dtype=torch.float32, device=q.device)
+    for ci in range(n_chunks):
+        kx = k[:, ci * chunk:(ci + 1) * chunk]
+        vx = v[:, ci * chunk:(ci + 1) * chunk]
+        if mapping is not None:
+            kx, vx = kx[:, :, mapping], vx[:, :, mapping]
+        elif h != kvh:
+            kx = kx.repeat_interleave(h // kvh, dim=2)
+            vx = vx.repeat_interleave(h // kvh, dim=2)
+        s = torch.einsum("bqhd,bchd->bhqc", q, kx).float() * scale
+        kpos = ci * chunk + torch.arange(chunk, device=q.device)[None, :]
+        valid = (kpos <= qi) if causal else torch.ones(
+            (sq, chunk), dtype=torch.bool, device=q.device)
+        valid = valid & (kpos < sk)
+        if kv_len is not None:
+            valid = valid[None] & (kpos[None] < kv_len[:, None, None])
+            s = torch.where(valid[:, None], s, NEG)
+        else:
+            s = torch.where(valid[None, None], s, NEG)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])  # [B, H, Sq, chunk] f32
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(dim=-1)
+        pv = torch.einsum("bhqc,bchd->bqhd", p.to(vx.dtype), vx).float()
+        acc = acc * alpha.transpose(1, 2)[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30).transpose(1, 2)[..., None]
+    return out.to(q.dtype)
+
+
+def attn_apply(params, cfg: ModelConfig, x: torch.Tensor, *,
+               positions: torch.Tensor, causal: bool = True) -> torch.Tensor:
+    """Full self-attention over x [B, S, d] (the scoring forward).
+
+    ``cfg.attn_impl`` picks the attention as the JAX package does: "pallas"
+    runs the flash kernel (its plain version for a CPU tensor), "chunked"
+    the online-softmax :func:`sdpa_gqa_chunked` when S > ``attn_chunk``,
+    and anything else :func:`sdpa_gqa`.  Returns [B, S, d].
+    """
+    b, s, _ = x.shape
+    q, k, v = _qkv(params, cfg, x, positions)
+    if cfg.attn_impl == "pallas":
+        from repro_torch.kernels.flash_attn import flash_attention
+
+        o = flash_attention(q, k, v, causal=causal)
+    elif cfg.attn_impl == "chunked" and s > cfg.attn_chunk:
+        o = sdpa_gqa_chunked(q, k, v, causal=causal, chunk=cfg.attn_chunk)
+    else:
+        o = sdpa_gqa(q, k, v, causal=causal)
+    return linear_apply(params["o"], o.reshape(b, s, -1))
 
 
 def _cached_attention(q, k_new, v_new, kc, vc, *, limit: torch.Tensor,

@@ -1,5 +1,6 @@
-"""The transformer block of the serving steps, and the stacked-layers
-layout (twin of ``repro/models/blocks.py``'s attention block).
+"""The transformer block of the scoring forward and the serving steps, and
+the stacked-layers layout (twin of ``repro/models/blocks.py``'s attention
+block).
 
 Every leaf of ``params["layers"]`` carries a leading ``[L, ...]`` axis, as
 the JAX package stacks its layers for ``scan``: the two trees compare leaf
@@ -40,6 +41,17 @@ def block_init(generator: torch.Generator, cfg: ModelConfig, device=None):
         "ln2": norm_init(cfg.d_model, dtype, device),
         "mlp": mlp_init(generator, cfg, device),
     }
+
+
+def block_apply(params, cfg: ModelConfig, h, *, positions, causal=True):
+    """Full self-attention block over h [B, S, d] (the scoring forward).
+    Returns (h, aux): aux is a zero f32 scalar, as the JAX package's dense
+    block gives (only its MoE blocks have an auxiliary loss)."""
+    x = norm_apply(params["ln1"], h)
+    h = h + attn.attn_apply(params["attn"], cfg, x, positions=positions,
+                            causal=causal)
+    h = h + mlp_apply(params["mlp"], cfg, norm_apply(params["ln2"], h))
+    return h, torch.zeros((), dtype=torch.float32, device=h.device)
 
 
 def block_paged_decode(params, cfg: ModelConfig, h, layer_cache, *, pos,

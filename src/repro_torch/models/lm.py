@@ -1,13 +1,14 @@
-"""The decoder-only LM's serving entry points (twin of the attention-pattern
-half of ``repro/models/lm.py``): init, packed prefill into a paged KV cache
-and one decode step against it.
+"""The decoder-only LM (twin of the attention-pattern half of
+``repro/models/lm.py``): init; the scoring forward (``lm_forward``) and its
+next-token loss (``loss_fn``); and the serving steps, packed prefill into a
+paged KV cache and one decode step against it.
 
-Neither step moves a tensor to the host: the caller reads only the logits
-it samples from.
+No step moves a tensor to the host: the caller reads only the logits it
+samples from.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import torch
 
@@ -15,6 +16,7 @@ from repro_torch._compat import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.blocks import (
+    block_apply,
     block_init,
     block_paged_decode,
     block_prefill_packed,
@@ -57,6 +59,43 @@ def _unembed(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     """Tied unembedding: h [B, S, d] -> logits [B, S, padded_vocab]."""
     _check_supported(cfg)
     return torch.matmul(h, params["embed"].to(h.dtype).T)
+
+
+def lm_forward(params, cfg: ModelConfig, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The scoring forward: ``batch["tokens"]`` [B, S] (a tensor or a numpy
+    array, moved to the params' device) -> (logits [B, S, padded_vocab],
+    aux), with causal full self-attention in every layer as
+    ``cfg.attn_impl`` picks it.  aux is the mean of the blocks' auxiliary
+    losses: zero, as the port has dense blocks only."""
+    tokens = torch.as_tensor(batch["tokens"], device=params["embed"].device)
+    h = _embed_tokens(params, cfg, tokens)
+    b, s = tokens.shape
+    positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
+    auxs = []
+    for l in range(cfg.n_layers):
+        h, a = block_apply(layer_params(params["layers"], l), cfg, h,
+                           positions=positions)
+        auxs.append(a)
+    h = norm_apply(params["final_norm"], h)
+    return _unembed(params, cfg, h), torch.stack(auxs).mean()
+
+
+def loss_fn(params, cfg: ModelConfig, batch, aux_weight: float = 0.01):
+    """Next-token cross-entropy of the scoring forward.  The padded vocab
+    ids can never be labels, so their logits are set to -1e30 in f32
+    before the logsumexp.  Returns (nll + aux_weight * aux, {"nll",
+    "aux"})."""
+    logits, aux = lm_forward(params, cfg, batch)
+    logits = logits[:, :-1].float()
+    tokens = torch.as_tensor(batch["tokens"], device=logits.device)
+    labels = tokens[:, 1:].long()
+    if cfg.padded_vocab != cfg.vocab_size:
+        pad = torch.arange(cfg.padded_vocab, device=logits.device) >= cfg.vocab_size
+        logits = logits.masked_fill(pad, attn_mod.NEG)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    nll = (logz - gold).mean()
+    return nll + aux_weight * aux, {"nll": nll, "aux": aux}
 
 
 def paged_decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor,

@@ -1,5 +1,6 @@
-"""Model facade of the serving steps (twin of ``repro/models/registry.py``'s
-paged half): params, and the step functions the engine calls."""
+"""Model facade (twin of ``repro/models/registry.py`` for the attention
+family): params, the scoring forward and loss, and the serving step
+functions the engine calls."""
 from __future__ import annotations
 
 import torch
@@ -12,6 +13,17 @@ from repro_torch.models import lm as lm_mod
 def init_params(cfg: ModelConfig, seed: int, device=None):
     """Random params from ``seed`` (the JAX package's tree layout)."""
     return lm_mod.lm_init(cfg, seed, device)
+
+
+def loss_fn(cfg: ModelConfig):
+    """(params, batch) -> (loss, {"nll", "aux"}): next-token cross-entropy
+    of the scoring forward."""
+    return lambda params, batch: lm_mod.loss_fn(params, cfg, batch)
+
+
+def forward_fn(cfg: ModelConfig):
+    """(params, batch) -> logits [B, S, padded_vocab]."""
+    return lambda params, batch: lm_mod.lm_forward(params, cfg, batch)[0]
 
 
 def paged_decode_fn(cfg: ModelConfig, page_size: int):

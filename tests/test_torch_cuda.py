@@ -13,7 +13,11 @@ the pipelined strip GEMM must give the same bits as the fused conv and the
 plain strip GEMM.  The paged-attention kernel runs the CPU parity tests'
 cases and smollm-360m's serving shapes, the trash-page, empty-cache and
 bad-page-id cases, its rejections, dispatch on the card, and a served
-request of the smoke model.
+request of the smoke model.  The flash-attention kernel runs the JAX flash
+tests' sweep (f32 and bf16, JAX's tolerances), the GQA head map for
+H % KV != 0, the top-left causal mask when Sq != Sk, large logits,
+smollm-360m's scoring shape, its rejections, and one launch per layer
+through ``attn_apply`` and the smoke model's forward.
 """
 import numpy as np
 import pytest
@@ -41,7 +45,13 @@ from repro_torch.kernels.conv_gemm import (
     conv2d_fused_ref,
 )
 from repro_torch.kernels.flash_attn import (
+    FLASH_ATTENTION,
     PAGED_ATTENTION,
+    flash_attention,
+    flash_attention_cuda,
+    flash_attention_gqa_ref,
+    flash_attention_ref,
+    flash_smem_bytes,
     paged_attention,
     paged_attention_cuda,
     paged_attention_ref,
@@ -268,11 +278,12 @@ def test_each_launch_counts_once(dev):
     conv2d_fused_banded_cuda(x, values, idx, kh=3, kw=3, pad=1)
     colwise_nm_matmul_cuda(_x(1, 1, 4, 72, torch.float32, dev)[0, 0], values, idx)
     paged_attention_cuda(*_paged(dev, torch.float32), page_size=8)
+    flash_attention_cuda(*_flash_qkv(1, 8, 8, 2, 2, 16, torch.float32, dev))
     torch.cuda.synchronize()
     assert {k.name: k.launches for k in KERNELS} == {
         "conv2d_fused": 2, "im2col_pack": 1, "colwise_nm_matmul_strips": 1,
         "colwise_nm_matmul": 1, "colwise_nm_matmul_strips_pipelined": 1,
-        "conv2d_fused_banded": 1, "paged_attention": 1}
+        "conv2d_fused_banded": 1, "flash_attention": 1, "paged_attention": 1}
 
 
 @pytest.mark.parametrize("kernel,op,name,args", [
@@ -601,3 +612,171 @@ def test_served_requests_launch_the_kernels(dev, tmp_path):
             assert np.array_equal(toks, runs["cuda"][uid]), uid
     finally:
         dispatch.set_db(None)
+
+
+# ---------------------------------------------------------------------------
+# Flash attention
+# ---------------------------------------------------------------------------
+
+# tests/test_flash_attn.py's sweep: (bh, sq, sk, d, causal)
+FLASH_SWEEP = [
+    (2, 32, 32, 16, True),
+    (1, 16, 48, 16, False),   # cross-attn-like
+    (2, 24, 24, 32, True),    # ragged q tiles
+    (1, 8, 8, 16, True),      # tiles > dims
+    (3, 33, 17, 16, True),    # ragged both, Sq > Sk: the top-left mask
+]
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}  # JAX's TOL, atol = rtol
+
+
+def _flash_qkv(b, sq, sk, h, kv, d, dtype, dev, seed=0):
+    """q [b, sq, h, d], k/v [b, sk, kv, d] on the card from a numpy seed."""
+    rng = np.random.default_rng(seed)
+
+    def f(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                                ).to(dev, dtype)
+
+    return f(b, sq, h, d), f(b, sk, kv, d), f(b, sk, kv, d)
+
+
+def _flash_close(got, want, dtype):
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,sq,sk,d,causal", FLASH_SWEEP)
+def test_flash_kernel_matches_plain_over_the_sweep(dev, bh, sq, sk, d, causal,
+                                                   dtype):
+    """The Pallas kernel's layout: q [BH, Sq, D], k/v [BH, Sk, D]."""
+    q, k, v = (t[:, :, 0] for t in _flash_qkv(bh, sq, sk, 1, 1, d, dtype, dev,
+                                               seed=bh * sq + sk))
+    _flash_close(flash_attention_cuda(q, k, v, causal=causal),
+                 flash_attention_ref(q, k, v, causal=causal), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal", [
+    (2, 16, 16, 4, 4, 16, True),
+    (2, 16, 16, 4, 2, 16, True),
+    (2, 16, 16, 5, 2, 16, True),     # H % KV != 0: heads map to [0,0,0,1,1]
+    (2, 33, 17, 5, 2, 16, True),     # and the top-left mask with Sq > Sk
+    (1, 17, 70, 6, 3, 32, False),    # two K tiles, ragged
+    (1, 130, 130, 3, 1, 48, True),   # three q tiles, D not a power of two
+    (1, 70, 70, 2, 1, 128, True),    # the widest head the kernel takes
+])
+def test_flash_gqa_layout_and_head_map(dev, b, sq, sk, h, kv, d, causal,
+                                       dtype):
+    q, k, v = _flash_qkv(b, sq, sk, h, kv, d, dtype, dev, seed=h * 7 + kv)
+    reset_launch_counts()
+    got = flash_attention(q, k, v, causal=causal)
+    _flash_close(got, flash_attention_gqa_ref(q, k, v, causal=causal), dtype)
+    assert FLASH_ATTENTION.launches == 1
+    assert FLASH_ATTENTION.last_smem_bytes == flash_smem_bytes(d)
+
+
+def test_flash_head_map_is_not_h_over_g(dev):
+    """At H 5, KV 2 the map (h * KV) // H gives [0, 0, 0, 1, 1]; the
+    kernel's output for head 2 is KV head 0's, which h // (H // KV) = 1
+    would not give."""
+    q, k, v = _flash_qkv(1, 8, 8, 5, 2, 16, torch.float32, dev, seed=3)
+    got = flash_attention_cuda(q, k, v, causal=True)
+    head2 = flash_attention_ref(q[:, :, 2], k[:, :, 0], v[:, :, 0])
+    _flash_close(got[:, :, 2], head2, torch.float32)
+    wrong = flash_attention_ref(q[:, :, 2], k[:, :, 1], v[:, :, 1])
+    assert float((got[:, :, 2] - wrong).abs().max()) > 1e-2
+
+
+def test_flash_large_logits_stay_finite(dev):
+    q = torch.full((1, 8, 16), 30.0, device=dev)
+    k = torch.full((1, 8, 16), 30.0, device=dev)
+    v = _flash_qkv(1, 8, 1, 1, 1, 16, torch.float32, dev)[0][:, :, 0]
+    for causal in (False, True):
+        got = flash_attention_cuda(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got).all())
+        _flash_close(got, flash_attention_ref(q, k, v, causal=causal),
+                     torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_at_the_scoring_shape(dev, dtype):
+    """smollm-360m's scoring forward: B 4, S 2048, H 15, KV 5, D 64."""
+    q, k, v = _flash_qkv(4, 2048, 2048, 15, 5, 64, dtype, dev, seed=5)
+    _flash_close(flash_attention_cuda(q, k, v, causal=True),
+                 flash_attention_gqa_ref(q, k, v, causal=True), dtype)
+
+
+def test_flash_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    q, k, v = _flash_qkv(1, 8, 8, 2, 2, 256, torch.float32, dev)
+    assert flash_smem_bytes(256) is None
+    with pytest.raises(ValueError, match="head_dim 256"):
+        flash_attention_cuda(q, k, v)
+    with pytest.raises(ValueError, match="head_dim 256"):
+        flash_attention(q, k, v)
+    q, k, v = _flash_qkv(1, 8, 8, 2, 2, 16, torch.float32, dev)
+    with pytest.raises(TypeError, match="dtype"):
+        flash_attention_cuda(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="shapes"):
+        flash_attention_cuda(q, k[:, :, :, :8].contiguous(), v)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_cuda(q.transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        flash_attention_cuda(q.cpu(), k.cpu(), v.cpu())
+    reset_launch_counts()
+    for call in (flash_attention, flash_attention_cuda):
+        with pytest.raises(RuntimeError, match="forward only"):
+            call(q.requires_grad_(), k, v)
+    with torch.no_grad():
+        flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert FLASH_ATTENTION.launches == 1
+
+
+def test_attn_apply_and_forward_launch_flash_once_per_layer(dev):
+    """Under attn_impl="pallas" each attn_apply launches the flash kernel
+    once and nothing else (dense smoke linears are plain matmuls); the
+    model's logits equal the naive branch's; under "naive" and "chunked"
+    the kernel is not launched."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import attention as tattn
+    from repro_torch.models import registry as treg
+    from repro_torch.models.blocks import layer_params
+    from repro_torch.models.lm import lm_init
+
+    cfg = smoke_config("smollm-360m").with_(attn_impl="pallas")
+    params = lm_init(cfg, 0, device=dev)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((2, 40, cfg.d_model),
+                                             dtype=np.float32)).to(dev)
+    pos = torch.arange(40, device=dev)[None].expand(2, 40)
+    attn0 = layer_params(params["layers"], 0)["attn"]
+    reset_launch_counts()
+    with torch.no_grad():
+        y = tattn.attn_apply(attn0, cfg, x, positions=pos)
+    torch.cuda.synchronize()
+    assert {k.name: k.launches for k in KERNELS if k.launches} == {
+        "flash_attention": 1}
+    y_naive = tattn.attn_apply(attn0, cfg.with_(attn_impl="naive"), x,
+                               positions=pos)
+    _flash_close(y, y_naive, torch.float32)
+
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (2, 40)).astype(np.int32)).to(dev)}
+    want = treg.forward_fn(cfg.with_(attn_impl="naive"))(params, batch)
+    chunked = treg.forward_fn(cfg.with_(attn_impl="chunked", attn_chunk=8))(
+        params, batch)
+    torch.cuda.synchronize()
+    assert FLASH_ATTENTION.launches == 1
+    reset_launch_counts()
+    with torch.no_grad():
+        got = treg.forward_fn(cfg)(params, batch)
+    torch.cuda.synchronize()
+    assert {k.name: k.launches for k in KERNELS if k.launches} == {
+        "flash_attention": cfg.n_layers}
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-4 * scale
+    assert float((chunked - want).abs().max()) <= 1e-4 * scale

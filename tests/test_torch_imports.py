@@ -22,6 +22,11 @@ def _modules():
 
 
 def test_importing_every_module_loads_no_jax_or_repro():
+    mods = _modules()
+    for m in ("repro_torch.data", "repro_torch.data.pipeline",
+              "repro_torch.kernels.flash_attn.ops",
+              "repro_torch.kernels.flash_attn.kernel"):
+        assert m in mods, m
     code = (
         "import importlib, sys\n"
         f"for m in {_modules()!r}:\n"
@@ -117,7 +122,8 @@ def test_kernel_launchers_never_take_cpu_tensors():
         colwise_nm_matmul_strips_pipelined_cuda)
     from repro_torch.kernels.conv_gemm import (
         conv2d_fused_banded_cuda, conv2d_fused_cuda)
-    from repro_torch.kernels.flash_attn import paged_attention_cuda
+    from repro_torch.kernels.flash_attn import (flash_attention_cuda,
+                                                paged_attention_cuda)
     from repro_torch.kernels.im2col_pack import im2col_pack_cuda
 
     reset_launch_counts()
@@ -144,6 +150,10 @@ def test_kernel_launchers_never_take_cpu_tensors():
         paged_attention_cuda(q, kv, kv, pages, pages,
                              torch.zeros((1, 1), dtype=torch.int32),
                              torch.zeros((1,), dtype=torch.int32), page_size=8)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        flash_attention_cuda(q, kv, kv)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        flash_attention_cuda(q[:, :, 0], kv[:, :, 0], kv[:, :, 0])
     assert all(k.launches == 0 for k in KERNELS)
 
 
@@ -158,6 +168,7 @@ def test_wrappers_take_no_cpu_fallback_on_a_device_tensor(tdb):
     from repro_torch.kernels.conv_gemm import (
         conv2d_fused, conv2d_fused_banded, conv2d_two_kernel,
         conv2d_two_kernel_pipelined)
+    from repro_torch.kernels.flash_attn import flash_attention
 
     meta = dict(device="meta")
     x = torch.zeros((8, 2, 6, 6), **meta)
@@ -176,6 +187,9 @@ def test_wrappers_take_no_cpu_fallback_on_a_device_tensor(tdb):
         lambda: linear_apply({"values": values, "idx": idx},
                              torch.zeros((4, 72), **meta),
                              impl="compressed_pallas"),
+        lambda: flash_attention(torch.zeros((1, 8, 4, 16), **meta),
+                                torch.zeros((1, 8, 2, 16), **meta),
+                                torch.zeros((1, 8, 2, 16), **meta)),
     ]
     for call in calls:
         with pytest.raises(ValueError, match="CUDA tensor"):

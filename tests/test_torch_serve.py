@@ -105,14 +105,15 @@ def _logits_close(got, want):
 
 
 def test_configs_match_jax():
-    for mine, theirs in ((get_config("smollm-360m"), j_get_config("smollm-360m")),
-                         (smoke_config("smollm-360m"),
-                          j_smoke_config("smollm-360m"))):
-        for f in dataclasses.fields(mine):
-            if f.name != "sparsity":
-                assert getattr(mine, f.name) == getattr(theirs, f.name), f.name
-        for prop in ("resolved_head_dim", "padded_heads", "padded_vocab"):
-            assert getattr(mine, prop) == getattr(theirs, prop), prop
+    for name in ("smollm-360m", "qwen2-0.5b"):
+        for mine, theirs in ((get_config(name), j_get_config(name)),
+                             (smoke_config(name), j_smoke_config(name))):
+            for f in dataclasses.fields(mine):
+                if f.name != "sparsity":
+                    assert getattr(mine, f.name) == getattr(theirs, f.name), (
+                        name, f.name)
+            for prop in ("resolved_head_dim", "padded_heads", "padded_vocab"):
+                assert getattr(mine, prop) == getattr(theirs, prop), prop
     assert get_config("smollm-360m").padded_heads == 15
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("qwen2-7b")
