@@ -9,8 +9,11 @@ Phases:
               path's shapes: the five pruned-conv shapes of resnet-tiny at
               batch 256 (f32, and one bf16 case) for the conv kernels, and
               smollm-360m's MLP widths (960 -> 2560, 2560 -> 960) at 256
-              rows for the sparse linear kernel; kernel, plain-version and
-              library-call times beside each kernel's bound
+              rows for the two sparse linear kernels, the tiled one (T a
+              multiple of 64) equal bit for bit to the other (f32, bf16);
+              kernel, plain-version and library-call times beside each
+              kernel's bound; then both linear kernels timed at 4, 256 and
+              8192 rows beside their bound, plain version and torch.matmul
   4. main   : pruned resnet-tiny inference through ``vision_apply`` at batch
               256: (a) the default plan with an empty profile DB, (b) the
               plan ``plan_params(profile=True)`` races on the card, with every
@@ -21,7 +24,9 @@ Phases:
               and the host cost of the dispatch lookup per conv call
   5. linear : compressed linear layers (serving's sparsity config, tile 8
               and tile 12) through ``linear_apply``'s dispatch, by the
-              heuristic and by a profile, against the plain version
+              heuristic (the tiled kernel for T = d_out, the other for tiles
+              8 and 12) and by a profile racing both families, against the
+              plain version
   6. paged  : the paged-attention kernel against its plain version at
               smollm-360m's serving shapes (H 15, KV 5, D 64, page size 16;
               B 4 and 8; ragged lengths with 0, one page and a ragged last
@@ -30,10 +35,11 @@ Phases:
   7. serve  : pruned smollm-360m at its published widths (32 layers, random
               weights from the seed) served through ``Scheduler(paged=True)``:
               8 synthetic requests, greedy; request, page-pool and
-              launch-count checks (the flash kernel launched 0 times), a
+              launch-count checks (every linear through the tiled kernel,
+              the other linear kernel and flash launched 0 times), a
               teacher-forced replay of every step through the plain
               versions, host times per step and the device time of one
-              decode step
+              decode step, with both linear kernels timed at its rows
   8. flash  : the flash-attention kernel against its plain version over the
               JAX flash tests' sweep, the (5, 2) GQA map with the top-left
               mask, and smollm-360m's scoring shape (B 4, S 2048, H 15,
@@ -42,10 +48,11 @@ Phases:
   9. score  : the same pruned smollm-360m scored under attn_impl="pallas"
               through ``registry.loss_fn`` and ``forward_fn`` on 2 batches of
               4 x 2048 tokens of the port's ``SyntheticLM``: exact launch
-              counts (32 flash and 224 linear launches per forward), logits
-              and NLL against a replay through the plain versions, host and
-              device ms per forward, tokens/s, idle share and the kernels'
-              shares of the device time
+              counts (32 flash and 224 tiled-linear launches per forward),
+              logits and NLL against a replay through the plain versions,
+              the NLLs equal to the ones the other linear kernel gave (its
+              bits are the same), host and device ms per forward, tokens/s,
+              idle share and the kernels' shares of the device time
  10. report : one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
               line last
 
@@ -73,6 +80,10 @@ BATCH = 256
 N_BATCHES = 3
 HB = 2  # strips per band / per block: the banded and pipelined default geometry
 LINEAR_ROWS = 256
+# phase 3's row sweep of both linear kernels: decode's 4 rows, phase 3's 256
+# and scoring's 8192, at smollm-360m's MLP widths with T = d_out, f32
+SWEEP_ROWS = (4, 256, 8192)
+SWEEP_WIDTHS = ((960, 2560), (2560, 960))
 # (d_in, d_out, tile, dtype): smollm-360m's MLP widths under serving's
 # SparsityConfig(tile=None), so T = d_out; then tile 8, and bf16
 LINEAR_CASES = [(960, 2560, None, torch.float32), (2560, 960, None, torch.float32),
@@ -112,6 +123,12 @@ FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 # context), each scored by loss_fn and forward_fn
 SCORE_BATCH, SCORE_SEQ, SCORE_BATCHES = 4, 2048, 2
 SCORE_NLL_RTOL = 1e-4  # of the replay's NLL
+# the two scoring NLLs the other linear kernel gave on the same seeded
+# weights and tokens (PERF.md): the tiled kernel's bits are its bits
+SCORE_NLLS = (11.006677627563477, 10.987235069274902)
+# the kernel each compressed-linear family launches
+LINEAR_FAMILY_KERNEL = {"compressed_tiled": "colwise_nm_matmul_tiled",
+                        "compressed_pallas": "colwise_nm_matmul"}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -319,14 +336,27 @@ def check_kernels(params, cfg, dev):
     return tot
 
 
+def linear_bound(rows, values, idx, dtype) -> tuple:
+    """(ms, "bytes" | "operations") of one sparse linear call: the kept
+    columns of x, values, idx and the output moved once; 2 FLOPs per kept
+    row per output."""
+    n_tiles, k_kept, tile = values.shape
+    isz = values.element_size()
+    nb = (rows * torch.unique(idx).numel() * isz + values.numel() * isz
+          + idx.numel() * idx.element_size() + rows * n_tiles * tile * isz)
+    return bound_ms(nb, 2 * rows * k_kept * n_tiles * tile, dtype)
+
+
 def check_linear_kernel(dev, tot):
-    """Phase 3, the sparse linear kernel at smollm-360m's MLP widths with
-    serving's sparsity config (whole-d_out tiles), and at tile 8."""
+    """Phase 3, the sparse linear kernels at smollm-360m's MLP widths with
+    serving's sparsity config (whole-d_out tiles), and at tile 8: the tiled
+    kernel wherever T is a multiple of 64, bit for bit equal to the other."""
     from repro_torch.core.formats import ColwiseMeta, unpack_colwise
     from repro_torch.core.pruning import SparsityConfig
     from repro_torch.core.sparse_linear import linear_init
-    from repro_torch.kernels.colwise_nm import (colwise_nm_matmul_cuda,
-                                                colwise_nm_matmul_ref)
+    from repro_torch.kernels.colwise_nm import (TILED_BN, colwise_nm_matmul_cuda,
+                                                colwise_nm_matmul_ref,
+                                                colwise_nm_matmul_tiled_cuda)
 
     gen = torch.Generator().manual_seed(SEED)
     rng = np.random.default_rng(SEED + 11)
@@ -338,27 +368,92 @@ def check_linear_kernel(dev, tot):
         n_tiles, k_kept, t = values.shape
         x = torch.from_numpy(rng.standard_normal((LINEAR_ROWS, d_in),
                                                  dtype=np.float32)).to(dev, dtype)
-        isz = x.element_size()
         rtol = F32_RTOL if dtype == torch.float32 else BF16_RTOL
         tag = (f"{d_in}->{d_out} T={t} k_kept={k_kept} "
                f"{str(dtype).replace('torch.', '')} rows={LINEAR_ROWS}")
+        want = colwise_nm_matmul_ref(x, values, idx)
         y_k = colwise_nm_matmul_cuda(x, values, idx)
-        err = max_err(y_k, colwise_nm_matmul_ref(x, values, idx),
-                      f"colwise_nm_matmul {tag}", rtol)
+        err = max_err(y_k, want, f"colwise_nm_matmul {tag}", rtol)
         w_dense = unpack_colwise(values, idx, ColwiseMeta(
             d_in, d_out, t, d_in, k_kept))
-        nb = (LINEAR_ROWS * torch.unique(idx).numel() * isz
-              + values.numel() * isz + idx.numel() * idx.element_size()
-              + LINEAR_ROWS * d_out * isz)
+        library = lambda: torch.matmul(x, w_dense)  # noqa: E731
         r = measure(lambda: colwise_nm_matmul_cuda(x, values, idx),
-                    lambda: colwise_nm_matmul_ref(x, values, idx),
-                    lambda: torch.matmul(x, w_dense))
-        r["bound_ms"], by = bound_ms(nb, 2 * LINEAR_ROWS * k_kept * d_out, dtype)
+                    lambda: colwise_nm_matmul_ref(x, values, idx), library)
+        r["bound_ms"], by = linear_bound(LINEAR_ROWS, values, idx, dtype)
         # the kernel list sums the two serving widths; tile 8 and bf16 are
         # checked and printed
         report(tot, "colwise_nm_matmul", tag, r, by, err, dtype,
                count=tile is None)
+        if t % TILED_BN:
+            continue  # tile 8 stays on the kernel above
+        y_t = colwise_nm_matmul_tiled_cuda(x, values, idx)
+        err = max_err(y_t, want, f"colwise_nm_matmul_tiled {tag}", rtol)
+        check(torch.equal(y_t, y_k), f"colwise_nm_matmul_tiled {tag}: not "
+              "bit-identical to colwise_nm_matmul")
+        r = measure(lambda: colwise_nm_matmul_tiled_cuda(x, values, idx),
+                    lambda: colwise_nm_matmul_ref(x, values, idx), library)
+        r["bound_ms"], by = linear_bound(LINEAR_ROWS, values, idx, dtype)
+        report(tot, "colwise_nm_matmul_tiled", tag, r, by, err, dtype,
+               count=tile is None)
     return tot
+
+
+def sweep_linear_kernels(dev) -> None:
+    """Phase 3, both linear kernels at decode's, phase 3's and scoring's row
+    counts at smollm-360m's MLP widths (T = d_out, f32): device and eager
+    times, the bound, the plain version and ``torch.matmul`` of the dense
+    masked weight (TF32 off), which does twice the sparse work."""
+    from repro_torch.core.formats import ColwiseMeta, unpack_colwise
+    from repro_torch.core.pruning import SparsityConfig
+    from repro_torch.core.sparse_linear import linear_init
+    from repro_torch.kernels.colwise_nm import (colwise_nm_matmul_cuda,
+                                                colwise_nm_matmul_ref,
+                                                colwise_nm_matmul_tiled_cuda)
+
+    gen = torch.Generator().manual_seed(SEED + 12)
+    rng = np.random.default_rng(SEED + 13)
+    sp = SparsityConfig(sparsity=0.5, m=None, tile=None, min_dim=64,
+                        format="compressed_pallas")
+    recs = []
+    for d_in, d_out in SWEEP_WIDTHS:
+        layer = linear_init(gen, d_in, d_out, sp, device=dev)
+        values, idx = layer["values"], layer["idx"]
+        k_kept = values.shape[1]
+        w_dense = unpack_colwise(values, idx, ColwiseMeta(
+            d_in, d_out, d_out, d_in, k_kept))
+        for rows in SWEEP_ROWS:
+            x = torch.from_numpy(rng.standard_normal(
+                (rows, d_in), dtype=np.float32)).to(dev)
+            y_t = colwise_nm_matmul_tiled_cuda(x, values, idx)
+            y_k = colwise_nm_matmul_cuda(x, values, idx)
+            max_err(y_t, colwise_nm_matmul_ref(x, values, idx),
+                    f"colwise_nm_matmul_tiled {d_in}->{d_out} rows={rows}",
+                    F32_RTOL)
+            check(torch.equal(y_t, y_k), f"colwise_nm_matmul_tiled {d_in}->"
+                  f"{d_out} rows={rows}: not bit-identical")
+            tiled = lambda: colwise_nm_matmul_tiled_cuda(x, values, idx)  # noqa: E731
+            old = lambda: colwise_nm_matmul_cuda(x, values, idx)  # noqa: E731
+            bound, by = linear_bound(rows, values, idx, torch.float32)
+            rec = {"d_in": d_in, "d_out": d_out, "rows": rows,
+                   "k_kept": k_kept, "tiled_ms": time_ms(tiled),
+                   "tiled_eager_ms": eager_ms(tiled), "old_ms": time_ms(old),
+                   "old_eager_ms": eager_ms(old),
+                   "plain_ms": time_ms(lambda: colwise_nm_matmul_ref(
+                       x, values, idx), iters=5),
+                   "matmul_ms": time_ms(lambda: torch.matmul(x, w_dense)),
+                   "bound_ms": bound, "bound_by": by,
+                   "sparse_gflop": 2 * rows * k_kept * d_out / 1e9}
+            recs.append(rec)
+            print(f"  sweep {d_in}->{d_out} rows={rows}: tiled "
+                  f"ms={rec['tiled_ms']:.5f} (eager {rec['tiled_eager_ms']:.5f}) "
+                  f"colwise_nm_matmul ms={rec['old_ms']:.5f} (eager "
+                  f"{rec['old_eager_ms']:.5f}) plain_ms={rec['plain_ms']:.5f} "
+                  f"torch.matmul ms={rec['matmul_ms']:.5f} (dense, "
+                  f"{2 * rec['sparse_gflop']:.3f} GFLOP: twice the sparse "
+                  f"work) bound_ms={bound:.6f} ({by}); tiled "
+                  f"{rec['sparse_gflop'] / rec['tiled_ms']:.2f} TFLOP/s; "
+                  "bit-identical", flush=True)
+    print("SWEEP " + json.dumps(recs), flush=True)
 
 
 def max_err(got, want, what, rtol) -> float:
@@ -385,6 +480,8 @@ LIBRARY_CALLS = {
     "colwise_nm_matmul": "torch.matmul of x [256, d_in] by the dense masked "
                          "[d_in, d_out] weight (TF32 off); every d_in row "
                          "instead of the kept ones",
+    "colwise_nm_matmul_tiled": "torch.matmul of x [256, d_in] by the dense "
+                               "masked weight, as for colwise_nm_matmul",
     "colwise_nm_matmul_strips_pipelined": "torch.matmul of the dense masked "
                                           "[O, K] weight by the [S, K, V] "
                                           "strips, as for the strip GEMM",
@@ -705,20 +802,22 @@ def dispatch_host_cost(params, cfg, dev) -> None:
           f"memoised lookup)", flush=True)
 
 
-def run_linear_path(dev) -> int:
+def run_linear_path(dev) -> dict:
     """Phase 5: compressed linear layers built with serving's sparsity
     config (and tiles 8 and 12) through ``linear_apply``'s dispatch on the
-    card, first with an empty DB (the heuristic), then with the layer
-    profiled.  Returns the sparse-linear launches of the phase."""
+    card, first with an empty DB (the heuristic: the tiled kernel where T is
+    a multiple of 64, the other kernel for tiles 8 and 12), then with the
+    layer profiled among both families.  Returns the launches of each
+    sparse-linear kernel over the phase."""
     from repro_torch import dispatch
     from repro_torch.core.pruning import SparsityConfig
     from repro_torch.core.sparse_linear import linear_apply, linear_init
     from repro_torch.kernels import KERNELS, reset_launch_counts
-    from repro_torch.kernels.colwise_nm import colwise_nm_matmul_ref
+    from repro_torch.kernels.colwise_nm import TILED_BN, colwise_nm_matmul_ref
 
     gen = torch.Generator().manual_seed(SEED + 3)
     rng = np.random.default_rng(SEED + 4)
-    launches = 0
+    launches = {name: 0 for name in LINEAR_FAMILY_KERNEL.values()}
     db_path = PROFILE_DB.with_suffix(".linear.json")
     for d_in, d_out, tile in DISPATCH_LINEAR_CASES:
         sp = SparsityConfig(sparsity=0.5, m=None, tile=tile, min_dim=64,
@@ -728,6 +827,8 @@ def run_linear_path(dev) -> int:
                                                  dtype=np.float32)).to(dev)
         key = dispatch.linear_key_from(x.shape, layer["values"].shape, x.dtype)
         want = colwise_nm_matmul_ref(x, layer["values"], layer["idx"])
+        t = layer["values"].shape[2]
+        heuristic = "compressed_tiled" if t % TILED_BN == 0 else "compressed_pallas"
         db_path.unlink(missing_ok=True)
         db = dispatch.ProfileDB(path=db_path)
         dispatch.set_db(db)
@@ -738,27 +839,33 @@ def run_linear_path(dev) -> int:
                 check(list(plan) == [key.token], f"linear plan {plan}")
             spec, source = dispatch.resolve(key, param_keys=SPARSE, device=dev)
             check(source == rung and spec.backend == "cuda"
-                  and (rung == "db" or spec.name == "compressed_pallas"),
+                  and (rung == "db" or spec.name == heuristic),
                   f"linear {key.token} resolves {spec.name} ({source})")
+            kernel = LINEAR_FAMILY_KERNEL[spec.name.split("@")[0]]
             linear_apply(layer, x)  # warm
             torch.cuda.synchronize()
             reset_launch_counts()
             y = linear_apply(layer, x)
             torch.cuda.synchronize()
             counts = {k.name: k.launches for k in KERNELS if k.launches}
-            check(counts == {"colwise_nm_matmul": 1},
-                  f"linear launches {counts}")
-            launches += counts["colwise_nm_matmul"]
+            check(counts == {kernel: 1}, f"linear launches {counts}, want "
+                  f"{kernel} once")
+            launches[kernel] += 1
             e = rel_err(y, want)
             check(e <= F32_RTOL, f"linear {key.token} vs plain: {e}")
             timed = ""
             if rung == "db":
                 rec = db.get(key.token)
+                families = {n.split("@")[0] for n in rec["all"]}
+                want_families = ({"compressed_tiled", "compressed_pallas"}
+                                 if t % TILED_BN == 0 else {"compressed_pallas"})
+                check(families == want_families,
+                      f"linear {key.token} profiled {sorted(rec['all'])}")
                 timed = "; candidates (us): " + " ".join(
                     f"{n}={us:.2f}" for n, us in
                     sorted(rec["all"].items(), key=lambda kv: kv[1]))
-            print(f"  linear {d_in}->{d_out} T={layer['values'].shape[2]}: "
-                  f"{key.token} -> {spec.name} ({source}); 1 launch; rel err "
+            print(f"  linear {d_in}->{d_out} T={t}: {key.token} -> "
+                  f"{spec.name} ({source}); 1 launch of {kernel}; rel err "
                   f"vs plain {e:.3e}{timed}", flush=True)
         db_path.unlink(missing_ok=True)
     dispatch.set_db(None)
@@ -882,7 +989,8 @@ def run_serving(dev, cfg, params) -> dict:
     of the served run."""
     from repro_torch import dispatch
     from repro_torch.kernels import KERNELS, reset_launch_counts
-    from repro_torch.kernels.colwise_nm import colwise_nm_matmul_cuda
+    from repro_torch.kernels.colwise_nm import (colwise_nm_matmul_cuda,
+                                                colwise_nm_matmul_tiled_cuda)
     from repro_torch.kernels.flash_attn import (FLASH_ATTENTION,
                                                 paged_attention_cuda)
     from repro_torch.models import lm
@@ -949,7 +1057,7 @@ def run_serving(dev, cfg, params) -> dict:
     check(st["pages_mapped"] == 0, f"{st['pages_mapped']} pages leaked")
     n_dec, n_pre = st["decode_steps"], st["prefill_calls"]
     want = {"paged_attention": cfg.n_layers * n_dec,
-            "colwise_nm_matmul": len(LINEARS) * cfg.n_layers * (n_dec + n_pre)}
+            "colwise_nm_matmul_tiled": len(LINEARS) * cfg.n_layers * (n_dec + n_pre)}
     print(f"  served {len(comps)} requests (prompts {SERVE_PROMPTS}, budgets "
           f"{SERVE_BUDGETS}, {SERVE_SLOTS} slots, page size {PAGED_PS}): "
           f"{n_pre} packed prefills, {n_dec} decode steps, "
@@ -963,11 +1071,11 @@ def run_serving(dev, cfg, params) -> dict:
     check(counts == want, f"serving launches {counts}, want {want}")
     check(FLASH_ATTENTION.launches == 0, "the served run launched flash")
     # exact counts: every attention and linear call launched its kernel, so
-    # no plain version ran on the card
+    # no plain version ran on the card, and colwise_nm_matmul did not run
     print("  no plain version ran: every one of the "
           f"{want['paged_attention']} attention and "
-          f"{want['colwise_nm_matmul']} linear calls launched its kernel",
-          flush=True)
+          f"{want['colwise_nm_matmul_tiled']} linear calls launched its "
+          "kernel, every linear the tiled one", flush=True)
 
     decode_tokens = st["generated_tokens"] - len(comps)
     p50, p99 = latency_percentiles(comps)
@@ -1019,14 +1127,15 @@ def run_serving(dev, cfg, params) -> dict:
             params, cfg, cache, tok_d, pos_d, tab_d, PAGED_PS), iters=3)
     layer0 = layer_params(layers, 0)
     rng = np.random.default_rng(SEED + 9)
-    lin_ms = 0.0
+    lin_ms, old_ms = 0.0, 0.0
     d_ins = {"o": cfg.padded_heads * cfg.resolved_head_dim, "down": cfg.d_ff}
     for a, n in LINEARS:
         vals, idx = layer0[a][n]["values"], layer0[a][n]["idx"]
         d_in = d_ins.get(n, cfg.d_model)
         x = torch.from_numpy(rng.standard_normal((SERVE_SLOTS, d_in),
                                                  dtype=np.float32)).to(dev)
-        lin_ms += time_ms(lambda: colwise_nm_matmul_cuda(x, vals, idx))
+        lin_ms += time_ms(lambda: colwise_nm_matmul_tiled_cuda(x, vals, idx))
+        old_ms += time_ms(lambda: colwise_nm_matmul_cuda(x, vals, idx))
     kc, vc = cache["k"][0], cache["v"][0]
     qd = torch.from_numpy(rng.standard_normal(
         (SERVE_SLOTS, 1, cfg.padded_heads, cfg.resolved_head_dim),
@@ -1041,8 +1150,9 @@ def run_serving(dev, cfg, params) -> dict:
           f"{full[1].tolist()}): device {step_ms:.4f} ms (CUDA graph replay of "
           f"lm.paged_decode_step), host {host_step_ms:.4f} ms with sampling "
           f"-> device idle share {idle:.3f}; kernels alone: "
-          f"{cfg.n_layers} x {lin_ms:.4f} ms of 7 linears = "
-          f"{cfg.n_layers * lin_ms:.4f} ms, {cfg.n_layers} x {att_ms:.4f} ms "
+          f"{cfg.n_layers} x {lin_ms:.4f} ms of 7 tiled linears = "
+          f"{cfg.n_layers * lin_ms:.4f} ms (colwise_nm_matmul would take "
+          f"{cfg.n_layers} x {old_ms:.4f} ms), {cfg.n_layers} x {att_ms:.4f} ms "
           f"of paged attention = {cfg.n_layers * att_ms:.4f} ms, unembed "
           f"{unembed_ms:.4f} ms", flush=True)
     print("SERVE " + json.dumps({
@@ -1052,7 +1162,8 @@ def run_serving(dev, cfg, params) -> dict:
         "decode_host_ms": host_step_ms,
         "decode_tokens_per_s": decode_tokens / st["decode_s"],
         "decode_step_device_ms": step_ms, "idle_share": idle,
-        "linear_ms_per_layer": lin_ms, "paged_ms_per_layer": att_ms,
+        "linear_ms_per_layer": lin_ms, "old_linear_ms_per_layer": old_ms,
+        "paged_ms_per_layer": att_ms,
         "unembed_ms": unembed_ms, "replay_max_rel_err": worst,
         "tokens_agree": [agree, total], "latency_p50_s": p50,
         "latency_p99_s": p99, "run_s": wall}), flush=True)
@@ -1115,7 +1226,8 @@ def run_scoring(dev, cfg, params) -> dict:
     from repro_torch import dispatch
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.kernels import KERNELS, reset_launch_counts
-    from repro_torch.kernels.colwise_nm import colwise_nm_matmul_cuda
+    from repro_torch.kernels.colwise_nm import (colwise_nm_matmul_cuda,
+                                                colwise_nm_matmul_tiled_cuda)
     from repro_torch.kernels.flash_attn import flash_attention_cuda
     from repro_torch.models import lm
     from repro_torch.models import registry as reg
@@ -1144,7 +1256,7 @@ def run_scoring(dev, cfg, params) -> dict:
         counts = {k.name: k.launches for k in KERNELS if k.launches}
         n_fwd = 2 * SCORE_BATCHES
         want = {"flash_attention": cfg.n_layers * n_fwd,
-                "colwise_nm_matmul": len(LINEARS) * cfg.n_layers * n_fwd}
+                "colwise_nm_matmul_tiled": len(LINEARS) * cfg.n_layers * n_fwd}
         print(f"  launches over {n_fwd} scoring forwards ({SCORE_BATCHES} "
               f"batches x loss_fn and forward_fn): {counts} (want {want})",
               flush=True)
@@ -1177,6 +1289,11 @@ def run_scoring(dev, cfg, params) -> dict:
               f"{REPLAY_RTOL} of max|logit|; NLL kernel/plain {nlls} (rel err "
               f"<= {nll_worst:.3e}; ln(vocab) = {np.log(cfg.vocab_size):.4f})",
               flush=True)
+        got = tuple(k for k, _ in nlls)
+        check(got == SCORE_NLLS, f"scoring NLLs {got}: not the "
+              f"{SCORE_NLLS} of colwise_nm_matmul on the same inputs")
+        print(f"  the NLLs equal colwise_nm_matmul's {SCORE_NLLS} exactly",
+              flush=True)
         del outs
 
         batch = batches[0]
@@ -1198,12 +1315,14 @@ def run_scoring(dev, cfg, params) -> dict:
         flash_ms = time_ms(lambda: flash_attention_cuda(q, kv, kv), iters=5)
         layer0 = layer_params(params["layers"], 0)
         d_ins = {"o": cfg.padded_heads * hd, "down": cfg.d_ff}
-        lin_ms = 0.0
+        lin_ms, old_ms = 0.0, 0.0
         for a, n in LINEARS:
             vals, idx = layer0[a][n]["values"], layer0[a][n]["idx"]
             x = torch.from_numpy(rng.standard_normal(
                 (n_tok, d_ins.get(n, d)), dtype=np.float32)).to(dev)
-            lin_ms += time_ms(lambda: colwise_nm_matmul_cuda(x, vals, idx),
+            lin_ms += time_ms(
+                lambda: colwise_nm_matmul_tiled_cuda(x, vals, idx), iters=5)
+            old_ms += time_ms(lambda: colwise_nm_matmul_cuda(x, vals, idx),
                               iters=5)
         h = torch.from_numpy(rng.standard_normal(
             (SCORE_BATCH, SCORE_SEQ, d), dtype=np.float32)).to(dev)
@@ -1217,16 +1336,18 @@ def run_scoring(dev, cfg, params) -> dict:
           f"(CUDA graph replay) -> device idle share {idle:.3f}; kernels "
           f"alone: {cfg.n_layers} x {flash_ms:.4f} ms of flash attention = "
           f"{cfg.n_layers * flash_ms:.3f} ms ({flash_share:.3f} of the device "
-          f"time), {cfg.n_layers} x {lin_ms:.4f} ms of 7 sparse linears = "
-          f"{cfg.n_layers * lin_ms:.3f} ms ({lin_share:.3f}), tied unembedding "
-          f"{unembed_ms:.3f} ms ({unembed_ms / dev_ms:.3f})", flush=True)
+          f"time), {cfg.n_layers} x {lin_ms:.4f} ms of 7 tiled sparse linears "
+          f"= {cfg.n_layers * lin_ms:.3f} ms ({lin_share:.3f}; "
+          f"colwise_nm_matmul would take {cfg.n_layers} x {old_ms:.4f} ms), "
+          f"tied unembedding {unembed_ms:.3f} ms ({unembed_ms / dev_ms:.3f})",
+          flush=True)
     print("SCORE " + json.dumps({
         "batch": SCORE_BATCH, "seq_len": SCORE_SEQ, "forwards": n_fwd,
         "host_ms_per_forward": host_ms, "device_ms_per_forward": dev_ms,
         "idle_share": idle, "tokens_per_s": n_tok / host_ms * 1e3,
         "flash_ms_per_layer": flash_ms, "flash_share": flash_share,
         "linear_ms_per_layer": lin_ms, "linear_share": lin_share,
-        "unembed_ms": unembed_ms, "replay_max_rel_err": worst,
+        "old_linear_ms_per_layer": old_ms, "unembed_ms": unembed_ms, "replay_max_rel_err": worst,
         "nll_max_rel_err": nll_worst, "nll": nlls}), flush=True)
     dispatch.set_db(None)
     db_path.unlink(missing_ok=True)
@@ -1282,6 +1403,7 @@ def main() -> int:
         print(f"  library_ms of {name}: {call}", flush=True)
     tot = check_kernels(params, cfg, dev)
     check_linear_kernel(dev, tot)
+    sweep_linear_kernels(dev)
 
     print(f"== 4. main path: resnet-tiny inference, batch {BATCH}", flush=True)
     counts = run_main_path(params, cfg, dev)
@@ -1321,17 +1443,24 @@ def main() -> int:
             counts["fused_banded_pallas"]["conv2d_fused_banded"],
         "colwise_nm_matmul_strips_pipelined":
             counts["two_kernel_pipelined"]["colwise_nm_matmul_strips_pipelined"],
-        "colwise_nm_matmul": serve_counts["colwise_nm_matmul"],
+        "colwise_nm_matmul": linear_launches["colwise_nm_matmul"],
         "paged_attention": serve_counts["paged_attention"],
         "flash_attention": score_counts["flash_attention"],
+        "colwise_nm_matmul_tiled": serve_counts["colwise_nm_matmul_tiled"],
     }
-    print(f"  the linear phase (5) launched colwise_nm_matmul {linear_launches} "
-          "times; the served run, whose count the kernel list carries, "
-          f"{launches['colwise_nm_matmul']}", flush=True)
+    print(f"  the linear phase (5) launched {linear_launches}; the served run "
+          f"colwise_nm_matmul_tiled {launches['colwise_nm_matmul_tiled']} times "
+          f"and the scored run {score_counts['colwise_nm_matmul_tiled']}",
+          flush=True)
+    check(all(launches.values()), f"a kernel was not launched: {launches}")
     per = {"colwise_nm_matmul": "ms etc.: sum over the 960->2560 and "
                                 "2560->960 layers at 256 rows (T = d_out); "
-                                "launches: the served smollm-360m run "
-                                "(7 per layer per step)",
+                                "launches: the linear phase (5), tiles 8 and "
+                                "12 and any profiled winner",
+           "colwise_nm_matmul_tiled": "ms etc.: sum over the 960->2560 and "
+                                      "2560->960 layers at 256 rows (T = "
+                                      "d_out); launches: the served "
+                                      "smollm-360m run (7 per layer per step)",
            "paged_attention": "ms etc.: B 4, Sq 1, f32, H 15, KV 5, D 64, "
                               "page size 16 (the decode step's shape); "
                               "launches: the served smollm-360m run (1 per "

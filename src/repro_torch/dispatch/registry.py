@@ -25,11 +25,16 @@ from repro_torch.core.sparse_linear import forward_compressed_xla, forward_maske
 from repro_torch.kernels._build import SMEM_BYTES
 from repro_torch.kernels.colwise_nm.kernel import (
     MAX_PIPELINED_V,
+    TILED_BK,
+    TILED_BN,
     linear_smem_bytes,
+    linear_tiled_smem_bytes,
     pipelined_smem_bytes,
     strips_smem_bytes,
+    tiled_block_rows,
 )
-from repro_torch.kernels.colwise_nm.ops import colwise_nm_matmul
+from repro_torch.kernels.colwise_nm.ops import (colwise_nm_matmul,
+                                                colwise_nm_matmul_tiled)
 from repro_torch.kernels.conv_gemm import ops as conv_ops
 from repro_torch.kernels.conv_gemm.kernel import banded_smem_bytes, fused_smem_bytes
 from repro_torch.kernels.conv_gemm.plan import band_plan
@@ -320,6 +325,10 @@ def _apply_linear_pallas(params, x, block_b: int = 128, block_k: int = 128):
                              block_b=block_b, block_k=block_k)
 
 
+def _apply_linear_tiled(params, x):
+    return colwise_nm_matmul_tiled(x, params["values"], params["idx"])
+
+
 def _apply_linear_masked(params, x):
     return forward_masked(x, params["w"], params["mask"])
 
@@ -367,6 +376,31 @@ for _geom in LINEAR_GEOMETRY:
         make_bench=functools.partial(_bench_linear, apply_fn=_apply),
         geometry=_geom,
     ))
+
+
+def _tiled_smem(key: OpKey) -> int:
+    return linear_tiled_smem_bytes(tiled_block_rows(key.batch, key.d_out),
+                                   TILED_BK, _itemsize(key))
+
+
+def _tiled_width_ok(key: OpKey) -> Tuple[bool, str]:
+    if key.tile % TILED_BN:
+        return False, (f"tile={key.tile} is not a multiple of the tiled "
+                       f"kernel's {TILED_BN} columns")
+    return True, "ok"
+
+
+# A port-only family (the JAX registry has none): the tiled kernel, ranked
+# before compressed_pallas wherever its tile-width rule holds.  Its rows per
+# block come from the wrapper's shape rule, so it has no geometry grid.
+REGISTRY.register(ImplSpec(
+    name="compressed_tiled", op="linear", backend="cuda",
+    requires=frozenset({"values", "idx"}), priority=5,
+    feasible=_smem_feasible(_tiled_smem, _tiled_width_ok),
+    smem_bytes=_tiled_smem,
+    apply=_apply_linear_tiled,
+    make_bench=functools.partial(_bench_linear, apply_fn=_apply_linear_tiled),
+))
 
 REGISTRY.register(ImplSpec(
     name="masked", op="linear", backend="torch",

@@ -4,6 +4,7 @@
 """
 from repro_torch.kernels.colwise_nm.kernel import (
     COLWISE_NM_LINEAR,
+    COLWISE_NM_LINEAR_TILED,
     COLWISE_NM_STRIPS,
     COLWISE_NM_STRIPS_PIPELINED,
 )
@@ -14,7 +15,7 @@ from repro_torch.kernels.im2col_pack.kernel import IM2COL_PACK
 
 KERNELS = (CONV2D_FUSED, IM2COL_PACK, COLWISE_NM_STRIPS, COLWISE_NM_LINEAR,
            COLWISE_NM_STRIPS_PIPELINED, CONV2D_FUSED_BANDED, FLASH_ATTENTION,
-           PAGED_ATTENTION)
+           PAGED_ATTENTION, COLWISE_NM_LINEAR_TILED)
 
 
 def reset_launch_counts() -> None:

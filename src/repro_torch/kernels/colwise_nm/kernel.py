@@ -1,6 +1,8 @@
 """Column-wise N:M sparse GEMMs on Hopper: the linear layer
-(``csrc/colwise_nm_linear.cu``), the strip-major GEMM of the two-kernel conv
-plan (``csrc/colwise_nm_strips.cu``) and its pipelined twin
+(``csrc/colwise_nm_linear.cu``, any tile width), its register-tiled,
+double-buffered twin for tile widths that are a multiple of 64
+(``csrc/colwise_nm_linear_tiled.cu``), the strip-major GEMM of the
+two-kernel conv plan (``csrc/colwise_nm_strips.cu``) and its pipelined twin
 (``csrc/colwise_nm_strips_pipelined.cu``).
 
 Each ``*_smem_bytes`` function is the shared memory its kernel's launch
@@ -11,6 +13,7 @@ function.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -41,6 +44,14 @@ COLWISE_NM_LINEAR = CudaKernel(
     sized_smem=True,
 )
 
+COLWISE_NM_LINEAR_TILED = CudaKernel(
+    "colwise_nm_matmul_tiled", "repro_colwise_nm_linear_tiled",
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7,
+    source="src/repro_torch/csrc/colwise_nm_linear_tiled.cu",
+    replaces="src/repro/kernels/colwise_nm/kernel.py:65 colwise_nm_matmul_pallas",
+    sized_smem=True,
+)
+
 COLWISE_NM_STRIPS_PIPELINED = CudaKernel(
     "colwise_nm_matmul_strips_pipelined", "repro_colwise_nm_strips_pipelined",
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9,
@@ -53,6 +64,12 @@ COLWISE_NM_STRIPS_PIPELINED = CudaKernel(
 MAX_PIPELINED_V = 2 * KTHREADS  # columns a block's threads cover per strip
 LINEAR_CHUNK = 32  # columns of T per linear block (csrc/colwise_nm_linear.cu)
 MAX_BLOCK_B = 256  # rows per linear block: 32 row lanes x 8 rows a thread
+# csrc/colwise_nm_linear_tiled.cu: columns of T and kept rows per step of a
+# block, its rows per block (the BM template instances), and one block on
+# each of the H100's 132 SMs
+TILED_BN, TILED_BK = 64, 32
+TILED_BLOCK_ROWS = (16, 64, 128)
+TILED_WAVE_BLOCKS = 132
 
 
 def strips_smem_bytes(tile: int, block_k: int) -> int:
@@ -68,6 +85,33 @@ def linear_smem_bytes(tile: int, block_b: int, block_k: int) -> int:
     columns of T, so it does not grow with T) and the indices, all 4 bytes
     wide."""
     return block_k * (block_b + 1 + min(tile, LINEAR_CHUNK) + 1) * 4
+
+
+def linear_tiled_smem_bytes(bm: int, bk: int, itemsize: int) -> int:
+    """Shared memory of one tiled linear launch: two stages of the gathered
+    activations of ``bm`` rows for ``bk`` kept rows in f32 (rows padded by 4
+    floats against bank conflicts) and of the ``[bk, 64]`` values tile in
+    the operands' dtype."""
+    return 2 * bk * ((bm + 4) * 4 + TILED_BN * itemsize)
+
+
+def tiled_block_rows(n_rows: int, d_out: int) -> int:
+    """Rows per block of the tiled linear (its template parameter BM), a
+    rule of the shape alone.  A block's k-steps take longer the more rows it
+    holds, and under one block per SM the steps' latency, not the FMAs, sets
+    the time; so take the smallest BM, 16 then 64, whose grid,
+    ``ceil(n_rows / BM) * d_out / 64`` blocks, puts at most one block on
+    each SM (``TILED_WAVE_BLOCKS``) or that holds every row already, and 128
+    beyond, where the 8 x 4 register tile of a thread reuses each staged
+    value most.  Fitted to ``repro_torch.kernels.colwise_nm.tune``'s sweep
+    of smollm-360m's linear shapes on the H100 (PERF.md).  It rises with
+    ``n_rows``, so a dispatch key's bucketed row count never asks for less
+    shared memory than the launch."""
+    cols = d_out // TILED_BN
+    for bm in TILED_BLOCK_ROWS[:-1]:
+        if n_rows <= bm or -(-n_rows // bm) * cols <= TILED_WAVE_BLOCKS:
+            return bm
+    return TILED_BLOCK_ROWS[-1]
 
 
 def pipelined_smem_bytes(v: int, block_k: int, itemsize: int) -> int:
@@ -118,6 +162,40 @@ def colwise_nm_matmul_cuda(x: torch.Tensor, values: torch.Tensor,
         x.device, x.data_ptr(), values.data_ptr(), idx.data_ptr(),
         out.data_ptr(), DTYPE_CODE[x.dtype], n_rows, d_in, n_tiles, k_kept,
         tile, block_b, block_k, smem_bytes=smem)
+    return out
+
+
+def colwise_nm_matmul_tiled_cuda(x: torch.Tensor, values: torch.Tensor,
+                                 idx: torch.Tensor, *,
+                                 block_rows: Optional[int] = None
+                                 ) -> torch.Tensor:
+    """Launch the tiled sparse linear: x [B, d_in] -> [B, n_tiles*T], the
+    same function and bits as :func:`colwise_nm_matmul_cuda`.  Takes T a
+    multiple of 64 and 16-byte aligned ``x`` and ``values``.  The rows per
+    block are ``block_rows`` (16, 64 or 128; every choice gives the same
+    bits), by default :func:`tiled_block_rows`'s."""
+    check_cuda_tensor("x", x, FLOAT_DTYPES, 2)
+    n_tiles, k_kept, tile = values.shape
+    if tile % TILED_BN:
+        raise ValueError(f"tile width T={tile} must be a multiple of "
+                         f"{TILED_BN}")
+    n_rows, d_in = x.shape
+    bm = (tiled_block_rows(n_rows, n_tiles * tile) if block_rows is None
+          else block_rows)
+    if bm not in TILED_BLOCK_ROWS:
+        raise ValueError(f"block_rows={bm} must be one of {TILED_BLOCK_ROWS}")
+    smem = linear_tiled_smem_bytes(bm, TILED_BK, x.element_size())
+    check_compressed(values, idx, x.dtype, TILED_BK, smem)
+    check_same_device(x, values, idx)
+    if x.data_ptr() % 16 or values.data_ptr() % 16:
+        raise ValueError("x and values must be 16-byte aligned")
+    out = torch.empty((n_rows, n_tiles * tile), dtype=x.dtype, device=x.device)
+    if n_rows == 0:
+        return out
+    COLWISE_NM_LINEAR_TILED.launch(
+        x.device, x.data_ptr(), values.data_ptr(), idx.data_ptr(),
+        out.data_ptr(), DTYPE_CODE[x.dtype], n_rows, d_in, n_tiles, k_kept,
+        tile, bm, smem_bytes=smem)
     return out
 
 

@@ -8,6 +8,7 @@ from repro_torch.kernels.colwise_nm.kernel import (
     colwise_nm_matmul_cuda,
     colwise_nm_matmul_strips_cuda,
     colwise_nm_matmul_strips_pipelined_cuda,
+    colwise_nm_matmul_tiled_cuda,
 )
 from repro_torch.kernels.colwise_nm.ref import (
     colwise_nm_matmul_ref,
@@ -28,6 +29,21 @@ def colwise_nm_matmul(x: torch.Tensor, values: torch.Tensor, idx: torch.Tensor,
     else:
         y = colwise_nm_matmul_cuda(x2.contiguous(), values, idx,
                                    block_b=block_b, block_k=block_k)
+    return y.reshape(*lead, n_tiles * tile)
+
+
+def colwise_nm_matmul_tiled(x: torch.Tensor, values: torch.Tensor,
+                            idx: torch.Tensor) -> torch.Tensor:
+    """The sparse linear of :func:`colwise_nm_matmul` through the tiled
+    kernel, which takes tile widths that are a multiple of 64; any leading
+    dims on ``x``."""
+    n_tiles, _, tile = values.shape
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if x.device.type == "cpu":
+        y = colwise_nm_matmul_ref(x2, values, idx)
+    else:
+        y = colwise_nm_matmul_tiled_cuda(x2.contiguous(), values, idx)
     return y.reshape(*lead, n_tiles * tile)
 
 

@@ -10,7 +10,9 @@ kernels' 8-row register block, ``block_k`` chunking, strips wider than a
 block's 128 threads, ragged last strips and bands, and bf16; the sparse
 linear kernel also runs at smollm-360m's MLP widths.  The banded conv and
 the pipelined strip GEMM must give the same bits as the fused conv and the
-plain strip GEMM.  The paged-attention kernel runs the CPU parity tests'
+plain strip GEMM, and the tiled linear the same bits as the linear kernel
+(rows under, at and over each block size, ragged kept rows, several
+tiles).  The paged-attention kernel runs the CPU parity tests'
 cases and smollm-360m's serving shapes, the trash-page, empty-cache and
 bad-page-id cases, its rejections, dispatch on the card, and a served
 request of the smoke model.  The flash-attention kernel runs the JAX flash
@@ -29,8 +31,10 @@ from repro_torch import dispatch
 from repro_torch.kernels import KERNELS, reset_launch_counts
 from repro_torch.kernels.colwise_nm import (
     COLWISE_NM_LINEAR,
+    COLWISE_NM_LINEAR_TILED,
     COLWISE_NM_STRIPS_PIPELINED,
     colwise_nm_matmul_cuda,
+    colwise_nm_matmul_tiled_cuda,
     colwise_nm_matmul_ref,
     colwise_nm_matmul_strips_cuda,
     colwise_nm_matmul_strips_pipelined_cuda,
@@ -208,6 +212,130 @@ def test_linear_kernel_matches_plain(dev, b, d_in, d_out, keep, tile, bb, bk,
     _close(got, colwise_nm_matmul_ref(x, values, idx), dtype)
 
 
+# (d_in, d_out, T, k_kept) of the tiled linear: smollm-360m's k/v, q/o, up
+# and down widths with T = d_out; several tiles of 64 and 128 with a ragged
+# last step of kept rows
+TILED_SHAPES = [(960, 320, 320, 480), (960, 960, 960, 480),
+                (960, 2560, 2560, 480), (2560, 960, 960, 1280),
+                (128, 64, 64, 64), (96, 256, 64, 37), (200, 384, 128, 100)]
+TILED_ROWS = [1, 4, 15, 16, 17, 63, 64, 255, 256, 1000]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d_in,d_out,tile,k_kept", TILED_SHAPES)
+@pytest.mark.parametrize("rows", TILED_ROWS)
+def test_tiled_linear_equals_the_linear_kernel(dev, rows, d_in, d_out, tile,
+                                               k_kept, dtype):
+    """Bit for bit: both kernels take each output as one fmaf chain over the
+    kept rows in ascending order."""
+    rng = np.random.default_rng(rows * 7 + d_out)
+    x = torch.from_numpy(rng.standard_normal((rows, d_in), dtype=np.float32)
+                         ).to(dev, dtype)
+    values, idx = _compressed(d_out // tile, d_in, k_kept, tile, dtype, dev,
+                              seed=rows)
+    got = colwise_nm_matmul_tiled_cuda(x, values, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, colwise_nm_matmul_cuda(x, values, idx))
+    _close(got, colwise_nm_matmul_ref(x, values, idx), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [3, 100, 300])
+def test_tiled_linear_block_rows_give_the_same_bits(dev, rows, dtype):
+    rng = np.random.default_rng(rows)
+    x = torch.from_numpy(rng.standard_normal((rows, 200), dtype=np.float32)
+                         ).to(dev, dtype)
+    values, idx = _compressed(3, 200, 77, 128, dtype, dev)
+    want = colwise_nm_matmul_cuda(x, values, idx)
+    for bm in (16, 64, 128):
+        got = colwise_nm_matmul_tiled_cuda(x, values, idx, block_rows=bm)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), bm
+    with pytest.raises(ValueError, match="block_rows"):
+        colwise_nm_matmul_tiled_cuda(x, values, idx, block_rows=32)
+
+
+def test_tiled_linear_nan_reaches_exactly_its_tile(dev):
+    x = _x(1, 1, 20, 96, torch.float32, dev)[0, 0]
+    values, idx = _compressed(3, 96, 40, 64, torch.float32, dev)
+    idx[1, 39] = 96   # one past the end, in the ragged last step
+    idx[2, 0] = -1
+    y = colwise_nm_matmul_tiled_cuda(x, values, idx)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(y[:, 64:]).all())
+    assert bool(torch.isfinite(y[:, :64]).all())
+    assert torch.equal(y[:, :64], colwise_nm_matmul_cuda(x, values, idx)[:, :64])
+
+
+def test_tiled_linear_inf_in_an_unkept_column_stays_out(dev):
+    """The ragged last step is zero in both operands, never a padded index:
+    an inf in x[:, 0], which no tile keeps, does not reach the output."""
+    x = _x(1, 1, 8, 96, torch.float32, dev)[0, 0]
+    x[:, 0] = float("inf")
+    values, idx = _compressed(2, 95, 37, 64, torch.float32, dev)
+    y = colwise_nm_matmul_tiled_cuda(x, values, idx + 1)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y).all())
+
+
+def test_tiled_linear_zero_rows_launch_nothing(dev):
+    values, idx = _compressed(2, 72, 36, 64, torch.float32, dev)
+    reset_launch_counts()
+    y = colwise_nm_matmul_tiled_cuda(torch.zeros((0, 72), device=dev), values,
+                                     idx)
+    assert tuple(y.shape) == (0, 128) and COLWISE_NM_LINEAR_TILED.launches == 0
+
+
+def test_tiled_linear_rejects_what_the_kernel_does_not_take(dev):
+    x = _x(1, 1, 4, 72, torch.float32, dev)[0, 0]
+    values, idx = _compressed(2, 72, 36, 64, torch.float32, dev)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        colwise_nm_matmul_tiled_cuda(x, *_compressed(2, 72, 36, 96,
+                                                     torch.float32, dev))
+    flat = torch.zeros(values.numel() + 1, device=dev)
+    shifted = flat[1:].view(values.shape)  # contiguous, 4 bytes off
+    shifted.copy_(values)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        colwise_nm_matmul_tiled_cuda(x, shifted, idx)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        colwise_nm_matmul_tiled_cuda(
+            torch.zeros(4 * 72 + 1, device=dev)[1:].view(4, 72), values, idx)
+    with pytest.raises(TypeError, match="dtype"):
+        colwise_nm_matmul_tiled_cuda(x.to(torch.int32), values, idx)
+    with pytest.raises(TypeError, match="dtype"):
+        colwise_nm_matmul_tiled_cuda(x, values.to(torch.bfloat16), idx)
+    with pytest.raises(ValueError, match="contiguous"):
+        colwise_nm_matmul_tiled_cuda(_x(1, 1, 72, 4, torch.float32, dev)[0, 0].T,
+                                     values, idx)
+
+
+@pytest.mark.parametrize("d_out,tile,kernel", [
+    (2560, None, "colwise_nm_matmul_tiled"), (960, 64, "colwise_nm_matmul_tiled"),
+    (2400, 12, "colwise_nm_matmul")])
+def test_linear_apply_launches_the_tiled_kernel_once(dev, tmp_path, d_out,
+                                                      tile, kernel):
+    from repro_torch.core.pruning import SparsityConfig
+    from repro_torch.core.sparse_linear import linear_apply, linear_init
+
+    dispatch.set_db(dispatch.ProfileDB(path=tmp_path / "profile.json"))
+    try:
+        sp = SparsityConfig(sparsity=0.5, m=None, tile=tile, min_dim=64,
+                            format="compressed_pallas")
+        layer = linear_init(torch.Generator().manual_seed(1), 960, d_out, sp,
+                            device=dev)
+        x = _x(1, 3, 5, 960, torch.float32, dev)[0]  # [3, 5, 960]
+        reset_launch_counts()
+        y = linear_apply(layer, x)
+        torch.cuda.synchronize()
+        assert {k.name: k.launches for k in KERNELS if k.launches} == {
+            kernel: 1}
+        want = colwise_nm_matmul_ref(x.reshape(-1, 960), layer["values"],
+                                     layer["idx"]).reshape(3, 5, d_out)
+        _close(y, want, torch.float32)
+    finally:
+        dispatch.set_db(None)
+
+
 def test_out_of_range_index_gives_nan_not_a_bad_read(dev):
     x = _x(8, 1, 8, 8, torch.float32, dev)
     values, idx = _compressed(2, 72, 36, 8, torch.float32, dev)
@@ -277,13 +405,16 @@ def test_each_launch_counts_once(dev):
     colwise_nm_matmul_strips_pipelined_cuda(strips, values, idx)
     conv2d_fused_banded_cuda(x, values, idx, kh=3, kw=3, pad=1)
     colwise_nm_matmul_cuda(_x(1, 1, 4, 72, torch.float32, dev)[0, 0], values, idx)
+    colwise_nm_matmul_tiled_cuda(_x(1, 1, 4, 72, torch.float32, dev)[0, 0],
+                                 *_compressed(2, 72, 36, 64, torch.float32, dev))
     paged_attention_cuda(*_paged(dev, torch.float32), page_size=8)
     flash_attention_cuda(*_flash_qkv(1, 8, 8, 2, 2, 16, torch.float32, dev))
     torch.cuda.synchronize()
     assert {k.name: k.launches for k in KERNELS} == {
         "conv2d_fused": 2, "im2col_pack": 1, "colwise_nm_matmul_strips": 1,
         "colwise_nm_matmul": 1, "colwise_nm_matmul_strips_pipelined": 1,
-        "conv2d_fused_banded": 1, "flash_attention": 1, "paged_attention": 1}
+        "conv2d_fused_banded": 1, "flash_attention": 1, "paged_attention": 1,
+        "colwise_nm_matmul_tiled": 1}
 
 
 @pytest.mark.parametrize("kernel,op,name,args", [
@@ -295,6 +426,8 @@ def test_each_launch_counts_once(dev):
      (16, 8, 8, 8, 3, 1, 1)),
     (COLWISE_NM_LINEAR, "linear", "compressed_pallas@bb256_bk128", (96, 200)),
     (COLWISE_NM_LINEAR, "linear", "compressed_pallas@bb128_bk64", (2560, 960)),
+    (COLWISE_NM_LINEAR_TILED, "linear", "compressed_tiled", (96, 256)),
+    (COLWISE_NM_LINEAR_TILED, "linear", "compressed_tiled", (2560, 960)),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_launch_smem_equals_the_feasibility_footprint(dev, kernel, op, name,
@@ -384,7 +517,9 @@ def test_vision_forward_on_card_matches_cpu(dev, tmp_path):
 def test_compressed_linear_through_dispatch(dev, tmp_path, d_out, tile,
                                             profiled):
     """Resolved by the heuristic or by a profile on the card, a compressed
-    layer runs the sparse linear kernel, whatever its tile width."""
+    layer runs a sparse linear kernel, whatever its tile width: the tiled
+    one by the heuristic where T is a multiple of 64, the other one for
+    tiles 8 and 12; a profile runs its winner."""
     from repro_torch.core.pruning import SparsityConfig
     from repro_torch.core.sparse_linear import linear_apply, linear_init
 
@@ -402,18 +537,22 @@ def test_compressed_linear_through_dispatch(dev, tmp_path, d_out, tile,
                                         profile=True)
             assert list(plan) == [key.token]
             assert set(db.get(key.token)["all"]) == {
-                s.name for s in dispatch.REGISTRY.candidates(
-                    "linear", param_keys=("values", "idx"),
-                    device_type="cuda")}
+                s.name for s in dispatch.REGISTRY.feasible(
+                    key, param_keys=("values", "idx"), device_type="cuda")}
         spec, source = dispatch.resolve(key, param_keys=("values", "idx"),
                                         device=dev)
         assert spec.backend == "cuda"
         assert source == ("db" if profiled else "heuristic")
+        if not profiled:
+            assert spec.name == ("compressed_tiled" if tile is None
+                                 else "compressed_pallas")
+        kernel = ("colwise_nm_matmul_tiled" if spec.name == "compressed_tiled"
+                  else "colwise_nm_matmul")
         reset_launch_counts()
         y = linear_apply(layer, x)
         torch.cuda.synchronize()
         assert {k.name: k.launches for k in KERNELS if k.launches} == {
-            "colwise_nm_matmul": 1}
+            kernel: 1}
         want = colwise_nm_matmul_ref(x.reshape(-1, 960), layer["values"],
                                      layer["idx"]).reshape(2, 128, d_out)
         _close(y, want, torch.float32)
@@ -603,10 +742,19 @@ def test_served_requests_launch_the_kernels(dev, tmp_path):
             torch.cuda.synchronize()
             counts = {k.name: k.launches for k in KERNELS if k.launches}
         st = sched.stats
+        # T = d_out: q, o and down (64 wide) take the tiled kernel, k, v
+        # (32), gate and up (96) the other one
+        layer = params["layers"]
+        tiled = sum(layer[a][n]["values"].shape[-1] % 64 == 0
+                    for a, n in (("attn", "q"), ("attn", "k"), ("attn", "v"),
+                                 ("attn", "o"), ("mlp", "gate"), ("mlp", "up"),
+                                 ("mlp", "down")))
+        assert tiled == 3
+        calls = cfg.n_layers * (st["decode_steps"] + st["prefill_calls"])
         assert counts == {
             "paged_attention": cfg.n_layers * st["decode_steps"],
-            "colwise_nm_matmul": 7 * cfg.n_layers * (
-                st["decode_steps"] + st["prefill_calls"])}
+            "colwise_nm_matmul_tiled": tiled * calls,
+            "colwise_nm_matmul": (7 - tiled) * calls}
         assert runs["cpu"].keys() == runs["cuda"].keys()
         for uid, toks in runs["cpu"].items():
             assert np.array_equal(toks, runs["cuda"][uid]), uid

@@ -30,7 +30,9 @@ from repro_torch.core.sparse_linear import linear_apply
 from repro_torch.dispatch import REGISTRY, OpKey, ProfileDB, SCHEMA_VERSION
 from repro_torch.dispatch.dispatch import _heuristic
 from repro_torch.kernels import KERNELS, reset_launch_counts
-from repro_torch.kernels.colwise_nm import pipelined_smem_bytes
+from repro_torch.kernels.colwise_nm import (linear_tiled_smem_bytes,
+                                            pipelined_smem_bytes,
+                                            tiled_block_rows)
 from repro_torch.kernels.conv_gemm import band_plan, banded_smem_bytes
 from repro_torch.models import vision as tv
 
@@ -70,10 +72,18 @@ def _jax_params(cfg, seed):
 # ---------------------------------------------------------------------------
 
 
+# Families the port registers and the JAX registry does not (ROADMAP queue
+# 3, divergences by design): the tiled sparse linear kernel.
+PORT_ONLY = {"linear": {"compressed_tiled"}}
+
+
 @pytest.mark.parametrize("op", ["linear", "conv", "paged_attn"])
 def test_candidates_match_the_jax_registry(op):
     mine = {s.name: s for s in REGISTRY.candidates(op)}
     theirs = {s.name: s for s in jdispatch.REGISTRY.candidates(op)}
+    extra = PORT_ONLY.get(op, set())
+    assert extra <= set(mine) and not extra & set(theirs)
+    assert all(mine.pop(name).backend == "cuda" for name in extra)
     assert sorted(mine) == sorted(theirs)
     for name, spec in mine.items():
         ref = theirs[name]
@@ -137,7 +147,7 @@ class TestRegistry:
     def test_param_keys_filter(self):
         names = {s.name for s in REGISTRY.candidates("linear", param_keys=SPARSE)}
         assert {n.split("@")[0] for n in names} == {
-            "compressed_xla", "compressed_pallas"}
+            "compressed_xla", "compressed_pallas", "compressed_tiled"}
 
     def test_masked_layer_never_resolves_dense(self):
         names = {s.name for s in
@@ -163,7 +173,11 @@ class TestRegistry:
     def test_kernels_take_any_tile_that_covers_d_out(self, tile):
         key = dispatch.linear_key(256, 960, 2560 // tile * tile, 480, tile)
         for spec in REGISTRY.candidates("linear", param_keys=SPARSE):
-            assert spec.feasible(key)[0], (spec.name, spec.feasible(key)[1])
+            ok, reason = spec.feasible(key)
+            if spec.name == "compressed_tiled":  # 64-column blocks of T
+                assert ok == (tile % 64 == 0) and (ok or "64" in reason)
+            else:
+                assert ok, (spec.name, reason)
         conv = dispatch.conv_key(8, 10, 10, 2 * tile, 3, 3, 1, 1, 36, tile,
                                  batch=2)
         ok, reason = REGISTRY.get("conv", "fused_sparse_pallas").feasible(conv)
@@ -247,9 +261,117 @@ class TestSharedMemoryFeasibility:
         assert spec.feasible(wide)[0] and spec.feasible(narrow)[0]
         assert spec.smem_bytes(wide) == spec.smem_bytes(
             dispatch.linear_key(256, 960, 128, 480, 128))
+        # on the card the wide tile goes to the tiled kernel, tile 8 to this
+        # one
         feas = REGISTRY.feasible(wide, param_keys=SPARSE)
-        assert _heuristic(feas, wide, "cuda").name == "compressed_pallas"
+        assert _heuristic(feas, wide, "cuda").name == "compressed_tiled"
         assert _heuristic(feas, wide, "cpu").name == "compressed_xla"
+        feas = REGISTRY.feasible(narrow, param_keys=SPARSE)
+        assert _heuristic(feas, narrow, "cuda").name == "compressed_pallas"
+
+
+class TestTiledLinear:
+    """The port-only ``compressed_tiled`` family: the tiled sparse linear
+    kernel, feasible where T is a multiple of 64 and ranked first there on
+    the card."""
+
+    SPEC = REGISTRY.get("linear", "compressed_tiled")
+
+    def test_registered_below_the_pallas_priority(self):
+        spec = self.SPEC
+        assert (spec.op, spec.backend, spec.geometry) == ("linear", "cuda", ())
+        assert spec.requires == frozenset(SPARSE)
+        assert spec.priority == 5 < REGISTRY.get(
+            "linear", "compressed_pallas").priority
+        assert spec.apply is not None and spec.make_bench is not None
+
+    @pytest.mark.parametrize("tile", [64, 320, 960, 2560])
+    def test_feasible_for_multiples_of_64(self, tile):
+        key = dispatch.linear_key(256, 960, 2 * tile, 480, tile)
+        assert self.SPEC.feasible(key) == (True, "ok")
+
+    @pytest.mark.parametrize("tile", [8, 12, 100])
+    def test_infeasible_for_other_widths_with_a_reason(self, tile):
+        key = dispatch.linear_key(256, 960, 24 * tile, 480, tile)
+        ok, reason = self.SPEC.feasible(key)
+        assert not ok and f"tile={tile}" in reason and "64" in reason
+
+    @staticmethod
+    def _on_card(key, db):
+        return dispatch.dispatch._resolve(key, frozenset(SPARSE), None, db,
+                                          "cuda")
+
+    @pytest.mark.parametrize("rows", [4, 256, 8192])
+    @pytest.mark.parametrize("d_in,d_out", [(960, 2560), (2560, 960),
+                                            (960, 320)])
+    def test_the_card_picks_the_tiled_kernel_at_every_row_count(
+            self, db, rows, d_in, d_out):
+        key = dispatch.linear_key(rows, d_in, d_out, d_in // 2, d_out)
+        assert self._on_card(key, db) == (self.SPEC, "heuristic")
+        assert dispatch.resolve(key, param_keys=SPARSE, **CPU) == (
+            REGISTRY.get("linear", "compressed_xla"), "heuristic")
+
+    @pytest.mark.parametrize("rows", [4, 256, 8192])
+    @pytest.mark.parametrize("tile,d_out", [(8, 2560), (12, 2400)])
+    def test_the_card_keeps_the_linear_kernel_for_narrow_tiles(
+            self, db, rows, tile, d_out):
+        key = dispatch.linear_key(rows, 960, d_out, 480, tile)
+        assert self._on_card(key, db) == (
+            REGISTRY.get("linear", "compressed_pallas"), "heuristic")
+
+    @pytest.mark.parametrize("bm", [16, 64, 128])
+    @pytest.mark.parametrize("itemsize", [4, 2])
+    def test_smem_formula(self, bm, itemsize):
+        # two stages of [32, bm + 4] f32 activations and [32, 64] values
+        want = 2 * (32 * (bm + 4) * 4 + 32 * 64 * itemsize)
+        assert linear_tiled_smem_bytes(bm, 32, itemsize) == want
+        assert want <= 50176 < 227 * 1024
+
+    @pytest.mark.parametrize("rows,d_out,bm", [
+        (0, 2560, 16), (1, 960, 16), (4, 2560, 16), (16, 64, 16),
+        (16, 16384, 16),    # every row in one block: more rows cannot help
+        (17, 2560, 16),     # 2 x 40 = 80 blocks of 16 rows
+        (128, 960, 16),     # 8 x 15 = 120
+        (256, 320, 16),     # 16 x 5 = 80
+        (64, 2560, 64),     # 160 blocks of 16 rows; one block of 64
+        (256, 960, 64),     # 240 of 16; 4 x 15 = 60 of 64
+        (128, 2560, 64), (512, 320, 64), (1024, 320, 64),
+        (256, 2560, 128),   # 160 blocks of 64 rows
+        (2048, 320, 128), (1024, 960, 128), (8192, 2560, 128),
+        (8192, 320, 128), (100, 16384, 128)])
+    def test_block_rows_rule(self, rows, d_out, bm):
+        assert tiled_block_rows(rows, d_out) == bm
+
+    def test_rows_per_block_never_fall_as_rows_grow(self):
+        for d_out in (64, 320, 960, 2560, 4864):
+            bms = [tiled_block_rows(n, d_out) for n in range(0, 40000, 7)]
+            assert bms == sorted(bms)
+            # so the key's bucketed rows ask at least the launch's memory
+            for n in (3, 17, 100, 700, 5000):
+                key = dispatch.linear_key(n, 960, d_out, 480, d_out)
+                assert self.SPEC.smem_bytes(key) >= linear_tiled_smem_bytes(
+                    tiled_block_rows(n, d_out), 32, 4)
+
+    @pytest.mark.parametrize("dtype,itemsize", [("float32", 4),
+                                                ("bfloat16", 2)])
+    def test_smem_of_a_key(self, dtype, itemsize):
+        key = dispatch.linear_key(8192, 960, 2560, 480, 2560, dtype=dtype)
+        assert self.SPEC.smem_bytes(key) == linear_tiled_smem_bytes(
+            128, 32, itemsize)
+        key = dispatch.linear_key(4, 960, 2560, 480, 2560, dtype=dtype)
+        assert self.SPEC.smem_bytes(key) == linear_tiled_smem_bytes(
+            16, 32, itemsize)
+
+    @pytest.mark.parametrize("tile", [64, 128])
+    def test_forced_on_the_cpu_matches_jax(self, db, jdb, tile):
+        jparams, x = _linear_problem(d_in=96, d_out=256, batch=5, tile=tile)
+        want = np.asarray(j_linear_apply(jparams, jax.numpy.asarray(x)))
+        tparams = params_from_jax(jparams, **CPU)
+        reset_launch_counts()
+        got = linear_apply(tparams, torch.from_numpy(x),
+                           impl="compressed_tiled")
+        assert all(k.launches == 0 for k in KERNELS)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
 
 
 # ---------------------------------------------------------------------------
@@ -460,7 +582,7 @@ class TestLinearEquivalence:
             np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4,
                                        err_msg=spec.name)
             checked += 1
-        assert checked == 4
+        assert checked == 5
         np.testing.assert_allclose(linear_apply(tparams, xt).numpy(), want,
                                    rtol=1e-4, atol=1e-4)
 

@@ -157,6 +157,38 @@ def test_kernel_launchers_never_take_cpu_tensors():
     assert all(k.launches == 0 for k in KERNELS)
 
 
+def test_tiled_linear_launcher_never_takes_cpu_tensors():
+    """The tiled linear's launcher raises on CPU tensors before any shape
+    rule, and counts no launch."""
+    from repro_torch.kernels.colwise_nm import (COLWISE_NM_LINEAR_TILED,
+                                                colwise_nm_matmul_tiled_cuda)
+
+    COLWISE_NM_LINEAR_TILED.launches = 0
+    values = torch.zeros((2, 36, 64))
+    idx = torch.zeros((2, 36), dtype=torch.int32)
+    for x in (torch.zeros((4, 72)), torch.zeros((0, 72))):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            colwise_nm_matmul_tiled_cuda(x, values, idx)
+    assert COLWISE_NM_LINEAR_TILED.launches == 0
+
+
+def test_tiled_linear_takes_no_cpu_fallback_on_a_device_tensor(tdb):
+    """Only a CPU tensor runs the tiled linear's plain version, through its
+    wrapper or through dispatch: a ``meta`` tensor goes to the launcher."""
+    from repro_torch.core.sparse_linear import linear_apply
+    from repro_torch.kernels.colwise_nm import colwise_nm_matmul_tiled
+
+    meta = dict(device="meta")
+    values = torch.zeros((2, 36, 64), **meta)
+    idx = torch.zeros((2, 36), dtype=torch.int32, **meta)
+    x = torch.zeros((3, 4, 72), **meta)
+    for call in (lambda: colwise_nm_matmul_tiled(x, values, idx),
+                 lambda: linear_apply({"values": values, "idx": idx}, x,
+                                      impl="compressed_tiled")):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            call()
+
+
 def test_wrappers_take_no_cpu_fallback_on_a_device_tensor(tdb):
     """Only a CPU tensor runs a plain version: a tensor on any other device
     goes to the kernel's launcher, which takes CUDA tensors alone (here a

@@ -9,7 +9,8 @@ import pytest
 import torch
 
 from repro.core import pruning as jp
-from repro.kernels.colwise_nm.kernel import colwise_nm_matmul_strips_pallas
+from repro.kernels.colwise_nm.kernel import (colwise_nm_matmul_pallas,
+                                           colwise_nm_matmul_strips_pallas)
 from repro.kernels.conv_gemm import ops as jconv
 from repro.kernels.conv_gemm.kernel import conv2d_fused_pallas
 from repro.kernels.conv_gemm.ref import conv2d_cnhw_ref as j_conv_ref
@@ -142,3 +143,31 @@ def test_conv_plans_match_library_conv(c, b, h, w, k, stride, pad, v):
         assert got.is_contiguous()
         _assert_close(got, want_t, 1e-5)
     _assert_close(tcv.conv2d_two_kernel(xt, vt, it, **geo), want_t, 1e-5)
+
+
+# (rows, d_in, n_tiles, k_kept, T): the tiled linear's tile widths, more than
+# one tile, a ragged last step of kept rows (37, 70), rows under and over
+# one block
+TILED_CASES = [(5, 96, 1, 48, 64), (17, 96, 4, 37, 64), (3, 200, 2, 70, 128),
+               (40, 64, 3, 32, 64)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,d_in,n_tiles,k_kept,tile", TILED_CASES)
+def test_tiled_linear_matches_pallas(rows, d_in, n_tiles, k_kept, tile, dtype):
+    """The tiled linear's wrapper on the CPU (its plain version) against the
+    JAX package's linear kernel in interpret mode, with leading dims."""
+    jdt, tdt, tol = DTYPES[dtype]
+    rng = np.random.default_rng(rows + d_in + tile)
+    x = rng.standard_normal((rows, d_in)).astype(np.float32)
+    values = rng.standard_normal((n_tiles, k_kept, tile)).astype(np.float32)
+    idx = np.stack([np.sort(rng.choice(d_in, k_kept, replace=False))
+                    for _ in range(n_tiles)]).astype(np.int32)
+    want = colwise_nm_matmul_pallas(jnp.asarray(x, jdt), jnp.asarray(values, jdt),
+                                    jnp.asarray(idx), interpret=True)
+    xt = torch.from_numpy(x).to(tdt)
+    got = tcw.colwise_nm_matmul_tiled(xt.reshape(1, rows, d_in),
+                                      torch.from_numpy(values).to(tdt),
+                                      torch.from_numpy(idx))
+    assert got.dtype == tdt and tuple(got.shape) == (1, rows, n_tiles * tile)
+    _assert_close(got[0], want, tol)
