@@ -40,18 +40,24 @@ Phases:
               teacher-forced replay of every step through the plain
               versions, host times per step and the device time of one
               decode step, with both linear kernels timed at its rows
-  8. flash  : the flash-attention kernel against its plain version over the
-              JAX flash tests' sweep, the (5, 2) GQA map with the top-left
-              mask, and smollm-360m's scoring shape (B 4, S 2048, H 15,
-              KV 5, D 64), in f32 and bf16, with its bound and an SDPA
-              yardstick
+  8. flash  : both flash-attention kernels against their plain version over
+              the JAX flash tests' sweep, the (5, 2) GQA map with the
+              top-left mask, D 128, a ragged Sq = Sk = 130, a D 18 head
+              (which only flash_attention.cu takes) and smollm-360m's
+              scoring shape (B 4, S 2048, H 15, KV 5, D 64), in f32 and
+              bf16, with their bounds and an SDPA yardstick; the tiled
+              kernel equal bit for bit (torch.equal) to flash_attention.cu
+              wherever it takes the case; then ``ops.flash_attention`` over
+              the same cases, each launching the kernel the shape rule
+              routes it to
   9. score  : the same pruned smollm-360m scored under attn_impl="pallas"
               through ``registry.loss_fn`` and ``forward_fn`` on 2 batches of
               4 x 2048 tokens of the port's ``SyntheticLM``: exact launch
-              counts (32 flash and 224 tiled-linear launches per forward),
+              counts (32 tiled-flash and 224 tiled-linear launches per
+              forward, none of flash_attention.cu),
               logits and NLL against a replay through the plain versions,
-              the NLLs equal to the ones the other linear kernel gave (its
-              bits are the same), host and device ms per forward, tokens/s,
+              the NLLs equal to the ones the other linear kernel and
+              flash_attention.cu gave (the bits are the same), host and device ms per forward, tokens/s,
               idle share and the kernels' shares of the device time
  10. report : one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
               line last
@@ -111,24 +117,51 @@ SERVE_PROMPTS, SERVE_BUDGETS = (16, 128), (16, 32)
 REPLAY_RTOL = 1e-3  # of max|logit| per step
 # phase 8: (B, Sq, Sk, H, KV, D, causal).  tests/test_flash_attn.py's sweep
 # in the Pallas kernel's [BH, S, D] layout (H = KV = 1), the (5, 2) GQA map
-# with the top-left mask at Sq > Sk, and the scoring forward's shape, which
-# the kernel list carries
+# with the top-left mask at Sq > Sk, the widest head (D 128), a ragged last
+# query block and key tile (Sq = Sk = 130), a head the tiled kernel refuses
+# (D 18: not whole 16-byte rows, so flash_attention.cu takes it), and the
+# scoring forward's shape, which the kernel list carries
 FLASH_CASES = [(2, 32, 32, 1, 1, 16, True), (1, 16, 48, 1, 1, 16, False),
                (2, 24, 24, 1, 1, 32, True), (1, 8, 8, 1, 1, 16, True),
                (3, 33, 17, 1, 1, 16, True), (2, 33, 17, 5, 2, 16, True),
-               (4, 2048, 2048, 15, 5, 64, True)]
+               (1, 70, 70, 2, 1, 128, True), (2, 130, 130, 15, 5, 64, True),
+               (2, 33, 17, 5, 2, 18, True), (4, 2048, 2048, 15, 5, 64, True)]
 # JAX's flash TOL (tests/test_flash_attn.py), here of max|y|
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 # phase 9: 2 batches of 4 sequences of 2048 tokens (SmolLM's training
 # context), each scored by loss_fn and forward_fn
 SCORE_BATCH, SCORE_SEQ, SCORE_BATCHES = 4, 2048, 2
 SCORE_NLL_RTOL = 1e-4  # of the replay's NLL
-# the two scoring NLLs the other linear kernel gave on the same seeded
-# weights and tokens (PERF.md): the tiled kernel's bits are its bits
+# the two scoring NLLs that colwise_nm_matmul and flash_attention.cu gave on
+# the same seeded weights and tokens (PERF.md): the tiled kernels' bits are
+# theirs
 SCORE_NLLS = (11.006677627563477, 10.987235069274902)
 # the kernel each compressed-linear family launches
 LINEAR_FAMILY_KERNEL = {"compressed_tiled": "colwise_nm_matmul_tiled",
                         "compressed_pallas": "colwise_nm_matmul"}
+
+
+def flash_tiled_registers(log: Path) -> list:
+    """(instance, registers, spills) of each flash_attention_tiled.cu
+    instance, from the ``-Xptxas -v`` output the build keeps: instance as
+    "f32|bf16 BQxRPT DG" (query rows of a block, rows a thread, 32-column
+    groups)."""
+    import re
+
+    out, inst, spill = [], None, ""
+    for line in log.read_text().splitlines():
+        m = re.search(r"flash_tiled_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)ELi(\d+)E",
+                      line)
+        if "Compiling entry function" in line:
+            inst = (f"{'f32' if m.group(1) == 'f' else 'bf16'} "
+                    f"{m.group(2)}x{m.group(3)} DG{m.group(4)}") if m else None
+        elif inst and "spill" in line:
+            spill = line.strip()
+        elif inst and "registers" in line:
+            out.append((inst, int(re.search(r"Used (\d+) registers", line)
+                                  .group(1)), spill))
+            inst = None
+    return out
 
 
 def check(cond: bool, msg: str) -> None:
@@ -495,6 +528,8 @@ LIBRARY_CALLS = {
                        "transposes and the expansion not timed); timed where "
                        "Sq == Sk or not causal, as SDPA aligns its causal "
                        "mask bottom-right",
+    "flash_attention_tiled": "F.scaled_dot_product_attention, as for "
+                             "flash_attention",
 }
 KEYS = ("ms", "eager_ms", "plain_ms", "bound_ms", "library_ms")
 
@@ -992,6 +1027,7 @@ def run_serving(dev, cfg, params) -> dict:
     from repro_torch.kernels.colwise_nm import (colwise_nm_matmul_cuda,
                                                 colwise_nm_matmul_tiled_cuda)
     from repro_torch.kernels.flash_attn import (FLASH_ATTENTION,
+                                                FLASH_ATTENTION_TILED,
                                                 paged_attention_cuda)
     from repro_torch.models import lm
     from repro_torch.models import registry as reg
@@ -1065,11 +1101,11 @@ def run_serving(dev, cfg, params) -> dict:
           f"budget; page pool invariants hold, 0 pages mapped after the run "
           f"(peak {st['pages_peak']}, {st['pages_stranded']} stranded)",
           flush=True)
+    flash = FLASH_ATTENTION.launches + FLASH_ATTENTION_TILED.launches
     print(f"  launches in the served run: {counts} (want {want}); flash "
-          f"attention {FLASH_ATTENTION.launches} (it is not on the serving "
-          "path)", flush=True)
+          f"attention {flash} (it is not on the serving path)", flush=True)
     check(counts == want, f"serving launches {counts}, want {want}")
-    check(FLASH_ATTENTION.launches == 0, "the served run launched flash")
+    check(flash == 0, "the served run launched flash")
     # exact counts: every attention and linear call launched its kernel, so
     # no plain version ran on the card, and colwise_nm_matmul did not run
     print("  no plain version ran: every one of the "
@@ -1183,23 +1219,36 @@ def flash_bound(b, sq, sk, h, kv, d, causal, dtype) -> tuple:
 
 
 def check_flash_kernel(dev, tot):
-    """Phase 8: the flash kernel against its plain version, f32 and bf16,
-    with its bound and an SDPA yardstick."""
-    from repro_torch.kernels.flash_attn import (flash_attention_cuda,
-                                                flash_attention_gqa_ref)
+    """Phase 8: both flash kernels against their plain version, f32 and
+    bf16, with their bounds and an SDPA yardstick; the tiled kernel equal
+    bit for bit to the other wherever it takes the case.  Then the public
+    entry point over the same cases with the launch counts reset: each case
+    must launch the kernel ``flash_tiled_takes`` routes it to.  Returns those
+    counts."""
+    from repro_torch.kernels import KERNELS, reset_launch_counts
+    from repro_torch.kernels.flash_attn import (flash_attention,
+                                                flash_attention_gqa_ref,
+                                                flash_attention_scalar_cuda,
+                                                flash_attention_tiled_cuda,
+                                                flash_tiled_config,
+                                                flash_tiled_takes)
 
+    inputs = []
     for i, (b, sq, sk, h, kv, d, causal) in enumerate(FLASH_CASES):
         for dtype in (torch.float32, torch.bfloat16):
             rng = np.random.default_rng(SEED + 40 + i)
             q, k, v = (torch.from_numpy(rng.standard_normal(
                 shape, dtype=np.float32)).to(dev, dtype) for shape in (
                     (b, sq, h, d), (b, sk, kv, d), (b, sk, kv, d)))
+            tiled = flash_tiled_takes(q, k, v)
+            inputs.append((q, k, v, causal, tiled))
             tag = (f"B={b} Sq={sq} Sk={sk} H={h} KV={kv} D={d} "
                    f"{'causal' if causal else 'full'} "
                    f"{str(dtype).replace('torch.', '')}")
             want = flash_attention_gqa_ref(q, k, v, causal=causal)
-            err = max_err(flash_attention_cuda(q, k, v, causal=causal), want,
-                          f"flash_attention {tag}", FLASH_TOL[dtype])
+            y_old = flash_attention_scalar_cuda(q, k, v, causal=causal)
+            err_old = max_err(y_old, want, f"flash_attention {tag}",
+                              FLASH_TOL[dtype])
             library = None
             if sq == sk or not causal:
                 mapping = (torch.arange(h, device=dev) * kv) // h
@@ -1210,13 +1259,58 @@ def check_flash_kernel(dev, tot):
                     qh, kh, vh, is_causal=causal)
                 max_err(library().transpose(1, 2), want,
                         f"SDPA yardstick {tag}", FLASH_TOL[dtype])
-            r = measure(lambda: flash_attention_cuda(q, k, v, causal=causal),
-                        lambda: flash_attention_gqa_ref(q, k, v, causal=causal),
-                        library)
-            r["bound_ms"], by = flash_bound(b, sq, sk, h, kv, d, causal, dtype)
-            report(tot, "flash_attention", tag, r, by, err, dtype,
-                   count=(b, sq, h) == (SCORE_BATCH, SCORE_SEQ, 15))
-    return tot
+            bound, by = flash_bound(b, sq, sk, h, kv, d, causal, dtype)
+            scoring = (b, sq, h) == (SCORE_BATCH, SCORE_SEQ, 15)
+            plain = lambda: flash_attention_gqa_ref(q, k, v, causal=causal)  # noqa: E731
+            r_old = measure(
+                lambda: flash_attention_scalar_cuda(q, k, v, causal=causal),
+                plain, library)
+            r_old["bound_ms"] = bound
+            report(tot, "flash_attention", tag, r_old, by, err_old, dtype,
+                   count=scoring)
+            if not tiled:
+                print(f"  flash_attention_tiled {tag}: refused by the shape "
+                      "rule (flash_attention.cu takes it)", flush=True)
+                continue
+            y_t = flash_attention_tiled_cuda(q, k, v, causal=causal)
+            err = max_err(y_t, want, f"flash_attention_tiled {tag}",
+                          FLASH_TOL[dtype])
+            check(torch.equal(y_t, y_old), f"flash_attention_tiled {tag}: "
+                  "not bit-identical to flash_attention")
+            r = measure(
+                lambda: flash_attention_tiled_cuda(q, k, v, causal=causal),
+                plain, library)
+            r["bound_ms"] = bound
+            rows, rpt = flash_tiled_config(d, dtype)
+            report(tot, "flash_attention_tiled", f"{tag} ({rows}x{rpt})", r,
+                   by, err, dtype, count=scoring)
+            if scoring:
+                gflop = 4 * b * h * d * sq * (sq + 1) / 2 / 1e9
+                lib = ("none" if r["library_ms"] is None
+                       else f"{gflop / r['library_ms']:.2f}")
+                print(f"  scoring shape {tag}: tiled {gflop / r['ms']:.2f} "
+                      f"TFLOP/s, flash_attention.cu "
+                      f"{gflop / r_old['ms']:.2f}, SDPA {lib} ({gflop:.2f} "
+                      f"GFLOP; bound {bound:.4f} ms by {by}); tiled / SDPA "
+                      f"= {r['ms'] / r['library_ms']:.3f}, tiled / old = "
+                      f"{r['ms'] / r_old['ms']:.3f}; bit-identical",
+                      flush=True)
+    torch.cuda.synchronize()
+
+    # the public entry point, with the counts reset just before it
+    reset_launch_counts()
+    want = {"flash_attention": 0, "flash_attention_tiled": 0}
+    with torch.no_grad():
+        for q, k, v, causal, tiled in inputs:
+            flash_attention(q, k, v, causal=causal)
+            want["flash_attention_tiled" if tiled else "flash_attention"] += 1
+    torch.cuda.synchronize()
+    counts = {k.name: k.launches for k in KERNELS if k.launches}
+    print(f"  ops.flash_attention over the {len(inputs)} cases: launches "
+          f"{counts} (want {want}: the tiled kernel wherever the shape rule "
+          "takes the case)", flush=True)
+    check(counts == want, f"flash routing launches {counts}, want {want}")
+    return counts
 
 
 def run_scoring(dev, cfg, params) -> dict:
@@ -1228,7 +1322,8 @@ def run_scoring(dev, cfg, params) -> dict:
     from repro_torch.kernels import KERNELS, reset_launch_counts
     from repro_torch.kernels.colwise_nm import (colwise_nm_matmul_cuda,
                                                 colwise_nm_matmul_tiled_cuda)
-    from repro_torch.kernels.flash_attn import flash_attention_cuda
+    from repro_torch.kernels.flash_attn import (flash_attention_cuda,
+                                                flash_attention_scalar_cuda)
     from repro_torch.models import lm
     from repro_torch.models import registry as reg
     from repro_torch.models.blocks import layer_params
@@ -1255,7 +1350,7 @@ def run_scoring(dev, cfg, params) -> dict:
         torch.cuda.synchronize()
         counts = {k.name: k.launches for k in KERNELS if k.launches}
         n_fwd = 2 * SCORE_BATCHES
-        want = {"flash_attention": cfg.n_layers * n_fwd,
+        want = {"flash_attention_tiled": cfg.n_layers * n_fwd,
                 "colwise_nm_matmul_tiled": len(LINEARS) * cfg.n_layers * n_fwd}
         print(f"  launches over {n_fwd} scoring forwards ({SCORE_BATCHES} "
               f"batches x loss_fn and forward_fn): {counts} (want {want})",
@@ -1291,9 +1386,10 @@ def run_scoring(dev, cfg, params) -> dict:
               flush=True)
         got = tuple(k for k, _ in nlls)
         check(got == SCORE_NLLS, f"scoring NLLs {got}: not the "
-              f"{SCORE_NLLS} of colwise_nm_matmul on the same inputs")
-        print(f"  the NLLs equal colwise_nm_matmul's {SCORE_NLLS} exactly",
-              flush=True)
+              f"{SCORE_NLLS} of colwise_nm_matmul and flash_attention.cu on "
+              "the same inputs")
+        print(f"  the NLLs equal the {SCORE_NLLS} of colwise_nm_matmul and "
+              "flash_attention.cu exactly", flush=True)
         del outs
 
         batch = batches[0]
@@ -1313,6 +1409,8 @@ def run_scoring(dev, cfg, params) -> dict:
             dtype=np.float32)).to(dev)
         kv = q[:, :, :cfg.n_kv_heads].contiguous()
         flash_ms = time_ms(lambda: flash_attention_cuda(q, kv, kv), iters=5)
+        old_flash_ms = time_ms(lambda: flash_attention_scalar_cuda(q, kv, kv),
+                               iters=5)
         layer0 = layer_params(params["layers"], 0)
         d_ins = {"o": cfg.padded_heads * hd, "down": cfg.d_ff}
         lin_ms, old_ms = 0.0, 0.0
@@ -1336,7 +1434,8 @@ def run_scoring(dev, cfg, params) -> dict:
           f"(CUDA graph replay) -> device idle share {idle:.3f}; kernels "
           f"alone: {cfg.n_layers} x {flash_ms:.4f} ms of flash attention = "
           f"{cfg.n_layers * flash_ms:.3f} ms ({flash_share:.3f} of the device "
-          f"time), {cfg.n_layers} x {lin_ms:.4f} ms of 7 tiled sparse linears "
+          f"time; flash_attention.cu would take {cfg.n_layers} x "
+          f"{old_flash_ms:.4f} ms), {cfg.n_layers} x {lin_ms:.4f} ms of 7 tiled sparse linears "
           f"= {cfg.n_layers * lin_ms:.3f} ms ({lin_share:.3f}; "
           f"colwise_nm_matmul would take {cfg.n_layers} x {old_ms:.4f} ms), "
           f"tied unembedding {unembed_ms:.3f} ms ({unembed_ms / dev_ms:.3f})",
@@ -1346,6 +1445,7 @@ def run_scoring(dev, cfg, params) -> dict:
         "host_ms_per_forward": host_ms, "device_ms_per_forward": dev_ms,
         "idle_share": idle, "tokens_per_s": n_tok / host_ms * 1e3,
         "flash_ms_per_layer": flash_ms, "flash_share": flash_share,
+        "old_flash_ms_per_layer": old_flash_ms,
         "linear_ms_per_layer": lin_ms, "linear_share": lin_share,
         "old_linear_ms_per_layer": old_ms, "unembed_ms": unembed_ms, "replay_max_rel_err": worst,
         "nll_max_rel_err": nll_worst, "nll": nlls}), flush=True)
@@ -1394,6 +1494,9 @@ def main() -> int:
     for line in (lib.parent / "build.log").read_text().splitlines():
         if line.startswith("==") or "registers" in line or "spill" in line:
             print("  " + line.strip(), flush=True)
+    for inst, regs, spill in flash_tiled_registers(lib.parent / "build.log"):
+        print(f"  flash_attention_tiled {inst}: {regs} registers, {spill}",
+              flush=True)
 
     cfg = get_vision_config("resnet-tiny")
     params = vision_init(cfg, SEED, device=dev)
@@ -1424,9 +1527,9 @@ def main() -> int:
 
     print("== 8. flash-attention kernel at the sweep and scoring shapes",
           flush=True)
-    print(f"  library_ms of flash_attention: {LIBRARY_CALLS['flash_attention']}",
-          flush=True)
-    check_flash_kernel(dev, tot)
+    for name in ("flash_attention", "flash_attention_tiled"):
+        print(f"  library_ms of {name}: {LIBRARY_CALLS[name]}", flush=True)
+    flash_route = check_flash_kernel(dev, tot)
 
     print(f"== 9. scoring: pruned smollm-360m, attn_impl='pallas', "
           f"{SCORE_BATCHES} batches of {SCORE_BATCH} x {SCORE_SEQ} tokens",
@@ -1445,8 +1548,9 @@ def main() -> int:
             counts["two_kernel_pipelined"]["colwise_nm_matmul_strips_pipelined"],
         "colwise_nm_matmul": linear_launches["colwise_nm_matmul"],
         "paged_attention": serve_counts["paged_attention"],
-        "flash_attention": score_counts["flash_attention"],
+        "flash_attention": flash_route["flash_attention"],
         "colwise_nm_matmul_tiled": serve_counts["colwise_nm_matmul_tiled"],
+        "flash_attention_tiled": score_counts["flash_attention_tiled"],
     }
     print(f"  the linear phase (5) launched {linear_launches}; the served run "
           f"colwise_nm_matmul_tiled {launches['colwise_nm_matmul_tiled']} times "
@@ -1466,9 +1570,16 @@ def main() -> int:
                               "launches: the served smollm-360m run (1 per "
                               "layer per decode step)",
            "flash_attention": "ms etc.: B 4, S 2048, H 15, KV 5, D 64, "
-                              "causal, f32 (the scoring forward's shape); "
-                              "launches: the scored smollm-360m run (1 per "
-                              "layer per forward)"}
+                              "causal, f32 (the scoring forward's shape, "
+                              "where it is the tiled kernel's bitwise "
+                              "yardstick); launches: ops.flash_attention "
+                              "over phase 8's cases, the D 18 heads the "
+                              "tiled kernel refuses",
+           "flash_attention_tiled": "ms etc.: B 4, S 2048, H 15, KV 5, D "
+                                    "64, causal, f32 (the scoring forward's "
+                                    "shape); launches: the scored "
+                                    "smollm-360m run (1 per layer per "
+                                    "forward)"}
     kernels = []
     for k in KERNELS:
         t = tot[k.name]

@@ -52,41 +52,6 @@ size_t tiled_smem_bytes(int bm, int itemsize) {
   return static_cast<size_t>(2) * kBK * ((bm + kPadA) * sizeof(float) + kBN * itemsize);
 }
 
-// Four consecutive values of a shared-memory row as f32: one 16-byte load
-// (f32) or one 8-byte load (bf16).
-__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
-  const float4 q = *reinterpret_cast<const float4*>(p);
-  v[0] = q.x;
-  v[1] = q.y;
-  v[2] = q.z;
-  v[3] = q.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
-  const uint2 q = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.y));
-  v[0] = lo.x;
-  v[1] = lo.y;
-  v[2] = hi.x;
-  v[3] = hi.y;
-}
-
-// Four consecutive outputs, each rounded once from its f32 sum.
-__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
-  __nv_bfloat162 lo, hi;
-  lo.x = repro::from_f32<__nv_bfloat16>(v[0]);
-  lo.y = repro::from_f32<__nv_bfloat16>(v[1]);
-  hi.x = repro::from_f32<__nv_bfloat16>(v[2]);
-  hi.y = repro::from_f32<__nv_bfloat16>(v[3]);
-  uint2 q;
-  q.x = *reinterpret_cast<const unsigned*>(&lo);
-  q.y = *reinterpret_cast<const unsigned*>(&hi);
-  *reinterpret_cast<uint2*>(p) = q;
-}
-
 template <typename T, int BM>
 __global__ void __launch_bounds__(kThreads)
 tiled_kernel(const T* __restrict__ x, const T* __restrict__ values, const int* __restrict__ idx,
@@ -202,7 +167,7 @@ tiled_kernel(const T* __restrict__ x, const T* __restrict__ values, const int* _
 #pragma unroll
         for (int q = 0; q < TM / 4; ++q) {
           float a4[4];
-          load4(a_s + kk * LDA + 4 * q, a4);
+          repro::load4(a_s + kk * LDA + 4 * q, a4);
 #pragma unroll
           for (int e = 0; e < 4; ++e) a[4 * q + e] = a4[e];
         }
@@ -211,7 +176,7 @@ tiled_kernel(const T* __restrict__ x, const T* __restrict__ values, const int* _
         for (int i = 0; i < TM; ++i) a[i] = a_s[kk * LDA + i];
       }
       float w[4];
-      load4(b_s + kk * kBN, w);
+      repro::load4(b_s + kk * kBN, w);
 #pragma unroll
       for (int i = 0; i < TM; ++i) {
 #pragma unroll
@@ -229,7 +194,7 @@ tiled_kernel(const T* __restrict__ x, const T* __restrict__ values, const int* _
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int m = tr * TM + i;
-    if (m < nrow) store4(out_blk + static_cast<long long>(m) * d_out, acc[i]);
+    if (m < nrow) repro::store4(out_blk + static_cast<long long>(m) * d_out, acc[i]);
   }
 }
 

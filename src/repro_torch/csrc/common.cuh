@@ -1,4 +1,4 @@
-// Shared device helpers of the port's conv kernels.
+// Shared device helpers of the port's kernels.
 //
 // tap_coords() is the im2col index arithmetic of
 // repro_torch/kernels/im2col_pack/kernel.py::tap_coords (itself the twin of
@@ -97,6 +97,51 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+// A 16-byte copy that lands as zeros where ``valid`` is false: the source
+// size is then 0 and nothing is read (gmem_src must still be a mapped
+// address of the same tensor).
+__device__ __forceinline__ void cp_async16_zfill(void* smem_dst, const void* gmem_src,
+                                                 bool valid) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  const unsigned src_size = valid ? 16u : 0u;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem_src),
+               "r"(src_size));
+}
+
+// Four consecutive values of a shared-memory row as f32: one 16-byte load
+// (f32) or one 8-byte load (bf16).  p must be aligned to the load's size.
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
+  const uint2 q = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.y));
+  v[0] = lo.x;
+  v[1] = lo.y;
+  v[2] = hi.x;
+  v[3] = hi.y;
+}
+
+// Four consecutive outputs, each rounded once from its f32 value.
+__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
+  __nv_bfloat162 lo, hi;
+  lo.x = from_f32<__nv_bfloat16>(v[0]);
+  lo.y = from_f32<__nv_bfloat16>(v[1]);
+  hi.x = from_f32<__nv_bfloat16>(v[2]);
+  hi.y = from_f32<__nv_bfloat16>(v[3]);
+  uint2 q;
+  q.x = *reinterpret_cast<const unsigned*>(&lo);
+  q.y = *reinterpret_cast<const unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(p) = q;
 }
 
 // Launch-time check shared by the entry points: a kernel that needs more

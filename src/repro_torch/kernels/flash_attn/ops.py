@@ -17,8 +17,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     A CPU tensor runs the plain version (the JAX package runs its kernel in
     interpret mode there) after the head map ``(h * KV) // H`` and the
     transposes to [BH, S, D] (:func:`flash_attention_gqa_ref`); a tensor on
-    any other device goes to the kernel, which reads the layout and maps
-    the heads in place, or raises: there is no fallback.  Forward only: raises when autograd would record
+    any other device goes to a kernel (:func:`flash_attention_cuda` picks
+    one of two by the shape; both give the same bits), which reads the
+    layout and maps the heads in place, or raises: there is no fallback.  Forward only: raises when autograd would record
     the call, on either device.  ``block_q``/``block_k`` are the Pallas
     grid's tiles; they change no value (the kernel has its own tile, and
     only where bf16 rounds the probabilities may differ), so they are

@@ -15,11 +15,15 @@ plain strip GEMM, and the tiled linear the same bits as the linear kernel
 tiles).  The paged-attention kernel runs the CPU parity tests'
 cases and smollm-360m's serving shapes, the trash-page, empty-cache and
 bad-page-id cases, its rejections, dispatch on the card, and a served
-request of the smoke model.  The flash-attention kernel runs the JAX flash
+request of the smoke model.  The flash-attention kernels run the JAX flash
 tests' sweep (f32 and bf16, JAX's tolerances), the GQA head map for
 H % KV != 0, the top-left causal mask when Sq != Sk, large logits,
-smollm-360m's scoring shape, its rejections, and one launch per layer
-through ``attn_apply`` and the smoke model's forward.
+smollm-360m's scoring shape, their rejections, and one launch per layer
+through ``attn_apply`` and the smoke model's forward; the tiled kernel gives
+the other's bits (``torch.equal``) under every instance over the sweep and
+the GQA cases, keys past Sk stay out even where NaN follows them in memory,
+and the wrapper routes by the shape rule (a misaligned view and heads that
+are not whole 16-byte rows go to ``flash_attention.cu``).
 """
 import numpy as np
 import pytest
@@ -50,12 +54,19 @@ from repro_torch.kernels.conv_gemm import (
 )
 from repro_torch.kernels.flash_attn import (
     FLASH_ATTENTION,
+    FLASH_ATTENTION_TILED,
+    FLASH_TILED_SHAPES,
     PAGED_ATTENTION,
     flash_attention,
     flash_attention_cuda,
     flash_attention_gqa_ref,
     flash_attention_ref,
+    flash_attention_scalar_cuda,
+    flash_attention_tiled_cuda,
     flash_smem_bytes,
+    flash_tiled_config,
+    flash_tiled_smem_bytes,
+    flash_tiled_takes,
     paged_attention,
     paged_attention_cuda,
     paged_attention_ref,
@@ -409,12 +420,13 @@ def test_each_launch_counts_once(dev):
                                  *_compressed(2, 72, 36, 64, torch.float32, dev))
     paged_attention_cuda(*_paged(dev, torch.float32), page_size=8)
     flash_attention_cuda(*_flash_qkv(1, 8, 8, 2, 2, 16, torch.float32, dev))
+    flash_attention_cuda(*_flash_qkv(1, 8, 8, 2, 2, 18, torch.float32, dev))
     torch.cuda.synchronize()
     assert {k.name: k.launches for k in KERNELS} == {
         "conv2d_fused": 2, "im2col_pack": 1, "colwise_nm_matmul_strips": 1,
         "colwise_nm_matmul": 1, "colwise_nm_matmul_strips_pipelined": 1,
         "conv2d_fused_banded": 1, "flash_attention": 1, "paged_attention": 1,
-        "colwise_nm_matmul_tiled": 1}
+        "colwise_nm_matmul_tiled": 1, "flash_attention_tiled": 1}
 
 
 @pytest.mark.parametrize("kernel,op,name,args", [
@@ -815,15 +827,26 @@ def test_flash_kernel_matches_plain_over_the_sweep(dev, bh, sq, sk, d, causal,
     (1, 17, 70, 6, 3, 32, False),    # two K tiles, ragged
     (1, 130, 130, 3, 1, 48, True),   # three q tiles, D not a power of two
     (1, 70, 70, 2, 1, 128, True),    # the widest head the kernel takes
+    (2, 33, 17, 5, 2, 18, True),     # not whole 16-byte rows: the other kernel
 ])
 def test_flash_gqa_layout_and_head_map(dev, b, sq, sk, h, kv, d, causal,
                                        dtype):
+    """The public entry point launches the kernel the shape rule picks,
+    once, with the shared memory its footprint function gives."""
     q, k, v = _flash_qkv(b, sq, sk, h, kv, d, dtype, dev, seed=h * 7 + kv)
     reset_launch_counts()
     got = flash_attention(q, k, v, causal=causal)
     _flash_close(got, flash_attention_gqa_ref(q, k, v, causal=causal), dtype)
-    assert FLASH_ATTENTION.launches == 1
-    assert FLASH_ATTENTION.last_smem_bytes == flash_smem_bytes(d)
+    if d == 18:
+        assert FLASH_ATTENTION.launches == 1
+        assert FLASH_ATTENTION_TILED.launches == 0
+        assert FLASH_ATTENTION.last_smem_bytes == flash_smem_bytes(d)
+    else:
+        assert FLASH_ATTENTION_TILED.launches == 1
+        assert FLASH_ATTENTION.launches == 0
+        rows, _ = flash_tiled_config(d, dtype)
+        assert FLASH_ATTENTION_TILED.last_smem_bytes == flash_tiled_smem_bytes(
+            d, dtype, rows)
 
 
 def test_flash_head_map_is_not_h_over_g(dev):
@@ -881,7 +904,8 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take(dev):
     with torch.no_grad():
         flash_attention(q, k, v)
     torch.cuda.synchronize()
-    assert FLASH_ATTENTION.launches == 1
+    assert FLASH_ATTENTION_TILED.launches == 1  # D 16 f32: the tiled kernel
+    assert FLASH_ATTENTION.launches == 0
 
 
 def test_attn_apply_and_forward_launch_flash_once_per_layer(dev):
@@ -907,7 +931,7 @@ def test_attn_apply_and_forward_launch_flash_once_per_layer(dev):
         y = tattn.attn_apply(attn0, cfg, x, positions=pos)
     torch.cuda.synchronize()
     assert {k.name: k.launches for k in KERNELS if k.launches} == {
-        "flash_attention": 1}
+        "flash_attention_tiled": 1}  # head_dim 16 in f32: the tiled kernel
     y_naive = tattn.attn_apply(attn0, cfg.with_(attn_impl="naive"), x,
                                positions=pos)
     _flash_close(y, y_naive, torch.float32)
@@ -918,13 +942,144 @@ def test_attn_apply_and_forward_launch_flash_once_per_layer(dev):
     chunked = treg.forward_fn(cfg.with_(attn_impl="chunked", attn_chunk=8))(
         params, batch)
     torch.cuda.synchronize()
-    assert FLASH_ATTENTION.launches == 1
+    assert FLASH_ATTENTION_TILED.launches == 1
     reset_launch_counts()
     with torch.no_grad():
         got = treg.forward_fn(cfg)(params, batch)
     torch.cuda.synchronize()
     assert {k.name: k.launches for k in KERNELS if k.launches} == {
-        "flash_attention": cfg.n_layers}
+        "flash_attention_tiled": cfg.n_layers}
     scale = float(want.abs().max())
     assert float((got - want).abs().max()) <= 1e-4 * scale
     assert float((chunked - want).abs().max()) <= 1e-4 * scale
+
+
+# ---------------------------------------------------------------------------
+# The tiled flash kernel: the other kernel's bits, and the routing rule
+# ---------------------------------------------------------------------------
+
+FLASH_GQA_CASES = [  # (b, sq, sk, h, kv, d, causal)
+    (2, 16, 16, 5, 2, 16, True),
+    (2, 33, 17, 5, 2, 16, True),
+    (1, 17, 70, 6, 3, 32, False),
+    (1, 130, 130, 3, 1, 48, True),
+    (2, 130, 130, 15, 5, 64, True),   # ragged last query block and key tile
+    (1, 300, 200, 4, 2, 96, True),
+    (1, 70, 70, 2, 1, 128, True),
+]
+
+
+def _tiled_shapes(d, dtype):
+    """Every instance of the tiled kernel that takes a head of ``d``."""
+    from repro_torch.kernels.flash_attn.tune import instances
+    return instances(d, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,sq,sk,d,causal", FLASH_SWEEP)
+def test_flash_tiled_equals_the_scalar_kernel_over_the_sweep(
+        dev, bh, sq, sk, d, causal, dtype):
+    q, k, v = (t[:, :, 0] for t in _flash_qkv(bh, sq, sk, 1, 1, d, dtype, dev,
+                                               seed=bh * sq + sk))
+    want = flash_attention_scalar_cuda(q, k, v, causal=causal)
+    for shape in _tiled_shapes(d, dtype):
+        got = flash_attention_tiled_cuda(q, k, v, causal=causal, shape=shape)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), shape
+    _flash_close(want, flash_attention_ref(q, k, v, causal=causal), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal", FLASH_GQA_CASES)
+def test_flash_tiled_equals_the_scalar_kernel_gqa(dev, b, sq, sk, h, kv, d,
+                                                  causal, dtype):
+    q, k, v = _flash_qkv(b, sq, sk, h, kv, d, dtype, dev, seed=sq + d)
+    want = flash_attention_scalar_cuda(q, k, v, causal=causal)
+    _flash_close(want, flash_attention_gqa_ref(q, k, v, causal=causal), dtype)
+    for shape in _tiled_shapes(d, dtype):
+        got = flash_attention_tiled_cuda(q, k, v, causal=causal, shape=shape)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), shape
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_tiled_at_the_scoring_shape(dev, dtype):
+    """smollm-360m's scoring forward (B 4, S 2048, H 15, KV 5, D 64): the
+    rule's instance against the plain version and, bit for bit, the other
+    kernel."""
+    q, k, v = _flash_qkv(4, 2048, 2048, 15, 5, 64, dtype, dev, seed=5)
+    got = flash_attention_tiled_cuda(q, k, v, causal=True)
+    _flash_close(got, flash_attention_gqa_ref(q, k, v, causal=True), dtype)
+    assert torch.equal(got, flash_attention_scalar_cuda(q, k, v, causal=True))
+
+
+@pytest.mark.parametrize("kernel", ["tiled", "scalar"])
+def test_flash_keys_past_sk_stay_out_of_the_sum(dev, kernel):
+    """K and V are views whose memory runs on into NaN rows past Sk (B 1,
+    so the view is contiguous): the staged tile holds zeros there, never
+    those rows, so the output stays finite and equals the clean inputs'."""
+    fn = (flash_attention_tiled_cuda if kernel == "tiled"
+          else flash_attention_scalar_cuda)
+    q, k_full, v_full = _flash_qkv(1, 70, 128, 4, 2, 64, torch.float32, dev,
+                                   seed=11)
+    k_full[:, 70:] = float("nan")
+    v_full[:, 70:] = float("nan")
+    k, v = k_full[:, :70], v_full[:, :70]
+    assert k.is_contiguous() and v.is_contiguous()
+    for causal in (True, False):
+        got = fn(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got).all())
+        want = flash_attention_gqa_ref(q, k.clone(), v.clone(), causal=causal)
+        _flash_close(got, want, torch.float32)
+
+
+def test_flash_routing_rule(dev):
+    """flash_attention_cuda takes the tiled kernel exactly where
+    flash_tiled_takes says so: whole 16-byte rows (f32 D % 4, bf16 D % 8)
+    and 16-byte aligned operands; a misaligned view and f32 D 18 go to the
+    other kernel, with the same bits."""
+    cases = [(16, torch.float32, True), (20, torch.float32, True),
+             (18, torch.float32, False), (20, torch.bfloat16, False),
+             (24, torch.bfloat16, True), (128, torch.float32, True)]
+    for d, dtype, tiled in cases:
+        q, k, v = _flash_qkv(1, 40, 40, 5, 2, d, dtype, dev, seed=d)
+        assert flash_tiled_takes(q, k, v) == tiled, (d, dtype)
+        reset_launch_counts()
+        flash_attention_cuda(q, k, v)
+        torch.cuda.synchronize()
+        assert FLASH_ATTENTION_TILED.launches == int(tiled), (d, dtype)
+        assert FLASH_ATTENTION.launches == int(not tiled), (d, dtype)
+    q, k, v = _flash_qkv(1, 40, 40, 5, 2, 64, torch.float32, dev, seed=3)
+    base = torch.empty(q.numel() + 1, device=dev)
+    q_mis = base[1:].view(q.shape)
+    q_mis.copy_(q)
+    assert q_mis.is_contiguous() and q_mis.data_ptr() % 16
+    assert not flash_tiled_takes(q_mis, k, v)
+    reset_launch_counts()
+    got = flash_attention_cuda(q_mis, k, v)
+    torch.cuda.synchronize()
+    assert FLASH_ATTENTION.launches == 1 and FLASH_ATTENTION_TILED.launches == 0
+    assert torch.equal(got, flash_attention_tiled_cuda(q, k, v))
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_tiled_cuda(q_mis, k, v)
+
+
+def test_flash_tiled_rejects_what_the_kernel_does_not_take(dev):
+    q, k, v = _flash_qkv(1, 8, 8, 2, 2, 18, torch.float32, dev)
+    with pytest.raises(ValueError, match="head_dim 18"):
+        flash_attention_tiled_cuda(q, k, v)
+    q, k, v = _flash_qkv(1, 8, 8, 2, 2, 128, torch.float32, dev)
+    for shape in ((64, 8), (32, 4), (128, 4)):  # 8 rows at D 128; no 32;
+        with pytest.raises(ValueError, match="shape|shared memory"):  # smem
+            flash_attention_tiled_cuda(q, k, v, shape=shape)
+    q, k, v = _flash_qkv(1, 8, 8, 2, 2, 16, torch.float32, dev)
+    with pytest.raises(TypeError, match="dtype"):
+        flash_attention_tiled_cuda(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        flash_attention_tiled_cuda(q.cpu(), k.cpu(), v.cpu())
+    reset_launch_counts()
+    with pytest.raises(RuntimeError, match="forward only"):
+        flash_attention_tiled_cuda(q.requires_grad_(), k, v)
+    assert FLASH_ATTENTION_TILED.launches == 0
+    assert set(FLASH_TILED_SHAPES) == {(64, 4), (64, 8), (128, 4), (128, 8)}

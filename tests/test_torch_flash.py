@@ -7,8 +7,10 @@ bf16); the GQA wrapper against JAX's ``flash_attention`` and ``sdpa_gqa``
 ``forward_fn``/``loss_fn`` of smollm-360m's smoke config, dense and pruned,
 under each ``attn_impl`` (1e-4 of max|logit|, NLL 1e-5 relative); the
 qwen2-0.5b smoke twin of ``test_model_level_pallas_attention``;
-``SyntheticLM`` (bit-identical); and the rules around the kernel: forward
-only, and off the serving path.  Inputs come from numpy seeds; params come
+``SyntheticLM`` (bit-identical); and the rules around the kernels: forward
+only, off the serving path, and the shape rule that routes a call on the
+card to the tiled kernel or to the other (with the tiled kernel's shared
+memory), on either side of which the CPU path matches JAX.  Inputs come from numpy seeds; params come
 from JAX through ``params_from_jax``.
 
 ``test_gradients_match`` of the chunked tests has no twin: the port has no
@@ -37,7 +39,16 @@ from repro_torch.convert import params_from_jax
 from repro_torch.core.pruning import SparsityConfig
 from repro_torch.data import DataConfig, SyntheticLM
 from repro_torch.kernels import KERNELS
-from repro_torch.kernels.flash_attn import flash_attention, flash_attention_ref
+from repro_torch.kernels.flash_attn import (
+    FLASH_TILED_SHAPES,
+    flash_attention,
+    flash_attention_ref,
+    flash_smem_bytes,
+    flash_tiled_config,
+    flash_tiled_smem_bytes,
+    flash_tiled_takes,
+)
+from repro_torch.kernels.flash_attn.kernel import FLASH_MAX_D
 from repro_torch.models import attention as tattn
 from repro_torch.models import registry as treg
 from repro_torch.models.blocks import block_apply, layer_params
@@ -156,6 +167,71 @@ def test_flash_is_forward_only():
         loss, _ = treg.loss_fn(cfg)(params, {"tokens": np.zeros((1, 8),
                                                                 np.int32)})
     assert bool(torch.isfinite(loss))
+
+
+# ---------------------------------------------------------------------------
+# The two kernels' routing rule and the tiled kernel's shared memory
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_tiled_takes_whole_16_byte_rows(dtype):
+    """The tiled kernel takes D % 4 == 0 (f32) or D % 8 == 0 (bf16) up to
+    D 128, with 16-byte aligned operands; ``flash_attention.cu`` takes the
+    rest up to D 128.  A rule of the shape and pointers alone (CPU tensors
+    here: it needs no card)."""
+    vec = 4 if dtype == torch.float32 else 8
+    for d in range(1, 131):
+        q = torch.zeros((1, 3, 5, d), dtype=dtype)
+        k = torch.zeros((1, 3, 2, d), dtype=dtype)
+        want = d % vec == 0 and d <= FLASH_MAX_D
+        assert flash_tiled_takes(q, k, k) == want, d
+        assert (flash_tiled_smem_bytes(d, dtype, 64) is not None) == want, d
+        assert (flash_smem_bytes(d) is not None) == (d <= FLASH_MAX_D), d
+    base = torch.zeros(1 + 3 * 5 * 64, dtype=dtype)
+    q = base[1:].view(1, 3, 5, 64)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    k = torch.zeros((1, 3, 2, 64), dtype=dtype)
+    assert not flash_tiled_takes(q, k, k)
+    assert flash_tiled_takes(q.clone(), k, k)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_tiled_smem_fits_every_head_it_takes(dtype):
+    """The rule's instance fits a block's 227 KB for every D the kernel
+    takes, and the footprint is the C side's: Q and two stages of K and V
+    in the operands' dtype with rows padded by 16 bytes, and the f32
+    probabilities [64][rows + 4]."""
+    isz = 4 if dtype == torch.float32 else 2
+    for d in range(1, FLASH_MAX_D + 1):
+        if d * isz % 16:
+            continue
+        rows, rpt = flash_tiled_config(d, dtype)
+        assert (rows, rpt) in FLASH_TILED_SHAPES
+        assert rpt == 4 or d <= 64
+        smem = flash_tiled_smem_bytes(d, dtype, rows)
+        ld = d + 16 // isz
+        assert smem == (rows + 4 * 64) * ld * isz + 64 * (rows + 4) * 4
+        assert smem <= 227 * 1024, (d, rows, smem)
+    assert flash_tiled_smem_bytes(64, torch.float32, 32) is None
+    assert flash_tiled_smem_bytes(64, torch.float16, 64) is None
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [16, 18, 20, 64])
+def test_cpu_path_matches_jax_flash_either_side_of_the_rule(d, dtype):
+    """On the CPU ``flash_attention`` runs its plain version whichever
+    kernel the card would take (D 18 and, in bf16, D 20 go to
+    ``flash_attention.cu`` there): it matches JAX's ``flash_attention``,
+    which runs the Pallas kernel in interpret mode here, at the (5, 2) GQA
+    map with the top-left mask and ragged blocks."""
+    b, sq, sk, h, kvh = 1, 19, 13, 5, 2
+    (jq, jk, jv), (q, k, v) = _both(
+        _normal(d, (b, sq, h, d), (b, sk, kvh, d), (b, sk, kvh, d)), dtype)
+    got = flash_attention(q, k, v, causal=True, block_q=8, block_k=8)
+    assert got.dtype == q.dtype and tuple(got.shape) == (b, sq, h, d)
+    _close(got, j_flash_attention(jq, jk, jv, causal=True, block_q=8,
+                                  block_k=8), TOL[dtype])
 
 
 # ---------------------------------------------------------------------------
