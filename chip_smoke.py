@@ -7,7 +7,11 @@ Phases:
               process per source, all started together)
   3. kernels: each kernel against its plain PyTorch version at the main
               path's shapes: the five pruned-conv shapes of resnet-tiny at
-              batch 256 (f32, and one bf16 case) for the conv kernels, and
+              batch 256 (f32, and one bf16 case) for the conv kernels (both
+              banded kernels equal bit for bit to each other and to the
+              fused conv, timed per conv beside F.conv2d, then
+              conv2d_fused_banded_cuda over the six cases and a misaligned
+              view, each launching the kernel the shape rule picks), and
               smollm-360m's MLP widths (960 -> 2560, 2560 -> 960) at 256
               rows for the two sparse linear kernels, the tiled one (T a
               multiple of 64) equal bit for bit to the other (f32, bf16);
@@ -19,7 +23,8 @@ Phases:
               plan ``plan_params(profile=True)`` races on the card, with every
               candidate's device time per layer, profiled again to see
               whether the winners hold, (c) the forward forced under each
-              conv family; launch counts, logits held against a dense
+              conv family (the banded family launches, per conv, the banded
+              kernel the shape rule picks); launch counts, logits held against a dense
               reference, the masked -> compressed tree check, forward times,
               and the host cost of the dispatch lookup per conv call
   5. linear : compressed linear layers (serving's sparsity config, tile 8
@@ -262,15 +267,19 @@ def check_kernels(params, cfg, dev):
     from repro_torch.kernels.colwise_nm import (
         colwise_nm_matmul_strips_cuda, colwise_nm_matmul_strips_pipelined_cuda,
         colwise_nm_matmul_strips_pipelined_ref, colwise_nm_matmul_strips_ref)
+    from repro_torch.kernels import reset_launch_counts
     from repro_torch.kernels.conv_gemm import (
-        conv2d_fused_banded_cuda, conv2d_fused_banded_ref, conv2d_fused_cuda,
-        conv2d_fused_ref)
+        CONV2D_FUSED_BANDED, CONV2D_FUSED_BANDED_TILED, banded_tiled_takes,
+        conv2d_fused_banded_cuda, conv2d_fused_banded_ref,
+        conv2d_fused_banded_scalar_cuda, conv2d_fused_banded_tiled_cuda,
+        conv2d_fused_banded_tiled_ref, conv2d_fused_cuda, conv2d_fused_ref)
     from repro_torch.kernels.im2col_pack import (
         im2col_pack_cuda, im2col_pack_ref, out_size)
     from repro_torch.core.formats import ColwiseMeta, unpack_colwise
 
     rng = np.random.default_rng(SEED)
     tot = {}
+    routed = []  # (x, values, idx, geometry) of each case, for the routing run
     cases = [(*conv, torch.float32) for conv in main_path_convs(params, cfg)]
     cases.append((*cases[1][:-1], torch.bfloat16))
     check(len(cases) == 6, f"expected 5 pruned convs, got {len(cases) - 1}")
@@ -311,16 +320,48 @@ def check_kernels(params, cfg, dev):
         r["bound_ms"], by = bound_ms(conv_bytes, flops, dtype)
         report(tot, "conv2d_fused", tag, r, by, err, dtype)
 
-        y_b = conv2d_fused_banded_cuda(x, values, idx, hb=HB, **geo)
-        err = max_err(y_b, conv2d_fused_banded_ref(x, values, idx, hb=HB, **geo),
-                      f"conv2d_fused_banded {tag}", rtol)
+        # both banded kernels: conv2d_fused_banded.cu called directly (the
+        # rule gives every case here to the tiled kernel), then the tiled
+        # one; each equal bit for bit to the fused conv and to the other
+        banded_ref = conv2d_fused_banded_ref(x, values, idx, hb=HB, **geo)
+        y_b = conv2d_fused_banded_scalar_cuda(x, values, idx, hb=HB, **geo)
+        err = max_err(y_b, banded_ref, f"conv2d_fused_banded {tag}", rtol)
         check(torch.equal(y_b, y_k), f"conv2d_fused_banded {tag}: not "
               "bit-identical to conv2d_fused")
-        r = measure(lambda: conv2d_fused_banded_cuda(x, values, idx, hb=HB, **geo),
-                    lambda: conv2d_fused_banded_ref(x, values, idx, hb=HB, **geo),
-                    library_conv)
+        r_old = measure(
+            lambda: conv2d_fused_banded_scalar_cuda(x, values, idx, hb=HB, **geo),
+            lambda: conv2d_fused_banded_ref(x, values, idx, hb=HB, **geo),
+            library_conv)
+        r_old["bound_ms"], by = bound_ms(conv_bytes, flops, dtype)
+        report(tot, "conv2d_fused_banded", tag, r_old, by, err, dtype)
+
+        check(banded_tiled_takes(x, values, hb=HB, **geo),
+              f"{tag}: the tiled banded kernel refuses a main-path conv")
+        y_t = conv2d_fused_banded_tiled_cuda(x, values, idx, hb=HB, **geo)
+        max_err(y_t, banded_ref, f"conv2d_fused_banded_tiled {tag} vs "
+                "conv2d_fused_banded_ref", rtol)
+        err = max_err(y_t, conv2d_fused_banded_tiled_ref(x, values, idx, hb=HB,
+                                                         **geo),
+                      f"conv2d_fused_banded_tiled {tag}", rtol)
+        check(torch.equal(y_t, y_b), f"conv2d_fused_banded_tiled {tag}: not "
+              "bit-identical to conv2d_fused_banded")
+        check(torch.equal(y_t, y_k), f"conv2d_fused_banded_tiled {tag}: not "
+              "bit-identical to conv2d_fused")
+        r = measure(
+            lambda: conv2d_fused_banded_tiled_cuda(x, values, idx, hb=HB, **geo),
+            lambda: conv2d_fused_banded_tiled_ref(x, values, idx, hb=HB, **geo),
+            library_conv)
         r["bound_ms"], by = bound_ms(conv_bytes, flops, dtype)
-        report(tot, "conv2d_fused_banded", tag, r, by, err, dtype)
+        report(tot, "conv2d_fused_banded_tiled", tag, r, by, err, dtype)
+        gf = flops / 1e6  # GFLOP/s = flops / 1e9 / (ms / 1e3)
+        print(f"  banded {tag}: tiled {r['ms']:.5f} ms ({gf / r['ms']:.1f} "
+              f"GFLOP/s), conv2d_fused_banded {r_old['ms']:.5f} ms "
+              f"({gf / r_old['ms']:.1f}), F.conv2d {r['library_ms']:.5f} ms "
+              f"({gf / r['library_ms']:.1f}), bound {r['bound_ms']:.6f} ms; "
+              f"tiled {r_old['ms'] / r['ms']:.2f}x faster than the other, "
+              f"{r['library_ms'] / r['ms']:.2f}x cuDNN's speed; bit-identical",
+              flush=True)
+        routed.append((x, values, idx, geo))
 
         # im2col + pack: exact copy
         s_k = im2col_pack_cuda(x, kh, kw, stride, pad, 128)
@@ -366,7 +407,33 @@ def check_kernels(params, cfg, dev):
             library_gemm)
         r["bound_ms"], by = bound_ms(strip_bytes, flops, dtype)
         report(tot, "colwise_nm_matmul_strips_pipelined", tag, r, by, err, dtype)
-    return tot
+
+    # the banded routing rule over the six cases and a misaligned view of
+    # the first: the tiled kernel takes the six, conv2d_fused_banded.cu the view
+    x0, v0, i0, geo0 = routed[0]
+    flat = torch.empty(x0.numel() + 1, dtype=x0.dtype, device=dev)
+    x_mis = flat[1:].view(x0.shape)
+    x_mis.copy_(x0)
+    check(not banded_tiled_takes(x_mis, v0, hb=HB, **geo0),
+          "the rule takes a misaligned map")
+    want = [conv2d_fused_banded_scalar_cuda(x, vv, ii, hb=HB, **g)
+            for x, vv, ii, g in routed]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    got = [conv2d_fused_banded_cuda(x, vv, ii, hb=HB, **g)
+           for x, vv, ii, g in routed]
+    got.append(conv2d_fused_banded_cuda(x_mis, v0, i0, hb=HB, **geo0))
+    torch.cuda.synchronize()
+    route = {"conv2d_fused_banded_tiled": CONV2D_FUSED_BANDED_TILED.launches,
+             "conv2d_fused_banded": CONV2D_FUSED_BANDED.launches}
+    check(route == {"conv2d_fused_banded_tiled": len(routed),
+                    "conv2d_fused_banded": 1},
+          f"conv2d_fused_banded_cuda launched {route}")
+    check(all(torch.equal(g, w) for g, w in zip(got, want + want[:1])),
+          "the routed banded convs are not the bits of conv2d_fused_banded.cu")
+    print(f"  conv2d_fused_banded_cuda over the {len(routed)} cases and a "
+          f"misaligned view: launches {route}; bit-identical", flush=True)
+    return tot, route
 
 
 def linear_bound(rows, values, idx, dtype) -> tuple:
@@ -520,6 +587,8 @@ LIBRARY_CALLS = {
                                           "strips, as for the strip GEMM",
     "conv2d_fused_banded": "F.conv2d on the dense masked weight, as for the "
                            "fused conv",
+    "conv2d_fused_banded_tiled": "F.conv2d on the dense masked weight, as "
+                                 "for the fused conv",
     "paged_attention": "F.scaled_dot_product_attention on K/V pre-gathered "
                        "to [B, H, n_max*ps + Sq, D] with a boolean mask; the "
                        "gather is not timed",
@@ -594,10 +663,11 @@ def rel_err(a, b) -> float:
 
 
 SPARSE = ("values", "idx")
-# Kernels each conv family launches for one pruned conv.
+# Kernels each conv family launches for one pruned conv; the banded family's
+# kernel depends on the conv's shape (family_kernels).
 FAMILY_KERNELS = {
     "fused_sparse_pallas": {"conv2d_fused": 1},
-    "fused_banded_pallas": {"conv2d_fused_banded": 1},
+    "fused_banded_pallas": None,
     "two_kernel_pipelined": {"im2col_pack": 1,
                              "colwise_nm_matmul_strips_pipelined": 1},
     "im2col_sparse_pallas": {"im2col_pack": 1, "colwise_nm_matmul_strips": 1},
@@ -606,12 +676,31 @@ FAMILY_KERNELS = {
 PROFILE_DB = ROOT / "build" / "repro_torch" / "chip_smoke_profile.json"
 
 
-def expected_launches(impls, n_forwards: int) -> dict:
+def family_kernels(impl, conv) -> dict:
+    """Kernels one pruned conv launches under the candidate ``impl``: the
+    banded family's by the shape rule (``banded_tiled_geometry``) at the
+    candidate's strip width and band depth."""
+    from repro_torch import dispatch
+    from repro_torch.kernels.conv_gemm import banded_tiled_geometry
+
+    family = impl.split("@")[0]
+    if FAMILY_KERNELS[family] is not None:
+        return FAMILY_KERNELS[family]
+    spec = dispatch.REGISTRY.get("conv", impl)
+    _name, layer, c, h, w, kh, kw, stride, pad = conv
+    n_tiles, k_kept, tile = layer["values"].shape
+    tiled = banded_tiled_geometry(
+        c, BATCH, h, w, kh, kw, stride, pad, spec.geom("v"), spec.geom("hb"),
+        n_tiles, k_kept, tile, layer["values"].element_size()) is not None
+    return {"conv2d_fused_banded_tiled" if tiled else "conv2d_fused_banded": 1}
+
+
+def expected_launches(impls, convs, n_forwards: int) -> dict:
     from repro_torch.kernels import KERNELS
 
     want = {k.name: 0 for k in KERNELS}
-    for impl in impls:
-        for name, n in FAMILY_KERNELS[impl.split("@")[0]].items():
+    for impl, conv in zip(impls, convs, strict=True):
+        for name, n in family_kernels(impl, conv).items():
             want[name] += n * n_forwards
     return want
 
@@ -643,7 +732,12 @@ def run_main_path(params, cfg, dev):
     PROFILE_DB.unlink(missing_ok=True)
     db = dispatch.ProfileDB(path=PROFILE_DB)
     dispatch.set_db(db)
+    # the default plan is timed, after the profile has filled db, against a
+    # DB that stays empty: the heuristic's plan
+    empty = dispatch.ProfileDB(path=PROFILE_DB.with_suffix(".empty.json"))
+    empty.path.unlink(missing_ok=True)
     keys = main_path_keys(params, cfg)
+    convs = main_path_convs(params, cfg)
     check(len(keys) == 5, f"expected 5 pruned convs, got {len(keys)}")
     batches = [synth_batch(cfg, SEED + 1 + i, BATCH, device=dev)
                for i in range(N_BATCHES)]
@@ -664,7 +758,7 @@ def run_main_path(params, cfg, dev):
         logits = [vision_apply(params, cfg, x, impl=impl) for x, _ in batches]
         torch.cuda.synchronize()
         counts = {k.name: k.launches for k in KERNELS}
-        want = expected_launches(layer_impls, N_BATCHES)
+        want = expected_launches(layer_impls, convs, N_BATCHES)
         print(f"  plan {label}: launches over {N_BATCHES} forwards = "
               f"{ {k: n for k, n in counts.items() if n} }", flush=True)
         check(counts == want, f"plan {label}: launches {counts}, want {want}")
@@ -679,7 +773,8 @@ def run_main_path(params, cfg, dev):
                 errs.append(e)
         print(f"  plan {label}: rel err of the logits vs the two references "
               f"<= {max(errs):.3e}", flush=True)
-        runs[label] = {"impl": impl, "logits": logits, "counts": counts}
+        runs[label] = {"impl": impl, "logits": logits, "counts": counts,
+                       "db": empty if label == "default" else db}
 
     print("  (a) default plan, empty profile DB", flush=True)
     for name, key in keys:
@@ -756,6 +851,7 @@ def run_main_path(params, cfg, dev):
     labels = list(runs)
     for label in labels + labels[::-1]:
         impl = runs[label]["impl"]
+        dispatch.set_db(runs[label]["db"])
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(10):
@@ -767,6 +863,7 @@ def run_main_path(params, cfg, dev):
     x = batches[0][0]
     for label, ms in timing.items():
         impl = runs[label]["impl"]
+        dispatch.set_db(runs[label]["db"])
         dev_ms = time_ms(lambda: vision_apply(params, cfg, x, impl=impl),
                          iters=10)
         print(f"  forward, plan {label}: {ms:.4f} ms per batch of {BATCH} "
@@ -774,6 +871,8 @@ def run_main_path(params, cfg, dev):
               f"synchronize, best of 2 runs of {10 * N_BATCHES}); device time "
               f"{dev_ms:.4f} ms (CUDA graph replay), device idle share of the "
               f"eager forward {max(0.0, 1 - dev_ms / ms):.3f}", flush=True)
+    dispatch.set_db(db)
+    check(not empty.path.exists(), "the default plan's timing wrote a profile")
     ref_ms = time_ms(lambda: vision_apply(ref_params, cfg, x), iters=10)
     print(f"  forward of the dense reference (cuDNN F.conv2d on the unpacked "
           f"weights): device time {ref_ms:.4f} ms (CUDA graph replay)",
@@ -1471,6 +1570,7 @@ def main() -> int:
     from repro_torch._compat import is_hopper
     from repro_torch.configs import get_vision_config
     from repro_torch.kernels import KERNELS, _build
+    from repro_torch.kernels.conv_gemm.tune import banded_tiled_registers
     from repro_torch.models.vision import vision_init
 
     print("== 1. card", flush=True)
@@ -1497,6 +1597,9 @@ def main() -> int:
     for inst, regs, spill in flash_tiled_registers(lib.parent / "build.log"):
         print(f"  flash_attention_tiled {inst}: {regs} registers, {spill}",
               flush=True)
+    for inst, regs, spill in banded_tiled_registers(lib.parent / "build.log"):
+        print(f"  conv2d_fused_banded_tiled {inst}: {regs} registers, {spill}",
+              flush=True)
 
     cfg = get_vision_config("resnet-tiny")
     params = vision_init(cfg, SEED, device=dev)
@@ -1504,7 +1607,7 @@ def main() -> int:
     print(f"== 3. kernels at the main path's shapes (batch {BATCH})", flush=True)
     for name, call in LIBRARY_CALLS.items():
         print(f"  library_ms of {name}: {call}", flush=True)
-    tot = check_kernels(params, cfg, dev)
+    tot, banded_route = check_kernels(params, cfg, dev)
     check_linear_kernel(dev, tot)
     sweep_linear_kernels(dev)
 
@@ -1542,8 +1645,9 @@ def main() -> int:
         "im2col_pack": counts["im2col_sparse_pallas"]["im2col_pack"],
         "colwise_nm_matmul_strips":
             counts["im2col_sparse_pallas"]["colwise_nm_matmul_strips"],
-        "conv2d_fused_banded":
-            counts["fused_banded_pallas"]["conv2d_fused_banded"],
+        "conv2d_fused_banded": banded_route["conv2d_fused_banded"],
+        "conv2d_fused_banded_tiled":
+            counts["fused_banded_pallas"]["conv2d_fused_banded_tiled"],
         "colwise_nm_matmul_strips_pipelined":
             counts["two_kernel_pipelined"]["colwise_nm_matmul_strips_pipelined"],
         "colwise_nm_matmul": linear_launches["colwise_nm_matmul"],
@@ -1579,7 +1683,17 @@ def main() -> int:
                                     "64, causal, f32 (the scoring forward's "
                                     "shape); launches: the scored "
                                     "smollm-360m run (1 per layer per "
-                                    "forward)"}
+                                    "forward)",
+           "conv2d_fused_banded": "ms etc.: sum over the 5 pruned convs of "
+                                  "one batch-256 forward, called directly "
+                                  "(the tiled kernel's bitwise yardstick); "
+                                  "launches: conv2d_fused_banded_cuda over "
+                                  "phase 3's six cases and a misaligned "
+                                  "view, the view the rule refuses",
+           "conv2d_fused_banded_tiled": "ms etc.: sum over the 5 pruned convs "
+                                        "of one batch-256 forward; launches: "
+                                        "the forced banded plan (5 per "
+                                        "forward, x3)"}
     kernels = []
     for k in KERNELS:
         t = tot[k.name]

@@ -36,7 +36,9 @@ from repro_torch.kernels.colwise_nm.kernel import (
 from repro_torch.kernels.colwise_nm.ops import (colwise_nm_matmul,
                                                 colwise_nm_matmul_tiled)
 from repro_torch.kernels.conv_gemm import ops as conv_ops
-from repro_torch.kernels.conv_gemm.kernel import banded_smem_bytes, fused_smem_bytes
+from repro_torch.kernels.conv_gemm.kernel import (banded_smem_bytes,
+                                                  banded_tiled_geometry,
+                                                  fused_smem_bytes)
 from repro_torch.kernels.conv_gemm.plan import band_plan
 from repro_torch.kernels.conv_gemm.ref import conv2d_cnhw_ref
 from repro_torch.kernels.flash_attn.paged import (
@@ -522,8 +524,18 @@ def _fused_smem_for(geom_bk: int):
 
 
 def _banded_smem_for(geom_v: int, geom_bk: int, geom_hb: int):
+    """Shared memory of the banded kernel the shape rule picks for a key:
+    the tiled one where ``banded_tiled_geometry`` takes the shape (a fresh
+    map is 16-byte aligned), else ``conv2d_fused_banded.cu``."""
+
     def smem(key: OpKey) -> int:
         c, b, h, w, ho, wo = _conv_hw(key)
+        tiled = banded_tiled_geometry(
+            c, b, h, w, key.get("kh"), key.get("kw"), key.get("s", 1),
+            key.get("p", 0), geom_v, geom_hb, key.d_out // key.tile,
+            key.k_kept, key.tile, _itemsize(key))
+        if tiled is not None:
+            return tiled["smem"]
         _, band_rows = band_plan(b=b, h=h, kh=key.get("kh"),
                                  stride=key.get("s", 1), pad=key.get("p", 0),
                                  ho=ho, wo=wo, v=geom_v, hb=geom_hb)

@@ -1,6 +1,10 @@
 """Fused im2col + pack + sparse GEMM convs on Hopper: the whole-map kernel
-(``csrc/conv2d_fused.cu``) and the banded one (``csrc/conv2d_fused_banded.cu``);
-the packed strips never reach device memory.
+(``csrc/conv2d_fused.cu``) and two banded ones with the same bits,
+``csrc/conv2d_fused_banded_tiled.cu`` (register-tiled over a zero-padded
+window) for the shapes :func:`banded_tiled_takes` accepts and
+``csrc/conv2d_fused_banded.cu`` for the others; the packed strips never
+reach device memory.  :func:`conv2d_fused_banded_cuda` routes between the
+banded kernels by that rule of the shape.
 
 Each ``*_smem_bytes`` function is the shared memory its kernel's launch
 requests, and what the dispatch registry's feasibility predicate compares
@@ -9,6 +13,7 @@ with a block's 227 KB.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -16,12 +21,13 @@ from repro_torch.kernels._build import (
     DTYPE_CODE,
     FLOAT_DTYPES,
     KROWS,
+    SMEM_BYTES,
     CudaKernel,
     check_compressed,
     check_cuda_tensor,
     check_same_device,
 )
-from repro_torch.kernels.conv_gemm.plan import band_plan
+from repro_torch.kernels.conv_gemm.plan import band_plan, tiled_band_plan
 from repro_torch.kernels.im2col_pack.ref import out_size
 
 CONV2D_FUSED = CudaKernel(
@@ -39,6 +45,20 @@ CONV2D_FUSED_BANDED = CudaKernel(
               "conv2d_fused_banded_pallas"),
     sized_smem=True,
 )
+
+CONV2D_FUSED_BANDED_TILED = CudaKernel(
+    "conv2d_fused_banded_tiled", "repro_conv2d_fused_banded_tiled",
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 25,
+    source="src/repro_torch/csrc/conv2d_fused_banded_tiled.cu",
+    replaces=("src/repro/kernels/conv_gemm/kernel.py:300 "
+              "conv2d_fused_banded_pallas"),
+    sized_smem=True,
+)
+
+# csrc/conv2d_fused_banded_tiled.cu's instances: (positions a thread,
+# threads a block); a thread accumulates one 8-row group of a tile
+BANDED_TILED_SHAPES = ((2, 128), (4, 128), (2, 256), (4, 256))
+BANDED_TILED_GROUP = 8
 
 
 def fused_smem_bytes(tile: int, block_k: int) -> int:
@@ -89,13 +109,17 @@ def conv2d_fused_cuda(x: torch.Tensor, values: torch.Tensor, idx: torch.Tensor,
     return out
 
 
-def conv2d_fused_banded_cuda(x: torch.Tensor, values: torch.Tensor,
-                             idx: torch.Tensor, *, kh: int, kw: int,
-                             stride: int = 1, pad: int = 0, v: int = 128,
-                             block_k: int = 128, hb: int = 2) -> torch.Tensor:
-    """Launch the banded conv: the fused conv's function with only two
-    ``[C, band_rows, W]`` windows of the map (bands of ``hb`` strips) in
-    shared memory.  Takes a map whose rows are a multiple of 4 bytes."""
+def conv2d_fused_banded_scalar_cuda(x: torch.Tensor, values: torch.Tensor,
+                                    idx: torch.Tensor, *, kh: int, kw: int,
+                                    stride: int = 1, pad: int = 0,
+                                    v: int = 128, block_k: int = 128,
+                                    hb: int = 2) -> torch.Tensor:
+    """Launch ``csrc/conv2d_fused_banded.cu``: the fused conv's function with
+    only two ``[C, band_rows, W]`` windows of the map (bands of ``hb``
+    strips) in shared memory.  Takes a map whose rows are a multiple of 4
+    bytes.  :func:`conv2d_fused_banded_cuda` routes to it the calls
+    :func:`banded_tiled_takes` refuses; called directly, it is the bitwise
+    yardstick of the tiled kernel."""
     check_cuda_tensor("x", x, FLOAT_DTYPES, 4)
     c, b, h, w = x.shape
     if (w * x.element_size()) % 4:
@@ -118,3 +142,153 @@ def conv2d_fused_banded_cuda(x: torch.Tensor, values: torch.Tensor,
         ho, wo, v, n_strips, n_tiles, k_kept, tile, block_k, hb, band_rows,
         n_bands, smem_bytes=smem)
     return out
+
+
+def banded_tiled_smem_bytes(c: int, plane: int, n_tiles: int, k_kept: int,
+                            tile: int, itemsize: int, stages: int) -> int:
+    """Shared memory of one tiled banded-conv launch: ``stages`` padded
+    windows ``[C, plane]`` in the map's dtype, then all of ``values`` in f32,
+    each kept row's window offset and each tile's bad-index flag (4 bytes
+    each)."""
+    return (stages * c * plane * itemsize
+            + 4 * (n_tiles * k_kept * (tile + 1) + n_tiles))
+
+
+def banded_tiled_geometry(c: int, b: int, h: int, w: int, kh: int, kw: int,
+                          stride: int, pad: int, v: int, hb: int,
+                          n_tiles: int, k_kept: int, tile: int,
+                          itemsize: int) -> Optional[dict]:
+    """The tiled banded kernel's launch geometry for this shape, or ``None``
+    where the kernel takes no such shape: tiles of a multiple of 8 rows,
+    map rows of whole 16-byte copies, and one window stage plus the staged
+    weights within a block's shared memory.  Two stages (band g+1 copied
+    while band g is computed) wherever they fit, else one."""
+    ho, wo = out_size(h, kh, stride, pad), out_size(w, kw, stride, pad)
+    if (ho <= 0 or wo <= 0 or tile % BANDED_TILED_GROUP or k_kept <= 0
+            or (w * itemsize) % 16):
+        return None
+    n_strips = -(-b * ho * wo // v)
+    hb = max(min(hb, n_strips), 1)
+    n_bands, rows, lead, pitch, plane = tiled_band_plan(
+        b=b, h=h, w=w, kh=kh, stride=stride, pad=pad, ho=ho, wo=wo, v=v,
+        hb=hb, itemsize=itemsize)
+    for stages in (2, 1):
+        smem = banded_tiled_smem_bytes(c, plane, n_tiles, k_kept, tile,
+                                       itemsize, stages)
+        if smem <= SMEM_BYTES:
+            return dict(ho=ho, wo=wo, n_strips=n_strips, hb=hb,
+                        n_bands=n_bands, band_rows=rows, lead=lead,
+                        pitch=pitch, plane=plane, stages=stages, smem=smem)
+    return None
+
+
+def banded_tiled_config(n_tiles: int, tile: int, hb: int, v: int) -> tuple:
+    """(positions a thread, threads a block) of the tiled banded kernel for
+    a band of ``hb * v`` positions and ``n_tiles`` tiles of ``tile`` rows: a
+    rule of the shape, fitted to ``repro_torch.kernels.conv_gemm.tune``'s
+    sweep on the H100 (PERF.md).  A warp's unit of work is 32 * P positions
+    of one 8-row group; at 2 positions a thread a band has ``units`` of
+    them.  Up to 8 units, each warp of a 128- or 256-thread block takes one;
+    past that, 4 positions a thread and 256 threads.  At resnet-tiny's five
+    convs its pick was the fastest instance or within 1.03x of it under
+    every band geometry, in f32 and bf16."""
+    units = n_tiles * (tile // BANDED_TILED_GROUP) * -(-hb * v // 64)
+    if units <= 4:
+        return (2, 128)
+    if units <= 8:
+        return (2, 256)
+    return (4, 256)
+
+
+def _tiled_geometry_of(x: torch.Tensor, values: torch.Tensor, kh: int,
+                       kw: int, stride: int, pad: int, v: int,
+                       hb: int) -> Optional[dict]:
+    if (x.dim() != 4 or values.dim() != 3 or x.dtype not in FLOAT_DTYPES
+            or x.data_ptr() % 16):
+        return None
+    c, b, h, w = x.shape
+    n_tiles, k_kept, tile = values.shape
+    return banded_tiled_geometry(c, b, h, w, kh, kw, stride, pad, v, hb,
+                                 n_tiles, k_kept, tile, x.element_size())
+
+
+def banded_tiled_takes(x: torch.Tensor, values: torch.Tensor, *, kh: int,
+                       kw: int, stride: int = 1, pad: int = 0, v: int = 128,
+                       hb: int = 2) -> bool:
+    """Whether the tiled banded kernel takes this call: the shape rule of
+    :func:`banded_tiled_geometry` and a 16-byte aligned map.  A rule of the
+    shape and the pointer alone: the wrapper never reacts to a failed build
+    or launch."""
+    return _tiled_geometry_of(x, values, kh, kw, stride, pad, v,
+                              hb) is not None
+
+
+def conv2d_fused_banded_tiled_cuda(x: torch.Tensor, values: torch.Tensor,
+                                   idx: torch.Tensor, *, kh: int, kw: int,
+                                   stride: int = 1, pad: int = 0,
+                                   v: int = 128, hb: int = 2,
+                                   shape: Optional[tuple] = None,
+                                   stages: Optional[int] = None) -> torch.Tensor:
+    """Launch ``csrc/conv2d_fused_banded_tiled.cu``: the banded conv's
+    function and bits for the calls :func:`banded_tiled_takes` accepts
+    (raises on any other).  ``shape`` is the instance, (positions a thread,
+    threads a block), one of ``BANDED_TILED_SHAPES``; ``stages`` 1 or 2
+    windows (every choice gives the same bits); by default
+    :func:`banded_tiled_config`'s and :func:`banded_tiled_geometry`'s."""
+    check_cuda_tensor("x", x, FLOAT_DTYPES, 4)
+    geo = _tiled_geometry_of(x, values, kh, kw, stride, pad, v, hb)
+    if geo is None:
+        raise ValueError(
+            f"map {tuple(x.shape)} {x.dtype}, values {tuple(values.shape)}, "
+            f"k{kh}x{kw} s{stride} p{pad} v{v} hb{hb}: the tiled banded "
+            "kernel takes tiles of a multiple of 8 rows, map rows of whole "
+            "16-byte copies, a 16-byte aligned map, and one window within "
+            f"{SMEM_BYTES} bytes of shared memory")
+    return _launch_tiled(x, values, idx, geo, kh, kw, stride, pad, v, shape,
+                         stages)
+
+
+def _launch_tiled(x, values, idx, geo, kh, kw, stride, pad, v, shape=None,
+                  stages=None) -> torch.Tensor:
+    """The tiled banded launch for a geometry :func:`banded_tiled_geometry`
+    gave for ``x`` and ``values``."""
+    c, b, h, w = x.shape
+    n_tiles, k_kept, tile = values.shape
+    shape = banded_tiled_config(n_tiles, tile, geo["hb"], v) if shape is None else shape
+    if tuple(shape) not in BANDED_TILED_SHAPES:
+        raise ValueError(f"shape {shape} is not an instance of the tiled "
+                         f"banded kernel: one of {BANDED_TILED_SHAPES}")
+    stages = geo["stages"] if stages is None else stages
+    if stages not in (1, 2):
+        raise ValueError(f"stages must be 1 or 2, got {stages}")
+    smem = banded_tiled_smem_bytes(c, geo["plane"], n_tiles, k_kept, tile,
+                                   x.element_size(), stages)
+    check_compressed(values, idx, x.dtype, k_kept, smem)
+    check_same_device(x, values, idx)
+    out = torch.empty((n_tiles * tile, geo["n_strips"] * v), dtype=x.dtype,
+                      device=x.device)
+    CONV2D_FUSED_BANDED_TILED.launch(
+        x.device, x.data_ptr(), values.data_ptr(), idx.data_ptr(),
+        out.data_ptr(), DTYPE_CODE[x.dtype], c, b, h, w, kh, kw, stride, pad,
+        geo["ho"], geo["wo"], v, geo["n_strips"], n_tiles, k_kept, tile,
+        geo["hb"], geo["n_bands"], geo["band_rows"], geo["lead"],
+        geo["pitch"], geo["plane"], *shape, stages, smem_bytes=smem)
+    return out
+
+
+def conv2d_fused_banded_cuda(x: torch.Tensor, values: torch.Tensor,
+                             idx: torch.Tensor, *, kh: int, kw: int,
+                             stride: int = 1, pad: int = 0, v: int = 128,
+                             block_k: int = 128, hb: int = 2) -> torch.Tensor:
+    """Launch a banded conv: the fused conv's function, with only windows of
+    bands of ``hb`` strips' input rows in shared memory.  Takes the tiled
+    kernel where :func:`banded_tiled_takes` says so and
+    ``conv2d_fused_banded.cu`` elsewhere (``block_k`` chunks its staged
+    values); both give the same bits, and a failed launch raises."""
+    check_cuda_tensor("x", x, FLOAT_DTYPES, 4)
+    geo = _tiled_geometry_of(x, values, kh, kw, stride, pad, v, hb)
+    if geo is not None:
+        return _launch_tiled(x, values, idx, geo, kh, kw, stride, pad, v)
+    return conv2d_fused_banded_scalar_cuda(x, values, idx, kh=kh, kw=kw,
+                                           stride=stride, pad=pad, v=v,
+                                           block_k=block_k, hb=hb)

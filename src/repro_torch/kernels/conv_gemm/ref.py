@@ -5,7 +5,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.conv_gemm.plan import _band_origin, band_plan
+from repro_torch.kernels.conv_gemm.plan import (_band_origin, band_plan,
+                                               tiled_band_origin,
+                                               tiled_band_plan)
 from repro_torch.kernels.im2col_pack.kernel import tap_coords
 from repro_torch.kernels.im2col_pack.ref import out_size
 
@@ -75,4 +77,54 @@ def conv2d_fused_banded_ref(x: torch.Tensor, values: torch.Tensor,
     fidx = (c_of[..., None] * (b * h) + org + rowc) * w + iwc
     patch = torch.where(valid, x.reshape(-1)[fidx].float(), 0.0)
     y = torch.einsum("tkf,tkp->tfp", values.float(), patch)
+    return y.reshape(n_tiles * tile, n_strips * v).to(x.dtype)
+
+
+def conv2d_fused_banded_tiled_ref(x: torch.Tensor, values: torch.Tensor,
+                                  idx: torch.Tensor, *, kh: int, kw: int,
+                                  stride: int = 1, pad: int = 0, v: int = 128,
+                                  hb: int = 2) -> torch.Tensor:
+    """The tiled banded conv kernel's plain version: every tap is read at
+    the kernel's address in the zero-padded row space of
+    :func:`tiled_band_plan` (the position's padded row and column plus the
+    kept row's channel, row and column offset), with no bounds test; a
+    position whose taps would leave its band's ``band_rows``-row window, and
+    every position of a tile with an index outside ``[0, K)``, give NaN.
+    Same function as :func:`conv2d_fused_ref`: [O, n_strips*V]."""
+    c, b, h, w = x.shape
+    ho = out_size(h, kh, stride, pad)
+    wo = out_size(w, kw, stride, pad)
+    n_pos = b * ho * wo
+    n_strips = -(-n_pos // v)
+    hb = max(min(hb, n_strips), 1)
+    _, rows, _, pitch, _ = tiled_band_plan(
+        b=b, h=h, w=w, kh=kh, stride=stride, pad=pad, ho=ho, wo=wo, v=v,
+        hb=hb, itemsize=x.element_size())
+    hp = h + 2 * pad
+    # one zero row first (the left pad of row 0), then the padded rows, then
+    # the rows a window may hold past the map; the pitch - w zeros after a
+    # row's values are its right pad and the next row's left pad
+    n_rows = 1 + b * hp + rows
+    xp = x.new_zeros((c, n_rows, pitch))
+    xp[:, 1:1 + b * hp].view(c, b, hp, pitch)[:, :, pad:pad + h, :w] = x
+    n_tiles, k_kept, tile = values.shape
+    ids = idx.long()
+    bad = ((ids < 0) | (ids >= kh * kw * c)).any(1)  # [n_tiles]
+    ids = ids.clamp(0, kh * kw * c - 1)
+    tap, ch = ids // c, ids % c
+    off = ch * (n_rows * pitch) + (tap // kw) * pitch + tap % kw  # [n_tiles, k]
+    p = torch.arange(n_strips * v, dtype=torch.int64, device=x.device)
+    live = p < n_pos
+    pc = p.clamp(max=n_pos - 1)
+    ow = pc % wo
+    row = (pc // (ho * wo)) * hp + ((pc % (ho * wo)) // wo) * stride
+    top = tiled_band_origin(pc // (hb * v), hb=hb, v=v, h=h, ho=ho, wo=wo,
+                            pad=pad, stride=stride)
+    inside = (row - top >= 0) & (row - top + kh <= rows)
+    base = (1 + row) * pitch + ow * stride - pad  # [P]
+    patch = xp.reshape(-1)[off[..., None] + base].float()  # [n_tiles, k, P]
+    y = torch.einsum("tkf,tkp->tfp", values.float(), patch)
+    nan = bad[:, None, None] | ~inside
+    y = torch.where(nan, torch.full_like(y, float("nan")), y)
+    y = torch.where(live, y, torch.zeros_like(y))
     return y.reshape(n_tiles * tile, n_strips * v).to(x.dtype)

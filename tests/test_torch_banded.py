@@ -3,7 +3,9 @@ banded-conv, pipelined strip-GEMM and sparse-linear kernels (what the
 wrappers run on the CPU) with the JAX package's Pallas kernels in interpret
 mode, on the same numpy inputs.  Band geometry and band-mode coordinates are
 exact integers; the GEMMs match to 1e-5 of max|y| in f32 and 2e-2 in bf16
-(one bf16 rounding of the output, sums in another order)."""
+(one bf16 rounding of the output, sums in another order).  The tiled banded
+kernel's zero-padded window covers every tap of the JAX banded sweep, and
+its plain version gives the fused plain version's bits."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,7 +25,8 @@ from repro_torch.core.sparse_linear import forward_compressed_xla
 from repro_torch.kernels import colwise_nm as tcw
 from repro_torch.kernels import conv_gemm as tcv
 from repro_torch.kernels.conv_gemm.plan import _band_origin
-from repro_torch.kernels.im2col_pack import im2col_pack_ref, out_size, strip_tap_coords
+from repro_torch.kernels.im2col_pack import (im2col_pack_ref, out_size,
+                                             strip_tap_coords, tap_coords)
 
 # (C, B, H, W, O, k, stride, pad, v, hb): the banded sweep of the JAX tests
 BANDED_CASES = [
@@ -135,6 +138,10 @@ def test_banded_conv_matches_pallas(c, b, h, w, o, k, stride, pad, v, hb,
     # computes the same function
     _assert_close(got, tcv.conv2d_fused_ref(xt, vt, it, **geo),
                   DTYPES[dtype][2])
+    # the public entry point's CPU path is that plain version, in CNHW
+    ho, wo = out_size(h, k, stride, pad), out_size(w, k, stride, pad)
+    cnhw = tcv.conv2d_fused_banded(xt, vt, it, hb=hb, **geo)
+    assert torch.equal(cnhw.reshape(o, -1), got[:, : b * ho * wo])
 
 
 def test_banded_block_k_chunking_matches_pallas():
@@ -206,3 +213,78 @@ def test_linear_leading_dims():
     got = tcw.colwise_nm_matmul(torch.from_numpy(x), vt, it)
     want = tcw.colwise_nm_matmul_ref(torch.from_numpy(x).reshape(6, 64), vt, it)
     _assert_close(got.reshape(6, 32), want, 1e-6)
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("b,h,w,k,stride,pad,v,hb", PLAN_CASES + [
+    (bb, hh, ww, kk, ss, pp, vv, hh_b)
+    for (_c, bb, hh, ww, _o, kk, ss, pp, vv, hh_b) in BANDED_CASES])
+def test_tiled_band_plan_covers_every_tap(b, h, w, k, stride, pad, v, hb,
+                                          itemsize):
+    """Every tap of every position of every band lies in its band's padded
+    window (rows [top, top + band_rows), columns within the zero gap on
+    either side of a row's values), the padded coordinates map back to
+    tap_coords' map coordinates wherever the tap is on the map, and
+    band_rows is the tightest such height."""
+    geo = _geo(b, h, w, k, stride, pad)
+    ho, wo = geo["ho"], geo["wo"]
+    n_bands, rows, lead, pitch, plane = tcv.tiled_band_plan(
+        w=w, v=v, hb=hb, itemsize=itemsize, **geo)
+    vec = 16 // itemsize
+    assert n_bands == tcv.band_plan(v=v, hb=hb, **geo)[0]
+    assert lead % vec == 0 and pitch % vec == 0 and lead >= max(pad, 1)
+    assert pitch - w >= max(pad, vec) and plane == lead + rows * pitch
+    n_pos = b * ho * wo
+    hb_eff = max(min(hb, -(-n_pos // v)), 1)
+    og = dict(hb=hb_eff, v=v, h=h, ho=ho, wo=wo, pad=pad, stride=stride)
+    p = torch.arange(n_pos)
+    top = tcv.tiled_band_origin(p // (hb_eff * v), **og)
+    assert top.tolist() == [tcv.tiled_band_origin(int(g), **og)
+                            for g in (p // (hb_eff * v)).tolist()]
+    hp = h + 2 * pad
+    need = 0
+    for ikh in range(k):
+        for ikw in range(k):
+            valid, bc, ihc, iwc = tap_coords(
+                p, ikh=ikh, ikw=ikw, stride=stride, pad=pad, b=b, h=h, w=w,
+                ho=ho, wo=wo)
+            row = (p // (ho * wo)) * hp + ((p % (ho * wo)) // wo) * stride + ikh
+            col = (p % wo) * stride - pad + ikw
+            assert bool(((row - top >= 0) & (row - top < rows)).all())
+            assert bool(((col >= -(pitch - w)) & (col < w + pitch - w)).all())
+            assert bool((col >= -lead).all())
+            on_map = ((row % hp - pad >= 0) & (row % hp - pad < h)
+                      & (col >= 0) & (col < w))
+            assert torch.equal(on_map, valid)
+            assert torch.equal((row // hp)[valid], bc[valid])
+            assert torch.equal((row % hp - pad)[valid], ihc[valid])
+            assert torch.equal(col[valid], iwc[valid])
+            need = max(need, int((row - top).max()) + 1)
+    assert need == rows
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c,b,h,w,o,k,stride,pad,v,hb", BANDED_CASES)
+def test_banded_tiled_plain_version_gives_the_fused_bits(c, b, h, w, o, k,
+                                                         stride, pad, v, hb,
+                                                         dtype):
+    """The tiled kernel's plain version, which reads every tap at the
+    kernel's padded-window address with no bounds test, gives the bits of
+    the banded and fused plain versions; with a window two rows short it
+    gives NaN where a position's taps would leave it, never a neighbouring
+    row."""
+    _, xt = _map(c, b, h, w, dtype)
+    _, (vt, it) = _compressed(o // 8, k * k * c, (k * k * c + 1) // 2, 8,
+                              dtype)
+    geo = dict(kh=k, kw=k, stride=stride, pad=pad, v=v)
+    got = tcv.conv2d_fused_banded_tiled_ref(xt, vt, it, hb=hb, **geo)
+    assert torch.equal(got, tcv.conv2d_fused_banded_ref(xt, vt, it, hb=hb,
+                                                        **geo))
+    assert torch.equal(got, tcv.conv2d_fused_ref(xt, vt, it, **geo))
+    bad = it.clone()
+    bad[-1, 0] = k * k * c  # one past the last row: the last tile is NaN
+    y = tcv.conv2d_fused_banded_tiled_ref(xt, vt, bad, hb=hb, **geo)
+    n_pos = b * out_size(h, k, stride, pad) * out_size(w, k, stride, pad)
+    assert bool(torch.isnan(y[-8:, :n_pos]).all())
+    assert bool((y[:, n_pos:] == 0).all())
+    assert torch.equal(y[:-8], got[:-8])

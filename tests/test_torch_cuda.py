@@ -8,9 +8,11 @@ machine with one, from the repository root:
 The shapes go past the main path's: tiles that are not a multiple of the
 kernels' 8-row register block, ``block_k`` chunking, strips wider than a
 block's 128 threads, ragged last strips and bands, and bf16; the sparse
-linear kernel also runs at smollm-360m's MLP widths.  The banded conv and
+linear kernel also runs at smollm-360m's MLP widths.  The banded convs and
 the pipelined strip GEMM must give the same bits as the fused conv and the
-plain strip GEMM, and the tiled linear the same bits as the linear kernel
+plain strip GEMM (the tiled banded conv under every instance and stage
+count, routed by its shape rule, with a bad index, an inf weight on a
+padding tap and a window too short), and the tiled linear the same bits as the linear kernel
 (rows under, at and over each block size, ragged kept rows, several
 tiles).  The paged-attention kernel runs the CPU parity tests'
 cases and smollm-360m's serving shapes, the trash-page, empty-cache and
@@ -46,9 +48,16 @@ from repro_torch.kernels.colwise_nm import (
     colwise_nm_matmul_strips_ref,
 )
 from repro_torch.kernels.conv_gemm import (
+    BANDED_TILED_SHAPES,
     CONV2D_FUSED_BANDED,
+    CONV2D_FUSED_BANDED_TILED,
+    banded_tiled_geometry,
+    banded_tiled_takes,
     conv2d_fused_banded_cuda,
     conv2d_fused_banded_ref,
+    conv2d_fused_banded_scalar_cuda,
+    conv2d_fused_banded_tiled_cuda,
+    conv2d_fused_banded_tiled_ref,
     conv2d_fused_cuda,
     conv2d_fused_ref,
 )
@@ -174,6 +183,157 @@ def test_banded_kernel_matches_plain_and_fused_bits(dev, c, b, h, w, o, k,
         fused = conv2d_fused_cuda(x, values, idx, block_k=block_k, **geo)
         torch.cuda.synchronize()
         assert torch.equal(got, fused)
+
+
+# (C, B, H, W, O, k, stride, pad, v, hb): shapes the tiled kernel takes in
+# both dtypes (W a multiple of 8), past BANDED_CASES: several 8-row groups a
+# tile, one 8-row tile, a 5x5 kernel with pad 2, a ragged last band
+TILED_CASES = [
+    (8, 2, 16, 16, 32, 3, 1, 1, 128, 2),
+    (4, 3, 8, 16, 8, 3, 2, 1, 64, 3),
+    (5, 2, 9, 8, 16, 5, 1, 2, 16, 3),
+    (16, 4, 16, 16, 16, 1, 2, 0, 128, 1),
+]
+
+
+def _nan_equal(a, b):
+    """Equal bits, NaN where the other is NaN."""
+    torch.cuda.synchronize()
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan], b[~nan])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,b,h,w,o,k,stride,pad,v,hb",
+                         BANDED_CASES + TILED_CASES)
+def test_banded_tiled_equals_the_other_kernels_bits(dev, c, b, h, w, o, k,
+                                                    stride, pad, v, hb, dtype):
+    """Where the rule takes the shape, the tiled kernel gives the bits of
+    conv2d_fused_banded.cu and of conv2d_fused.cu at block_k 128 and 8,
+    and is within tolerance of its plain version; elsewhere it refuses."""
+    x = _x(c, b, h, w, dtype, dev)
+    k_rows = k * k * c
+    tile = 16 if o == 32 else 8
+    values, idx = _compressed(o // tile, k_rows, (k_rows + 1) // 2, tile,
+                              dtype, dev)
+    geo = dict(kh=k, kw=k, stride=stride, pad=pad, v=v)
+    takes = banded_tiled_takes(x, values, hb=hb, **geo)
+    assert takes == ((w * x.element_size()) % 16 == 0)
+    if not takes:
+        with pytest.raises(ValueError, match="16-byte"):
+            conv2d_fused_banded_tiled_cuda(x, values, idx, hb=hb, **geo)
+        return
+    got = conv2d_fused_banded_tiled_cuda(x, values, idx, hb=hb, **geo)
+    _close(got, conv2d_fused_banded_tiled_ref(x, values, idx, hb=hb, **geo),
+           dtype)
+    for block_k in (128, 8):
+        old = conv2d_fused_banded_scalar_cuda(x, values, idx, block_k=block_k,
+                                              hb=hb, **geo)
+        fused = conv2d_fused_cuda(x, values, idx, block_k=block_k, **geo)
+        torch.cuda.synchronize()
+        assert torch.equal(got, old) and torch.equal(got, fused)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [BANDED_CASES[7], TILED_CASES[1],
+                                  TILED_CASES[2]])
+def test_banded_tiled_instances_give_the_same_bits(dev, case, dtype):
+    c, b, h, w, o, k, stride, pad, v, hb = case
+    x = _x(c, b, h, w, dtype, dev)
+    values, idx = _compressed(o // 8, k * k * c, (k * k * c + 1) // 2, 8,
+                              dtype, dev)
+    geo = dict(kh=k, kw=k, stride=stride, pad=pad, v=v)
+    want = conv2d_fused_cuda(x, values, idx, **geo)
+    stages = banded_tiled_geometry(c, b, h, w, k, k, stride, pad, v, hb,
+                                   o // 8, idx.shape[1], 8,
+                                   x.element_size())["stages"]
+    for shape in BANDED_TILED_SHAPES:
+        for st in sorted({1, stages}):
+            got = conv2d_fused_banded_tiled_cuda(x, values, idx, hb=hb,
+                                                 shape=shape, stages=st, **geo)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (shape, st)
+
+
+def test_banded_routing_rule(dev):
+    """conv2d_fused_banded_cuda takes the tiled kernel exactly where
+    banded_tiled_takes says so: tiles of a multiple of 8 rows, map rows of
+    whole 16-byte copies and a 16-byte aligned map; the others, a
+    misaligned view among them, go to conv2d_fused_banded.cu, with the same
+    bits.  A shape neither kernel takes raises."""
+    geo = dict(kh=3, kw=3, stride=1, pad=1, v=64, hb=2)
+    cases = [((8, 2, 8, 16), torch.float32, 8, True),
+             ((8, 2, 8, 10), torch.float32, 8, False),   # 40-byte rows
+             ((8, 2, 8, 8), torch.bfloat16, 8, True),
+             ((8, 2, 8, 12), torch.bfloat16, 8, False),  # 24-byte rows
+             ((8, 2, 8, 16), torch.float32, 12, False),  # tile 12
+             ((8, 2, 8, 16), torch.float32, 16, True)]
+    for (c, b, h, w), dtype, tile, tiled in cases:
+        x = _x(c, b, h, w, dtype, dev)
+        values, idx = _compressed(2, 72, 36, tile, dtype, dev)
+        assert banded_tiled_takes(x, values, **geo) == tiled, (w, dtype, tile)
+        reset_launch_counts()
+        got = conv2d_fused_banded_cuda(x, values, idx, **geo)
+        torch.cuda.synchronize()
+        assert CONV2D_FUSED_BANDED_TILED.launches == int(tiled)
+        assert CONV2D_FUSED_BANDED.launches == int(not tiled)
+        assert torch.equal(got, conv2d_fused_banded_scalar_cuda(
+            x, values, idx, **geo))
+    x = _x(8, 2, 8, 16, torch.float32, dev)
+    values, idx = _compressed(2, 72, 36, 8, torch.float32, dev)
+    base = torch.empty(x.numel() + 1, device=dev)
+    x_mis = base[1:].view(x.shape)
+    x_mis.copy_(x)
+    assert x_mis.is_contiguous() and x_mis.data_ptr() % 16
+    assert not banded_tiled_takes(x_mis, values, **geo)
+    reset_launch_counts()
+    got = conv2d_fused_banded_cuda(x_mis, values, idx, **geo)
+    torch.cuda.synchronize()
+    assert CONV2D_FUSED_BANDED.launches == 1
+    assert CONV2D_FUSED_BANDED_TILED.launches == 0
+    assert torch.equal(got, conv2d_fused_banded_tiled_cuda(x, values, idx,
+                                                           **geo))
+    with pytest.raises(ValueError, match="16-byte"):
+        conv2d_fused_banded_tiled_cuda(x_mis, values, idx, **geo)
+    # 64 f32 channels of a stride-2 map in bands of 4 strips: neither the
+    # tiled kernel's one window nor the other kernel's two fit
+    big = _x(64, 256, 16, 16, torch.float32, dev)
+    v64, i64 = _compressed(2, 576, 288, 8, torch.float32, dev)
+    assert not banded_tiled_takes(big, v64, kh=3, kw=3, stride=2, pad=1,
+                                  v=128, hb=4)
+    with pytest.raises(ValueError, match="shared memory"):
+        conv2d_fused_banded_cuda(big, v64, i64, kh=3, kw=3, stride=2, pad=1,
+                                 hb=4)
+
+
+def test_banded_tiled_bad_index_makes_the_tile_nan(dev):
+    """An index outside [0, K) makes every position of its tile NaN, as in
+    conv2d_fused_banded.cu; the ragged last strip's tail stays 0, and the
+    other tile keeps its bits."""
+    x = _x(8, 1, 9, 8, torch.float32, dev)  # 81 positions in 2 strips of 64
+    values, idx = _compressed(2, 72, 36, 8, torch.float32, dev)
+    geo = dict(kh=3, kw=3, pad=1, v=64)
+    idx[0, 5] = -1
+    got = conv2d_fused_banded_tiled_cuda(x, values, idx, **geo)
+    old = conv2d_fused_banded_scalar_cuda(x, values, idx, **geo)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(got[:8, :72]).all())
+    assert bool((got[:, 72:] == 0).all())
+    assert _nan_equal(got, old)
+    assert torch.equal(got[8:], old[8:])
+
+
+def test_banded_tiled_padding_taps_are_not_skipped(dev):
+    """A tap in the padding adds fmaf(w, 0, acc): with an inf weight it is
+    NaN in both banded kernels, at the same positions."""
+    x = _x(8, 2, 8, 8, torch.float32, dev)
+    values, idx = _compressed(2, 72, 36, 8, torch.float32, dev)
+    values[0, 0, 3] = float("inf")  # row idx[0, 0]: a tap of the top-left
+    geo = dict(kh=3, kw=3, pad=1, v=64)
+    got = conv2d_fused_banded_tiled_cuda(x, values, idx, **geo)
+    old = conv2d_fused_banded_scalar_cuda(x, values, idx, **geo)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(got[3]).any()) and _nan_equal(got, old)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -353,7 +513,8 @@ def test_out_of_range_index_gives_nan_not_a_bad_read(dev):
     idx[1, 3] = 72  # one past the last im2col row
     strips = im2col_pack_ref(x, 3, 3, 1, 1, 128)
     outs = [conv2d_fused_cuda(x, values, idx, kh=3, kw=3, pad=1),
-            conv2d_fused_banded_cuda(x, values, idx, kh=3, kw=3, pad=1),
+            conv2d_fused_banded_scalar_cuda(x, values, idx, kh=3, kw=3, pad=1),
+            conv2d_fused_banded_tiled_cuda(x, values, idx, kh=3, kw=3, pad=1),
             colwise_nm_matmul_strips_cuda(strips, values, idx),
             colwise_nm_matmul_strips_pipelined_cuda(strips, values, idx)]
     torch.cuda.synchronize()
@@ -387,7 +548,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="strip width"):
         colwise_nm_matmul_strips_pipelined_cuda(
             im2col_pack_ref(x, 3, 3, 1, 1, 6), values, idx)
-    # banded: odd bf16 rows; two f32 windows past 227 KB
+    # banded: odd bf16 rows; two f32 windows of conv2d_fused_banded.cu past
+    # 227 KB (the routing wrapper gives that shape to the tiled kernel)
     xb = _x(8, 1, 8, 7, torch.bfloat16, dev)
     with pytest.raises(ValueError, match="4 bytes"):
         conv2d_fused_banded_cuda(xb, values.to(torch.bfloat16), idx, kh=3,
@@ -395,8 +557,16 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     big = _x(16, 256, 16, 16, torch.float32, dev)
     v16, i16 = _compressed(2, 144, 72, 8, torch.float32, dev)
     with pytest.raises(ValueError, match="shared memory"):
-        conv2d_fused_banded_cuda(big, v16, i16, kh=3, kw=3, stride=2, pad=1,
-                                 hb=4)
+        conv2d_fused_banded_scalar_cuda(big, v16, i16, kh=3, kw=3, stride=2,
+                                        pad=1, hb=4)
+    # tiled banded: an instance it does not have, a third stage, two stages
+    # past 227 KB where only one fits
+    for kw_bad, match in ((dict(shape=(8, 128)), "instance"),
+                          (dict(stages=3), "stages"),
+                          (dict(stages=2, hb=4), "shared memory")):
+        with pytest.raises(ValueError, match=match):
+            conv2d_fused_banded_tiled_cuda(big, v16, i16, **{
+                "kh": 3, "kw": 3, "stride": 2, "pad": 1, **kw_bad})
     # linear: 2-D x of the values' dtype
     with pytest.raises(ValueError, match="2-D"):
         colwise_nm_matmul_cuda(_x(1, 2, 4, 72, torch.float32, dev)[0], values, idx)
@@ -414,7 +584,8 @@ def test_each_launch_counts_once(dev):
     conv2d_fused_cuda(x, values, idx, kh=3, kw=3, pad=1)
     conv2d_fused_cuda(x, values, idx, kh=3, kw=3, pad=1)
     colwise_nm_matmul_strips_pipelined_cuda(strips, values, idx)
-    conv2d_fused_banded_cuda(x, values, idx, kh=3, kw=3, pad=1)
+    conv2d_fused_banded_scalar_cuda(x, values, idx, kh=3, kw=3, pad=1)
+    conv2d_fused_banded_cuda(x, values, idx, kh=3, kw=3, pad=1)  # tiled
     colwise_nm_matmul_cuda(_x(1, 1, 4, 72, torch.float32, dev)[0, 0], values, idx)
     colwise_nm_matmul_tiled_cuda(_x(1, 1, 4, 72, torch.float32, dev)[0, 0],
                                  *_compressed(2, 72, 36, 64, torch.float32, dev))
@@ -426,11 +597,12 @@ def test_each_launch_counts_once(dev):
         "conv2d_fused": 2, "im2col_pack": 1, "colwise_nm_matmul_strips": 1,
         "colwise_nm_matmul": 1, "colwise_nm_matmul_strips_pipelined": 1,
         "conv2d_fused_banded": 1, "flash_attention": 1, "paged_attention": 1,
-        "colwise_nm_matmul_tiled": 1, "flash_attention_tiled": 1}
+        "colwise_nm_matmul_tiled": 1, "flash_attention_tiled": 1,
+        "conv2d_fused_banded_tiled": 1}
 
 
 @pytest.mark.parametrize("kernel,op,name,args", [
-    (CONV2D_FUSED_BANDED, "conv", "fused_banded_pallas@v128_bk128_hb4",
+    (CONV2D_FUSED_BANDED_TILED, "conv", "fused_banded_pallas@v128_bk128_hb4",
      (16, 64, 8, 8, 3, 1, 1)),
     (CONV2D_FUSED_BANDED, "conv", "fused_banded_pallas@v128_bk64_hb1",
      (8, 4, 10, 10, 3, 1, 1)),
@@ -575,23 +747,36 @@ def test_compressed_linear_through_dispatch(dev, tmp_path, d_out, tile,
 def test_banded_window_too_short_gives_nan_not_a_neighbouring_row(
         dev, monkeypatch):
     """The band gather never clamps: where ``band_rows`` is short of what
-    the geometry needs, the rows past the window contribute NaN."""
+    the geometry needs, the rows past the window contribute NaN (the tiled
+    kernel: the positions whose taps would leave its padded window)."""
     from repro_torch.kernels.conv_gemm import kernel as conv_kernel
 
     x = _x(8, 2, 16, 16, torch.float32, dev)
     values, idx = _compressed(2, 72, 36, 8, torch.float32, dev)
-    good = conv2d_fused_banded_cuda(x, values, idx, kh=3, kw=3, pad=1)
+    geo = dict(kh=3, kw=3, pad=1)
+    good = conv2d_fused_banded_scalar_cuda(x, values, idx, **geo)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(good).all())
+    assert torch.equal(good, conv2d_fused_banded_tiled_cuda(x, values, idx,
+                                                            **geo))
     plan = conv_kernel.band_plan
     monkeypatch.setattr(conv_kernel, "band_plan", lambda **kw: (
         plan(**kw)[0], plan(**kw)[1] - 2))
-    short = conv2d_fused_banded_cuda(x, values, idx, kh=3, kw=3, pad=1)
-    torch.cuda.synchronize()
-    assert bool(torch.isnan(short).any())
-    # every output is either NaN or exactly the full window's
-    same = short == good
-    assert bool((same | torch.isnan(short)).all())
+    tiled_plan = conv_kernel.tiled_band_plan
+
+    def short_tiled(**kw):
+        n_bands, rows, lead, pitch, _ = tiled_plan(**kw)
+        return n_bands, rows - 2, lead, pitch, lead + (rows - 2) * pitch
+
+    monkeypatch.setattr(conv_kernel, "tiled_band_plan", short_tiled)
+    for launch in (conv2d_fused_banded_scalar_cuda,
+                   conv2d_fused_banded_tiled_cuda):
+        short = launch(x, values, idx, **geo)
+        torch.cuda.synchronize()
+        assert bool(torch.isnan(short).any()), launch.__name__
+        # every output is either NaN or exactly the full window's
+        same = short == good
+        assert bool((same | torch.isnan(short)).all()), launch.__name__
 
 
 def test_device_timer_times_a_kernel_launch(dev):

@@ -33,7 +33,10 @@ from repro_torch.kernels import KERNELS, reset_launch_counts
 from repro_torch.kernels.colwise_nm import (linear_tiled_smem_bytes,
                                             pipelined_smem_bytes,
                                             tiled_block_rows)
-from repro_torch.kernels.conv_gemm import band_plan, banded_smem_bytes
+from repro_torch.kernels._build import SMEM_BYTES
+from repro_torch.kernels.conv_gemm import (band_plan, banded_smem_bytes,
+                                          banded_tiled_geometry,
+                                          banded_tiled_smem_bytes)
 from repro_torch.models import vision as tv
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -211,17 +214,79 @@ class TestSharedMemoryFeasibility:
     @pytest.mark.parametrize("name", ["fused_banded_pallas@v256_bk128_hb2",
                                       "fused_banded_pallas@v128_bk128_hb4"])
     def test_banded_double_buffer_needs_bf16_on_the_stride2_conv(self, name):
+        """conv2d_fused_banded.cu's two f32 windows do not fit here, so in
+        f32 the shape rule gives the conv to the tiled kernel with one
+        padded window; in bf16 the tiled kernel's double buffer fits."""
         spec = REGISTRY.get("conv", name)
         f32, bf16 = self._stride2_conv1("float32"), self._stride2_conv1("bfloat16")
-        assert not spec.feasible(f32)[0] and spec.feasible(bf16)[0]
-        assert "shared memory" in spec.feasible(f32)[1]
+        v, hb = spec.geom("v"), spec.geom("hb")
         _, rows = band_plan(b=256, h=16, kh=3, stride=2, pad=1, ho=8, wo=8,
-                            v=spec.geom("v"), hb=spec.geom("hb"))
+                            v=v, hb=hb)
         two_bands = 2 * 16 * rows * 16 * 4
         assert two_bands == 258 * 1024  # 258 KB of f32 windows
-        assert spec.smem_bytes(f32) == banded_smem_bytes(16, 16, rows, 72, 4)
-        assert spec.smem_bytes(f32) > two_bands
+        assert banded_smem_bytes(16, 16, rows, 72, 4) > SMEM_BYTES
+        geo = {isz: banded_tiled_geometry(16, 256, 16, 16, 3, 3, 2, 1, v, hb,
+                                          2, 72, 8, isz) for isz in (4, 2)}
+        assert geo[4]["stages"] == 1 and geo[2]["stages"] == 2
+        assert spec.feasible(f32)[0] and spec.feasible(bf16)[0]
+        for key, isz in ((f32, 4), (bf16, 2)):
+            assert spec.smem_bytes(key) == geo[isz]["smem"] == \
+                banded_tiled_smem_bytes(16, geo[isz]["plane"], 2, 72, 8, isz,
+                                        geo[isz]["stages"])
         assert REGISTRY.get("conv", "fused_banded_pallas").feasible(f32)[0]
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_banded_smem_follows_the_rule_on_resnet_tiny(self, dtype):
+        """Every banded geometry of resnet-tiny's five pruned convs goes to
+        the tiled kernel, and the predicate reports that launch's shared
+        memory: two windows where they fit, else one."""
+        isz = 4 if dtype == "float32" else 2
+        convs = [(8, 16, 16, 3, 1, 1), (16, 16, 16, 3, 1, 1),
+                 (16, 16, 16, 3, 2, 1), (16, 8, 8, 3, 1, 1),
+                 (16, 16, 16, 1, 2, 0)]
+        stages = set()
+        for c, h, w, k, s, p in convs:
+            k_kept = k * k * c // 2
+            key = dispatch.conv_key(c, h, w, 16, k, k, s, p, k_kept, 8,
+                                    dtype=dtype, batch=256)
+            for name in ("fused_banded_pallas",
+                         "fused_banded_pallas@v256_bk128_hb2",
+                         "fused_banded_pallas@v128_bk128_hb4",
+                         "fused_banded_pallas@v128_bk64_hb1"):
+                spec = REGISTRY.get("conv", name)
+                v, hb = spec.geom("v"), spec.geom("hb")
+                geo = banded_tiled_geometry(c, 256, h, w, k, k, s, p, v, hb,
+                                            2, k_kept, 8, isz)
+                assert geo is not None, (key.token, name)
+                assert spec.feasible(key)[0]
+                assert spec.smem_bytes(key) == geo["smem"] == \
+                    banded_tiled_smem_bytes(c, geo["plane"], 2, k_kept, 8,
+                                            isz, geo["stages"])
+                two = banded_tiled_smem_bytes(c, geo["plane"], 2, k_kept, 8,
+                                              isz, 2)
+                assert geo["stages"] == (2 if two <= SMEM_BYTES else 1)
+                stages.add(geo["stages"])
+        assert stages == ({1, 2} if dtype == "float32" else {2})
+
+    def test_banded_smem_keeps_the_other_kernel_where_the_rule_refuses(self):
+        # W = 10 f32: 40-byte rows are not whole 16-byte copies
+        key = dispatch.conv_key(8, 10, 10, 16, 3, 3, 1, 1, 36, 8,
+                                dtype="float32", batch=2)
+        spec = REGISTRY.get("conv", "fused_banded_pallas")
+        assert banded_tiled_geometry(8, 2, 10, 10, 3, 3, 1, 1, 128, 2, 2, 36,
+                                     8, 4) is None
+        _, rows = band_plan(b=2, h=10, kh=3, stride=1, pad=1, ho=10, wo=10,
+                            v=128, hb=2)
+        assert spec.smem_bytes(key) == banded_smem_bytes(8, 10, rows, 36, 4)
+        # tile 12: not a whole number of 8-row groups
+        key12 = dispatch.conv_key(8, 16, 16, 24, 3, 3, 1, 1, 36, 12,
+                                  dtype="float32", batch=2)
+        assert banded_tiled_geometry(8, 2, 16, 16, 3, 3, 1, 1, 128, 2, 2, 36,
+                                     12, 4) is None
+        _, rows = band_plan(b=2, h=16, kh=3, stride=1, pad=1, ho=16, wo=16,
+                            v=128, hb=2)
+        assert spec.smem_bytes(key12) == banded_smem_bytes(8, 16, rows,
+                                                           36, 4)
 
     def test_pipelined_ring_of_wide_slices_needs_bf16(self):
         # two [128, 256] f32 slices of gathered rows are 256 KB; at resnet-
