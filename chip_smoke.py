@@ -11,7 +11,9 @@ Phases:
               banded kernels equal bit for bit to each other and to the
               fused conv, timed per conv beside F.conv2d, then
               conv2d_fused_banded_cuda over the six cases and a misaligned
-              view, each launching the kernel the shape rule picks), and
+              view, each launching the kernel the shape rule picks, then
+              the tiled kernel's tile-group path at ResNet-18 layer2's
+              conv, bit for bit against the fused conv), and
               smollm-360m's MLP widths (960 -> 2560, 2560 -> 960) at 256
               rows for the two sparse linear kernels, the tiled one (T a
               multiple of 64) equal bit for bit to the other (f32, bf16);
@@ -269,7 +271,8 @@ def check_kernels(params, cfg, dev):
         colwise_nm_matmul_strips_pipelined_ref, colwise_nm_matmul_strips_ref)
     from repro_torch.kernels import reset_launch_counts
     from repro_torch.kernels.conv_gemm import (
-        CONV2D_FUSED_BANDED, CONV2D_FUSED_BANDED_TILED, banded_tiled_takes,
+        CONV2D_FUSED_BANDED, CONV2D_FUSED_BANDED_TILED, banded_tiled_geometry,
+        banded_tiled_takes,
         conv2d_fused_banded_cuda, conv2d_fused_banded_ref,
         conv2d_fused_banded_scalar_cuda, conv2d_fused_banded_tiled_cuda,
         conv2d_fused_banded_tiled_ref, conv2d_fused_cuda, conv2d_fused_ref)
@@ -433,6 +436,39 @@ def check_kernels(params, cfg, dev):
           "the routed banded convs are not the bits of conv2d_fused_banded.cu")
     print(f"  conv2d_fused_banded_cuda over the {len(routed)} cases and a "
           f"misaligned view: launches {route}; bit-identical", flush=True)
+
+    # the tiled kernel's other path, which resnet-tiny never takes: ResNet-18
+    # layer2's 3x3 conv (128 -> 128 at 28x28, batch 8, f32, 50% kept, bands
+    # of one strip), whose weights a block stages a group of tiles at a time
+    c2, b2, h2, n2 = 128, 8, 28, 16
+    k2 = 9 * c2
+    x2 = torch.from_numpy(rng.standard_normal((c2, b2, h2, h2),
+                                              dtype=np.float32)).to(dev)
+    v2 = torch.from_numpy(rng.standard_normal((n2, k2 // 2, 8),
+                                              dtype=np.float32)).to(dev)
+    i2 = torch.from_numpy(np.stack([
+        np.sort(rng.choice(k2, k2 // 2, replace=False)) for _ in range(n2)
+    ]).astype(np.int32)).to(dev)
+    g2 = dict(kh=3, kw=3, stride=1, pad=1, v=128)
+    group = banded_tiled_geometry(c2, b2, h2, h2, 3, 3, 1, 1, 128, 1, n2,
+                                  k2 // 2, 8, 4)["group"]
+    check(group < n2, f"resnet18/layer2: tiles staged in one group of {group}")
+    y2 = conv2d_fused_banded_tiled_cuda(x2, v2, i2, hb=1, **g2)
+    max_err(y2, conv2d_fused_banded_tiled_ref(x2, v2, i2, hb=1, **g2),
+            "conv2d_fused_banded_tiled resnet18/layer2", F32_RTOL)
+    check(torch.equal(y2, conv2d_fused_cuda(x2, v2, i2, **g2)),
+          "conv2d_fused_banded_tiled resnet18/layer2: not bit-identical to "
+          "conv2d_fused")
+    w2 = unpack_colwise(v2, i2, ColwiseMeta(k2, 8 * n2, 8, k2, k2 // 2)).T
+    w2 = w2.reshape(8 * n2, 3, 3, c2).permute(0, 3, 1, 2).contiguous()
+    x2_nchw = x2.permute(1, 0, 2, 3).contiguous()
+    ms2 = time_ms(lambda: conv2d_fused_banded_tiled_cuda(x2, v2, i2, hb=1, **g2))
+    lib2 = time_ms(lambda: F.conv2d(x2_nchw, w2, padding=1))
+    gf = 2 * 8 * n2 * (k2 // 2) * b2 * h2 * h2 / 1e6
+    print(f"  banded resnet18/layer2 f32 C=128 28x28 batch 8 v128 hb1 "
+          f"({group} of {n2} tiles staged at once): tiled {ms2:.5f} ms "
+          f"({gf / ms2:.1f} GFLOP/s), F.conv2d {lib2:.5f} ms "
+          f"({gf / lib2:.1f}); bit-identical to conv2d_fused", flush=True)
     return tot, route
 
 

@@ -7,8 +7,8 @@
 // buffered row band [C, band_rows, W] of the [C, B*H, W] map in VMEM.  Serves
 // the shapes repro_torch/kernels/conv_gemm/kernel.py::banded_tiled_takes
 // accepts: tiles of a multiple of 8 rows, map rows of whole 16-byte copies, a
-// 16-byte aligned map, and a window plus the staged weights within a block's
-// 227 KB; conv2d_fused_banded.cu keeps the others.
+// 16-byte aligned map, and a window plus one tile's staged weights within a
+// block's 227 KB; conv2d_fused_banded.cu keeps the others.
 //
 // Bound: at resnet-tiny's five pruned convs (batch 256, f32) bytes and
 // operations are on a par: about 19 MB (5.8 us at 3.35 TB/s) against 153 M
@@ -21,12 +21,23 @@
 // Design:
 // - One block per band walks every output row of the band (all tiles), so
 //   the window is copied once per band.  The grid is the bands, at most as
-//   many blocks as the card holds at once (SM count x occupancy); a block
-//   walks band blockIdx.x and every gridDim.x-th band after it.
-// - The block's weights are staged once and kept across its bands: all of
-//   values as f32, [n_tiles][k_kept][T], and each kept row's offset into a
-//   channel's window, c * plane + ikh * pitch + ikw.  An index outside
-//   [0, K) sets its tile's flag instead, and the tile's outputs are NaN.
+//   many blocks as the card holds at once (SM count x occupancy, queried
+//   once an instance, device and shared-memory size); a block walks band
+//   blockIdx.x and every gridDim.x-th band after it, and copies the next
+//   band's window once it is done with the current one.  One window: at
+//   resnet-tiny and ResNet-18 layer1 a block seldom walks a second band, and
+//   a second window stage measured no faster (PERF.md).
+// - The weights are staged as f32, [group][k_kept][T], with each kept
+//   row's offset into a channel's window, c * plane + ikh * pitch + ikw.
+//   Where all of values fits beside the window (group = n_tiles, as at
+//   resnet-tiny) they are staged once a block and kept across its bands,
+//   with no barrier but the band's.  Where they do not (ResNet-18 from
+//   layer2 on), the block stages them group tiles at a time, each tile's
+//   whole k_kept, with two barriers a group: an output's fmaf chain runs
+//   over its tile's kept rows in registers, so chunks of k would have to
+//   keep a unit's accumulators across barriers and restage the weights for
+//   each round of units.  An index outside [0, K) sets its tile's flag, and
+//   the tile's outputs are NaN.
 // - The window is zero-padded, so the gather needs no bounds test.  In the
 //   padded row space each image has pad zero rows above and below (Hp = H +
 //   2 pad rows an image); output position (bb, oh, ow) reads, at tap (ikh,
@@ -44,12 +55,8 @@
 //   rows.  A kept row costs P window loads (consecutive positions across the
 //   warp), two float4 weight broadcasts and a quarter of an int4 offset
 //   broadcast (a whole one where k_kept % 4 != 0) for 8 P FMAs, with no
-//   barrier in the loop.  P (2 or 4) and the block's threads
-//   (128 or 256) are template parameters; banded_tiled_config picks them.
-// - Two window stages in a cp.async ring when they fit (the rule's
-//   stages): band g + 1 is copied while band g is computed, one barrier a
-//   band.  With one stage the copy and the compute of a block take turns.
-//   The first band's copy is issued before the block stages its weights.
+//   barrier in the loop.  P (2 or 4) is a template parameter;
+//   banded_tiled_config picks it.  A block has 256 threads.
 // Bit identity with conv2d_fused_banded.cu, which this kernel keeps: each
 // output is one fmaf chain over its tile's kept rows in idx order from 0.f,
 // fmaf(value, x, acc) on to_f32 operands, stored once through from_f32; a
@@ -65,6 +72,7 @@
 namespace {
 
 constexpr int kGroupRows = 8;  // output rows a thread: one 8-row group of a tile
+constexpr int kTiledThreads = 256;
 
 // The padded window's geometry (repro_torch/kernels/conv_gemm/plan.py::
 // tiled_band_plan computes it).
@@ -82,11 +90,11 @@ struct TiledGeom {
 
 // Shared-memory bytes, also computed by
 // repro_torch/kernels/conv_gemm/kernel.py::banded_tiled_smem_bytes: the
-// window stages in the map's dtype, then values in f32, each kept row's
-// offset and each tile's flag.
-size_t tiled_smem(int c, int plane, int n_tiles, int k_kept, int tile, int elem, int stages) {
-  return static_cast<size_t>(stages) * c * plane * elem +
-         sizeof(float) * (static_cast<size_t>(n_tiles) * k_kept * (tile + 1) + n_tiles);
+// window in the map's dtype, then a group of tiles' values in f32, their
+// kept rows' offsets and each tile's flag.
+size_t tiled_smem(int c, int plane, int n_tiles, int k_kept, int tile, int elem, int group) {
+  return static_cast<size_t>(c) * plane * elem +
+         sizeof(float) * (static_cast<size_t>(group) * k_kept * (tile + 1) + n_tiles);
 }
 
 // Padded row of band's first position at tap row 0: the window's top row.
@@ -121,19 +129,19 @@ __device__ __forceinline__ void kept_row(const T* win, const int (&base)[P], int
   }
 }
 
-template <typename T, int P, int NT>
-__global__ void __launch_bounds__(NT)
+template <typename T, int P>
+__global__ void __launch_bounds__(kTiledThreads)
 banded_tiled_kernel(const T* __restrict__ x, const T* __restrict__ values,
                     const int* __restrict__ idx, T* __restrict__ out, repro::ConvGeom g,
-                    TiledGeom tg, int n_tiles, int k_kept, int tile, int stages) {
+                    TiledGeom tg, int n_tiles, int k_kept, int tile, int group) {
   constexpr int VEC = 16 / static_cast<int>(sizeof(T));  // elements of a 16-byte copy
+  constexpr int NT = kTiledThreads;
   constexpr int NW = NT / 32;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int win_elems = g.c * tg.plane;
-  T* win = reinterpret_cast<T*>(smem);                                   // [stages][C][plane]
-  float* s_val = reinterpret_cast<float*>(win + stages * win_elems);     // [n_tiles][k_kept][T]
-  int* s_off = reinterpret_cast<int*>(s_val + n_tiles * k_kept * tile);  // [n_tiles][k_kept]
-  int* s_bad = s_off + n_tiles * k_kept;                                 // [n_tiles]
+  T* win = reinterpret_cast<T*>(smem);                                 // [C][plane]
+  float* s_val = reinterpret_cast<float*>(win + g.c * tg.plane);       // [group][k_kept][T]
+  int* s_off = reinterpret_cast<int*>(s_val + group * k_kept * tile);  // [group][k_kept]
+  int* s_bad = s_off + group * k_kept;                                 // [n_tiles]
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -142,9 +150,8 @@ banded_tiled_kernel(const T* __restrict__ x, const T* __restrict__ values,
   const int gv = (tg.pitch - g.w) / VEC;  // 16-byte zero chunks after a row
   const int lv = tg.lead / VEC;
 
-  auto issue = [&](int band, int slot) {
+  auto issue = [&](int band) {
     const int r0 = tiled_origin(band, g, tg);
-    T* dst = win + slot * win_elems;
     const int per_ch = tg.rows * wv;
     for (int e = tid; e < g.c * per_ch; e += NT) {
       const int ch = e / per_ch;
@@ -157,168 +164,178 @@ banded_tiled_kernel(const T* __restrict__ x, const T* __restrict__ values,
       const bool valid = bb < g.b && ih >= 0 && ih < g.h;
       const T* src =
           valid ? x + ((static_cast<long long>(ch) * g.b + bb) * g.h + ih) * g.w + u * VEC : x;
-      repro::cp_async16_zfill(dst + ch * tg.plane + tg.lead + r * tg.pitch + u * VEC, src, valid);
+      repro::cp_async16_zfill(win + ch * tg.plane + tg.lead + r * tg.pitch + u * VEC, src, valid);
     }
     repro::cp_async_commit();
   };
 
+  // tiles t0 .. t0 + group - 1 (those that exist): values as f32 and each
+  // kept row's window offset; a bad index flags its tile
+  auto stage = [&](int t0) {
+    const int n = min(group, n_tiles - t0);
+    const T* v0 = values + static_cast<long long>(t0) * k_kept * tile;
+    for (int e = tid; e < n * k_kept * tile; e += NT) s_val[e] = repro::to_f32(v0[e]);
+    for (int e = tid; e < n * k_kept; e += NT) {
+      const int r = idx[t0 * k_kept + e];
+      if (r >= 0 && r < k_rows) {
+        const int tap = r / g.c;
+        const int ikh = tap / g.kw;
+        s_off[e] = (r - tap * g.c) * tg.plane + ikh * tg.pitch + (tap - ikh * g.kw);
+      } else {
+        s_off[e] = 0;  // a safe address; the tile's outputs become NaN
+        s_bad[t0 + e / k_kept] = 1;
+      }
+    }
+  };
+
   // the first band's window streams in under the prologue (the copies write
   // only the rows' values, never a margin)
-  issue(blockIdx.x, 0);
-  // zeros: the margins of each stage this block fills, and the tile flags
+  issue(blockIdx.x);
+  // zeros: the window's margins, and the tile flags
   {
-    const int stages_used = blockIdx.x + gridDim.x < tg.n_bands ? stages : 1;
     const int per_plane = lv + tg.rows * gv;
     const int4 zero = make_int4(0, 0, 0, 0);
-    for (int e = tid; e < stages_used * g.c * per_plane; e += NT) {
-      const int pl = e / per_plane;  // stage * C + channel
-      const int j = e - pl * per_plane;
+    for (int e = tid; e < g.c * per_plane; e += NT) {
+      const int ch = e / per_plane;
+      const int j = e - ch * per_plane;
       int at = j * VEC;
       if (j >= lv) {
         const int r = (j - lv) / gv;
         at = tg.lead + r * tg.pitch + g.w + (j - lv - r * gv) * VEC;
       }
-      *reinterpret_cast<int4*>(win + pl * tg.plane + at) = zero;
+      *reinterpret_cast<int4*>(win + ch * tg.plane + at) = zero;
     }
     for (int t = tid; t < n_tiles; t += NT) s_bad[t] = 0;
   }
   __syncthreads();
-  // the block's weights, kept across its bands
-  for (int e = tid; e < n_tiles * k_kept * tile; e += NT) s_val[e] = repro::to_f32(values[e]);
-  for (int e = tid; e < n_tiles * k_kept; e += NT) {
-    const int r = idx[e];
-    if (r >= 0 && r < k_rows) {
-      const int tap = r / g.c;
-      const int ikh = tap / g.kw;
-      s_off[e] = (r - tap * g.c) * tg.plane + ikh * tg.pitch + (tap - ikh * g.kw);
-    } else {
-      s_off[e] = 0;  // a safe address; the tile's outputs become NaN
-      s_bad[e / k_kept] = 1;
-    }
-  }
+  const bool once = group >= n_tiles;  // the block's weights, kept across its bands
+  if (once) stage(0);
 
   const int groups = tile / kGroupRows;  // 8-row groups a tile
-  const int n_rg = n_tiles * groups;
-  const int n_units = n_rg * ((tg.band_len + 32 * P - 1) / (32 * P));
+  const int n_pc = (tg.band_len + 32 * P - 1) / (32 * P);  // position chunks a band
   const int hw = g.ho * g.wo;
   const long long out_ld = tg.n_cols;
 
-  int band = blockIdx.x;  // the grid is at most n_bands blocks
-  for (int slot = 0; band < tg.n_bands; band += gridDim.x) {
-    const int next = band + gridDim.x;
-    if (stages == 2 && next < tg.n_bands) {
-      issue(next, slot ^ 1);  // band g + 1 streams in while band g is computed
-      repro::cp_async_wait<1>();
-    } else {
-      repro::cp_async_wait<0>();
-    }
+  for (int band = blockIdx.x; band < tg.n_bands; band += gridDim.x) {
+    repro::cp_async_wait<0>();
     __syncthreads();
-    const T* w_s = win + slot * win_elems;
     const int r0 = tiled_origin(band, g, tg);
     const int p_band = band * tg.band_len;
-    for (int u = warp; u < n_units; u += NW) {
-      const int rg = u % n_rg;
-      const int t = rg / groups;
-      const int f0 = (rg - t * groups) * kGroupRows;
-      const int j0 = (u / n_rg) * 32 * P + lane;  // this lane's first position in the band
-      int base[P];
-      bool store[P], live[P], outside[P];
+    for (int t0 = 0; t0 < n_tiles; t0 += group) {
+      if (!once) {  // the previous group's units are done before it is replaced
+        if (t0 > 0) __syncthreads();
+        stage(t0);
+        __syncthreads();
+      }
+      const int n_rg = min(group, n_tiles - t0) * groups;  // 8-row groups staged
+      for (int u = warp; u < n_rg * n_pc; u += NW) {
+        const int rg = u % n_rg;
+        const int tl = rg / groups;  // the tile's place in the staged group
+        const int t = t0 + tl;
+        const int f0 = (rg - tl * groups) * kGroupRows;
+        const int j0 = (u / n_rg) * 32 * P + lane;  // this lane's first position in the band
+        int base[P];
+        bool store[P], live[P], outside[P];
 #pragma unroll
-      for (int q = 0; q < P; ++q) {
-        const int j = j0 + q * 32;
-        const int p = p_band + j;
-        store[q] = j < tg.band_len && p < tg.n_cols;
-        live[q] = store[q] && p < tg.n_pos;
-        outside[q] = false;
-        base[q] = 0;
-        if (live[q]) {
-          const int bb = p / hw;
-          const int rem = p - bb * hw;
-          const int oh = rem / g.wo;
-          const int ow = rem - oh * g.wo;
-          const int row = bb * tg.hp + oh * g.stride - r0;  // window row of tap row 0
-          if (row >= 0 && row + g.kh <= tg.rows) {
-            base[q] = tg.lead + row * tg.pitch + ow * g.stride - g.pad;
-          } else {
-            outside[q] = true;
+        for (int q = 0; q < P; ++q) {
+          const int j = j0 + q * 32;
+          const int p = p_band + j;
+          store[q] = j < tg.band_len && p < tg.n_cols;
+          live[q] = store[q] && p < tg.n_pos;
+          outside[q] = false;
+          base[q] = 0;
+          if (live[q]) {
+            const int bb = p / hw;
+            const int rem = p - bb * hw;
+            const int oh = rem / g.wo;
+            const int ow = rem - oh * g.wo;
+            const int row = bb * tg.hp + oh * g.stride - r0;  // window row of tap row 0
+            if (row >= 0 && row + g.kh <= tg.rows) {
+              base[q] = tg.lead + row * tg.pitch + ow * g.stride - g.pad;
+            } else {
+              outside[q] = true;
+            }
+          }
+        }
+        float acc[P][kGroupRows];
+#pragma unroll
+        for (int q = 0; q < P; ++q) {
+#pragma unroll
+          for (int f = 0; f < kGroupRows; ++f) acc[q][f] = 0.f;
+        }
+        const float* vals_t = s_val + static_cast<long long>(tl) * k_kept * tile + f0;
+        const int* off_t = s_off + tl * k_kept;
+        int k = 0;
+        if ((k_kept & 3) == 0) {  // the tile's offsets are 16-byte aligned: 4 a load
+          for (; k < k_kept; k += 4) {
+            const int4 o = *reinterpret_cast<const int4*>(off_t + k);
+            kept_row<T, P>(win, base, o.x, vals_t + k * tile, acc);
+            kept_row<T, P>(win, base, o.y, vals_t + (k + 1) * tile, acc);
+            kept_row<T, P>(win, base, o.z, vals_t + (k + 2) * tile, acc);
+            kept_row<T, P>(win, base, o.w, vals_t + (k + 3) * tile, acc);
+          }
+        }
+        for (; k < k_kept; ++k) kept_row<T, P>(win, base, off_t[k], vals_t + k * tile, acc);
+        const bool bad = s_bad[t] != 0;
+#pragma unroll
+        for (int q = 0; q < P; ++q) {
+          if (!store[q]) continue;
+          const long long col = static_cast<long long>(p_band) + j0 + q * 32;
+#pragma unroll
+          for (int f = 0; f < kGroupRows; ++f) {
+            // past-the-end positions of the ragged last strip hold 0
+            const float y = !live[q] ? 0.f : (bad || outside[q]) ? repro::quiet_nan() : acc[q][f];
+            out[static_cast<long long>(t * tile + f0 + f) * out_ld + col] = repro::from_f32<T>(y);
           }
         }
       }
-      float acc[P][kGroupRows];
-#pragma unroll
-      for (int q = 0; q < P; ++q) {
-#pragma unroll
-        for (int f = 0; f < kGroupRows; ++f) acc[q][f] = 0.f;
-      }
-      const float* vals_t = s_val + static_cast<long long>(t) * k_kept * tile + f0;
-      const int* off_t = s_off + t * k_kept;
-      int k = 0;
-      if ((k_kept & 3) == 0) {  // the tile's offsets are 16-byte aligned: 4 a load
-        for (; k < k_kept; k += 4) {
-          const int4 o = *reinterpret_cast<const int4*>(off_t + k);
-          kept_row<T, P>(w_s, base, o.x, vals_t + k * tile, acc);
-          kept_row<T, P>(w_s, base, o.y, vals_t + (k + 1) * tile, acc);
-          kept_row<T, P>(w_s, base, o.z, vals_t + (k + 2) * tile, acc);
-          kept_row<T, P>(w_s, base, o.w, vals_t + (k + 3) * tile, acc);
-        }
-      }
-      for (; k < k_kept; ++k) kept_row<T, P>(w_s, base, off_t[k], vals_t + k * tile, acc);
-      const bool bad = s_bad[t] != 0;
-#pragma unroll
-      for (int q = 0; q < P; ++q) {
-        if (!store[q]) continue;
-        const long long col = static_cast<long long>(p_band) + j0 + q * 32;
-#pragma unroll
-        for (int f = 0; f < kGroupRows; ++f) {
-          // past-the-end positions of the ragged last strip hold 0
-          const float y = !live[q] ? 0.f : (bad || outside[q]) ? repro::quiet_nan() : acc[q][f];
-          out[static_cast<long long>(t * tile + f0 + f) * out_ld + col] = repro::from_f32<T>(y);
-        }
-      }
     }
-    __syncthreads();  // this slot is refilled next
-    if (stages == 1 && next < tg.n_bands) issue(next, 0);
-    if (stages == 2) slot ^= 1;
+    __syncthreads();  // the window is refilled next
+    if (band + gridDim.x < tg.n_bands) issue(band + gridDim.x);
   }
 }
 
-template <typename T, int P, int NT>
+template <typename T, int P>
 int launch(const void* x, const void* values, const int* idx, void* out,
            const repro::ConvGeom& g, const TiledGeom& tg, int n_tiles, int k_kept, int tile,
-           int stages, size_t smem, cudaStream_t st) {
-  auto kernel = banded_tiled_kernel<T, P, NT>;
-  cudaError_t err = repro::allow_smem(kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int dev = 0, sms = 0, per_sm = 0;
-  err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NT, smem);
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
+           int group, size_t smem, cudaStream_t st) {
+  auto kernel = banded_tiled_kernel<T, P>;
   // every band its own block where the card holds them all at once; else
-  // each block walks its share of the bands
-  const int grid = std::min(tg.n_bands, std::max(1, per_sm) * sms);
-  kernel<<<grid, NT, smem, st>>>(static_cast<const T*>(x), static_cast<const T*>(values), idx,
-                                 static_cast<T*>(out), g, tg, n_tiles, k_kept, tile, stages);
+  // each block walks its share of the bands.  The cap (SM count x blocks an
+  // SM holds at this shared memory) is queried once an instance, device and
+  // size, not on every launch of a host-bound forward.
+  static int cap_dev = -1, cap = 0;
+  static size_t cap_smem = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev != cap_dev || smem != cap_smem) {
+    int sms = 0, per_sm = 0;
+    err = repro::allow_smem(kernel, smem);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kTiledThreads, smem);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cap = std::max(1, per_sm) * sms;
+    cap_dev = dev;
+    cap_smem = smem;
+  }
+  const int grid = std::min(tg.n_bands, cap);
+  kernel<<<grid, kTiledThreads, smem, st>>>(static_cast<const T*>(x), static_cast<const T*>(values), idx,
+                                 static_cast<T*>(out), g, tg, n_tiles, k_kept, tile, group);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch_shape(int positions, int threads, const void* x, const void* values, const int* idx,
-                 void* out, const repro::ConvGeom& g, const TiledGeom& tg, int n_tiles,
-                 int k_kept, int tile, int stages, size_t smem, cudaStream_t st) {
-  if (positions == 2 && threads == 128) {
-    return launch<T, 2, 128>(x, values, idx, out, g, tg, n_tiles, k_kept, tile, stages, smem, st);
+int launch_positions(int positions, const void* x, const void* values, const int* idx, void* out,
+                     const repro::ConvGeom& g, const TiledGeom& tg, int n_tiles, int k_kept,
+                     int tile, int group, size_t smem, cudaStream_t st) {
+  if (positions == 2) {
+    return launch<T, 2>(x, values, idx, out, g, tg, n_tiles, k_kept, tile, group, smem, st);
   }
-  if (positions == 4 && threads == 128) {
-    return launch<T, 4, 128>(x, values, idx, out, g, tg, n_tiles, k_kept, tile, stages, smem, st);
-  }
-  if (positions == 2 && threads == 256) {
-    return launch<T, 2, 256>(x, values, idx, out, g, tg, n_tiles, k_kept, tile, stages, smem, st);
-  }
-  if (positions == 4 && threads == 256) {
-    return launch<T, 4, 256>(x, values, idx, out, g, tg, n_tiles, k_kept, tile, stages, smem, st);
+  if (positions == 4) {
+    return launch<T, 4>(x, values, idx, out, g, tg, n_tiles, k_kept, tile, group, smem, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -329,14 +346,14 @@ int launch_shape(int positions, int threads, const void* x, const void* values, 
 // [n_tiles, k_kept, tile] with tile a multiple of 8; idx: [n_tiles, k_kept]
 // int32 (rows of the (kh, kw, c)-flattened reduction dim); out:
 // [n_tiles*tile, n_strips*v].  hb, n_bands, band_rows, lead, pitch and plane
-// come from plan.py::tiled_band_plan; positions (2 or 4 a thread), threads
-// (128 or 256 a block) and stages (1 or 2) from kernel.py; smem_bytes must
-// equal this kernel's layout.
+// come from plan.py::tiled_band_plan; positions (2 or 4 a thread) and group
+// (tiles staged at once, 1 .. n_tiles) from kernel.py; smem_bytes must equal
+// this kernel's layout.
 extern "C" int repro_conv2d_fused_banded_tiled(
     const void* x, const void* values, const void* idx, void* out, int dtype, int c, int b,
     int h, int w, int kh, int kw, int stride, int pad, int ho, int wo, int v, int n_strips,
     int n_tiles, int k_kept, int tile, int hb, int n_bands, int band_rows, int lead, int pitch,
-    int plane, int positions, int threads, int stages, long long smem_bytes, void* stream) {
+    int plane, int positions, int group, long long smem_bytes, void* stream) {
   const int elem = dtype == repro::kDtypeF32 ? 4 : dtype == repro::kDtypeBF16 ? 2 : 0;
   const int vec = elem ? 16 / elem : 1;
   if (elem == 0 || c <= 0 || b <= 0 || h <= 0 || w <= 0 || kh <= 0 || kw <= 0 || stride <= 0 ||
@@ -346,11 +363,11 @@ extern "C" int repro_conv2d_fused_banded_tiled(
       static_cast<long long>(n_strips - 1) * v >= static_cast<long long>(b) * ho * wo ||
       band_rows < kh || w % vec != 0 || lead % vec != 0 || lead < pad ||
       pitch % vec != 0 || pitch - w < vec || pitch - w < pad ||
-      plane != lead + band_rows * pitch || (stages != 1 && stages != 2) ||
+      plane != lead + band_rows * pitch || group <= 0 || group > n_tiles ||
       reinterpret_cast<uintptr_t>(x) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = tiled_smem(c, plane, n_tiles, k_kept, tile, elem, stages);
+  const size_t smem = tiled_smem(c, plane, n_tiles, k_kept, tile, elem, group);
   if (static_cast<long long>(smem) != smem_bytes) return static_cast<int>(cudaErrorInvalidValue);
   const repro::ConvGeom g{c, b, h, w, kh, kw, stride, pad, ho, wo, v, n_strips};
   const TiledGeom tg{h + 2 * pad, band_rows, lead, pitch, plane, hb * v, n_bands, b * ho * wo,
@@ -358,9 +375,9 @@ extern "C" int repro_conv2d_fused_banded_tiled(
   auto st = static_cast<cudaStream_t>(stream);
   const int* ids = static_cast<const int*>(idx);
   if (dtype == repro::kDtypeF32) {
-    return launch_shape<float>(positions, threads, x, values, ids, out, g, tg, n_tiles, k_kept,
-                               tile, stages, smem, st);
+    return launch_positions<float>(positions, x, values, ids, out, g, tg, n_tiles, k_kept,
+                                   tile, group, smem, st);
   }
-  return launch_shape<__nv_bfloat16>(positions, threads, x, values, ids, out, g, tg, n_tiles,
-                                     k_kept, tile, stages, smem, st);
+  return launch_positions<__nv_bfloat16>(positions, x, values, ids, out, g, tg, n_tiles,
+                                         k_kept, tile, group, smem, st);
 }

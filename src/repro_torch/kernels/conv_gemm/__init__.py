@@ -2,7 +2,7 @@ from repro_torch.kernels.conv_gemm.kernel import (  # noqa: F401
     CONV2D_FUSED,
     CONV2D_FUSED_BANDED,
     CONV2D_FUSED_BANDED_TILED,
-    BANDED_TILED_SHAPES,
+    BANDED_TILED_POSITIONS,
     banded_smem_bytes,
     banded_tiled_config,
     banded_tiled_geometry,

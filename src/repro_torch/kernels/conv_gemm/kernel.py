@@ -48,17 +48,17 @@ CONV2D_FUSED_BANDED = CudaKernel(
 
 CONV2D_FUSED_BANDED_TILED = CudaKernel(
     "conv2d_fused_banded_tiled", "repro_conv2d_fused_banded_tiled",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 25,
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 24,
     source="src/repro_torch/csrc/conv2d_fused_banded_tiled.cu",
     replaces=("src/repro/kernels/conv_gemm/kernel.py:300 "
               "conv2d_fused_banded_pallas"),
     sized_smem=True,
 )
 
-# csrc/conv2d_fused_banded_tiled.cu's instances: (positions a thread,
-# threads a block); a thread accumulates one 8-row group of a tile
-BANDED_TILED_SHAPES = ((2, 128), (4, 128), (2, 256), (4, 256))
-BANDED_TILED_GROUP = 8
+# csrc/conv2d_fused_banded_tiled.cu's instances: positions a thread, each
+# thread of a 256-thread block accumulating one 8-row group of a tile
+BANDED_TILED_POSITIONS = (2, 4)
+BANDED_TILED_ROWS = 8
 
 
 def fused_smem_bytes(tile: int, block_k: int) -> int:
@@ -145,13 +145,13 @@ def conv2d_fused_banded_scalar_cuda(x: torch.Tensor, values: torch.Tensor,
 
 
 def banded_tiled_smem_bytes(c: int, plane: int, n_tiles: int, k_kept: int,
-                            tile: int, itemsize: int, stages: int) -> int:
-    """Shared memory of one tiled banded-conv launch: ``stages`` padded
-    windows ``[C, plane]`` in the map's dtype, then all of ``values`` in f32,
-    each kept row's window offset and each tile's bad-index flag (4 bytes
-    each)."""
-    return (stages * c * plane * itemsize
-            + 4 * (n_tiles * k_kept * (tile + 1) + n_tiles))
+                            tile: int, itemsize: int, group: int) -> int:
+    """Shared memory of one tiled banded-conv launch: the padded window
+    ``[C, plane]`` in the map's dtype, then ``group`` tiles' values in f32
+    and their kept rows' window offsets, and each tile's bad-index flag (4
+    bytes each)."""
+    return (c * plane * itemsize
+            + 4 * (group * k_kept * (tile + 1) + n_tiles))
 
 
 def banded_tiled_geometry(c: int, b: int, h: int, w: int, kh: int, kw: int,
@@ -160,11 +160,13 @@ def banded_tiled_geometry(c: int, b: int, h: int, w: int, kh: int, kw: int,
                           itemsize: int) -> Optional[dict]:
     """The tiled banded kernel's launch geometry for this shape, or ``None``
     where the kernel takes no such shape: tiles of a multiple of 8 rows,
-    map rows of whole 16-byte copies, and one window stage plus the staged
-    weights within a block's shared memory.  Two stages (band g+1 copied
-    while band g is computed) wherever they fit, else one."""
+    map rows of whole 16-byte copies, and the window plus one tile's staged
+    weights within a block's shared memory.  ``group`` is the tiles whose
+    weights the block stages at once: all of them where they fit (staged
+    once a block), else the fewest equal groups that fit (restaged each
+    band)."""
     ho, wo = out_size(h, kh, stride, pad), out_size(w, kw, stride, pad)
-    if (ho <= 0 or wo <= 0 or tile % BANDED_TILED_GROUP or k_kept <= 0
+    if (ho <= 0 or wo <= 0 or tile % BANDED_TILED_ROWS or k_kept <= 0
             or (w * itemsize) % 16):
         return None
     n_strips = -(-b * ho * wo // v)
@@ -172,32 +174,31 @@ def banded_tiled_geometry(c: int, b: int, h: int, w: int, kh: int, kw: int,
     n_bands, rows, lead, pitch, plane = tiled_band_plan(
         b=b, h=h, w=w, kh=kh, stride=stride, pad=pad, ho=ho, wo=wo, v=v,
         hb=hb, itemsize=itemsize)
-    for stages in (2, 1):
-        smem = banded_tiled_smem_bytes(c, plane, n_tiles, k_kept, tile,
-                                       itemsize, stages)
-        if smem <= SMEM_BYTES:
-            return dict(ho=ho, wo=wo, n_strips=n_strips, hb=hb,
-                        n_bands=n_bands, band_rows=rows, lead=lead,
-                        pitch=pitch, plane=plane, stages=stages, smem=smem)
-    return None
+    window = banded_tiled_smem_bytes(c, plane, n_tiles, k_kept, tile,
+                                     itemsize, 0)
+    fit = (SMEM_BYTES - window) // (4 * k_kept * (tile + 1))  # tiles' weights
+    if fit < 1:
+        return None
+    group = -(-n_tiles // -(-n_tiles // fit))
+    return dict(ho=ho, wo=wo, n_strips=n_strips, hb=hb, n_bands=n_bands,
+                band_rows=rows, lead=lead, pitch=pitch, plane=plane,
+                group=group, smem=banded_tiled_smem_bytes(
+                    c, plane, n_tiles, k_kept, tile, itemsize, group))
 
 
-def banded_tiled_config(n_tiles: int, tile: int, hb: int, v: int) -> tuple:
-    """(positions a thread, threads a block) of the tiled banded kernel for
-    a band of ``hb * v`` positions and ``n_tiles`` tiles of ``tile`` rows: a
-    rule of the shape, fitted to ``repro_torch.kernels.conv_gemm.tune``'s
-    sweep on the H100 (PERF.md).  A warp's unit of work is 32 * P positions
-    of one 8-row group; at 2 positions a thread a band has ``units`` of
-    them.  Up to 8 units, each warp of a 128- or 256-thread block takes one;
-    past that, 4 positions a thread and 256 threads.  At resnet-tiny's five
-    convs its pick was the fastest instance or within 1.03x of it under
-    every band geometry, in f32 and bf16."""
-    units = n_tiles * (tile // BANDED_TILED_GROUP) * -(-hb * v // 64)
-    if units <= 4:
-        return (2, 128)
-    if units <= 8:
-        return (2, 256)
-    return (4, 256)
+def banded_tiled_config(group: int, tile: int, hb: int, v: int) -> int:
+    """Positions a thread of the tiled banded kernel, for a band of ``hb *
+    v`` positions and ``group`` staged tiles of ``tile`` rows: a rule of the
+    shape, fitted to ``repro_torch.kernels.conv_gemm.tune``'s sweep on the
+    H100 (PERF.md).  A warp's unit of work is 32 * P positions of one 8-row
+    group of a staged tile; at 2 positions a thread a band has ``units`` of
+    them a group.  Up to 8 units, each of the block's 8 warps takes one;
+    past that, 4 positions a thread.  Over resnet-tiny's five convs and
+    ResNet-18's layer1 and layer2 convs, in f32 and bf16 under every band
+    geometry, its pick was the faster instance or within 1.04x of it per
+    conv, and within 1.015x on resnet-tiny's sums."""
+    units = group * (tile // BANDED_TILED_ROWS) * -(-hb * v // 64)
+    return 2 if units <= 8 else 4
 
 
 def _tiled_geometry_of(x: torch.Tensor, values: torch.Tensor, kh: int,
@@ -227,14 +228,13 @@ def conv2d_fused_banded_tiled_cuda(x: torch.Tensor, values: torch.Tensor,
                                    idx: torch.Tensor, *, kh: int, kw: int,
                                    stride: int = 1, pad: int = 0,
                                    v: int = 128, hb: int = 2,
-                                   shape: Optional[tuple] = None,
-                                   stages: Optional[int] = None) -> torch.Tensor:
+                                   positions: Optional[int] = None
+                                   ) -> torch.Tensor:
     """Launch ``csrc/conv2d_fused_banded_tiled.cu``: the banded conv's
     function and bits for the calls :func:`banded_tiled_takes` accepts
-    (raises on any other).  ``shape`` is the instance, (positions a thread,
-    threads a block), one of ``BANDED_TILED_SHAPES``; ``stages`` 1 or 2
-    windows (every choice gives the same bits); by default
-    :func:`banded_tiled_config`'s and :func:`banded_tiled_geometry`'s."""
+    (raises on any other).  ``positions`` a thread is the instance, one of
+    ``BANDED_TILED_POSITIONS`` (each gives the same bits); by default
+    :func:`banded_tiled_config`'s."""
     check_cuda_tensor("x", x, FLOAT_DTYPES, 4)
     geo = _tiled_geometry_of(x, values, kh, kw, stride, pad, v, hb)
     if geo is None:
@@ -242,27 +242,25 @@ def conv2d_fused_banded_tiled_cuda(x: torch.Tensor, values: torch.Tensor,
             f"map {tuple(x.shape)} {x.dtype}, values {tuple(values.shape)}, "
             f"k{kh}x{kw} s{stride} p{pad} v{v} hb{hb}: the tiled banded "
             "kernel takes tiles of a multiple of 8 rows, map rows of whole "
-            "16-byte copies, a 16-byte aligned map, and one window within "
-            f"{SMEM_BYTES} bytes of shared memory")
-    return _launch_tiled(x, values, idx, geo, kh, kw, stride, pad, v, shape,
-                         stages)
+            "16-byte copies, a 16-byte aligned map, and the window plus one "
+            f"tile's weights within {SMEM_BYTES} bytes of shared memory")
+    return _launch_tiled(x, values, idx, geo, kh, kw, stride, pad, v,
+                         positions)
 
 
-def _launch_tiled(x, values, idx, geo, kh, kw, stride, pad, v, shape=None,
-                  stages=None) -> torch.Tensor:
+def _launch_tiled(x, values, idx, geo, kh, kw, stride, pad, v,
+                  positions=None) -> torch.Tensor:
     """The tiled banded launch for a geometry :func:`banded_tiled_geometry`
     gave for ``x`` and ``values``."""
     c, b, h, w = x.shape
     n_tiles, k_kept, tile = values.shape
-    shape = banded_tiled_config(n_tiles, tile, geo["hb"], v) if shape is None else shape
-    if tuple(shape) not in BANDED_TILED_SHAPES:
-        raise ValueError(f"shape {shape} is not an instance of the tiled "
-                         f"banded kernel: one of {BANDED_TILED_SHAPES}")
-    stages = geo["stages"] if stages is None else stages
-    if stages not in (1, 2):
-        raise ValueError(f"stages must be 1 or 2, got {stages}")
-    smem = banded_tiled_smem_bytes(c, geo["plane"], n_tiles, k_kept, tile,
-                                   x.element_size(), stages)
+    if positions is None:
+        positions = banded_tiled_config(geo["group"], tile, geo["hb"], v)
+    if positions not in BANDED_TILED_POSITIONS:
+        raise ValueError(f"{positions} positions a thread is not an instance "
+                         "of the tiled banded kernel: one of "
+                         f"{BANDED_TILED_POSITIONS}")
+    smem = geo["smem"]
     check_compressed(values, idx, x.dtype, k_kept, smem)
     check_same_device(x, values, idx)
     out = torch.empty((n_tiles * tile, geo["n_strips"] * v), dtype=x.dtype,
@@ -272,7 +270,7 @@ def _launch_tiled(x, values, idx, geo, kh, kw, stride, pad, v, shape=None,
         out.data_ptr(), DTYPE_CODE[x.dtype], c, b, h, w, kh, kw, stride, pad,
         geo["ho"], geo["wo"], v, geo["n_strips"], n_tiles, k_kept, tile,
         geo["hb"], geo["n_bands"], geo["band_rows"], geo["lead"],
-        geo["pitch"], geo["plane"], *shape, stages, smem_bytes=smem)
+        geo["pitch"], geo["plane"], positions, geo["group"], smem_bytes=smem)
     return out
 
 

@@ -1,16 +1,16 @@
 """Time the tiled banded conv kernel under each of its instances, the
-measurement behind :func:`~repro_torch.kernels.conv_gemm.kernel.banded_tiled_config`
-and the stage rule of :func:`~repro_torch.kernels.conv_gemm.kernel.banded_tiled_geometry`.
+measurement behind :func:`~repro_torch.kernels.conv_gemm.kernel.banded_tiled_config`.
 
 For each of resnet-tiny's five pruned convs (batch 256, O 16, tile 8, 50%
-kept) and one ResNet-18 conv (layer1: 3x3, 64 -> 64, 56x56, batch 8, tile
-8, 50%), in f32 and bf16, under each band geometry the dispatch registry
-races (``BANDED_CONV_GEOMETRY``: strip width v, block_k, strips a band hb),
-every instance of ``csrc/conv2d_fused_banded_tiled.cu`` (positions a thread
-x threads a block, one or two window stages) that the shape takes is
-checked to give the bits of ``csrc/conv2d_fused_banded.cu`` (or, where that
-kernel does not take the shape, of ``csrc/conv2d_fused.cu``, which gives the
-same bits) with ``torch.equal``, and timed by CUDA-graph replay (the
+kept) and two ResNet-18 convs (3x3 at batch 8, tile 8, 50%: layer1, 64 ->
+64 at 56x56, and layer2, 128 -> 128 at 28x28, whose weights a block stages
+a group of tiles at a time), in f32 and bf16, under each band geometry the
+dispatch registry races (``BANDED_CONV_GEOMETRY``: strip width v, block_k,
+strips a band hb), every instance of ``csrc/conv2d_fused_banded_tiled.cu``
+(positions a thread) that the shape takes is checked to
+give the bits of ``csrc/conv2d_fused_banded.cu`` (or, where that kernel
+does not take the shape, of ``csrc/conv2d_fused.cu``, which gives the same
+bits) with ``torch.equal``, and timed by CUDA-graph replay (the
 dispatch profiler's timer), beside ``conv2d_fused_banded.cu`` and
 ``F.conv2d`` on the dense masked weight (cuDNN, TF32 off).  Prints the
 registers and spills of each instance (``-Xptxas -v``), one line per conv,
@@ -31,7 +31,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.conv_gemm.kernel import (BANDED_TILED_SHAPES,
+from repro_torch.kernels.conv_gemm.kernel import (BANDED_TILED_POSITIONS,
                                                   banded_tiled_config,
                                                   banded_tiled_geometry,
                                                   conv2d_fused_banded_scalar_cuda,
@@ -40,13 +40,15 @@ from repro_torch.kernels.conv_gemm.kernel import (BANDED_TILED_SHAPES,
 from repro_torch.kernels.im2col_pack.ref import out_size
 
 # (name, C, B, H, W, O, k, stride, pad): resnet-tiny's pruned convs at batch
-# 256 (configs/resnet_tiny.py), then ResNet-18's layer1 conv at batch 8
+# 256 (configs/resnet_tiny.py), then ResNet-18's layer1 and layer2 3x3 convs
+# at batch 8
 CONVS = (("blocks[0]/conv1", 8, 256, 16, 16, 16, 3, 1, 1),
          ("blocks[0]/conv2", 16, 256, 16, 16, 16, 3, 1, 1),
          ("blocks[1]/conv1", 16, 256, 16, 16, 16, 3, 2, 1),
          ("blocks[1]/conv2", 16, 256, 8, 8, 16, 3, 1, 1),
          ("blocks[1]/proj", 16, 256, 16, 16, 16, 1, 2, 0),
-         ("resnet18/layer1", 64, 8, 56, 56, 64, 3, 1, 1))
+         ("resnet18/layer1", 64, 8, 56, 56, 64, 3, 1, 1),
+         ("resnet18/layer2", 128, 8, 28, 28, 128, 3, 1, 1))
 TILE = 8
 # dispatch/registry.py BANDED_CONV_GEOMETRY, as (v, block_k, hb)
 GEOMETRIES = ((128, 128, 2), (256, 128, 2), (128, 128, 4), (128, 64, 1))
@@ -56,13 +58,13 @@ DTYPES = (torch.float32, torch.bfloat16)
 def banded_tiled_registers(log: Path) -> list:
     """(instance, registers, spills) of each conv2d_fused_banded_tiled.cu
     instance, from the ``-Xptxas -v`` output the build keeps: instance as
-    "f32|bf16 PxNT" (positions a thread, threads a block)."""
+    "f32|bf16 P=p" (positions a thread)."""
     out, inst, spill = [], None, ""
     for line in log.read_text().splitlines():
-        m = re.search(r"banded_tiled_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", line)
+        m = re.search(r"banded_tiled_kernelI(f|13__nv_bfloat16)Li(\d+)EE", line)
         if "Compiling entry function" in line:
             inst = (f"{'f32' if m.group(1) == 'f' else 'bf16'} "
-                    f"{m.group(2)}x{m.group(3)}") if m else None
+                    f"P={m.group(2)}") if m else None
         elif inst and "spill" in line:
             spill = line.strip()
         elif inst and "registers" in line:
@@ -131,26 +133,24 @@ def sweep(convs=CONVS, geometries=GEOMETRIES, dtypes=DTYPES, seed: int = 0,
                                             hb, n_tiles, k_kept, TILE, isz)
                 us = {}
                 if geo is not None:
-                    for shape in BANDED_TILED_SHAPES:
-                        for stages in sorted({1, geo["stages"]}):
-                            got = conv2d_fused_banded_tiled_cuda(
-                                x, values, idx, v=v, hb=hb, shape=shape,
-                                stages=stages, **geo_args)
-                            torch.cuda.synchronize()
-                            if not torch.equal(got, want):
-                                raise RuntimeError(
-                                    f"{name} {dtype} v{v} hb{hb} {shape} "
-                                    f"stages {stages}: not the bits of the "
-                                    "other banded kernel")
-                            us[f"{shape[0]}x{shape[1]}s{stages}"] = device_time_us(
-                                lambda: conv2d_fused_banded_tiled_cuda(
-                                    x, values, idx, v=v, hb=hb, shape=shape,
-                                    stages=stages, **geo_args),
-                                iters=iters, device=dev)
+                    for p in BANDED_TILED_POSITIONS:
+                        got = conv2d_fused_banded_tiled_cuda(
+                            x, values, idx, v=v, hb=hb, positions=p,
+                            **geo_args)
+                        torch.cuda.synchronize()
+                        if not torch.equal(got, want):
+                            raise RuntimeError(
+                                f"{name} {dtype} v{v} hb{hb} P={p}: not the "
+                                "bits of the other banded kernel")
+                        us[f"P={p}"] = device_time_us(
+                            lambda: conv2d_fused_banded_tiled_cuda(
+                                x, values, idx, v=v, hb=hb, positions=p,
+                                **geo_args),
+                            iters=iters, device=dev)
                 pick = None
                 if geo is not None:
-                    p, nt = banded_tiled_config(n_tiles, TILE, geo["hb"], v)
-                    pick = f"{p}x{nt}s{geo['stages']}"
+                    pick = "P=%d" % banded_tiled_config(geo["group"], TILE,
+                                                        geo["hb"], v)
                 best = min(us, key=us.get) if us else None
                 ho, wo = out_size(h, k, stride, pad), out_size(w, k, stride, pad)
                 gflop = 2 * o * k_kept * b * ho * wo / 1e9
@@ -158,12 +158,13 @@ def sweep(convs=CONVS, geometries=GEOMETRIES, dtypes=DTYPES, seed: int = 0,
                        "v": v, "bk": bk, "hb": hb, "tiled_us": us,
                        "scalar_us": scalar_us, "cudnn_us": cudnn_us,
                        "rule": pick, "best": best, "gflop": gflop,
-                       "stages": None if geo is None else geo["stages"],
+                       "group": None if geo is None else geo["group"],
                        "smem": None if geo is None else geo["smem"]}
                 recs.append(rec)
                 tiled = " ".join(f"{kk}={t:.2f}" for kk, t in us.items()) or "refused"
                 old = "refused" if scalar_us is None else f"{scalar_us:.2f}us"
                 rule = ("" if best is None else
+                        f"; group {geo['group']} of {n_tiles} tiles"
                         f"; rule {pick} ({us[pick] / us[best]:.3f}x the best, "
                         f"{best}, {gflop / us[best] * 1e3:.2f} TFLOP/s)")
                 print(f"{name} {rec['dtype']} v{v} bk{bk} hb{hb}: tiled (us) "

@@ -288,3 +288,25 @@ def test_banded_tiled_plain_version_gives_the_fused_bits(c, b, h, w, o, k,
     assert bool(torch.isnan(y[-8:, :n_pos]).all())
     assert bool((y[:, n_pos:] == 0).all())
     assert torch.equal(y[:-8], got[:-8])
+
+
+@pytest.mark.parametrize("c,b,h,k,stride,o,v,hb,itemsize,group,positions", [
+    (16, 256, 16, 3, 1, 16, 128, 2, 4, 2, 2),  # resnet-tiny blocks[0]/conv2
+    (16, 256, 16, 3, 1, 16, 256, 2, 4, 2, 4),  # wide strips: 16 units
+    (16, 256, 16, 3, 2, 16, 128, 1, 4, 2, 2),  # blocks[1]/conv1, hb 1
+    (64, 8, 56, 3, 1, 64, 128, 1, 4, 8, 4),    # ResNet-18 layer1: 8 tiles
+    (64, 8, 56, 3, 1, 64, 256, 2, 4, 1, 2),    # a tile at a time: 8 units
+    (128, 8, 28, 3, 1, 128, 128, 1, 4, 2, 2),  # layer2: 2 of 16 tiles
+])
+def test_banded_tiled_config_counts_the_staged_group(c, b, h, k, stride, o,
+                                                     v, hb, itemsize, group,
+                                                     positions):
+    """The tiled kernel's instance rule counts the warp units of the tiles a
+    block stages at once, not of all the tiles: 8 or fewer, 2 positions a
+    thread; more, 4."""
+    n_tiles, k_kept = o // 8, k * k * c // 2
+    geo = tcv.banded_tiled_geometry(c, b, h, h, k, k, stride, 1, v, hb,
+                                    n_tiles, k_kept, 8, itemsize)
+    assert geo["group"] == group
+    assert tcv.banded_tiled_config(geo["group"], 8, geo["hb"], v) == positions
+    assert positions in tcv.BANDED_TILED_POSITIONS

@@ -48,7 +48,7 @@ from repro_torch.kernels.colwise_nm import (
     colwise_nm_matmul_strips_ref,
 )
 from repro_torch.kernels.conv_gemm import (
-    BANDED_TILED_SHAPES,
+    BANDED_TILED_POSITIONS,
     CONV2D_FUSED_BANDED,
     CONV2D_FUSED_BANDED_TILED,
     banded_tiled_geometry,
@@ -244,15 +244,54 @@ def test_banded_tiled_instances_give_the_same_bits(dev, case, dtype):
                               dtype, dev)
     geo = dict(kh=k, kw=k, stride=stride, pad=pad, v=v)
     want = conv2d_fused_cuda(x, values, idx, **geo)
-    stages = banded_tiled_geometry(c, b, h, w, k, k, stride, pad, v, hb,
-                                   o // 8, idx.shape[1], 8,
-                                   x.element_size())["stages"]
-    for shape in BANDED_TILED_SHAPES:
-        for st in sorted({1, stages}):
-            got = conv2d_fused_banded_tiled_cuda(x, values, idx, hb=hb,
-                                                 shape=shape, stages=st, **geo)
-            torch.cuda.synchronize()
-            assert torch.equal(got, want), (shape, st)
+    for p in BANDED_TILED_POSITIONS:
+        got = conv2d_fused_banded_tiled_cuda(x, values, idx, hb=hb,
+                                             positions=p, **geo)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), p
+
+
+# (C, B, H, W, O, k, stride, pad, v, hb, group): weights too wide to stage
+# at once beside the window, so a block stages them group tiles at a time
+TILE_GROUP_CASES = [
+    (64, 2, 8, 8, 256, 3, 1, 1, 64, 1, 16),       # 2 groups of 16 tiles
+    # ResNet-18 layer2's map: 5 groups of 3 tiles, then one of 1
+    (128, 1, 28, 28, 128, 3, 1, 1, 128, 1, 3),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,b,h,w,o,k,stride,pad,v,hb,group",
+                         TILE_GROUP_CASES)
+def test_banded_tiled_tile_groups_give_the_same_bits(dev, c, b, h, w, o, k,
+                                                     stride, pad, v, hb,
+                                                     group, dtype):
+    """Weights staged a group of tiles at a time give the bits of
+    conv2d_fused.cu (those of conv2d_fused_banded.cu, which does not take
+    the second shape) under every instance, and a bad index in the last
+    group's tile makes that tile, and only it, NaN."""
+    x = _x(c, b, h, w, dtype, dev)
+    k_rows = k * k * c
+    values, idx = _compressed(o // 8, k_rows, k_rows // 2, 8, dtype, dev)
+    geo = dict(kh=k, kw=k, stride=stride, pad=pad, v=v)
+    tg = banded_tiled_geometry(c, b, h, w, k, k, stride, pad, v, hb, o // 8,
+                               k_rows // 2, 8, x.element_size())
+    if dtype == torch.bfloat16 and w % 8:  # 56-byte bf16 rows
+        assert tg is None
+        return
+    assert tg["group"] == group < o // 8
+    want = conv2d_fused_cuda(x, values, idx, **geo)
+    for p in BANDED_TILED_POSITIONS:
+        got = conv2d_fused_banded_tiled_cuda(x, values, idx, hb=hb,
+                                             positions=p, **geo)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), p
+    idx[-1, 3] = k_rows
+    got = conv2d_fused_banded_tiled_cuda(x, values, idx, hb=hb, **geo)
+    n_pos = b * tg["ho"] * tg["wo"]
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(got[-8:, :n_pos]).all())
+    assert torch.equal(got[:-8], want[:-8])
 
 
 def test_banded_routing_rule(dev):
@@ -559,14 +598,16 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="shared memory"):
         conv2d_fused_banded_scalar_cuda(big, v16, i16, kh=3, kw=3, stride=2,
                                         pad=1, hb=4)
-    # tiled banded: an instance it does not have, a third stage, two stages
-    # past 227 KB where only one fits
-    for kw_bad, match in ((dict(shape=(8, 128)), "instance"),
-                          (dict(stages=3), "stages"),
-                          (dict(stages=2, hb=4), "shared memory")):
-        with pytest.raises(ValueError, match=match):
-            conv2d_fused_banded_tiled_cuda(big, v16, i16, **{
-                "kh": 3, "kw": 3, "stride": 2, "pad": 1, **kw_bad})
+    # tiled banded: instances it does not have; a window past 227 KB
+    for p in (8, 3):
+        with pytest.raises(ValueError, match="instance"):
+            conv2d_fused_banded_tiled_cuda(big, v16, i16, kh=3, kw=3,
+                                           stride=2, pad=1, positions=p)
+    v64, i64 = _compressed(2, 576, 288, 8, torch.float32, dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        conv2d_fused_banded_tiled_cuda(_x(64, 256, 16, 16, torch.float32, dev),
+                                       v64, i64, kh=3, kw=3, stride=2, pad=1,
+                                       hb=4)
     # linear: 2-D x of the values' dtype
     with pytest.raises(ValueError, match="2-D"):
         colwise_nm_matmul_cuda(_x(1, 2, 4, 72, torch.float32, dev)[0], values, idx)

@@ -214,9 +214,9 @@ class TestSharedMemoryFeasibility:
     @pytest.mark.parametrize("name", ["fused_banded_pallas@v256_bk128_hb2",
                                       "fused_banded_pallas@v128_bk128_hb4"])
     def test_banded_double_buffer_needs_bf16_on_the_stride2_conv(self, name):
-        """conv2d_fused_banded.cu's two f32 windows do not fit here, so in
-        f32 the shape rule gives the conv to the tiled kernel with one
-        padded window; in bf16 the tiled kernel's double buffer fits."""
+        """conv2d_fused_banded.cu's two f32 windows do not fit here; the
+        shape rule gives the conv to the tiled kernel, whose one padded
+        window and all of the weights fit in both dtypes."""
         spec = REGISTRY.get("conv", name)
         f32, bf16 = self._stride2_conv1("float32"), self._stride2_conv1("bfloat16")
         v, hb = spec.geom("v"), spec.geom("hb")
@@ -227,24 +227,24 @@ class TestSharedMemoryFeasibility:
         assert banded_smem_bytes(16, 16, rows, 72, 4) > SMEM_BYTES
         geo = {isz: banded_tiled_geometry(16, 256, 16, 16, 3, 3, 2, 1, v, hb,
                                           2, 72, 8, isz) for isz in (4, 2)}
-        assert geo[4]["stages"] == 1 and geo[2]["stages"] == 2
+        assert geo[4]["group"] == geo[2]["group"] == 2
         assert spec.feasible(f32)[0] and spec.feasible(bf16)[0]
         for key, isz in ((f32, 4), (bf16, 2)):
             assert spec.smem_bytes(key) == geo[isz]["smem"] == \
                 banded_tiled_smem_bytes(16, geo[isz]["plane"], 2, 72, 8, isz,
-                                        geo[isz]["stages"])
+                                        2)
         assert REGISTRY.get("conv", "fused_banded_pallas").feasible(f32)[0]
 
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
     def test_banded_smem_follows_the_rule_on_resnet_tiny(self, dtype):
         """Every banded geometry of resnet-tiny's five pruned convs goes to
-        the tiled kernel, and the predicate reports that launch's shared
-        memory: two windows where they fit, else one."""
+        the tiled kernel with all of its weights staged at once (one group
+        of both tiles), and the predicate reports that launch's shared
+        memory."""
         isz = 4 if dtype == "float32" else 2
         convs = [(8, 16, 16, 3, 1, 1), (16, 16, 16, 3, 1, 1),
                  (16, 16, 16, 3, 2, 1), (16, 8, 8, 3, 1, 1),
                  (16, 16, 16, 1, 2, 0)]
-        stages = set()
         for c, h, w, k, s, p in convs:
             k_kept = k * k * c // 2
             key = dispatch.conv_key(c, h, w, 16, k, k, s, p, k_kept, 8,
@@ -259,14 +259,47 @@ class TestSharedMemoryFeasibility:
                                             2, k_kept, 8, isz)
                 assert geo is not None, (key.token, name)
                 assert spec.feasible(key)[0]
+                assert geo["group"] == 2
                 assert spec.smem_bytes(key) == geo["smem"] == \
                     banded_tiled_smem_bytes(c, geo["plane"], 2, k_kept, 8,
-                                            isz, geo["stages"])
-                two = banded_tiled_smem_bytes(c, geo["plane"], 2, k_kept, 8,
-                                              isz, 2)
-                assert geo["stages"] == (2 if two <= SMEM_BYTES else 1)
-                stages.add(geo["stages"])
-        assert stages == ({1, 2} if dtype == "float32" else {2})
+                                            isz, 2) <= SMEM_BYTES
+
+    @pytest.mark.parametrize("c,h,name,group", [
+        # ResNet-18 layer1 at batch 8: all 8 tiles at once
+        (64, 56, "fused_banded_pallas@v128_bk64_hb1", 8),
+        (64, 56, "fused_banded_pallas", 4),  # a taller window: 2 groups of 4
+        (64, 56, "fused_banded_pallas@v256_bk128_hb2", 1),  # a tile at a time
+        (128, 28, "fused_banded_pallas@v128_bk64_hb1", 2),  # layer2: 8 of 2
+        # the window and one tile's weights do not fit
+        (128, 28, "fused_banded_pallas", None),
+    ])
+    def test_banded_tiled_stages_wide_weights_a_group_of_tiles_at_a_time(
+            self, c, h, name, group):
+        """Where all of the weights do not fit beside the padded window,
+        the tiled kernel stages them in the fewest equal groups of tiles
+        that do, and the predicate reports that launch's shared memory;
+        where one tile's weights do not fit, conv2d_fused_banded.cu's."""
+        n_tiles, k_kept = c // 8, 9 * c // 2
+        key = dispatch.conv_key(c, h, h, c, 3, 3, 1, 1, k_kept, 8,
+                                dtype="float32", batch=8)
+        spec = REGISTRY.get("conv", name)
+        v, hb = spec.geom("v"), spec.geom("hb")
+        geo = banded_tiled_geometry(c, 8, h, h, 3, 3, 1, 1, v, hb, n_tiles,
+                                    k_kept, 8, 4)
+        if group is None:
+            assert geo is None
+            _, rows = band_plan(b=8, h=h, kh=3, stride=1, pad=1, ho=h, wo=h,
+                                v=v, hb=hb)
+            assert spec.smem_bytes(key) == banded_smem_bytes(
+                c, h, rows, spec.geom("bk"), 4)
+            return
+        assert geo["group"] == group
+        smem = functools.partial(banded_tiled_smem_bytes, c, geo["plane"],
+                                 n_tiles, k_kept, 8, 4)
+        assert spec.smem_bytes(key) == geo["smem"] == smem(group) <= SMEM_BYTES
+        n_groups = -(-n_tiles // group)
+        if n_groups > 1:  # one group fewer does not fit
+            assert smem(-(-n_tiles // (n_groups - 1))) > SMEM_BYTES
 
     def test_banded_smem_keeps_the_other_kernel_where_the_rule_refuses(self):
         # W = 10 f32: 40-byte rows are not whole 16-byte copies
