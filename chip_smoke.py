@@ -4,7 +4,9 @@
 Phases:
   1. card   : name and power limit (nvidia-smi); TF32 off for the references
   2. build  : the hand-written kernels from src/repro_torch/csrc (nvcc, one
-              process per source, all started together)
+              process per source, all started together); the registers and
+              spills of the tiled flash, tiled banded and split paged
+              instances
   3. kernels: each kernel against its plain PyTorch version at the main
               path's shapes: the five pruned-conv shapes of resnet-tiny at
               batch 256 (f32, and one bf16 case) for the conv kernels (both
@@ -34,19 +36,25 @@ Phases:
               heuristic (the tiled kernel for T = d_out, the other for tiles
               8 and 12) and by a profile racing both families, against the
               plain version
-  6. paged  : the paged-attention kernel against its plain version at
+  6. paged  : both paged-attention kernels against their plain version at
               smollm-360m's serving shapes (H 15, KV 5, D 64, page size 16;
               B 4 and 8; ragged lengths with 0, one page and a ragged last
               page; shuffled page ids, trash-padded tables; one Sq 4 and one
-              bf16 case), with its bound and an SDPA yardstick
+              bf16 case), the split kernel also against paged_attention.cu,
+              each timed beside its bound, the plain version and an SDPA
+              yardstick; then ``paged_attention_cuda`` over the cases and
+              one with 24 query rows a KV head (Sq 8), each launching the
+              kernel the shape rule picks (4 split, 1 paged_attention.cu)
   7. serve  : pruned smollm-360m at its published widths (32 layers, random
               weights from the seed) served through ``Scheduler(paged=True)``:
               8 synthetic requests, greedy; request, page-pool and
-              launch-count checks (every linear through the tiled kernel,
-              the other linear kernel and flash launched 0 times), a
+              launch-count checks (every attention through the split paged
+              kernel, every linear through the tiled kernel; the other
+              linear and paged kernels and flash launched 0 times), a
               teacher-forced replay of every step through the plain
               versions, host times per step and the device time of one
-              decode step, with both linear kernels timed at its rows
+              decode step, with both linear and both paged kernels timed at
+              its shapes
   8. flash  : both flash-attention kernels against their plain version over
               the JAX flash tests' sweep, the (5, 2) GQA map with the
               top-left mask, D 128, a ragged Sq = Sk = 130, a D 18 head
@@ -116,6 +124,8 @@ PAGED_CASES = [(4, 1, [0, 16, 37, 150], torch.float32),   # the decode step's
                (8, 1, [0, 16, 37, 150, 1, 159, 64, 90], torch.float32),
                (4, 4, [31, 0, 16, 100], torch.float32),   # causal new keys
                (4, 1, [0, 16, 37, 150], torch.bfloat16)]
+# a call the split kernel's rule refuses: 3 x 8 = 24 query rows a KV head
+PAGED_REFUSED = (4, 8, [31, 0, 16, 100], torch.float32)
 # phase 7
 SERVE_SLOTS, SERVE_REQUESTS = 4, 8
 SERVE_PROMPTS, SERVE_BUDGETS = (16, 128), (16, 32)
@@ -628,6 +638,8 @@ LIBRARY_CALLS = {
     "paged_attention": "F.scaled_dot_product_attention on K/V pre-gathered "
                        "to [B, H, n_max*ps + Sq, D] with a boolean mask; the "
                        "gather is not timed",
+    "paged_attention_split": "F.scaled_dot_product_attention, as for "
+                             "paged_attention",
     "flash_attention": "F.scaled_dot_product_attention(is_causal=causal) on "
                        "[B, H, S, D] with K/V pre-expanded to H heads (the "
                        "transposes and the expansion not timed); timed where "
@@ -1043,25 +1055,13 @@ def run_linear_path(dev) -> dict:
 
 
 def paged_problem(b, sq, lengths, dtype, dev, seed):
-    """Phase 6 operands: random q, new K/V and pages, a shuffled page table
-    padded with the trash page (the last physical page), int32 lengths."""
-    rng = np.random.default_rng(seed)
-    n_phys = b * PAGED_NMAX + 1
+    """Phase 6 operands at smollm-360m's heads and page size 16: random q,
+    new K/V and pages, a shuffled page table padded with the trash page
+    (the last physical page), int32 lengths."""
+    from repro_torch.kernels.flash_attn.tune import paged_problem as problem
 
-    def f(*shape):
-        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
-                                ).to(dev, dtype)
-
-    q = f(b, sq, PAGED_H, PAGED_D)
-    kn, vn = f(b, sq, PAGED_KV, PAGED_D), f(b, sq, PAGED_KV, PAGED_D)
-    kp = f(n_phys, PAGED_PS, PAGED_KV, PAGED_D)
-    vp = f(n_phys, PAGED_PS, PAGED_KV, PAGED_D)
-    pages = rng.permutation(b * PAGED_NMAX).reshape(b, PAGED_NMAX)
-    for i, n in enumerate(lengths):
-        pages[i, -(-n // PAGED_PS):] = n_phys - 1
-    return (q, kn, vn, kp, vp,
-            torch.from_numpy(pages.astype(np.int32)).to(dev),
-            torch.tensor(lengths, dtype=torch.int32, device=dev))
+    return problem(b, sq, lengths, dtype, dev, seed, h=PAGED_H, kv=PAGED_KV,
+                   d=PAGED_D, ps=PAGED_PS, n_max=PAGED_NMAX)
 
 
 def paged_bound(args, dtype) -> tuple:
@@ -1080,47 +1080,73 @@ def paged_bound(args, dtype) -> tuple:
     return bound_ms(nb, flops, dtype)
 
 
-def check_paged_kernel(dev, tot):
-    """Phase 6: the paged-attention kernel against its plain version at
-    smollm-360m's serving shapes, with an SDPA yardstick."""
-    from repro_torch.kernels.flash_attn import (paged_attention_cuda,
-                                                paged_attention_ref)
+def check_paged_kernel(dev, tot) -> dict:
+    """Phase 6: both paged-attention kernels against their plain version at
+    smollm-360m's serving shapes, with an SDPA yardstick; then the routing
+    wrapper over the cases and one the split kernel refuses.  Returns the
+    routed run's launch counts."""
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.kernels.flash_attn import (
+        PAGED_ATTENTION, PAGED_ATTENTION_SPLIT, paged_attention_cuda,
+        paged_attention_ref, paged_attention_scalar_cuda,
+        paged_attention_split_cuda, paged_split_takes)
+    from repro_torch.kernels.flash_attn.tune import paged_sdpa
 
     for i, (b, sq, lengths, dtype) in enumerate(PAGED_CASES):
         args = paged_problem(b, sq, lengths, dtype, dev, SEED + 20 + i)
-        q, kn, vn, kp, vp, tables, lens = args
         rtol = F32_RTOL if dtype == torch.float32 else BF16_RTOL
         tag = (f"B={b} Sq={sq} H={PAGED_H} KV={PAGED_KV} D={PAGED_D} "
                f"ps={PAGED_PS} n_max={PAGED_NMAX} lengths={lengths} "
                f"{str(dtype).replace('torch.', '')}")
+        check(paged_split_takes(*args[:6]), f"the split rule refuses {tag}")
         y_p = paged_attention_ref(*args)
-        err = max_err(paged_attention_cuda(*args, page_size=PAGED_PS), y_p,
-                      f"paged_attention {tag}", rtol)
-        # the yardstick: K/V gathered to [B, H, n_max*ps + Sq, D] beforehand
-        g = PAGED_H // PAGED_KV
-        s_c = PAGED_NMAX * PAGED_PS
-
-        def heads(cache, new):
-            flat = cache[tables.long()].reshape(b, s_c, PAGED_KV, PAGED_D)
-            return (torch.cat([flat, new], 1).repeat_interleave(g, dim=2)
-                    .transpose(1, 2).contiguous())
-
-        k_all, v_all = heads(kp, kn), heads(vp, vn)
-        qh = q.transpose(1, 2).contiguous()
-        cache_ok = (torch.arange(s_c, device=dev)[None, None, :]
-                    < lens[:, None, None]).expand(b, sq, s_c)
-        ar = torch.arange(sq, device=dev)
-        new_ok = (ar[None, :] <= ar[:, None])[None].expand(b, sq, sq)
-        mask = torch.cat([cache_ok, new_ok], -1)[:, None]
-        library = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qh, k_all, v_all, attn_mask=mask)
+        y_old = paged_attention_scalar_cuda(*args, page_size=PAGED_PS)
+        y_split = paged_attention_split_cuda(*args, page_size=PAGED_PS)
+        err_old = max_err(y_old, y_p, f"paged_attention {tag}", rtol)
+        err = max_err(y_split, y_p, f"paged_attention_split {tag}", rtol)
+        split_old = max_err(y_split, y_old,
+                            f"paged_attention_split vs paged_attention {tag}",
+                            rtol)
+        library = paged_sdpa(args)
         max_err(library().transpose(1, 2), y_p, f"SDPA yardstick {tag}", rtol)
-        r = measure(lambda: paged_attention_cuda(*args, page_size=PAGED_PS),
-                    lambda: paged_attention_ref(*args), library)
-        r["bound_ms"], by = paged_bound(args, dtype)
-        report(tot, "paged_attention", tag, r, by, err, dtype,
-               count=(b, sq) == (4, 1))
-    return tot
+        bound, by = paged_bound(args, dtype)
+        for name, fn, e in (
+                ("paged_attention",
+                 lambda: paged_attention_scalar_cuda(*args, page_size=PAGED_PS),
+                 err_old),
+                ("paged_attention_split",
+                 lambda: paged_attention_split_cuda(*args, page_size=PAGED_PS),
+                 err)):
+            r = measure(fn, lambda: paged_attention_ref(*args), library)
+            r["bound_ms"] = bound
+            report(tot, name, tag, r, by, e, dtype, count=(b, sq) == (4, 1))
+        print(f"  {'':34s} {tag}: split vs paged_attention.cu max |diff| "
+              f"{split_old:.3e} (sums in another order)", flush=True)
+
+    # the routing wrapper: the split kernel wherever its rule holds
+    cases = [*enumerate(PAGED_CASES), (len(PAGED_CASES), PAGED_REFUSED)]
+    problems = [paged_problem(b, sq, lengths, dtype, dev, SEED + 20 + i)
+                for i, (b, sq, lengths, dtype) in cases]
+    check(not paged_split_takes(*problems[-1][:6]),
+          f"the split rule takes {PAGED_REFUSED}")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    outs = [paged_attention_cuda(*args, page_size=PAGED_PS)
+            for args in problems]
+    torch.cuda.synchronize()
+    route = {"paged_attention_split": PAGED_ATTENTION_SPLIT.launches,
+             "paged_attention": PAGED_ATTENTION.launches}
+    for (i, (b, sq, lengths, dtype)), args, out in zip(cases, problems, outs):
+        rtol = F32_RTOL if dtype == torch.float32 else BF16_RTOL
+        max_err(out, paged_attention_ref(*args),
+                f"paged_attention_cuda B={b} Sq={sq} {lengths}", rtol)
+    want = {"paged_attention_split": len(PAGED_CASES), "paged_attention": 1}
+    print(f"  paged_attention_cuda over the {len(PAGED_CASES)} cases and "
+          f"B={PAGED_REFUSED[0]} Sq={PAGED_REFUSED[1]} (24 query rows a KV "
+          f"head, which the split rule refuses): {route} (want {want})",
+          flush=True)
+    check(route == want, f"paged routing {route}, want {want}")
+    return route
 
 
 LINEARS = (("attn", "q"), ("attn", "k"), ("attn", "v"), ("attn", "o"),
@@ -1163,7 +1189,8 @@ def run_serving(dev, cfg, params) -> dict:
                                                 colwise_nm_matmul_tiled_cuda)
     from repro_torch.kernels.flash_attn import (FLASH_ATTENTION,
                                                 FLASH_ATTENTION_TILED,
-                                                paged_attention_cuda)
+                                                paged_attention_scalar_cuda,
+                                                paged_attention_split_cuda)
     from repro_torch.models import lm
     from repro_torch.models import registry as reg
     from repro_torch.models.blocks import layer_params
@@ -1227,7 +1254,7 @@ def run_serving(dev, cfg, params) -> dict:
               f"{r.max_new_tokens} tokens")
     check(st["pages_mapped"] == 0, f"{st['pages_mapped']} pages leaked")
     n_dec, n_pre = st["decode_steps"], st["prefill_calls"]
-    want = {"paged_attention": cfg.n_layers * n_dec,
+    want = {"paged_attention_split": cfg.n_layers * n_dec,
             "colwise_nm_matmul_tiled": len(LINEARS) * cfg.n_layers * (n_dec + n_pre)}
     print(f"  served {len(comps)} requests (prompts {SERVE_PROMPTS}, budgets "
           f"{SERVE_BUDGETS}, {SERVE_SLOTS} slots, page size {PAGED_PS}): "
@@ -1242,11 +1269,13 @@ def run_serving(dev, cfg, params) -> dict:
     check(counts == want, f"serving launches {counts}, want {want}")
     check(flash == 0, "the served run launched flash")
     # exact counts: every attention and linear call launched its kernel, so
-    # no plain version ran on the card, and colwise_nm_matmul did not run
+    # no plain version ran on the card, and neither colwise_nm_matmul nor
+    # paged_attention.cu ran
     print("  no plain version ran: every one of the "
-          f"{want['paged_attention']} attention and "
+          f"{want['paged_attention_split']} attention and "
           f"{want['colwise_nm_matmul_tiled']} linear calls launched its "
-          "kernel, every linear the tiled one", flush=True)
+          "kernel, every attention the split one and every linear the tiled "
+          "one", flush=True)
 
     decode_tokens = st["generated_tokens"] - len(comps)
     p50, p99 = latency_percentiles(comps)
@@ -1312,7 +1341,9 @@ def run_serving(dev, cfg, params) -> dict:
         (SERVE_SLOTS, 1, cfg.padded_heads, cfg.resolved_head_dim),
         dtype=np.float32)).to(dev)
     knd = qd[:, :, :cfg.n_kv_heads].contiguous()
-    att_ms = time_ms(lambda: paged_attention_cuda(
+    att_ms = time_ms(lambda: paged_attention_split_cuda(
+        qd, knd, knd, kc, vc, tab_d, pos_d, page_size=PAGED_PS))
+    old_att_ms = time_ms(lambda: paged_attention_scalar_cuda(
         qd, knd, knd, kc, vc, tab_d, pos_d, page_size=PAGED_PS))
     h = torch.zeros((SERVE_SLOTS, 1, cfg.d_model), device=dev)
     unembed_ms = time_ms(lambda: lm._unembed(params, cfg, h))
@@ -1324,8 +1355,9 @@ def run_serving(dev, cfg, params) -> dict:
           f"{cfg.n_layers} x {lin_ms:.4f} ms of 7 tiled linears = "
           f"{cfg.n_layers * lin_ms:.4f} ms (colwise_nm_matmul would take "
           f"{cfg.n_layers} x {old_ms:.4f} ms), {cfg.n_layers} x {att_ms:.4f} ms "
-          f"of paged attention = {cfg.n_layers * att_ms:.4f} ms, unembed "
-          f"{unembed_ms:.4f} ms", flush=True)
+          f"of split paged attention = {cfg.n_layers * att_ms:.4f} ms "
+          f"(paged_attention.cu would take {cfg.n_layers} x {old_att_ms:.4f} "
+          f"ms), unembed {unembed_ms:.4f} ms", flush=True)
     print("SERVE " + json.dumps({
         "requests": len(comps), "prefill_calls": n_pre, "decode_steps": n_dec,
         "generated_tokens": st["generated_tokens"],
@@ -1334,7 +1366,7 @@ def run_serving(dev, cfg, params) -> dict:
         "decode_tokens_per_s": decode_tokens / st["decode_s"],
         "decode_step_device_ms": step_ms, "idle_share": idle,
         "linear_ms_per_layer": lin_ms, "old_linear_ms_per_layer": old_ms,
-        "paged_ms_per_layer": att_ms,
+        "paged_ms_per_layer": att_ms, "old_paged_ms_per_layer": old_att_ms,
         "unembed_ms": unembed_ms, "replay_max_rel_err": worst,
         "tokens_agree": [agree, total], "latency_p50_s": p50,
         "latency_p99_s": p99, "run_s": wall}), flush=True)
@@ -1607,6 +1639,7 @@ def main() -> int:
     from repro_torch.configs import get_vision_config
     from repro_torch.kernels import KERNELS, _build
     from repro_torch.kernels.conv_gemm.tune import banded_tiled_registers
+    from repro_torch.kernels.flash_attn.tune import paged_split_registers
     from repro_torch.models.vision import vision_init
 
     print("== 1. card", flush=True)
@@ -1636,6 +1669,9 @@ def main() -> int:
     for inst, regs, spill in banded_tiled_registers(lib.parent / "build.log"):
         print(f"  conv2d_fused_banded_tiled {inst}: {regs} registers, {spill}",
               flush=True)
+    for inst, regs, spill in paged_split_registers(lib.parent / "build.log"):
+        print(f"  paged_attention_split {inst}: {regs} registers, {spill}",
+              flush=True)
 
     cfg = get_vision_config("resnet-tiny")
     params = vision_init(cfg, SEED, device=dev)
@@ -1654,10 +1690,10 @@ def main() -> int:
           flush=True)
     linear_launches = run_linear_path(dev)
 
-    print("== 6. paged-attention kernel at the serving shapes", flush=True)
+    print("== 6. paged-attention kernels at the serving shapes", flush=True)
     print(f"  library_ms of paged_attention: {LIBRARY_CALLS['paged_attention']}",
           flush=True)
-    check_paged_kernel(dev, tot)
+    paged_route = check_paged_kernel(dev, tot)
 
     print(f"== 7. serving: pruned smollm-360m, {SERVE_REQUESTS} requests "
           "through Scheduler(paged=True)", flush=True)
@@ -1687,7 +1723,8 @@ def main() -> int:
         "colwise_nm_matmul_strips_pipelined":
             counts["two_kernel_pipelined"]["colwise_nm_matmul_strips_pipelined"],
         "colwise_nm_matmul": linear_launches["colwise_nm_matmul"],
-        "paged_attention": serve_counts["paged_attention"],
+        "paged_attention": paged_route["paged_attention"],
+        "paged_attention_split": serve_counts["paged_attention_split"],
         "flash_attention": flash_route["flash_attention"],
         "colwise_nm_matmul_tiled": serve_counts["colwise_nm_matmul_tiled"],
         "flash_attention_tiled": score_counts["flash_attention_tiled"],
@@ -1706,9 +1743,16 @@ def main() -> int:
                                       "d_out); launches: the served "
                                       "smollm-360m run (7 per layer per step)",
            "paged_attention": "ms etc.: B 4, Sq 1, f32, H 15, KV 5, D 64, "
-                              "page size 16 (the decode step's shape); "
-                              "launches: the served smollm-360m run (1 per "
-                              "layer per decode step)",
+                              "page size 16 (the decode step's shape), "
+                              "called directly (the split kernel's "
+                              "yardstick); launches: paged_attention_cuda "
+                              "over phase 6's cases, the Sq 8 case the "
+                              "split rule refuses",
+           "paged_attention_split": "ms etc.: B 4, Sq 1, f32, H 15, KV 5, D "
+                                    "64, page size 16 (the decode step's "
+                                    "shape); launches: the served "
+                                    "smollm-360m run (1 per layer per decode "
+                                    "step)",
            "flash_attention": "ms etc.: B 4, S 2048, H 15, KV 5, D 64, "
                               "causal, f32 (the scoring forward's shape, "
                               "where it is the tiled kernel's bitwise "

@@ -44,7 +44,7 @@ from repro_torch.kernels.conv_gemm.ref import conv2d_cnhw_ref
 from repro_torch.kernels.flash_attn.paged import (
     paged_attention_cuda,
     paged_attention_ref,
-    paged_smem_bytes,
+    paged_launch_smem_bytes,
 )
 from repro_torch.kernels.im2col_pack.ref import im2col_pack_ref, out_size
 
@@ -670,10 +670,16 @@ def paged_attn_key(q_rows: int, n_heads: int, kv_heads: int, head_dim: int,
 
 
 def _paged_smem_for(geom_ps: int, geom_bq: int):
+    # the launch for geom_bq query rows a sequence and a table as wide as
+    # the key's (bucketed) cache capacity: the split kernel's where its
+    # shape rule takes it, else paged_attention.cu's
     def smem(key: OpKey) -> int:
         hd, kv = key.get("hd", key.d_in), max(key.k_kept, 1)
         h = key.d_out // max(hd, 1)
-        return paged_smem_bytes(geom_ps, hd, (h // kv) * geom_bq)
+        n_max = -(-key.get("kvcap", 128) // geom_ps)
+        return paged_launch_smem_bytes(
+            geom_ps, hd, h, kv, geom_bq, n_max,
+            _TAG_DTYPES.get(key.dtype, torch.float32), geom_bq)
 
     return smem
 

@@ -177,6 +177,26 @@ def check_cuda_tensor(name: str, t: torch.Tensor, dtypes, ndim: int) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+# why a kernel refuses an autograd-recorded call (check_no_grad's ``why``)
+NO_VJP = "the reference kernel has no gradient"
+VJP_LATER = ("its JAX counterpart differentiates through a custom VJP; the "
+             "port's autograd twins come with ROADMAP queue 1 item 6b")
+
+
+def check_no_grad(kernel: str, *tensors: torch.Tensor,
+                  why: str = VJP_LATER) -> None:
+    """Raise where autograd would record the call.  A kernel's output is a
+    fresh tensor written through a ctypes launch, so it has no ``grad_fn``:
+    a recorded call would give its inputs no gradient without a word.  Every
+    wrapper that launches a kernel calls this first, before any other check.
+    ``kernel`` names the function in the message, ``why`` says why it has no
+    backward."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel} is forward only ({why}); call it under "
+            "torch.no_grad() or on tensors that do not require grad")
+
+
 def check_same_device(*tensors: torch.Tensor) -> None:
     """Raise unless every operand lies on the first one's device."""
     if any(t.device != tensors[0].device for t in tensors[1:]):

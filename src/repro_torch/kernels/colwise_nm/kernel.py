@@ -25,6 +25,7 @@ from repro_torch.kernels._build import (
     CudaKernel,
     check_compressed,
     check_cuda_tensor,
+    check_no_grad,
     check_same_device,
 )
 
@@ -125,6 +126,7 @@ def colwise_nm_matmul_strips_cuda(strips: torch.Tensor, values: torch.Tensor,
                                   idx: torch.Tensor, *,
                                   block_k: int = 128) -> torch.Tensor:
     """Launch the strip GEMM: [n_strips, K, V] strips -> [n_tiles*T, n_strips*V]."""
+    check_no_grad("colwise_nm_matmul_strips", strips, values)
     check_cuda_tensor("strips", strips, FLOAT_DTYPES, 3)
     n_tiles, k_kept, tile = values.shape
     block_k = min(block_k, k_kept)
@@ -146,6 +148,7 @@ def colwise_nm_matmul_cuda(x: torch.Tensor, values: torch.Tensor,
                            block_k: int = 128) -> torch.Tensor:
     """Launch the sparse linear: x [B, d_in] -> [B, n_tiles*T];
     ``block_b`` rows per block, ``block_k`` kept rows staged at a time."""
+    check_no_grad("colwise_nm_matmul", x, values)
     check_cuda_tensor("x", x, FLOAT_DTYPES, 2)
     if not 0 < block_b <= MAX_BLOCK_B:
         raise ValueError(f"block_b={block_b} must be in [1, {MAX_BLOCK_B}]")
@@ -174,6 +177,7 @@ def colwise_nm_matmul_tiled_cuda(x: torch.Tensor, values: torch.Tensor,
     multiple of 64 and 16-byte aligned ``x`` and ``values``.  The rows per
     block are ``block_rows`` (16, 64 or 128; every choice gives the same
     bits), by default :func:`tiled_block_rows`'s."""
+    check_no_grad("colwise_nm_matmul_tiled", x, values)
     check_cuda_tensor("x", x, FLOAT_DTYPES, 2)
     n_tiles, k_kept, tile = values.shape
     if tile % TILED_BN:
@@ -207,6 +211,7 @@ def colwise_nm_matmul_strips_pipelined_cuda(strips: torch.Tensor,
     """Launch the pipelined strip GEMM: the strip GEMM's function with
     ``hb`` strips per block and a two-slot cp.async ring of gathered rows.
     Takes V <= 256 with V * itemsize a multiple of 16 bytes."""
+    check_no_grad("colwise_nm_matmul_strips_pipelined", strips, values)
     check_cuda_tensor("strips", strips, FLOAT_DTYPES, 3)
     n_strips, k_rows, v = strips.shape
     if v > MAX_PIPELINED_V or (v * strips.element_size()) % 16:

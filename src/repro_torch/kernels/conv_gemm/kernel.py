@@ -25,6 +25,7 @@ from repro_torch.kernels._build import (
     CudaKernel,
     check_compressed,
     check_cuda_tensor,
+    check_no_grad,
     check_same_device,
 )
 from repro_torch.kernels.conv_gemm.plan import band_plan, tiled_band_plan
@@ -92,6 +93,7 @@ def conv2d_fused_cuda(x: torch.Tensor, values: torch.Tensor, idx: torch.Tensor,
     """Launch the fused conv: CNHW ``x`` [C, B, H, W] with ``values``
     [n_tiles, k_kept, T] / ``idx`` [n_tiles, k_kept] over the (kh, kw, c)
     rows -> [O, n_strips*V], zero past the last position."""
+    check_no_grad("conv2d_fused", x, values)
     check_cuda_tensor("x", x, FLOAT_DTYPES, 4)
     n_tiles, k_kept, tile = values.shape
     block_k = min(block_k, k_kept)
@@ -120,6 +122,7 @@ def conv2d_fused_banded_scalar_cuda(x: torch.Tensor, values: torch.Tensor,
     bytes.  :func:`conv2d_fused_banded_cuda` routes to it the calls
     :func:`banded_tiled_takes` refuses; called directly, it is the bitwise
     yardstick of the tiled kernel."""
+    check_no_grad("conv2d_fused_banded", x, values)
     check_cuda_tensor("x", x, FLOAT_DTYPES, 4)
     c, b, h, w = x.shape
     if (w * x.element_size()) % 4:
@@ -235,6 +238,7 @@ def conv2d_fused_banded_tiled_cuda(x: torch.Tensor, values: torch.Tensor,
     (raises on any other).  ``positions`` a thread is the instance, one of
     ``BANDED_TILED_POSITIONS`` (each gives the same bits); by default
     :func:`banded_tiled_config`'s."""
+    check_no_grad("conv2d_fused_banded_tiled", x, values)
     check_cuda_tensor("x", x, FLOAT_DTYPES, 4)
     geo = _tiled_geometry_of(x, values, kh, kw, stride, pad, v, hb)
     if geo is None:
@@ -283,6 +287,7 @@ def conv2d_fused_banded_cuda(x: torch.Tensor, values: torch.Tensor,
     kernel where :func:`banded_tiled_takes` says so and
     ``conv2d_fused_banded.cu`` elsewhere (``block_k`` chunks its staged
     values); both give the same bits, and a failed launch raises."""
+    check_no_grad("conv2d_fused_banded", x, values)
     check_cuda_tensor("x", x, FLOAT_DTYPES, 4)
     geo = _tiled_geometry_of(x, values, kh, kw, stride, pad, v, hb)
     if geo is not None:

@@ -8,7 +8,8 @@ cp.async double-buffered) for the heads :func:`flash_tiled_takes` accepts,
 ``flash_smem_bytes`` and ``flash_tiled_smem_bytes`` are the shared memory
 each kernel's launch requests: the wrapper sizes the launch with it and the
 C side refuses any other size.  The kernels are forward only, as the Pallas
-kernel is (it has no VJP).
+kernel is (it has no VJP, and ``jax.grad`` through it fails): each wrapper
+raises where autograd would record the call.
 """
 from __future__ import annotations
 
@@ -20,9 +21,11 @@ import torch
 from repro_torch.kernels._build import (
     DTYPE_CODE,
     FLOAT_DTYPES,
+    NO_VJP,
     SMEM_BYTES,
     CudaKernel,
     check_cuda_tensor,
+    check_no_grad,
     check_same_device,
 )
 
@@ -117,24 +120,13 @@ def flash_tiled_takes(q: torch.Tensor, k: torch.Tensor,
             and all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
 
 
-def check_no_grad(*tensors: torch.Tensor) -> None:
-    """Raise where autograd would record the call: the kernel has no
-    backward, as the Pallas kernel has no VJP (``jax.grad`` through it
-    fails).  Callers score under ``torch.no_grad()``."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(
-            "flash attention is forward only (the reference kernel has no "
-            "gradient); call it under torch.no_grad() or on tensors that do "
-            "not require grad")
-
-
 def _check_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
-    """The checks both kernels' wrappers make; returns (B, Sq, Sk, H, KV, D)."""
+    """The checks both kernels' wrappers make after ``check_no_grad``;
+    returns (B, Sq, Sk, H, KV, D)."""
     check_cuda_tensor("q", q, FLOAT_DTYPES, 4)
     check_cuda_tensor("k", k, (q.dtype,), 4)
     check_cuda_tensor("v", v, (q.dtype,), 4)
     check_same_device(q, k, v)
-    check_no_grad(q, k, v)
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
     if tuple(k.shape) != (b, sk, kv, d) or v.shape != k.shape:
@@ -162,6 +154,7 @@ def flash_attention_scalar_cuda(q: torch.Tensor, k: torch.Tensor,
     semantics.  The wrapper routes to it only the heads
     :func:`flash_tiled_takes` refuses; called directly, it is the bitwise
     yardstick of the tiled kernel."""
+    check_no_grad("flash attention", q, k, v, why=NO_VJP)
     if q.dim() == 3:
         return _per_head(flash_attention_scalar_cuda, q, k, v, causal=causal)
     b, sq, sk, h, kv, d = _check_flash(q, k, v)
@@ -186,6 +179,7 @@ def flash_attention_tiled_cuda(q: torch.Tensor, k: torch.Tensor,
     the instance, (query rows of a block, rows a thread), one of
     ``FLASH_TILED_SHAPES`` (every choice gives the same bits); by default
     :func:`flash_tiled_config`'s."""
+    check_no_grad("flash attention", q, k, v, why=NO_VJP)
     if q.dim() == 3:
         return _per_head(flash_attention_tiled_cuda, q, k, v, causal=causal,
                          shape=shape)
@@ -231,6 +225,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     The Pallas kernel's ``block_q``/``block_k`` have no counterpart: the
     kernels tile by their own blocks and 64-key K/V tiles.
     """
+    check_no_grad("flash attention", q, k, v, why=NO_VJP)
     if q.dim() == 3:
         return _per_head(flash_attention_cuda, q, k, v, causal=causal)
     if flash_tiled_takes(q, k, v):

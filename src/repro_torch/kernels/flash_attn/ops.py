@@ -5,7 +5,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.flash_attn.kernel import check_no_grad, flash_attention_cuda
+from repro_torch.kernels._build import NO_VJP, check_no_grad
+from repro_torch.kernels.flash_attn.kernel import flash_attention_cuda
 from repro_torch.kernels.flash_attn.ref import flash_attention_gqa_ref
 
 
@@ -30,5 +31,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          "positive")
     if q.device.type != "cpu":
         return flash_attention_cuda(q, k, v, causal=causal)
-    check_no_grad(q, k, v)
+    check_no_grad("flash attention", q, k, v, why=NO_VJP)
     return flash_attention_gqa_ref(q, k, v, causal=causal)

@@ -66,3 +66,68 @@ def paged_attention_ref(q: torch.Tensor, k_new: torch.Tensor,
     vc = v_pages[t].reshape(b, n_max * ps, kv, d)
     return _cached_attention(q, k_new, v_new, kc, vc,
                              limit=lengths.to(torch.int32), causal=True)
+
+
+def paged_split_tiles(lengths: torch.Tensor, sq: int, page_size: int,
+                      n_max: int) -> tuple:
+    """The work list of ``csrc/paged_attention_split.cu`` for each sequence:
+    its cache pages that hold valid rows, then this step's new keys in
+    chunks of ``page_size`` rows.  Returns ``(n_used, n_tiles)``, int64
+    tensors of shape [B]; tile ``u`` of a sequence goes to warp ``u % W``."""
+    n_used = ((lengths.long().clamp(min=0) + page_size - 1)
+              // page_size).clamp(max=n_max)
+    return n_used, n_used + -(-sq // page_size)
+
+
+def paged_attention_split_ref(q: torch.Tensor, k_new: torch.Tensor,
+                              v_new: torch.Tensor, k_pages: torch.Tensor,
+                              v_pages: torch.Tensor, tables: torch.Tensor,
+                              lengths: torch.Tensor, *,
+                              warps: int) -> torch.Tensor:
+    """The split kernel's arithmetic in plain PyTorch: each of ``warps``
+    warps takes the tiles ``u % warps == w`` of :func:`paged_split_tiles`
+    and keeps its own softmax partial (m, l, acc) over the rows they hold,
+    masked as :func:`paged_attention_ref` masks them (cache rows below
+    ``lengths[b]``, new key t for query row i where ``t <= i``); then one
+    combine: ``m* = max m_w``, ``l = sum e^(m_w - m*) l_w`` and acc the same
+    way, a warp that saw no valid row weighted 0, ``out = acc / max(l,
+    1e-30)``.  Requires H % KV == 0 (head h reads KV head h // g).  The
+    same function as :func:`paged_attention_ref` up to the order of its
+    sums; the main path never calls it."""
+    b, sq, h, d = q.shape
+    ps, kv = k_pages.shape[1], k_pages.shape[2]
+    n_max = tables.shape[1]
+    g, cap = h // kv, n_max * ps
+    t = tables.long()
+    pos = torch.arange(cap, device=q.device)
+    live = pos[None, :] < lengths.long()[:, None]  # [B, cap]: rows read
+    zero = torch.zeros((), dtype=torch.float32, device=q.device)
+    kc = torch.where(live[..., None, None],
+                     k_pages[t].reshape(b, cap, kv, d).float(), zero)
+    vc = torch.where(live[..., None, None],
+                     v_pages[t].reshape(b, cap, kv, d).float(), zero)
+    keys = torch.cat([kc, k_new.float()], 1)  # [B, cap + Sq, KV, D]
+    vals = torch.cat([vc, v_new.float()], 1)
+    i = torch.arange(sq, device=q.device)
+    valid = torch.cat([live[:, None, :].expand(b, sq, cap),
+                       (i[None, :] <= i[:, None])[None].expand(b, sq, sq)],
+                      -1)  # [B, Sq (query), cap + Sq (key)]
+    n_used, _ = paged_split_tiles(lengths, sq, ps, n_max)
+    tile = torch.cat([(pos // ps)[None].expand(b, cap),
+                      n_used[:, None] + (i // ps)[None]], 1)  # [B, cap + Sq]
+    qf = q.float().reshape(b, sq, kv, g, d)
+    s = torch.einsum("bikgd,bjkd->bkgij", qf, keys) / math.sqrt(d)
+    ms, ls, accs = [], [], []
+    for w in range(warps):
+        mask = (valid & (tile % warps == w)[:, None, :])[:, None, None]
+        m = torch.where(mask, s, NEG).amax(-1, keepdim=True)
+        p = torch.exp(torch.where(mask, s, NEG) - m) * mask
+        ms.append(m[..., 0])
+        ls.append(p.sum(-1))
+        accs.append(torch.einsum("bkgij,bjkd->bkgid", p, vals))
+    m_w, l_w, acc_w = torch.stack(ms), torch.stack(ls), torch.stack(accs)
+    m_star = m_w.amax(0)
+    wt = torch.where(m_w > NEG, torch.exp(m_w - m_star), zero)
+    l_sum = (wt * l_w).sum(0)
+    out = (wt[..., None] * acc_w).sum(0) / l_sum.clamp(min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)

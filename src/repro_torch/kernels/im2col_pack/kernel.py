@@ -11,7 +11,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels._build import CudaKernel, FLOAT_DTYPES, check_cuda_tensor
+from repro_torch.kernels._build import (CudaKernel, FLOAT_DTYPES,
+                                        check_cuda_tensor, check_no_grad)
 from repro_torch.kernels.im2col_pack.ref import out_size
 
 
@@ -67,6 +68,7 @@ IM2COL_PACK = CudaKernel(
 def im2col_pack_cuda(x: torch.Tensor, kh: int, kw: int, stride: int = 1,
                      pad: int = 0, v: int = 128) -> torch.Tensor:
     """Launch the fused im2col+pack kernel: CNHW ``x`` -> [n_strips, Kh*Kw*C, V]."""
+    check_no_grad("im2col_pack", x)
     check_cuda_tensor("x", x, FLOAT_DTYPES, 4)
     c, b, h, w = x.shape
     ho = out_size(h, kh, stride, pad)

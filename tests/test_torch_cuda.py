@@ -14,10 +14,13 @@ plain strip GEMM (the tiled banded conv under every instance and stage
 count, routed by its shape rule, with a bad index, an inf weight on a
 padding tap and a window too short), and the tiled linear the same bits as the linear kernel
 (rows under, at and over each block size, ragged kept rows, several
-tiles).  The paged-attention kernel runs the CPU parity tests'
+tiles).  Both paged-attention kernels run the CPU parity tests'
 cases and smollm-360m's serving shapes, the trash-page, empty-cache and
-bad-page-id cases, its rejections, dispatch on the card, and a served
-request of the smoke model.  The flash-attention kernels run the JAX flash
+bad-page-id cases, their rejections, dispatch on the card, and a served
+request of the smoke model; the split kernel agrees with the plain version
+and with ``paged_attention.cu`` under every warp count, with more pages
+than warps and new keys past one page, and the wrapper routes by its shape
+rule.  Every kernel wrapper raises where autograd would record the call.  The flash-attention kernels run the JAX flash
 tests' sweep (f32 and bf16, JAX's tolerances), the GQA head map for
 H % KV != 0, the top-left causal mask when Sq != Sk, large logits,
 smollm-360m's scoring shape, their rejections, and one launch per layer
@@ -32,9 +35,11 @@ import pytest
 import torch
 
 from _paged_cases import CASES as PAGED_CASES, case_id, case_kwargs, problem
+from _wrapper_calls import NAMES as WRAPPERS, call_with_grad, n_floats
 
 from repro_torch import dispatch
 from repro_torch.kernels import KERNELS, reset_launch_counts
+from repro_torch.kernels._build import SMEM_BYTES
 from repro_torch.kernels.colwise_nm import (
     COLWISE_NM_LINEAR,
     COLWISE_NM_LINEAR_TILED,
@@ -66,6 +71,8 @@ from repro_torch.kernels.flash_attn import (
     FLASH_ATTENTION_TILED,
     FLASH_TILED_SHAPES,
     PAGED_ATTENTION,
+    PAGED_ATTENTION_SPLIT,
+    PAGED_SPLIT_WARPS,
     flash_attention,
     flash_attention_cuda,
     flash_attention_gqa_ref,
@@ -79,6 +86,14 @@ from repro_torch.kernels.flash_attn import (
     paged_attention,
     paged_attention_cuda,
     paged_attention_ref,
+    paged_attention_scalar_cuda,
+    paged_attention_split_cuda,
+    paged_attention_split_ref,
+    paged_launch_smem_bytes,
+    paged_split_config,
+    paged_split_smem_bytes,
+    paged_split_takes,
+    paged_split_tile_bound,
 )
 from repro_torch.kernels.im2col_pack import im2col_pack_cuda, im2col_pack_ref
 
@@ -630,7 +645,8 @@ def test_each_launch_counts_once(dev):
     colwise_nm_matmul_cuda(_x(1, 1, 4, 72, torch.float32, dev)[0, 0], values, idx)
     colwise_nm_matmul_tiled_cuda(_x(1, 1, 4, 72, torch.float32, dev)[0, 0],
                                  *_compressed(2, 72, 36, 64, torch.float32, dev))
-    paged_attention_cuda(*_paged(dev, torch.float32), page_size=8)
+    paged_attention_cuda(*_paged(dev, torch.float32), page_size=8)  # split
+    paged_attention_scalar_cuda(*_paged(dev, torch.float32), page_size=8)
     flash_attention_cuda(*_flash_qkv(1, 8, 8, 2, 2, 16, torch.float32, dev))
     flash_attention_cuda(*_flash_qkv(1, 8, 8, 2, 2, 18, torch.float32, dev))
     torch.cuda.synchronize()
@@ -639,7 +655,7 @@ def test_each_launch_counts_once(dev):
         "colwise_nm_matmul": 1, "colwise_nm_matmul_strips_pipelined": 1,
         "conv2d_fused_banded": 1, "flash_attention": 1, "paged_attention": 1,
         "colwise_nm_matmul_tiled": 1, "flash_attention_tiled": 1,
-        "conv2d_fused_banded_tiled": 1}
+        "conv2d_fused_banded_tiled": 1, "paged_attention_split": 1}
 
 
 @pytest.mark.parametrize("kernel,op,name,args", [
@@ -847,8 +863,10 @@ def test_paged_kernel_matches_plain(dev, case, dtype):
     args = _paged(dev, dtype, **case_kwargs(case))
     ps = case[6]
     for block_q in (8, 16, 1):
-        got = paged_attention_cuda(*args, page_size=ps, block_q=block_q)
+        got = paged_attention_scalar_cuda(*args, page_size=ps, block_q=block_q)
         _close(got, paged_attention_ref(*args), dtype)
+    _close(paged_attention_cuda(*args, page_size=ps),
+           paged_attention_ref(*args), dtype)
 
 
 def test_paged_trash_page_and_empty_cache(dev):
@@ -860,23 +878,27 @@ def test_paged_trash_page_and_empty_cache(dev):
     finite = _paged(dev, torch.float32, trash_value=1e4, **kw)
     poisoned = _paged(dev, torch.float32, trash_value=float("nan"), **kw)
     want = paged_attention_ref(*finite)
-    got = paged_attention_cuda(*poisoned, page_size=8)
-    _close(got, want, torch.float32)
     q, kn, vn, kp, vp, tables, lengths = finite
     none = torch.zeros_like(lengths)
-    empty = paged_attention_cuda(q, kn, vn, kp, vp, tables, none, page_size=8)
     own = paged_attention_ref(q, kn, vn, kp[:1] * 0, vp[:1] * 0,
                               torch.zeros_like(tables[:, :1]), none)
-    _close(empty, own, torch.float32)
+    assert paged_split_takes(*finite[:6])
+    for launch in (paged_attention_cuda, paged_attention_scalar_cuda):
+        got = launch(*poisoned, page_size=8)
+        _close(got, want, torch.float32)
+        empty = launch(q, kn, vn, kp, vp, tables, none, page_size=8)
+        _close(empty, own, torch.float32)
 
 
 def test_paged_bad_page_id_gives_nan_not_a_bad_read(dev):
     q, kn, vn, kp, vp, tables, lengths = _paged(
         dev, torch.float32, b=2, lengths=[20, 20])
     tables[1, 1] = kp.shape[0]  # one past the last physical page
-    out = paged_attention_cuda(q, kn, vn, kp, vp, tables, lengths, page_size=8)
-    torch.cuda.synchronize()
-    assert bool(torch.isnan(out[1]).all()) and bool(torch.isfinite(out[0]).all())
+    for launch in (paged_attention_cuda, paged_attention_scalar_cuda):
+        out = launch(q, kn, vn, kp, vp, tables, lengths, page_size=8)
+        torch.cuda.synchronize()
+        assert bool(torch.isnan(out[1]).all())
+        assert bool(torch.isfinite(out[0]).all())
 
 
 def test_paged_wrapper_rejects_what_the_kernel_does_not_take(dev):
@@ -915,14 +937,15 @@ def test_paged_dispatch_on_the_card(dev, tmp_path):
             reset_launch_counts()
             got = paged_attention(*a, page_size=ps)
             torch.cuda.synchronize()
-            assert PAGED_ATTENTION.launches == n_launch
+            assert PAGED_ATTENTION_SPLIT.launches == n_launch
+            assert PAGED_ATTENTION.launches == 0
             _close(got, paged_attention_ref(*a), torch.float32)
         reset_launch_counts()
         forced = paged_attention(*args, page_size=16, impl="paged_attn_ref")
         with dispatch.force_scope(paged_attn="paged_attn_ref"):
             scoped = paged_attention(*args, page_size=16)
         torch.cuda.synchronize()
-        assert PAGED_ATTENTION.launches == 0
+        assert PAGED_ATTENTION.launches == PAGED_ATTENTION_SPLIT.launches == 0
         assert torch.equal(forced, scoped)
         with pytest.raises(TuningError):
             paged_attention(*_paged(dev, torch.float32, page_size=4),
@@ -945,18 +968,25 @@ def test_paged_launch_smem_equals_the_feasibility_footprint(dev, name, sq):
     args = _paged(dev, torch.float32, b=2, sq=sq, h=15, kv=5, d=64,
                   page_size=ps, lengths=[5, 30])
     key = dispatch.paged_attn_key(2 * sq, 15, 5, 64, 4 * ps, page_size=ps)
+    reset_launch_counts()
     paged_attention_cuda(*args, page_size=ps, block_q=bq)
     torch.cuda.synchronize()
     assert spec.feasible(key)[0]
+    # the launch sizes the kernel the rule picks for the call's Sq; the
+    # registry sizes it at bq query rows a sequence
+    kernel = PAGED_ATTENTION_SPLIT if sq * 3 <= 16 else PAGED_ATTENTION
+    assert kernel.launches == 1
+    assert kernel.last_smem_bytes == paged_launch_smem_bytes(
+        ps, 64, 15, 5, sq, args[5].shape[1], torch.float32, bq)
+    assert spec.smem_bytes(key) == paged_launch_smem_bytes(
+        ps, 64, 15, 5, bq, -(-key.get("kvcap") // ps), torch.float32, bq)
     if sq >= bq:
-        assert PAGED_ATTENTION.last_smem_bytes == spec.smem_bytes(key)
-    else:
-        assert PAGED_ATTENTION.last_smem_bytes < spec.smem_bytes(key)
+        assert kernel.last_smem_bytes == spec.smem_bytes(key)
 
 
 def test_served_requests_launch_the_kernels(dev, tmp_path):
     """The smoke model served on the card through the paged scheduler: each
-    decode step launches the paged kernel once per layer and every linear
+    decode step launches the split paged kernel once per layer and every linear
     layer its kernel, and the tokens are the plain CPU run's."""
     from repro_torch.configs import smoke_config
     from repro_torch.core.pruning import SparsityConfig
@@ -990,7 +1020,7 @@ def test_served_requests_launch_the_kernels(dev, tmp_path):
         assert tiled == 3
         calls = cfg.n_layers * (st["decode_steps"] + st["prefill_calls"])
         assert counts == {
-            "paged_attention": cfg.n_layers * st["decode_steps"],
+            "paged_attention_split": cfg.n_layers * st["decode_steps"],
             "colwise_nm_matmul_tiled": tiled * calls,
             "colwise_nm_matmul": (7 - tiled) * calls}
         assert runs["cpu"].keys() == runs["cuda"].keys()
@@ -998,6 +1028,116 @@ def test_served_requests_launch_the_kernels(dev, tmp_path):
             assert np.array_equal(toks, runs["cuda"][uid]), uid
     finally:
         dispatch.set_db(None)
+
+
+def _paged_kernels(args, ps):
+    """(split kernel under each warp count that fits, paged_attention.cu)."""
+    q = args[0]
+    rows = (q.shape[2] // args[3].shape[2]) * q.shape[1]
+    tiles = paged_split_tile_bound(ps, args[5].shape[1], q.shape[1])
+    split = {w: paged_attention_split_cuda(*args, page_size=ps, warps=w)
+             for w in PAGED_SPLIT_WARPS
+             if paged_split_smem_bytes(ps, q.shape[3], rows, q.element_size(),
+                                       w, tiles) <= SMEM_BYTES}
+    return split, paged_attention_scalar_cuda(*args, page_size=ps)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", PAGED_CASES, ids=case_id)
+def test_paged_split_matches_plain_and_the_other_kernel(dev, case, dtype):
+    """Where the rule takes the case, every warp count agrees with the
+    plain version, with its own plain version (the same page assignment
+    and combine) and with paged_attention.cu; not bit for bit (the sums
+    run in another order)."""
+    args = _paged(dev, dtype, **case_kwargs(case))
+    ps = case[6]
+    if not paged_split_takes(*args[:6]):
+        assert case[1] * case[2] // case[3] > 16  # only Sq 12: 24 rows
+        return
+    split, old = _paged_kernels(args, ps)
+    assert len(split) >= 2
+    want = paged_attention_ref(*args)
+    for warps, got in split.items():
+        _close(got, want, dtype)
+        _close(got, old, dtype)
+        _close(got, paged_attention_split_ref(*args, warps=warps), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_split_more_pages_than_warps_and_new_keys_past_a_page(dev,
+                                                                    dtype):
+    # 150 rows: 10 pages and a tile of new keys over 4 warps
+    args = _paged(dev, dtype, b=4, sq=1, h=15, kv=5, d=64, n_pages=10,
+                  page_size=16, lengths=[0, 16, 37, 150], shuffle=True)
+    got = paged_attention_split_cuda(*args, page_size=16, warps=4)
+    _close(got, paged_attention_ref(*args), dtype)
+    # Sq 12 at page size 8, one q head a KV head: two tiles of new keys
+    args = _paged(dev, dtype, b=2, sq=12, h=2, kv=2, d=16, n_pages=3,
+                  page_size=8, lengths=[0, 19], shuffle=True)
+    assert paged_split_takes(*args[:6])
+    for warps in PAGED_SPLIT_WARPS:
+        got = paged_attention_split_cuda(*args, page_size=8, warps=warps)
+        _close(got, paged_attention_ref(*args), dtype)
+
+
+def test_paged_split_routing_rule(dev):
+    """paged_attention_cuda launches the split kernel where
+    paged_split_takes holds and paged_attention.cu elsewhere: 24 query rows
+    a KV head, a head of 72-byte rows, pages of 64 rows, a misaligned q."""
+    taken = _paged(dev, torch.float32, b=4, sq=1, h=15, kv=5, d=64,
+                   n_pages=10, page_size=16, lengths=[0, 16, 37, 150])
+    rows24 = _paged(dev, torch.float32, b=2, sq=8, h=15, kv=5, d=64,
+                    page_size=16, lengths=[5, 30])
+    d18 = _paged(dev, torch.float32, b=2, h=4, kv=2, d=18, page_size=8,
+                 lengths=[5, 30])
+    ps64 = _paged(dev, torch.float32, b=2, h=4, kv=2, d=16, n_pages=2,
+                  page_size=64, lengths=[5, 100])
+    q = taken[0]
+    buf = torch.empty(q.numel() + 1, device=dev)
+    view = buf[1:].view(q.shape)
+    view.copy_(q)
+    shifted = (view, *taken[1:])
+    for args, ps, split in ((taken, 16, True), (rows24, 16, False),
+                            (d18, 8, False), (ps64, 64, False),
+                            (shifted, 16, False)):
+        assert paged_split_takes(*args[:6]) is split
+        reset_launch_counts()
+        got = paged_attention_cuda(*args, page_size=ps)
+        torch.cuda.synchronize()
+        assert (PAGED_ATTENTION_SPLIT.launches, PAGED_ATTENTION.launches) == \
+            ((1, 0) if split else (0, 1))
+        _close(got, paged_attention_ref(*args), torch.float32)
+    with pytest.raises(ValueError, match="split paged kernel takes"):
+        paged_attention_split_cuda(*rows24, page_size=16)
+    with pytest.raises(ValueError, match="instance"):
+        paged_attention_split_cuda(*taken, page_size=16, warps=3)
+    # f32 at 16 warps: 11 tiles at most, one slot a warp; a 20-page table
+    # needs two, and 16 warps of two 16-row slots pass 227 KB
+    assert paged_split_config(16, 64, 3, 11, torch.float32) == (16, 4)
+    assert paged_split_config(16, 64, 3, 21, torch.float32) == (8, 4)
+    wide = _paged(dev, torch.float32, b=2, sq=1, h=15, kv=5, d=64,
+                  n_pages=20, page_size=16, lengths=[300, 17], shuffle=True)
+    with pytest.raises(ValueError, match="shared memory"):
+        paged_attention_split_cuda(*wide, page_size=16, warps=16)
+    for warps in (None, 4, 8):
+        got = paged_attention_split_cuda(*wide, page_size=16, warps=warps)
+        _close(got, paged_attention_ref(*wide), torch.float32)
+
+
+@pytest.mark.parametrize("name", WRAPPERS)
+def test_every_wrapper_raises_under_grad(dev, name):
+    """On the card every kernel wrapper refuses a call autograd would
+    record (its output would have no grad_fn), and runs the same call
+    without grad or under torch.no_grad()."""
+    for which in range(n_floats(name)):
+        with pytest.raises(RuntimeError, match="forward only"):
+            call_with_grad(name, dev, which)
+    reset_launch_counts()
+    call_with_grad(name, dev, -1)
+    with torch.no_grad():
+        call_with_grad(name, dev, 0)
+    torch.cuda.synchronize()
+    assert sum(k.launches for k in KERNELS) >= 2
 
 
 # ---------------------------------------------------------------------------
