@@ -5,8 +5,8 @@ Phases:
   1. card   : name and power limit (nvidia-smi); TF32 off for the references
   2. build  : the hand-written kernels from src/repro_torch/csrc (nvcc, one
               process per source, all started together); the registers and
-              spills of the tiled flash, tiled banded and split paged
-              instances
+              spills of the tiled flash, tiled banded, tiled strip-GEMM and
+              split paged instances
   3. kernels: each kernel against its plain PyTorch version at the main
               path's shapes: the five pruned-conv shapes of resnet-tiny at
               batch 256 (f32, and one bf16 case) for the conv kernels (both
@@ -27,8 +27,8 @@ Phases:
               plan ``plan_params(profile=True)`` races on the card, with every
               candidate's device time per layer, profiled again to see
               whether the winners hold, (c) the forward forced under each
-              conv family (the banded family launches, per conv, the banded
-              kernel the shape rule picks); launch counts, logits held against a dense
+              conv family (the banded and strip-GEMM families launch, per
+              conv, the kernel the shape rule picks); launch counts, logits held against a dense
               reference, the masked -> compressed tree check, forward times,
               and the host cost of the dispatch lookup per conv call
   5. linear : compressed linear layers (serving's sparsity config, tile 8
@@ -276,9 +276,6 @@ def main_path_convs(params, cfg):
 def check_kernels(params, cfg, dev):
     """Phase 3, conv kernels: each against its plain version at the main
     path's shapes; returns per-kernel sums over the five f32 convs."""
-    from repro_torch.kernels.colwise_nm import (
-        colwise_nm_matmul_strips_cuda, colwise_nm_matmul_strips_pipelined_cuda,
-        colwise_nm_matmul_strips_pipelined_ref, colwise_nm_matmul_strips_ref)
     from repro_torch.kernels import reset_launch_counts
     from repro_torch.kernels.conv_gemm import (
         CONV2D_FUSED_BANDED, CONV2D_FUSED_BANDED_TILED, banded_tiled_geometry,
@@ -391,36 +388,6 @@ def check_kernels(params, cfg, dev):
         r["bound_ms"], by = bound_ms(nb, 0, dtype)
         report(tot, "im2col_pack", tag, r, by, 0.0, dtype)
 
-        # strip-major sparse GEMM on the packed strips, and the pipelined
-        # one, which must give the same bits
-        g_k = colwise_nm_matmul_strips_cuda(s_p, values, idx)
-        err = max_err(g_k, colwise_nm_matmul_strips_ref(s_p, values, idx),
-                      f"colwise_nm_matmul_strips {tag}", rtol)
-        n_strips = s_p.shape[0]
-        strip_bytes = (n_strips * kept_rows.numel() * 128 * isz + w_bytes
-                       + g_k.numel() * isz)
-        library_gemm = lambda: torch.matmul(w_dense, s_p)  # noqa: E731
-        r = measure(lambda: colwise_nm_matmul_strips_cuda(s_p, values, idx),
-                    lambda: colwise_nm_matmul_strips_ref(s_p, values, idx),
-                    library_gemm)
-        r["bound_ms"], by = bound_ms(strip_bytes, flops, dtype)
-        report(tot, "colwise_nm_matmul_strips", tag, r, by, err, dtype)
-
-        g_pk = colwise_nm_matmul_strips_pipelined_cuda(s_p, values, idx, hb=HB)
-        err = max_err(g_pk, colwise_nm_matmul_strips_pipelined_ref(
-            s_p, values, idx, hb=HB), f"colwise_nm_matmul_strips_pipelined {tag}",
-            rtol)
-        check(torch.equal(g_pk, g_k), f"colwise_nm_matmul_strips_pipelined "
-              f"{tag}: not bit-identical to colwise_nm_matmul_strips")
-        r = measure(
-            lambda: colwise_nm_matmul_strips_pipelined_cuda(s_p, values, idx,
-                                                            hb=HB),
-            lambda: colwise_nm_matmul_strips_pipelined_ref(s_p, values, idx,
-                                                           hb=HB),
-            library_gemm)
-        r["bound_ms"], by = bound_ms(strip_bytes, flops, dtype)
-        report(tot, "colwise_nm_matmul_strips_pipelined", tag, r, by, err, dtype)
-
     # the banded routing rule over the six cases and a misaligned view of
     # the first: the tiled kernel takes the six, conv2d_fused_banded.cu the view
     x0, v0, i0, geo0 = routed[0]
@@ -480,6 +447,143 @@ def check_kernels(params, cfg, dev):
           f"({gf / ms2:.1f} GFLOP/s), F.conv2d {lib2:.5f} ms "
           f"({gf / lib2:.1f}); bit-identical to conv2d_fused", flush=True)
     return tot, route
+
+
+def check_strip_kernels(params, cfg, dev, tot):
+    """Phase 3, the four strip GEMMs at the five pruned convs' packed strips
+    (V 128), in f32 and bf16: colwise_nm_strips.cu and
+    colwise_nm_strips_pipelined.cu called directly (the bitwise
+    yardsticks), then the tiled kernel's two entry points (one strip a
+    block; HB strips a block), each against its plain version and all four
+    equal bit for bit; each timed beside its bound, its plain version and
+    torch.matmul.  Then the routing wrappers over the ten cases and a
+    misaligned view, each launching the kernel the shape rule picks.
+    Returns the routing run's launch counts."""
+    from repro_torch.core.formats import ColwiseMeta, unpack_colwise
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.kernels.colwise_nm import (
+        COLWISE_NM_STRIPS, COLWISE_NM_STRIPS_PIPELINED,
+        COLWISE_NM_STRIPS_PIPELINED_TILED, COLWISE_NM_STRIPS_TILED,
+        colwise_nm_matmul_strips_cuda, colwise_nm_matmul_strips_pipelined_cuda,
+        colwise_nm_matmul_strips_pipelined_ref,
+        colwise_nm_matmul_strips_pipelined_scalar_cuda,
+        colwise_nm_matmul_strips_pipelined_tiled_cuda,
+        colwise_nm_matmul_strips_pipelined_tiled_ref,
+        colwise_nm_matmul_strips_ref, colwise_nm_matmul_strips_scalar_cuda,
+        colwise_nm_matmul_strips_tiled_cuda, colwise_nm_matmul_strips_tiled_ref,
+        strips_tiled_takes)
+    from repro_torch.kernels.im2col_pack import im2col_pack_cuda, out_size
+
+    rng = np.random.default_rng(SEED + 3)
+    routed = []  # (strips, values, idx, bits) of each case
+    for name, layer, c, h, w, kh, kw, stride, pad in main_path_convs(params, cfg):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.from_numpy(rng.standard_normal((c, BATCH, h, w),
+                                                     dtype=np.float32))
+            x = x.to(dev, dtype)
+            values, idx = layer["values"].to(dtype), layer["idx"]
+            n_tiles, k_kept, tile = values.shape
+            o, k_rows = n_tiles * tile, kh * kw * c
+            ho, wo = out_size(h, kh, stride, pad), out_size(w, kw, stride, pad)
+            isz = x.element_size()
+            rtol = F32_RTOL if dtype == torch.float32 else BF16_RTOL
+            tag = (f"{name} {str(dtype).replace('torch.', '')} C={c} {h}x{w} "
+                   f"k{kh} s{stride} p{pad} k_kept={k_kept}")
+            strips = im2col_pack_cuda(x, kh, kw, stride, pad, 128)
+            n_strips = strips.shape[0]
+            check(strips_tiled_takes(strips, values)
+                  and strips_tiled_takes(strips, values, hb=HB),
+                  f"{tag}: the tiled strip GEMM refuses a main-path conv")
+            w_dense = unpack_colwise(values, idx, ColwiseMeta(
+                k_rows, o, tile, k_rows, k_kept)).T.contiguous()  # [O, K]
+            kept_rows = torch.unique(idx)
+            strip_bytes = (n_strips * kept_rows.numel() * 128 * isz
+                           + values.numel() * isz + idx.numel() * 4
+                           + o * n_strips * 128 * isz)
+            flops = 2 * o * k_kept * BATCH * ho * wo
+            library_gemm = lambda: torch.matmul(w_dense, strips)  # noqa: E731
+            runs = (
+                ("colwise_nm_matmul_strips",
+                 lambda: colwise_nm_matmul_strips_scalar_cuda(strips, values, idx),
+                 lambda: colwise_nm_matmul_strips_ref(strips, values, idx)),
+                ("colwise_nm_matmul_strips_pipelined",
+                 lambda: colwise_nm_matmul_strips_pipelined_scalar_cuda(
+                     strips, values, idx, hb=HB),
+                 lambda: colwise_nm_matmul_strips_pipelined_ref(
+                     strips, values, idx, hb=HB)),
+                ("colwise_nm_matmul_strips_tiled",
+                 lambda: colwise_nm_matmul_strips_tiled_cuda(strips, values, idx),
+                 lambda: colwise_nm_matmul_strips_tiled_ref(strips, values, idx)),
+                ("colwise_nm_matmul_strips_pipelined_tiled",
+                 lambda: colwise_nm_matmul_strips_pipelined_tiled_cuda(
+                     strips, values, idx, hb=HB),
+                 lambda: colwise_nm_matmul_strips_pipelined_tiled_ref(
+                     strips, values, idx, hb=HB)))
+            bits, ms = None, {}
+            for kernel, kernel_fn, plain_fn in runs:
+                got = kernel_fn()
+                err = max_err(got, plain_fn(), f"{kernel} {tag}", rtol)
+                if bits is None:
+                    bits = got
+                check(torch.equal(got, bits), f"{kernel} {tag}: not "
+                      "bit-identical to colwise_nm_matmul_strips")
+                r = measure(kernel_fn, plain_fn, library_gemm)
+                r["bound_ms"], by = bound_ms(strip_bytes, flops, dtype)
+                report(tot, kernel, tag, r, by, err, dtype)
+                ms[kernel] = r["ms"]
+            gf = flops / 1e6  # GFLOP/s = flops / 1e9 / (ms / 1e3)
+            print(f"  strips {tag}: " + ", ".join(
+                f"{k.replace('colwise_nm_matmul_', '')} {t:.5f} ms "
+                f"({gf / t:.1f} GFLOP/s)" for k, t in ms.items())
+                + f", torch.matmul {r['library_ms']:.5f} ms, bound "
+                f"{r['bound_ms']:.6f} ms; all four bit-identical", flush=True)
+            routed.append((strips, values, idx, bits))
+
+    # the strip routing rule over the ten cases and one call each that it
+    # refuses: the tiled kernel takes the ten; colwise_nm_strips.cu a
+    # misaligned view of the first case's strips, and
+    # colwise_nm_strips_pipelined.cu (which takes no misaligned strips) a
+    # tile whose values (1000 kept rows of 64, f32) pass 227 KB
+    s0, v0, i0, b0 = routed[0]
+    flat = torch.empty(s0.numel() + 1, dtype=s0.dtype, device=dev)
+    s_mis = flat[1:].view(s0.shape)
+    s_mis.copy_(s0)
+    check(not strips_tiled_takes(s_mis, v0), "the rule takes misaligned strips")
+    s_big = torch.from_numpy(rng.standard_normal((2, 1200, 128),
+                                                 dtype=np.float32)).to(dev)
+    v_big = torch.from_numpy(rng.standard_normal((1, 1000, 64),
+                                                 dtype=np.float32)).to(dev)
+    i_big = torch.from_numpy(np.sort(rng.choice(1200, 1000, replace=False))
+                             [None].astype(np.int32)).to(dev)
+    check(not strips_tiled_takes(s_big, v_big, hb=HB),
+          "the rule takes values past 227 KB")
+    want_big = colwise_nm_matmul_strips_pipelined_ref(s_big, v_big, i_big, hb=HB)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    got = [colwise_nm_matmul_strips_cuda(st, vv, ii) for st, vv, ii, _ in routed]
+    got += [colwise_nm_matmul_strips_pipelined_cuda(st, vv, ii, hb=HB)
+            for st, vv, ii, _ in routed]
+    got.append(colwise_nm_matmul_strips_cuda(s_mis, v0, i0))
+    g_big = colwise_nm_matmul_strips_pipelined_cuda(s_big, v_big, i_big, hb=HB)
+    torch.cuda.synchronize()
+    max_err(g_big, want_big, "colwise_nm_strips_pipelined.cu, 1000 kept rows",
+            F32_RTOL)
+    route = {k.name: k.launches for k in (
+        COLWISE_NM_STRIPS_TILED, COLWISE_NM_STRIPS_PIPELINED_TILED,
+        COLWISE_NM_STRIPS, COLWISE_NM_STRIPS_PIPELINED)}
+    n = len(routed)
+    check(route == {"colwise_nm_matmul_strips_tiled": n,
+                    "colwise_nm_matmul_strips_pipelined_tiled": n,
+                    "colwise_nm_matmul_strips": 1,
+                    "colwise_nm_matmul_strips_pipelined": 1},
+          f"the strip GEMM wrappers launched {route}")
+    want = [b for *_, b in routed] * 2 + [b0]
+    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+          "the routed strip GEMMs are not the bits of colwise_nm_strips.cu")
+    print(f"  colwise_nm_matmul_strips(_pipelined)_cuda over the {n} cases, a "
+          f"misaligned view and a tile of 1000 kept rows of 64: launches "
+          f"{route}; bit-identical", flush=True)
+    return route
 
 
 def linear_bound(rows, values, idx, dtype) -> tuple:
@@ -631,6 +735,13 @@ LIBRARY_CALLS = {
     "colwise_nm_matmul_strips_pipelined": "torch.matmul of the dense masked "
                                           "[O, K] weight by the [S, K, V] "
                                           "strips, as for the strip GEMM",
+    "colwise_nm_matmul_strips_tiled": "torch.matmul of the dense masked "
+                                      "[O, K] weight by the [S, K, V] strips, "
+                                      "as for the strip GEMM",
+    "colwise_nm_matmul_strips_pipelined_tiled": "torch.matmul of the dense "
+                                                "masked [O, K] weight by the "
+                                                "[S, K, V] strips, as for the "
+                                                "strip GEMM",
     "conv2d_fused_banded": "F.conv2d on the dense masked weight, as for the "
                            "fused conv",
     "conv2d_fused_banded_tiled": "F.conv2d on the dense masked weight, as "
@@ -711,14 +822,14 @@ def rel_err(a, b) -> float:
 
 
 SPARSE = ("values", "idx")
-# Kernels each conv family launches for one pruned conv; the banded family's
-# kernel depends on the conv's shape (family_kernels).
+# Kernels each conv family launches for one pruned conv; the banded and the
+# two strip-GEMM families' kernels depend on the conv's shape
+# (family_kernels).
 FAMILY_KERNELS = {
     "fused_sparse_pallas": {"conv2d_fused": 1},
     "fused_banded_pallas": None,
-    "two_kernel_pipelined": {"im2col_pack": 1,
-                             "colwise_nm_matmul_strips_pipelined": 1},
-    "im2col_sparse_pallas": {"im2col_pack": 1, "colwise_nm_matmul_strips": 1},
+    "two_kernel_pipelined": None,
+    "im2col_sparse_pallas": None,
     "im2col_sparse_xla": {"im2col_pack": 1},
 }
 PROFILE_DB = ROOT / "build" / "repro_torch" / "chip_smoke_profile.json"
@@ -726,10 +837,15 @@ PROFILE_DB = ROOT / "build" / "repro_torch" / "chip_smoke_profile.json"
 
 def family_kernels(impl, conv) -> dict:
     """Kernels one pruned conv launches under the candidate ``impl``: the
-    banded family's by the shape rule (``banded_tiled_geometry``) at the
-    candidate's strip width and band depth."""
+    banded family's by the banded shape rule (``banded_tiled_geometry``) at
+    the candidate's strip width and band depth, the strip GEMM families'
+    (after ``im2col_pack``) by the strip shape rule
+    (``strips_tiled_geometry``) at the strips they pack: the caller's width
+    and one strip a block, or the candidate's width and ``hb``."""
     from repro_torch import dispatch
+    from repro_torch.kernels.colwise_nm import strips_tiled_geometry
     from repro_torch.kernels.conv_gemm import banded_tiled_geometry
+    from repro_torch.kernels.im2col_pack import out_size
 
     family = impl.split("@")[0]
     if FAMILY_KERNELS[family] is not None:
@@ -737,10 +853,22 @@ def family_kernels(impl, conv) -> dict:
     spec = dispatch.REGISTRY.get("conv", impl)
     _name, layer, c, h, w, kh, kw, stride, pad = conv
     n_tiles, k_kept, tile = layer["values"].shape
-    tiled = banded_tiled_geometry(
-        c, BATCH, h, w, kh, kw, stride, pad, spec.geom("v"), spec.geom("hb"),
-        n_tiles, k_kept, tile, layer["values"].element_size()) is not None
-    return {"conv2d_fused_banded_tiled" if tiled else "conv2d_fused_banded": 1}
+    isz = layer["values"].element_size()
+    if family == "fused_banded_pallas":
+        tiled = banded_tiled_geometry(
+            c, BATCH, h, w, kh, kw, stride, pad, spec.geom("v"),
+            spec.geom("hb"), n_tiles, k_kept, tile, isz) is not None
+        return {"conv2d_fused_banded_tiled" if tiled
+                else "conv2d_fused_banded": 1}
+    pipelined = family == "two_kernel_pipelined"
+    v = spec.geom("v") if pipelined else 128
+    hb = spec.geom("hb") if pipelined else 1
+    n_pos = BATCH * out_size(h, kh, stride, pad) * out_size(w, kw, stride, pad)
+    tiled = strips_tiled_geometry(-(-n_pos // v), v, n_tiles, k_kept, tile,
+                                  isz, hb) is not None
+    name = ("colwise_nm_matmul_strips_pipelined" if pipelined
+            else "colwise_nm_matmul_strips") + ("_tiled" if tiled else "")
+    return {"im2col_pack": 1, name: 1}
 
 
 def expected_launches(impls, convs, n_forwards: int) -> dict:
@@ -1638,6 +1766,7 @@ def main() -> int:
     from repro_torch._compat import is_hopper
     from repro_torch.configs import get_vision_config
     from repro_torch.kernels import KERNELS, _build
+    from repro_torch.kernels.colwise_nm.tune import strips_tiled_registers
     from repro_torch.kernels.conv_gemm.tune import banded_tiled_registers
     from repro_torch.kernels.flash_attn.tune import paged_split_registers
     from repro_torch.models.vision import vision_init
@@ -1669,6 +1798,9 @@ def main() -> int:
     for inst, regs, spill in banded_tiled_registers(lib.parent / "build.log"):
         print(f"  conv2d_fused_banded_tiled {inst}: {regs} registers, {spill}",
               flush=True)
+    for inst, regs, spill in strips_tiled_registers(lib.parent / "build.log"):
+        print(f"  colwise_nm_strips_tiled {inst}: {regs} registers, {spill}",
+              flush=True)
     for inst, regs, spill in paged_split_registers(lib.parent / "build.log"):
         print(f"  paged_attention_split {inst}: {regs} registers, {spill}",
               flush=True)
@@ -1680,6 +1812,7 @@ def main() -> int:
     for name, call in LIBRARY_CALLS.items():
         print(f"  library_ms of {name}: {call}", flush=True)
     tot, banded_route = check_kernels(params, cfg, dev)
+    strip_route = check_strip_kernels(params, cfg, dev, tot)
     check_linear_kernel(dev, tot)
     sweep_linear_kernels(dev)
 
@@ -1715,13 +1848,17 @@ def main() -> int:
     launches = {
         "conv2d_fused": counts["default"]["conv2d_fused"],
         "im2col_pack": counts["im2col_sparse_pallas"]["im2col_pack"],
-        "colwise_nm_matmul_strips":
-            counts["im2col_sparse_pallas"]["colwise_nm_matmul_strips"],
+        "colwise_nm_matmul_strips": strip_route["colwise_nm_matmul_strips"],
+        "colwise_nm_matmul_strips_tiled":
+            counts["im2col_sparse_pallas"]["colwise_nm_matmul_strips_tiled"],
         "conv2d_fused_banded": banded_route["conv2d_fused_banded"],
         "conv2d_fused_banded_tiled":
             counts["fused_banded_pallas"]["conv2d_fused_banded_tiled"],
         "colwise_nm_matmul_strips_pipelined":
-            counts["two_kernel_pipelined"]["colwise_nm_matmul_strips_pipelined"],
+            strip_route["colwise_nm_matmul_strips_pipelined"],
+        "colwise_nm_matmul_strips_pipelined_tiled":
+            counts["two_kernel_pipelined"][
+                "colwise_nm_matmul_strips_pipelined_tiled"],
         "colwise_nm_matmul": linear_launches["colwise_nm_matmul"],
         "paged_attention": paged_route["paged_attention"],
         "paged_attention_split": serve_counts["paged_attention_split"],
@@ -1764,6 +1901,30 @@ def main() -> int:
                                     "shape); launches: the scored "
                                     "smollm-360m run (1 per layer per "
                                     "forward)",
+           "colwise_nm_matmul_strips": "ms etc.: sum over the 5 pruned convs "
+                                       "of one batch-256 forward, called "
+                                       "directly (the tiled kernel's bitwise "
+                                       "yardstick); launches: "
+                                       "colwise_nm_matmul_strips_cuda over "
+                                       "phase 3's ten cases and a misaligned "
+                                       "view, the view the rule refuses",
+           "colwise_nm_matmul_strips_pipelined": "ms etc.: sum over the 5 "
+                                                 "pruned convs, called "
+                                                 "directly at hb 2; launches: "
+                                                 "the pipelined wrapper over "
+                                                 "phase 3's ten cases and a "
+                                                 "tile of 1000 kept rows of "
+                                                 "64, the one the rule "
+                                                 "refuses",
+           "colwise_nm_matmul_strips_tiled": "ms etc.: sum over the 5 pruned "
+                                             "convs of one batch-256 forward; "
+                                             "launches: the forced two-kernel "
+                                             "plan (5 per forward, x3)",
+           "colwise_nm_matmul_strips_pipelined_tiled": "ms etc.: sum over the "
+                                                       "5 pruned convs at hb "
+                                                       "2; launches: the "
+                                                       "forced pipelined plan "
+                                                       "(5 per forward, x3)",
            "conv2d_fused_banded": "ms etc.: sum over the 5 pruned convs of "
                                   "one batch-256 forward, called directly "
                                   "(the tiled kernel's bitwise yardstick); "

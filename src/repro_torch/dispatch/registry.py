@@ -31,6 +31,7 @@ from repro_torch.kernels.colwise_nm.kernel import (
     linear_tiled_smem_bytes,
     pipelined_smem_bytes,
     strips_smem_bytes,
+    strips_tiled_geometry,
     tiled_block_rows,
 )
 from repro_torch.kernels.colwise_nm.ops import (colwise_nm_matmul,
@@ -515,7 +516,25 @@ def _apply_conv_pipelined(params, x, *, kh, kw, stride=1, pad=0, v=128,
         pad=pad, v=geom_v, block_k=geom_bk, hb=geom_hb)
 
 
+def _strips_tiled_smem(key: OpKey, v: int, hb: int) -> Optional[int]:
+    """Shared memory of the tiled strip GEMM at strip width ``v`` and ``hb``
+    strips a block, where its shape rule takes the key's strips (fresh
+    strips are 16-byte aligned), else ``None``."""
+    _, b, _, _, ho, wo = _conv_hw(key)
+    if ho <= 0 or wo <= 0:
+        return None
+    geo = strips_tiled_geometry(-(-b * ho * wo // v), v, key.d_out // key.tile,
+                                key.k_kept, key.tile, _itemsize(key), hb)
+    return None if geo is None else geo["smem"]
+
+
 def _strips_smem(key: OpKey) -> int:
+    """Shared memory of the strip GEMM the shape rule picks for a key: the
+    tiled one where ``strips_tiled_geometry`` takes the strips, else
+    ``colwise_nm_strips.cu`` (``block_k`` 128)."""
+    tiled = _strips_tiled_smem(key, key.get("v", 128), 1)
+    if tiled is not None:
+        return tiled
     return strips_smem_bytes(key.tile, min(128, key.k_kept))
 
 
@@ -552,8 +571,19 @@ def _banded_rows_ok(key: OpKey) -> Tuple[bool, str]:
 
 
 def _pipelined_smem_for(geom_v: int, geom_bk: int, geom_hb: int):
-    return lambda key: pipelined_smem_bytes(
-        geom_v, min(geom_bk, key.k_kept), _itemsize(key))
+    """Shared memory of the pipelined strip GEMM the shape rule picks for a
+    key: the tiled one (``hb`` strips a block; ``block_k`` does not change
+    its launch) where ``strips_tiled_geometry`` takes the strips, else
+    ``colwise_nm_strips_pipelined.cu``."""
+
+    def smem(key: OpKey) -> int:
+        tiled = _strips_tiled_smem(key, geom_v, geom_hb)
+        if tiled is not None:
+            return tiled
+        return pipelined_smem_bytes(geom_v, min(geom_bk, key.k_kept),
+                                    _itemsize(key))
+
+    return smem
 
 
 def _pipelined_v_ok_for(geom_v: int):

@@ -7,6 +7,8 @@ from repro_torch.kernels.colwise_nm.kernel import (
     COLWISE_NM_LINEAR_TILED,
     COLWISE_NM_STRIPS,
     COLWISE_NM_STRIPS_PIPELINED,
+    COLWISE_NM_STRIPS_PIPELINED_TILED,
+    COLWISE_NM_STRIPS_TILED,
 )
 from repro_torch.kernels.conv_gemm.kernel import (
     CONV2D_FUSED,
@@ -20,7 +22,8 @@ from repro_torch.kernels.im2col_pack.kernel import IM2COL_PACK
 KERNELS = (CONV2D_FUSED, IM2COL_PACK, COLWISE_NM_STRIPS, COLWISE_NM_LINEAR,
            COLWISE_NM_STRIPS_PIPELINED, CONV2D_FUSED_BANDED, FLASH_ATTENTION,
            PAGED_ATTENTION, COLWISE_NM_LINEAR_TILED, FLASH_ATTENTION_TILED,
-           CONV2D_FUSED_BANDED_TILED, PAGED_ATTENTION_SPLIT)
+           CONV2D_FUSED_BANDED_TILED, PAGED_ATTENTION_SPLIT,
+           COLWISE_NM_STRIPS_TILED, COLWISE_NM_STRIPS_PIPELINED_TILED)
 
 
 def reset_launch_counts() -> None:

@@ -48,6 +48,18 @@ def calls(dev):
         "colwise_nm_matmul_strips_pipelined_cuda": (
             colwise.colwise_nm_matmul_strips_pipelined_cuda, (strips, values),
             (idx,), {}),
+        "colwise_nm_matmul_strips_scalar_cuda": (
+            colwise.colwise_nm_matmul_strips_scalar_cuda, (strips, values),
+            (idx,), {}),
+        "colwise_nm_matmul_strips_pipelined_scalar_cuda": (
+            colwise.colwise_nm_matmul_strips_pipelined_scalar_cuda,
+            (strips, values), (idx,), {}),
+        "colwise_nm_matmul_strips_tiled_cuda": (
+            colwise.colwise_nm_matmul_strips_tiled_cuda, (strips, values),
+            (idx,), {}),
+        "colwise_nm_matmul_strips_pipelined_tiled_cuda": (
+            colwise.colwise_nm_matmul_strips_pipelined_tiled_cuda,
+            (strips, values), (idx,), {}),
         "colwise_nm_matmul_cuda": (colwise.colwise_nm_matmul_cuda,
                                    (rows, values), (idx,), {}),
         "colwise_nm_matmul_tiled_cuda": (colwise.colwise_nm_matmul_tiled_cuda,

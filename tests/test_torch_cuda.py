@@ -43,14 +43,26 @@ from repro_torch.kernels._build import SMEM_BYTES
 from repro_torch.kernels.colwise_nm import (
     COLWISE_NM_LINEAR,
     COLWISE_NM_LINEAR_TILED,
+    COLWISE_NM_STRIPS,
     COLWISE_NM_STRIPS_PIPELINED,
+    COLWISE_NM_STRIPS_PIPELINED_TILED,
+    COLWISE_NM_STRIPS_TILED,
+    STRIPS_TILED_CPT,
     colwise_nm_matmul_cuda,
     colwise_nm_matmul_tiled_cuda,
     colwise_nm_matmul_ref,
     colwise_nm_matmul_strips_cuda,
     colwise_nm_matmul_strips_pipelined_cuda,
     colwise_nm_matmul_strips_pipelined_ref,
+    colwise_nm_matmul_strips_pipelined_scalar_cuda,
+    colwise_nm_matmul_strips_pipelined_tiled_cuda,
+    colwise_nm_matmul_strips_pipelined_tiled_ref,
     colwise_nm_matmul_strips_ref,
+    colwise_nm_matmul_strips_scalar_cuda,
+    colwise_nm_matmul_strips_tiled_cuda,
+    colwise_nm_matmul_strips_tiled_ref,
+    strips_tiled_geometry,
+    strips_tiled_takes,
 )
 from repro_torch.kernels.conv_gemm import (
     BANDED_TILED_POSITIONS,
@@ -414,6 +426,134 @@ def test_pipelined_kernel_matches_plain_and_strip_bits(dev, c, b, h, w, k,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,b,h,w,k,stride,pad,v", CASES[:4] + [
+    (16, 256, 16, 16, 3, 1, 1, 128), (16, 256, 8, 8, 3, 1, 1, 256)])
+def test_strips_tiled_equals_the_scalar_kernel(dev, c, b, h, w, k, stride,
+                                               pad, v, dtype):
+    """Both entry points of the tiled strip GEMM give colwise_nm_strips.cu's
+    bits over the strip and pipelined cases (tiles of 8 and 12 rows, ragged
+    kept rows, hb past the strip count) and agree with their plain
+    versions."""
+    x = _x(c, b, h, w, dtype, dev)
+    k_rows = k * k * c
+    strips = im2col_pack_ref(x, k, k, stride, pad, v)
+    for n_tiles, tile, keep in ((2, 8, 0.5), (3, 12, 0.25), (1, 16, 1.0)):
+        values, idx = _compressed(n_tiles, k_rows, max(1, int(k_rows * keep)),
+                                  tile, dtype, dev)
+        want = colwise_nm_matmul_strips_scalar_cuda(strips, values, idx)
+        assert strips_tiled_takes(strips, values)
+        got = colwise_nm_matmul_strips_tiled_cuda(strips, values, idx)
+        _close(got, colwise_nm_matmul_strips_tiled_ref(strips, values, idx),
+               dtype)
+        assert torch.equal(got, want)
+        for hb in (1, 2, 3, 100):
+            got = colwise_nm_matmul_strips_pipelined_tiled_cuda(
+                strips, values, idx, hb=hb)
+            _close(got, colwise_nm_matmul_strips_pipelined_tiled_ref(
+                strips, values, idx, hb=hb), dtype)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [(16, 2, 12, 12, 3, 1, 1, 128, 3, 12, 0.5),
+                                  (8, 2, 16, 16, 3, 1, 1, 128, 2, 40, 0.5),
+                                  (5, 2, 11, 7, 3, 1, 0, 256, 2, 8, 0.25)])
+def test_strips_tiled_instances_give_the_same_bits(dev, case, dtype):
+    """Every instance (columns a thread) under both entry points and every
+    number of strip lanes, with T 40 walked in passes of 8-row groups where
+    the threads run out."""
+    c, b, h, w, k, stride, pad, v, n_tiles, tile, keep = case
+    x = _x(c, b, h, w, dtype, dev)
+    k_rows = k * k * c
+    strips = im2col_pack_ref(x, k, k, stride, pad, v)
+    values, idx = _compressed(n_tiles, k_rows, int(k_rows * keep), tile,
+                              dtype, dev)
+    want = colwise_nm_matmul_strips_scalar_cuda(strips, values, idx)
+    n_strips = strips.shape[0]
+    for cpt in STRIPS_TILED_CPT:
+        if strips_tiled_geometry(n_strips, v, n_tiles, idx.shape[1], tile,
+                                 x.element_size(), 1, cpt=cpt) is None:
+            continue
+        outs = [colwise_nm_matmul_strips_tiled_cuda(strips, values, idx,
+                                                    cpt=cpt)]
+        for hb, lanes in ((2, 1), (2, 2), (3, 1), (3, 2), (3, 3)):
+            if strips_tiled_geometry(n_strips, v, n_tiles, idx.shape[1], tile,
+                                     x.element_size(), hb, cpt=cpt,
+                                     lanes=lanes) is not None:
+                outs.append(colwise_nm_matmul_strips_pipelined_tiled_cuda(
+                    strips, values, idx, hb=hb, cpt=cpt, lanes=lanes))
+        torch.cuda.synchronize()
+        assert len(outs) >= 3 and all(torch.equal(o, want) for o in outs), cpt
+
+
+def test_strips_routing_rule(dev):
+    """The strip GEMM wrappers launch the tiled kernel where the shape rule
+    holds, and the old kernels where it refuses: (for the strip GEMM) a
+    misaligned view and rows of 6 f32 columns, not whole 16-byte copies;
+    (for both) a tile's values past a block's shared memory."""
+    x = _x(8, 2, 8, 8, torch.float32, dev)
+    values, idx = _compressed(2, 72, 36, 8, torch.float32, dev)
+    strips = im2col_pack_ref(x, 3, 3, 1, 1, 128)
+    flat = torch.empty(strips.numel() + 1, device=dev)
+    mis = flat[1:].view(strips.shape)
+    mis.copy_(strips)
+    narrow = im2col_pack_ref(x, 3, 3, 1, 1, 6)
+    assert strips_tiled_takes(strips, values)
+    assert not strips_tiled_takes(mis, values)
+    assert not strips_tiled_takes(narrow, values)
+    # 1000 kept rows of a 64-row tile: 256 KB of f32 values
+    wide = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (2, 1200, 128), dtype=np.float32)).to(dev)
+    v_big, i_big = _compressed(1, 1200, 1000, 64, torch.float32, dev)
+    assert not strips_tiled_takes(wide, v_big)
+    want = colwise_nm_matmul_strips_scalar_cuda(strips, values, idx)
+    want_big = colwise_nm_matmul_strips_scalar_cuda(wide, v_big, i_big)
+    reset_launch_counts()
+    outs = [colwise_nm_matmul_strips_cuda(strips, values, idx),
+            colwise_nm_matmul_strips_pipelined_cuda(strips, values, idx),
+            colwise_nm_matmul_strips_cuda(mis, values, idx)]
+    big = [colwise_nm_matmul_strips_cuda(wide, v_big, i_big),
+           colwise_nm_matmul_strips_pipelined_cuda(wide, v_big, i_big)]
+    narrow_out = colwise_nm_matmul_strips_cuda(narrow, values, idx)
+    torch.cuda.synchronize()
+    assert {k.name: k.launches for k in KERNELS if k.launches} == {
+        "colwise_nm_matmul_strips_tiled": 1,
+        "colwise_nm_matmul_strips_pipelined_tiled": 1,
+        "colwise_nm_matmul_strips": 3, "colwise_nm_matmul_strips_pipelined": 1}
+    assert all(torch.equal(o, want) for o in outs)
+    assert all(torch.equal(o, want_big) for o in big)
+    _close(narrow_out, colwise_nm_matmul_strips_ref(narrow, values, idx),
+           torch.float32)
+    # the tiled wrappers refuse what the rule refuses, unlaunched
+    for fn in (colwise_nm_matmul_strips_tiled_cuda,
+               colwise_nm_matmul_strips_pipelined_tiled_cuda):
+        with pytest.raises(ValueError, match="16-byte"):
+            fn(mis, values, idx)
+        with pytest.raises(ValueError, match="16-byte"):
+            fn(narrow, values, idx)
+    with pytest.raises(ValueError, match="16-byte"):
+        colwise_nm_matmul_strips_tiled_cuda(strips, values, idx, cpt=3)
+    assert COLWISE_NM_STRIPS_TILED.launches == 1
+    assert COLWISE_NM_STRIPS.launches == 3
+
+
+def test_strips_tiled_launch_smem_equals_the_rule(dev):
+    for dtype in (torch.float32, torch.bfloat16):
+        x = _x(16, 4, 12, 12, dtype, dev)
+        strips = im2col_pack_ref(x, 3, 3, 1, 1, 128)
+        values, idx = _compressed(3, 144, 72, 12, dtype, dev)
+        for hb, kernel, fn in (
+                (1, COLWISE_NM_STRIPS_TILED, colwise_nm_matmul_strips_cuda),
+                (2, COLWISE_NM_STRIPS_PIPELINED_TILED,
+                 colwise_nm_matmul_strips_pipelined_cuda)):
+            fn(strips, values, idx)
+            torch.cuda.synchronize()
+            assert kernel.last_smem_bytes == strips_tiled_geometry(
+                strips.shape[0], 128, 3, 72, 12, x.element_size(), hb)["smem"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,d_in,d_out,keep,tile,bb,bk", [
     (16, 64, 32, 0.5, 8, 8, 8),
     (8, 128, 128, 0.5, 32, 8, 16),
@@ -569,8 +709,13 @@ def test_out_of_range_index_gives_nan_not_a_bad_read(dev):
     outs = [conv2d_fused_cuda(x, values, idx, kh=3, kw=3, pad=1),
             conv2d_fused_banded_scalar_cuda(x, values, idx, kh=3, kw=3, pad=1),
             conv2d_fused_banded_tiled_cuda(x, values, idx, kh=3, kw=3, pad=1),
-            colwise_nm_matmul_strips_cuda(strips, values, idx),
-            colwise_nm_matmul_strips_pipelined_cuda(strips, values, idx)]
+            colwise_nm_matmul_strips_scalar_cuda(strips, values, idx),
+            colwise_nm_matmul_strips_pipelined_scalar_cuda(strips, values, idx),
+            colwise_nm_matmul_strips_tiled_cuda(strips, values, idx),
+            colwise_nm_matmul_strips_pipelined_tiled_cuda(strips, values, idx),
+            colwise_nm_matmul_strips_tiled_cuda(strips, values, idx, cpt=1),
+            colwise_nm_matmul_strips_pipelined_tiled_cuda(strips, values, idx,
+                                                          lanes=1)]
     torch.cuda.synchronize()
     for out in outs:
         assert bool(torch.isnan(out[8:, :64]).all())  # tile 1, every position
@@ -595,9 +740,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         colwise_nm_matmul_strips_cuda(strips, values, idx[:, :10].contiguous())
     with pytest.raises(ValueError, match="shared memory"):
         conv2d_fused_cuda(x, values, idx, kh=3, kw=3, pad=1, block_k=0)
-    # pipelined: strips wider than 256 or not a 16-byte multiple
+    # pipelined: strips wider than 256 (colwise_nm_strips_pipelined.cu; the
+    # routing wrapper gives them to the tiled kernel) or not a 16-byte
+    # multiple
     with pytest.raises(ValueError, match="strip width"):
-        colwise_nm_matmul_strips_pipelined_cuda(
+        colwise_nm_matmul_strips_pipelined_scalar_cuda(
             im2col_pack_ref(x, 3, 3, 1, 1, 384), values, idx)
     with pytest.raises(ValueError, match="strip width"):
         colwise_nm_matmul_strips_pipelined_cuda(
@@ -636,10 +783,12 @@ def test_each_launch_counts_once(dev):
     values, idx = _compressed(2, 72, 36, 8, torch.float32, dev)
     reset_launch_counts()
     strips = im2col_pack_cuda(x, 3, 3, 1, 1)
-    colwise_nm_matmul_strips_cuda(strips, values, idx)
+    colwise_nm_matmul_strips_scalar_cuda(strips, values, idx)
+    colwise_nm_matmul_strips_cuda(strips, values, idx)  # tiled
     conv2d_fused_cuda(x, values, idx, kh=3, kw=3, pad=1)
     conv2d_fused_cuda(x, values, idx, kh=3, kw=3, pad=1)
-    colwise_nm_matmul_strips_pipelined_cuda(strips, values, idx)
+    colwise_nm_matmul_strips_pipelined_scalar_cuda(strips, values, idx)
+    colwise_nm_matmul_strips_pipelined_cuda(strips, values, idx)  # tiled
     conv2d_fused_banded_scalar_cuda(x, values, idx, kh=3, kw=3, pad=1)
     conv2d_fused_banded_cuda(x, values, idx, kh=3, kw=3, pad=1)  # tiled
     colwise_nm_matmul_cuda(_x(1, 1, 4, 72, torch.float32, dev)[0, 0], values, idx)
@@ -655,7 +804,9 @@ def test_each_launch_counts_once(dev):
         "colwise_nm_matmul": 1, "colwise_nm_matmul_strips_pipelined": 1,
         "conv2d_fused_banded": 1, "flash_attention": 1, "paged_attention": 1,
         "colwise_nm_matmul_tiled": 1, "flash_attention_tiled": 1,
-        "conv2d_fused_banded_tiled": 1, "paged_attention_split": 1}
+        "conv2d_fused_banded_tiled": 1, "paged_attention_split": 1,
+        "colwise_nm_matmul_strips_tiled": 1,
+        "colwise_nm_matmul_strips_pipelined_tiled": 1}
 
 
 @pytest.mark.parametrize("kernel,op,name,args", [
@@ -663,7 +814,9 @@ def test_each_launch_counts_once(dev):
      (16, 64, 8, 8, 3, 1, 1)),
     (CONV2D_FUSED_BANDED, "conv", "fused_banded_pallas@v128_bk64_hb1",
      (8, 4, 10, 10, 3, 1, 1)),
-    (COLWISE_NM_STRIPS_PIPELINED, "conv", "two_kernel_pipelined@v256_bk128_hb2",
+    (COLWISE_NM_STRIPS_PIPELINED_TILED, "conv",
+     "two_kernel_pipelined@v256_bk128_hb2", (16, 8, 8, 8, 3, 1, 1)),
+    (COLWISE_NM_STRIPS_TILED, "conv", "im2col_sparse_pallas",
      (16, 8, 8, 8, 3, 1, 1)),
     (COLWISE_NM_LINEAR, "linear", "compressed_pallas@bb256_bk128", (96, 200)),
     (COLWISE_NM_LINEAR, "linear", "compressed_pallas@bb128_bk64", (2560, 960)),

@@ -32,6 +32,7 @@ from repro_torch.dispatch.dispatch import _heuristic
 from repro_torch.kernels import KERNELS, reset_launch_counts
 from repro_torch.kernels.colwise_nm import (linear_tiled_smem_bytes,
                                             pipelined_smem_bytes,
+                                            strips_tiled_geometry,
                                             tiled_block_rows)
 from repro_torch.kernels._build import SMEM_BYTES
 from repro_torch.kernels.conv_gemm import (band_plan, banded_smem_bytes,
@@ -322,15 +323,29 @@ class TestSharedMemoryFeasibility:
                                                            36, 4)
 
     def test_pipelined_ring_of_wide_slices_needs_bf16(self):
-        # two [128, 256] f32 slices of gathered rows are 256 KB; at resnet-
-        # tiny's 72 kept rows the slices are shorter and fit
+        # colwise_nm_strips_pipelined.cu: two [128, 256] f32 slices of
+        # gathered rows are 256 KB; at resnet-tiny's 72 kept rows the slices
+        # are shorter and fit.  The tiled strip GEMM's ring holds 8-row
+        # slices, so the registry sizes that ring wherever its shape rule
+        # takes the strips, and the other ring only where it refuses them
         spec = REGISTRY.get("conv", "two_kernel_pipelined@v256_bk128_hb2")
         assert spec.feasible(self._stride2_conv1("float32"))[0]
+        assert pipelined_smem_bytes(256, 128, 4) > SMEM_BYTES
+        assert pipelined_smem_bytes(256, 128, 2) <= SMEM_BYTES
         wide = [dispatch.conv_key(32, 16, 16, 16, 3, 3, 1, 1, 144, 8,
                                   dtype=d, batch=256)
                 for d in ("float32", "bfloat16")]
-        assert not spec.feasible(wide[0])[0] and spec.feasible(wide[1])[0]
-        assert spec.smem_bytes(wide[0]) == pipelined_smem_bytes(256, 128, 4)
+        for key, isz in zip(wide, (4, 2)):
+            geo = strips_tiled_geometry(256, 256, 2, 144, 8, isz, 2)
+            assert spec.feasible(key)[0] and spec.smem_bytes(key) == geo["smem"]
+        # 1000 kept rows of a 64-row tile: 256 KB of f32 values, so the rule
+        # refuses them and the f32 key needs the other, too-wide ring
+        big = [dispatch.conv_key(112, 16, 16, 64, 3, 3, 1, 1, 1000, 64,
+                                 dtype=d, batch=256)
+               for d in ("float32", "bfloat16")]
+        assert strips_tiled_geometry(256, 256, 1, 1000, 64, 4, 2) is None
+        assert spec.smem_bytes(big[0]) == pipelined_smem_bytes(256, 128, 4)
+        assert not spec.feasible(big[0])[0] and spec.feasible(big[1])[0]
 
     def test_main_path_convs_all_feasible_and_fused_first_on_the_card(self):
         cfg = get_vision_config("resnet-tiny")
