@@ -5,17 +5,20 @@ Phases:
   1. card   : name and power limit (nvidia-smi); TF32 off for the references
   2. build  : the hand-written kernels from src/repro_torch/csrc (nvcc, one
               process per source, all started together); the registers and
-              spills of the tiled flash, tiled banded, tiled strip-GEMM and
-              split paged instances
+              spills of the tiled flash, tiled banded, tiled fused,
+              tiled strip-GEMM and split paged instances
   3. kernels: each kernel against its plain PyTorch version at the main
               path's shapes: the five pruned-conv shapes of resnet-tiny at
               batch 256 (f32, and one bf16 case) for the conv kernels (both
-              banded kernels equal bit for bit to each other and to the
-              fused conv, timed per conv beside F.conv2d, then
-              conv2d_fused_banded_cuda over the six cases and a misaligned
-              view, each launching the kernel the shape rule picks, then
-              the tiled kernel's tile-group path at ResNet-18 layer2's
-              conv, bit for bit against the fused conv), and
+              fused kernels and both banded kernels equal bit for bit to
+              each other, timed per conv beside F.conv2d, then
+              conv2d_fused_banded_cuda and conv2d_fused_cuda over the six
+              cases and a case each rule refuses, each launching the kernel
+              the shape rule picks, then the tiled banded kernel's
+              tile-group path at ResNet-18 layer2's conv and the tiled
+              fused kernel at ResNet-18 layer3's and layer4's, bit for bit
+              against conv2d_fused.cu, beside cuDNN and, at layer3/4, the
+              two-kernel plan), and
               smollm-360m's MLP widths (960 -> 2560, 2560 -> 960) at 256
               rows for the two sparse linear kernels, the tiled one (T a
               multiple of 64) equal bit for bit to the other (f32, bf16);
@@ -23,12 +26,14 @@ Phases:
               kernel's bound; then both linear kernels timed at 4, 256 and
               8192 rows beside their bound, plain version and torch.matmul
   4. main   : pruned resnet-tiny inference through ``vision_apply`` at batch
-              256: (a) the default plan with an empty profile DB, (b) the
+              256: (a) the default plan with an empty profile DB (the
+              fused family: the tiled fused kernel for every conv), (b) the
               plan ``plan_params(profile=True)`` races on the card, with every
               candidate's device time per layer, profiled again to see
               whether the winners hold, (c) the forward forced under each
-              conv family (the banded and strip-GEMM families launch, per
-              conv, the kernel the shape rule picks); launch counts, logits held against a dense
+              conv family (the fused, banded and strip-GEMM families
+              launch, per conv, the kernel the shape rule picks); launch
+              counts, logits held against a dense
               reference, the masked -> compressed tree check, forward times,
               and the host cost of the dispatch lookup per conv call
   5. linear : compressed linear layers (serving's sparsity config, tile 8
@@ -278,11 +283,13 @@ def check_kernels(params, cfg, dev):
     path's shapes; returns per-kernel sums over the five f32 convs."""
     from repro_torch.kernels import reset_launch_counts
     from repro_torch.kernels.conv_gemm import (
-        CONV2D_FUSED_BANDED, CONV2D_FUSED_BANDED_TILED, banded_tiled_geometry,
-        banded_tiled_takes,
+        CONV2D_FUSED, CONV2D_FUSED_BANDED, CONV2D_FUSED_BANDED_TILED,
+        CONV2D_FUSED_TILED, banded_tiled_geometry, banded_tiled_takes,
         conv2d_fused_banded_cuda, conv2d_fused_banded_ref,
         conv2d_fused_banded_scalar_cuda, conv2d_fused_banded_tiled_cuda,
-        conv2d_fused_banded_tiled_ref, conv2d_fused_cuda, conv2d_fused_ref)
+        conv2d_fused_banded_tiled_ref, conv2d_fused_cuda, conv2d_fused_ref,
+        conv2d_fused_scalar_cuda, conv2d_fused_tiled_cuda,
+        conv2d_fused_tiled_ref, fused_tiled_geometry, fused_tiled_takes)
     from repro_torch.kernels.im2col_pack import (
         im2col_pack_cuda, im2col_pack_ref, out_size)
     from repro_torch.core.formats import ColwiseMeta, unpack_colwise
@@ -320,15 +327,41 @@ def check_kernels(params, cfg, dev):
         library_conv = lambda: F.conv2d(x_nchw, w_oihw, stride=stride,  # noqa: E731
                                         padding=pad)
 
-        # fused conv, and the banded one, which must give the same bits
-        y_k = conv2d_fused_cuda(x, values, idx, **geo)
+        # both fused convs: conv2d_fused.cu called directly (the rule gives
+        # every case here to the tiled kernel), then the tiled one, which
+        # must give the same bits; then the banded ones, which must too
+        y_k = conv2d_fused_scalar_cuda(x, values, idx, **geo)
         y_p = conv2d_fused_ref(x, values, idx, **geo)
         err = max_err(y_k, y_p, f"conv2d_fused {tag}", rtol)
-        r = measure(lambda: conv2d_fused_cuda(x, values, idx, **geo),
-                    lambda: conv2d_fused_ref(x, values, idx, **geo),
+        r_old = measure(lambda: conv2d_fused_scalar_cuda(x, values, idx, **geo),
+                        lambda: conv2d_fused_ref(x, values, idx, **geo),
+                        library_conv)
+        r_old["bound_ms"], by = bound_ms(conv_bytes, flops, dtype)
+        report(tot, "conv2d_fused", tag, r_old, by, err, dtype)
+
+        check(fused_tiled_takes(x, values, **geo),
+              f"{tag}: the tiled fused kernel refuses a main-path conv")
+        y_f = conv2d_fused_tiled_cuda(x, values, idx, **geo)
+        err = max_err(y_f, conv2d_fused_tiled_ref(x, values, idx, **geo),
+                      f"conv2d_fused_tiled {tag}", rtol)
+        check(torch.equal(y_f, y_k), f"conv2d_fused_tiled {tag}: not "
+              "bit-identical to conv2d_fused")
+        r = measure(lambda: conv2d_fused_tiled_cuda(x, values, idx, **geo),
+                    lambda: conv2d_fused_tiled_ref(x, values, idx, **geo),
                     library_conv)
         r["bound_ms"], by = bound_ms(conv_bytes, flops, dtype)
-        report(tot, "conv2d_fused", tag, r, by, err, dtype)
+        report(tot, "conv2d_fused_tiled", tag, r, by, err, dtype)
+        gf = flops / 1e6  # GFLOP/s = flops / 1e9 / (ms / 1e3)
+        fg = fused_tiled_geometry(c, BATCH, h, w, kh, kw, stride, pad, 128,
+                                  n_tiles, k_kept, tile, isz)
+        print(f"  fused {tag}: tiled (CPT={fg['cpt']} G={fg['group']} "
+              f"BK={fg['bk']}) "
+              f"{r['ms']:.5f} ms ({gf / r['ms']:.1f} GFLOP/s), conv2d_fused "
+              f"{r_old['ms']:.5f} ms ({gf / r_old['ms']:.1f}), F.conv2d "
+              f"{r['library_ms']:.5f} ms, bound {r['bound_ms']:.6f} ms; tiled "
+              f"{r_old['ms'] / r['ms']:.2f}x faster than the other, "
+              f"{r['library_ms'] / r['ms']:.2f}x cuDNN's speed; bit-identical",
+              flush=True)
 
         # both banded kernels: conv2d_fused_banded.cu called directly (the
         # rule gives every case here to the tiled kernel), then the tiled
@@ -357,13 +390,14 @@ def check_kernels(params, cfg, dev):
               "bit-identical to conv2d_fused_banded")
         check(torch.equal(y_t, y_k), f"conv2d_fused_banded_tiled {tag}: not "
               "bit-identical to conv2d_fused")
+        check(torch.equal(y_f, y_t), f"conv2d_fused_tiled {tag}: not "
+              "bit-identical to conv2d_fused_banded_tiled")
         r = measure(
             lambda: conv2d_fused_banded_tiled_cuda(x, values, idx, hb=HB, **geo),
             lambda: conv2d_fused_banded_tiled_ref(x, values, idx, hb=HB, **geo),
             library_conv)
         r["bound_ms"], by = bound_ms(conv_bytes, flops, dtype)
         report(tot, "conv2d_fused_banded_tiled", tag, r, by, err, dtype)
-        gf = flops / 1e6  # GFLOP/s = flops / 1e9 / (ms / 1e3)
         print(f"  banded {tag}: tiled {r['ms']:.5f} ms ({gf / r['ms']:.1f} "
               f"GFLOP/s), conv2d_fused_banded {r_old['ms']:.5f} ms "
               f"({gf / r_old['ms']:.1f}), F.conv2d {r['library_ms']:.5f} ms "
@@ -414,6 +448,31 @@ def check_kernels(params, cfg, dev):
     print(f"  conv2d_fused_banded_cuda over the {len(routed)} cases and a "
           f"misaligned view: launches {route}; bit-identical", flush=True)
 
+    # the fused routing rule over the six cases and a misaligned view of the
+    # first case's values (the tiled kernel copies a kept row's values by 16
+    # bytes): the tiled kernel takes the six, conv2d_fused.cu the view
+    flat = torch.empty(v0.numel() + 1, dtype=v0.dtype, device=dev)
+    v_mis = flat[1:].view(v0.shape)
+    v_mis.copy_(v0)
+    check(not fused_tiled_takes(x0, v_mis, **geo0),
+          "the fused rule takes misaligned values")
+    want = [conv2d_fused_scalar_cuda(x, vv, ii, **g) for x, vv, ii, g in routed]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    got = [conv2d_fused_cuda(x, vv, ii, **g) for x, vv, ii, g in routed]
+    got.append(conv2d_fused_cuda(x0, v_mis, i0, **geo0))
+    torch.cuda.synchronize()
+    fused_route = {"conv2d_fused_tiled": CONV2D_FUSED_TILED.launches,
+                   "conv2d_fused": CONV2D_FUSED.launches}
+    check(fused_route == {"conv2d_fused_tiled": len(routed),
+                          "conv2d_fused": 1},
+          f"conv2d_fused_cuda launched {fused_route}")
+    check(all(torch.equal(g, w) for g, w in zip(got, want + want[:1])),
+          "the routed fused convs are not the bits of conv2d_fused.cu")
+    print(f"  conv2d_fused_cuda over the {len(routed)} cases and a misaligned "
+          f"view of the values: launches {fused_route}; bit-identical",
+          flush=True)
+
     # the tiled kernel's other path, which resnet-tiny never takes: ResNet-18
     # layer2's 3x3 conv (128 -> 128 at 28x28, batch 8, f32, 50% kept, bands
     # of one strip), whose weights a block stages a group of tiles at a time
@@ -433,7 +492,7 @@ def check_kernels(params, cfg, dev):
     y2 = conv2d_fused_banded_tiled_cuda(x2, v2, i2, hb=1, **g2)
     max_err(y2, conv2d_fused_banded_tiled_ref(x2, v2, i2, hb=1, **g2),
             "conv2d_fused_banded_tiled resnet18/layer2", F32_RTOL)
-    check(torch.equal(y2, conv2d_fused_cuda(x2, v2, i2, **g2)),
+    check(torch.equal(y2, conv2d_fused_scalar_cuda(x2, v2, i2, **g2)),
           "conv2d_fused_banded_tiled resnet18/layer2: not bit-identical to "
           "conv2d_fused")
     w2 = unpack_colwise(v2, i2, ColwiseMeta(k2, 8 * n2, 8, k2, k2 // 2)).T
@@ -446,7 +505,66 @@ def check_kernels(params, cfg, dev):
           f"({group} of {n2} tiles staged at once): tiled {ms2:.5f} ms "
           f"({gf / ms2:.1f} GFLOP/s), F.conv2d {lib2:.5f} ms "
           f"({gf / lib2:.1f}); bit-identical to conv2d_fused", flush=True)
-    return tot, route
+    check_fused_resnet18(rng, dev)
+    return tot, route, fused_route
+
+
+def check_fused_resnet18(rng, dev) -> None:
+    """Phase 3, the tiled fused kernel at ResNet-18's layer3 and layer4 3x3
+    convs (256 -> 256 at 14x14 and 512 -> 512 at 7x7, batch 8, f32, tile 8,
+    50% kept), which no banded kernel takes in f32: bit for bit against
+    conv2d_fused.cu, timed beside it, cuDNN and the two-kernel plans
+    (im2col_pack, then the strip GEMM at one strip or HB strips a block)."""
+    from repro_torch.core.formats import ColwiseMeta, unpack_colwise
+    from repro_torch.kernels.colwise_nm import (
+        colwise_nm_matmul_strips_cuda, colwise_nm_matmul_strips_pipelined_cuda)
+    from repro_torch.kernels.conv_gemm import (
+        conv2d_fused_scalar_cuda, conv2d_fused_tiled_cuda,
+        conv2d_fused_tiled_ref, fused_tiled_geometry)
+    from repro_torch.kernels.im2col_pack import im2col_pack_cuda
+
+    for name, c, hw in (("layer3", 256, 14), ("layer4", 512, 7)):
+        b, n_tiles, k_rows = 8, c // 8, 9 * c
+        x = torch.from_numpy(rng.standard_normal((c, b, hw, hw),
+                                                 dtype=np.float32)).to(dev)
+        vals = torch.from_numpy(rng.standard_normal((n_tiles, k_rows // 2, 8),
+                                                    dtype=np.float32)).to(dev)
+        ids = torch.from_numpy(np.stack([
+            np.sort(rng.choice(k_rows, k_rows // 2, replace=False))
+            for _ in range(n_tiles)]).astype(np.int32)).to(dev)
+        g = dict(kh=3, kw=3, stride=1, pad=1, v=128)
+        fg = fused_tiled_geometry(c, b, hw, hw, 3, 3, 1, 1, 128, n_tiles,
+                                  k_rows // 2, 8, 4)
+        y = conv2d_fused_tiled_cuda(x, vals, ids, **g)
+        max_err(y, conv2d_fused_tiled_ref(x, vals, ids, **g),
+                f"conv2d_fused_tiled resnet18/{name}", F32_RTOL)
+        check(torch.equal(y, conv2d_fused_scalar_cuda(x, vals, ids, **g)),
+              f"conv2d_fused_tiled resnet18/{name}: not bit-identical to "
+              "conv2d_fused")
+        w = unpack_colwise(vals, ids, ColwiseMeta(k_rows, c, 8, k_rows,
+                                                  k_rows // 2)).T
+        w = w.reshape(c, 3, 3, c).permute(0, 3, 1, 2).contiguous()
+        x_nchw = x.permute(1, 0, 2, 3).contiguous()
+
+        def plan(hb):
+            strips = im2col_pack_cuda(x, 3, 3, 1, 1, 128)
+            if hb == 1:
+                return colwise_nm_matmul_strips_cuda(strips, vals, ids)
+            return colwise_nm_matmul_strips_pipelined_cuda(strips, vals, ids,
+                                                           hb=hb)
+
+        ms = time_ms(lambda: conv2d_fused_tiled_cuda(x, vals, ids, **g))
+        old = time_ms(lambda: conv2d_fused_scalar_cuda(x, vals, ids, **g))
+        lib = time_ms(lambda: F.conv2d(x_nchw, w, padding=1))
+        plans = {hb: time_ms(lambda: plan(hb)) for hb in (1, HB)}
+        gf = 2 * c * (k_rows // 2) * b * hw * hw / 1e6
+        print(f"  fused resnet18/{name} f32 C={c} {hw}x{hw} batch 8 v128 "
+              f"(CPT={fg['cpt']} G={fg['group']} BK={fg['bk']}): tiled "
+              f"{ms:.5f} ms "
+              f"({gf / ms:.1f} GFLOP/s), conv2d_fused {old:.5f} ms, two-kernel "
+              f"plan {plans[1]:.5f} ms (hb {HB}: {plans[HB]:.5f}), F.conv2d "
+              f"{lib:.5f} ms ({gf / lib:.1f}); bit-identical to conv2d_fused",
+              flush=True)
 
 
 def check_strip_kernels(params, cfg, dev, tot):
@@ -722,6 +840,8 @@ def max_err(got, want, what, rtol) -> float:
 LIBRARY_CALLS = {
     "conv2d_fused": "F.conv2d on the dense masked weight (cuDNN, TF32 off); "
                     "NCHW in and out instead of CNHW in, [O, S*V] out",
+    "conv2d_fused_tiled": "F.conv2d on the dense masked weight, as for the "
+                          "fused conv",
     "im2col_pack": "F.unfold on NCHW; rows (c, kh, kw) instead of (kh, kw, c), "
                    "batch-leading [B, K, L], no V-wide strips",
     "colwise_nm_matmul_strips": "torch.matmul of the dense masked [O, K] "
@@ -822,11 +942,11 @@ def rel_err(a, b) -> float:
 
 
 SPARSE = ("values", "idx")
-# Kernels each conv family launches for one pruned conv; the banded and the
-# two strip-GEMM families' kernels depend on the conv's shape
+# Kernels each conv family launches for one pruned conv; the fused, banded
+# and two strip-GEMM families' kernels depend on the conv's shape
 # (family_kernels).
 FAMILY_KERNELS = {
-    "fused_sparse_pallas": {"conv2d_fused": 1},
+    "fused_sparse_pallas": None,
     "fused_banded_pallas": None,
     "two_kernel_pipelined": None,
     "im2col_sparse_pallas": None,
@@ -837,14 +957,17 @@ PROFILE_DB = ROOT / "build" / "repro_torch" / "chip_smoke_profile.json"
 
 def family_kernels(impl, conv) -> dict:
     """Kernels one pruned conv launches under the candidate ``impl``: the
-    banded family's by the banded shape rule (``banded_tiled_geometry``) at
-    the candidate's strip width and band depth, the strip GEMM families'
+    fused family's by the fused shape rule (``fused_tiled_geometry``) at the
+    candidate's strip width, the banded family's by the banded shape rule
+    (``banded_tiled_geometry``) at the candidate's strip width and band
+    depth, the strip GEMM families'
     (after ``im2col_pack``) by the strip shape rule
     (``strips_tiled_geometry``) at the strips they pack: the caller's width
     and one strip a block, or the candidate's width and ``hb``."""
     from repro_torch import dispatch
     from repro_torch.kernels.colwise_nm import strips_tiled_geometry
-    from repro_torch.kernels.conv_gemm import banded_tiled_geometry
+    from repro_torch.kernels.conv_gemm import (banded_tiled_geometry,
+                                               fused_tiled_geometry)
     from repro_torch.kernels.im2col_pack import out_size
 
     family = impl.split("@")[0]
@@ -854,6 +977,11 @@ def family_kernels(impl, conv) -> dict:
     _name, layer, c, h, w, kh, kw, stride, pad = conv
     n_tiles, k_kept, tile = layer["values"].shape
     isz = layer["values"].element_size()
+    if family == "fused_sparse_pallas":
+        tiled = fused_tiled_geometry(
+            c, BATCH, h, w, kh, kw, stride, pad, spec.geom("v"), n_tiles,
+            k_kept, tile, isz) is not None
+        return {"conv2d_fused_tiled" if tiled else "conv2d_fused": 1}
     if family == "fused_banded_pallas":
         tiled = banded_tiled_geometry(
             c, BATCH, h, w, kh, kw, stride, pad, spec.geom("v"),
@@ -1767,7 +1895,8 @@ def main() -> int:
     from repro_torch.configs import get_vision_config
     from repro_torch.kernels import KERNELS, _build
     from repro_torch.kernels.colwise_nm.tune import strips_tiled_registers
-    from repro_torch.kernels.conv_gemm.tune import banded_tiled_registers
+    from repro_torch.kernels.conv_gemm.tune import (banded_tiled_registers,
+                                                    fused_tiled_registers)
     from repro_torch.kernels.flash_attn.tune import paged_split_registers
     from repro_torch.models.vision import vision_init
 
@@ -1798,6 +1927,9 @@ def main() -> int:
     for inst, regs, spill in banded_tiled_registers(lib.parent / "build.log"):
         print(f"  conv2d_fused_banded_tiled {inst}: {regs} registers, {spill}",
               flush=True)
+    for inst, regs, spill in fused_tiled_registers(lib.parent / "build.log"):
+        print(f"  conv2d_fused_tiled {inst}: {regs} registers, {spill}",
+              flush=True)
     for inst, regs, spill in strips_tiled_registers(lib.parent / "build.log"):
         print(f"  colwise_nm_strips_tiled {inst}: {regs} registers, {spill}",
               flush=True)
@@ -1811,7 +1943,7 @@ def main() -> int:
     print(f"== 3. kernels at the main path's shapes (batch {BATCH})", flush=True)
     for name, call in LIBRARY_CALLS.items():
         print(f"  library_ms of {name}: {call}", flush=True)
-    tot, banded_route = check_kernels(params, cfg, dev)
+    tot, banded_route, fused_route = check_kernels(params, cfg, dev)
     strip_route = check_strip_kernels(params, cfg, dev, tot)
     check_linear_kernel(dev, tot)
     sweep_linear_kernels(dev)
@@ -1846,7 +1978,8 @@ def main() -> int:
 
     print("== 10. report", flush=True)
     launches = {
-        "conv2d_fused": counts["default"]["conv2d_fused"],
+        "conv2d_fused": fused_route["conv2d_fused"],
+        "conv2d_fused_tiled": counts["default"]["conv2d_fused_tiled"],
         "im2col_pack": counts["im2col_sparse_pallas"]["im2col_pack"],
         "colwise_nm_matmul_strips": strip_route["colwise_nm_matmul_strips"],
         "colwise_nm_matmul_strips_tiled":
@@ -1925,6 +2058,15 @@ def main() -> int:
                                                        "2; launches: the "
                                                        "forced pipelined plan "
                                                        "(5 per forward, x3)",
+           "conv2d_fused": "ms etc.: sum over the 5 pruned convs of one "
+                           "batch-256 forward, called directly (the tiled "
+                           "kernel's bitwise yardstick); launches: "
+                           "conv2d_fused_cuda over phase 3's six cases and a "
+                           "misaligned view of the values, the view the rule "
+                           "refuses",
+           "conv2d_fused_tiled": "ms etc.: sum over the 5 pruned convs of one "
+                                 "batch-256 forward; launches: the default "
+                                 "plan (5 per forward, x3)",
            "conv2d_fused_banded": "ms etc.: sum over the 5 pruned convs of "
                                   "one batch-256 forward, called directly "
                                   "(the tiled kernel's bitwise yardstick); "

@@ -66,68 +66,6 @@ size_t tiled_smem(int k_kept, int tp, int lanes, int v, int itemsize) {
          static_cast<size_t>(4) * k_kept;
 }
 
-// CPT consecutive values of a shared-memory row as f32; p aligned to the load.
-__device__ __forceinline__ void load_cols(const float* p, float (&v)[4]) { repro::load4(p, v); }
-__device__ __forceinline__ void load_cols(const __nv_bfloat16* p, float (&v)[4]) {
-  repro::load4(p, v);
-}
-__device__ __forceinline__ void load_cols(const float* p, float (&v)[2]) {
-  const float2 q = *reinterpret_cast<const float2*>(p);
-  v[0] = q.x;
-  v[1] = q.y;
-}
-__device__ __forceinline__ void load_cols(const __nv_bfloat16* p, float (&v)[2]) {
-  const float2 q = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-  v[0] = q.x;
-  v[1] = q.y;
-}
-template <typename T>
-__device__ __forceinline__ void load_cols(const T* p, float (&v)[1]) {
-  v[0] = repro::to_f32(*p);
-}
-
-// The 8 staged values of one kept row for a thread's 8 output rows, as f32:
-// two broadcast 16-byte loads (f32) or one (bf16, widened exactly).
-__device__ __forceinline__ void load_rows(const float* p, float (&w)[repro::kRows]) {
-  float a[4], b[4];
-  repro::load4(p, a);
-  repro::load4(p + 4, b);
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    w[q] = a[q];
-    w[4 + q] = b[q];
-  }
-}
-__device__ __forceinline__ void load_rows(const __nv_bfloat16* p, float (&w)[repro::kRows]) {
-  const uint4 q = *reinterpret_cast<const uint4*>(p);
-  const unsigned words[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&words[i]));
-    w[2 * i] = f.x;
-    w[2 * i + 1] = f.y;
-  }
-}
-
-// CPT consecutive outputs, each rounded once from its f32 value.
-template <typename T>
-__device__ __forceinline__ void store_cols(T* p, const float (&v)[4]) {
-  repro::store4(p, v);
-}
-__device__ __forceinline__ void store_cols(float* p, const float (&v)[2]) {
-  *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
-}
-__device__ __forceinline__ void store_cols(__nv_bfloat16* p, const float (&v)[2]) {
-  __nv_bfloat162 q;
-  q.x = repro::from_f32<__nv_bfloat16>(v[0]);
-  q.y = repro::from_f32<__nv_bfloat16>(v[1]);
-  *reinterpret_cast<__nv_bfloat162*>(p) = q;
-}
-template <typename T>
-__device__ __forceinline__ void store_cols(T* p, const float (&v)[1]) {
-  *p = repro::from_f32<T>(v[0]);
-}
-
 // Position in a block's walk: slice i is k-chunk `chunk` of row-group pass
 // `pass` of the block's strip step `sl` (its strips sl*lanes ..
 // sl*lanes + lanes-1, side by side).
@@ -273,9 +211,9 @@ strips_tiled_kernel(const T* __restrict__ strips, const T* __restrict__ values,
     const T* ws = s_val + static_cast<long long>(k0) * tp + grp * repro::kRows;
     auto fma_row = [&](int kk) {
       float x[CPT];
-      load_cols(xs + kk * v, x);
+      repro::load_cols(xs + kk * v, x);
       float w[repro::kRows];
-      load_rows(ws + kk * tp, w);
+      repro::load_rows(ws + kk * tp, w);
 #pragma unroll
       for (int r = 0; r < repro::kRows; ++r) {
 #pragma unroll
@@ -297,7 +235,7 @@ strips_tiled_kernel(const T* __restrict__ strips, const T* __restrict__ values,
       for (int r = 0; r < repro::kRows; ++r) {
         const int f = grp * repro::kRows + r;
         if (f < tile && sl < n_s) {
-          store_cols(o + (static_cast<long long>(t) * tile + f) * out_ld, acc[r]);
+          repro::store_cols(o + (static_cast<long long>(t) * tile + f) * out_ld, acc[r]);
         }
 #pragma unroll
         for (int q = 0; q < CPT; ++q) acc[r][q] = 0.f;

@@ -108,6 +108,13 @@ __device__ __forceinline__ void cp_async16_zfill(void* smem_dst, const void* gme
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem_src),
                "r"(src_size));
 }
+// The 4-byte form, through L1 (a gather that reads neighbouring taps again).
+__device__ __forceinline__ void cp_async4_zfill(void* smem_dst, const void* gmem_src, bool valid) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  const unsigned src_size = valid ? 4u : 0u;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(gmem_src),
+               "r"(src_size));
+}
 
 // Four consecutive values of a shared-memory row as f32: one 16-byte load
 // (f32) or one 8-byte load (bf16).  p must be aligned to the load's size.
@@ -142,6 +149,85 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
   q.x = *reinterpret_cast<const unsigned*>(&lo);
   q.y = *reinterpret_cast<const unsigned*>(&hi);
   *reinterpret_cast<uint2*>(p) = q;
+}
+
+// 1, 2, 4 or 8 consecutive values of a shared-memory row as f32; p aligned to
+// the load.
+__device__ __forceinline__ void load_cols(const float* p, float (&v)[4]) { load4(p, v); }
+__device__ __forceinline__ void load_cols(const __nv_bfloat16* p, float (&v)[4]) {
+  load4(p, v);
+}
+__device__ __forceinline__ void load_cols(const float* p, float (&v)[2]) {
+  const float2 q = *reinterpret_cast<const float2*>(p);
+  v[0] = q.x;
+  v[1] = q.y;
+}
+__device__ __forceinline__ void load_cols(const __nv_bfloat16* p, float (&v)[2]) {
+  const float2 q = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  v[0] = q.x;
+  v[1] = q.y;
+}
+template <typename T>
+__device__ __forceinline__ void load_cols(const T* p, float (&v)[1]) {
+  v[0] = to_f32(*p);
+}
+template <typename T>
+__device__ __forceinline__ void load_cols(const T* p, float (&v)[8]) {
+  float a[4], b[4];
+  load4(p, a);
+  load4(p + 4, b);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    v[q] = a[q];
+    v[4 + q] = b[q];
+  }
+}
+
+// The 8 staged values of one kept row for a thread's 8 output rows, as f32:
+// two broadcast 16-byte loads (f32) or one (bf16, widened exactly).
+__device__ __forceinline__ void load_rows(const float* p, float (&w)[kRows]) {
+  float a[4], b[4];
+  load4(p, a);
+  load4(p + 4, b);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    w[q] = a[q];
+    w[4 + q] = b[q];
+  }
+}
+__device__ __forceinline__ void load_rows(const __nv_bfloat16* p, float (&w)[kRows]) {
+  const uint4 q = *reinterpret_cast<const uint4*>(p);
+  const unsigned words[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&words[i]));
+    w[2 * i] = f.x;
+    w[2 * i + 1] = f.y;
+  }
+}
+
+// 1, 2, 4 or 8 consecutive outputs, each rounded once from its f32 value.
+template <typename T>
+__device__ __forceinline__ void store_cols(T* p, const float (&v)[4]) {
+  store4(p, v);
+}
+__device__ __forceinline__ void store_cols(float* p, const float (&v)[2]) {
+  *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+}
+__device__ __forceinline__ void store_cols(__nv_bfloat16* p, const float (&v)[2]) {
+  __nv_bfloat162 q;
+  q.x = from_f32<__nv_bfloat16>(v[0]);
+  q.y = from_f32<__nv_bfloat16>(v[1]);
+  *reinterpret_cast<__nv_bfloat162*>(p) = q;
+}
+template <typename T>
+__device__ __forceinline__ void store_cols(T* p, const float (&v)[1]) {
+  *p = from_f32<T>(v[0]);
+}
+template <typename T>
+__device__ __forceinline__ void store_cols(T* p, const float (&v)[8]) {
+  store4(p, {v[0], v[1], v[2], v[3]});
+  store4(p + 4, {v[4], v[5], v[6], v[7]});
 }
 
 // Launch-time check shared by the entry points: a kernel that needs more

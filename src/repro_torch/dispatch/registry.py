@@ -39,7 +39,8 @@ from repro_torch.kernels.colwise_nm.ops import (colwise_nm_matmul,
 from repro_torch.kernels.conv_gemm import ops as conv_ops
 from repro_torch.kernels.conv_gemm.kernel import (banded_smem_bytes,
                                                   banded_tiled_geometry,
-                                                  fused_smem_bytes)
+                                                  fused_smem_bytes,
+                                                  fused_tiled_geometry)
 from repro_torch.kernels.conv_gemm.plan import band_plan
 from repro_torch.kernels.conv_gemm.ref import conv2d_cnhw_ref
 from repro_torch.kernels.flash_attn.paged import (
@@ -538,8 +539,23 @@ def _strips_smem(key: OpKey) -> int:
     return strips_smem_bytes(key.tile, min(128, key.k_kept))
 
 
-def _fused_smem_for(geom_bk: int):
-    return lambda key: fused_smem_bytes(key.tile, min(geom_bk, key.k_kept))
+def _fused_smem_for(geom_v: int, geom_bk: int):
+    """Shared memory of the fused kernel the shape rule picks for a key: the
+    tiled one where ``fused_tiled_geometry`` takes the shape at the
+    candidate's strip width (fresh values are 16-byte aligned), else
+    ``conv2d_fused.cu`` (``block_k`` chunks its staged values)."""
+
+    def smem(key: OpKey) -> int:
+        c, b, h, w, _, _ = _conv_hw(key)
+        tiled = fused_tiled_geometry(
+            c, b, h, w, key.get("kh"), key.get("kw"), key.get("s", 1),
+            key.get("p", 0), geom_v, key.d_out // key.tile, key.k_kept,
+            key.tile, _itemsize(key))
+        if tiled is not None:
+            return tiled["smem"]
+        return fused_smem_bytes(key.tile, min(geom_bk, key.k_kept))
+
+    return smem
 
 
 def _banded_smem_for(geom_v: int, geom_bk: int, geom_hb: int):
@@ -633,8 +649,8 @@ for _geom in FUSED_CONV_GEOMETRY:
                            FUSED_CONV_GEOMETRY[0]),
         op="conv", backend="cuda",
         requires=frozenset({"values", "idx"}), priority=5,
-        feasible=_smem_feasible(_fused_smem_for(_gbk), _has_map),
-        smem_bytes=_fused_smem_for(_gbk),
+        feasible=_smem_feasible(_fused_smem_for(_gv, _gbk), _has_map),
+        smem_bytes=_fused_smem_for(_gv, _gbk),
         apply=_apply,
         make_bench=functools.partial(_bench_conv, apply_fn=_apply),
         geometry=_geom,

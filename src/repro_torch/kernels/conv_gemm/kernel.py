@@ -1,10 +1,15 @@
-"""Fused im2col + pack + sparse GEMM convs on Hopper: the whole-map kernel
-(``csrc/conv2d_fused.cu``) and two banded ones with the same bits,
+"""Fused im2col + pack + sparse GEMM convs on Hopper; the packed strips never
+reach device memory.
+
+Two whole-map kernels with the same bits: ``csrc/conv2d_fused_tiled.cu``
+(dense im2col slices gathered once a block for a group of tiles) for the
+shapes :func:`fused_tiled_takes` accepts, and ``csrc/conv2d_fused.cu`` for
+the others; :func:`conv2d_fused_cuda` routes between them by that rule of
+the shape.  Two banded kernels, again with the same bits:
 ``csrc/conv2d_fused_banded_tiled.cu`` (register-tiled over a zero-padded
 window) for the shapes :func:`banded_tiled_takes` accepts and
-``csrc/conv2d_fused_banded.cu`` for the others; the packed strips never
-reach device memory.  :func:`conv2d_fused_banded_cuda` routes between the
-banded kernels by that rule of the shape.
+``csrc/conv2d_fused_banded.cu`` for the others; :func:`conv2d_fused_banded_cuda`
+routes between them.
 
 Each ``*_smem_bytes`` function is the shared memory its kernel's launch
 requests, and what the dispatch registry's feasibility predicate compares
@@ -13,6 +18,7 @@ with a block's 227 KB.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -28,6 +34,8 @@ from repro_torch.kernels._build import (
     check_no_grad,
     check_same_device,
 )
+from repro_torch.kernels.colwise_nm.kernel import (H100_SMS, SM_BLOCKS,
+                                                   SM_SMEM_BYTES, SM_THREADS)
 from repro_torch.kernels.conv_gemm.plan import band_plan, tiled_band_plan
 from repro_torch.kernels.im2col_pack.ref import out_size
 
@@ -36,6 +44,14 @@ CONV2D_FUSED = CudaKernel(
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 17,
     source="src/repro_torch/csrc/conv2d_fused.cu",
     replaces="src/repro/kernels/conv_gemm/kernel.py:99 conv2d_fused_pallas",
+)
+
+CONV2D_FUSED_TILED = CudaKernel(
+    "conv2d_fused_tiled", "repro_conv2d_fused_tiled",
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 19,
+    source="src/repro_torch/csrc/conv2d_fused_tiled.cu",
+    replaces="src/repro/kernels/conv_gemm/kernel.py:99 conv2d_fused_pallas",
+    sized_smem=True,
 )
 
 CONV2D_FUSED_BANDED = CudaKernel(
@@ -87,12 +103,10 @@ def _conv_out(x: torch.Tensor, kh: int, kw: int, stride: int, pad: int,
     return ho, wo, -(-b * ho * wo // v)
 
 
-def conv2d_fused_cuda(x: torch.Tensor, values: torch.Tensor, idx: torch.Tensor,
-                      *, kh: int, kw: int, stride: int = 1, pad: int = 0,
-                      v: int = 128, block_k: int = 128) -> torch.Tensor:
-    """Launch the fused conv: CNHW ``x`` [C, B, H, W] with ``values``
-    [n_tiles, k_kept, T] / ``idx`` [n_tiles, k_kept] over the (kh, kw, c)
-    rows -> [O, n_strips*V], zero past the last position."""
+def _check_fused(x, values, idx, kh, kw, stride, pad, v, block_k):
+    """The checks of both whole-map fused-conv wrappers, in their order;
+    returns ``(block_k, ho, wo, n_strips)`` with ``block_k`` clamped to
+    k_kept."""
     check_no_grad("conv2d_fused", x, values)
     check_cuda_tensor("x", x, FLOAT_DTYPES, 4)
     n_tiles, k_kept, tile = values.shape
@@ -100,14 +114,254 @@ def conv2d_fused_cuda(x: torch.Tensor, values: torch.Tensor, idx: torch.Tensor,
     check_compressed(values, idx, x.dtype, block_k,
                      fused_smem_bytes(tile, block_k))
     check_same_device(x, values, idx)
+    return (block_k, *_conv_out(x, kh, kw, stride, pad, v))
+
+
+def _launch_scalar(x, values, idx, kh, kw, stride, pad, v, block_k, ho, wo,
+                   n_strips) -> torch.Tensor:
     c, b, h, w = x.shape
-    ho, wo, n_strips = _conv_out(x, kh, kw, stride, pad, v)
+    n_tiles, k_kept, tile = values.shape
     out = torch.empty((n_tiles * tile, n_strips * v), dtype=x.dtype,
                       device=x.device)
     CONV2D_FUSED.launch(
         x.device, x.data_ptr(), values.data_ptr(), idx.data_ptr(),
         out.data_ptr(), DTYPE_CODE[x.dtype], c, b, h, w, kh, kw, stride, pad,
         ho, wo, v, n_strips, n_tiles, k_kept, tile, block_k)
+    return out
+
+
+def conv2d_fused_scalar_cuda(x: torch.Tensor, values: torch.Tensor,
+                             idx: torch.Tensor, *, kh: int, kw: int,
+                             stride: int = 1, pad: int = 0, v: int = 128,
+                             block_k: int = 128) -> torch.Tensor:
+    """Launch ``csrc/conv2d_fused.cu``: CNHW ``x`` [C, B, H, W] with
+    ``values`` [n_tiles, k_kept, T] / ``idx`` [n_tiles, k_kept] over the
+    (kh, kw, c) rows -> [O, n_strips*V], zero past the last position, one
+    block per (strip, tile), staging ``block_k`` kept rows at a time.
+    :func:`conv2d_fused_cuda` routes to it the calls
+    :func:`fused_tiled_takes` refuses; called directly, it is the bitwise
+    yardstick of the tiled kernel."""
+    geo = _check_fused(x, values, idx, kh, kw, stride, pad, v, block_k)
+    return _launch_scalar(x, values, idx, kh, kw, stride, pad, v, *geo)
+
+
+def conv2d_fused_cuda(x: torch.Tensor, values: torch.Tensor, idx: torch.Tensor,
+                      *, kh: int, kw: int, stride: int = 1, pad: int = 0,
+                      v: int = 128, block_k: int = 128) -> torch.Tensor:
+    """Launch a whole-map fused conv: CNHW ``x`` [C, B, H, W] with
+    ``values`` [n_tiles, k_kept, T] / ``idx`` [n_tiles, k_kept] over the
+    (kh, kw, c) rows -> [O, n_strips*V], zero past the last position.
+    After the checks of ``conv2d_fused.cu`` (``block_k`` chunks its staged
+    values, and must be positive), takes the tiled kernel where
+    :func:`fused_tiled_takes` says so and ``conv2d_fused.cu`` elsewhere;
+    both give the same bits, and a failed launch raises."""
+    block_k, ho, wo, n_strips = _check_fused(x, values, idx, kh, kw, stride,
+                                             pad, v, block_k)
+    geo = _fused_tiled_geometry_of(x, values, kh, kw, stride, pad, v)
+    if geo is not None:
+        return _launch_fused_tiled(x, values, idx, geo, kh, kw, stride, pad, v)
+    return _launch_scalar(x, values, idx, kh, kw, stride, pad, v, block_k, ho,
+                          wo, n_strips)
+
+
+# csrc/conv2d_fused_tiled.cu's instances: cpt (a block runs 32 * cpt
+# positions; a thread 4 rows x 2 * cpt of them), tiles a block (one warp a
+# tile's 8-row group, at most 256 threads) and dense im2col rows a slice
+FUSED_TILED_CPT = (1, 2, 4)
+FUSED_TILED_GROUPS = tuple(range(1, 9))  # the tiles a block the sweep times
+FUSED_TILED_BKS = (16, 32, 64, 128)
+FUSED_TILED_THREADS = 256
+FUSED_TILED_HELD = 16  # bf16: map elements a thread carries a slice
+# the resident threads an SM should have (fused_tiled_config)
+FUSED_TILED_SM_THREADS = 448
+
+
+def fused_tiled_smem_bytes(k_rows: int, cpt: int, group: int, tile: int,
+                           bk: int, itemsize: int) -> int:
+    """Shared memory of one tiled fused-conv launch: a two-slot ring, each
+    slot a ``bk``-row map slice of ``32 * cpt`` positions and the kept
+    rows' values for each of the block's 8-row groups (``group * tile /
+    8``) in the map's dtype, then the row table (8 bytes a dense row), and
+    in 4 bytes each the ring's kept-row indices, each tile's slice bounds
+    and its bad-index flag."""
+    n_sl = -(-k_rows // bk)
+    np_, rgb = 32 * cpt, group * (tile // KROWS)
+    return (2 * bk * (np_ + rgb * KROWS) * itemsize + 8 * k_rows
+            + 4 * (2 * group * bk + group * (n_sl + 1) + group))
+
+
+def _fused_tiled_launch(c, b, h, w, kh, kw, stride, pad, v, n_tiles, k_kept,
+                        tile, itemsize, cpt, group, bk) -> Optional[dict]:
+    """The tiled fused conv's launch at one instance, or ``None`` where the
+    kernel has no such launch (a fresh dict of :func:`_fused_tiled_plan`'s
+    items)."""
+    plan = _fused_tiled_plan(c, b, h, w, kh, kw, stride, pad, v, n_tiles,
+                             k_kept, tile, itemsize, cpt, group, bk)
+    return None if plan is None else dict(plan)
+
+
+@functools.lru_cache(maxsize=4096)  # ints in, ints out; called per launch
+def _fused_tiled_plan(c, b, h, w, kh, kw, stride, pad, v, n_tiles, k_kept,
+                      tile, itemsize, cpt, group, bk) -> Optional[tuple]:
+    ho, wo = out_size(h, kh, stride, pad), out_size(w, kw, stride, pad)
+    threads = 32 * group * (tile // KROWS) if tile > 0 else 0
+    np_ = 32 * cpt
+    if (ho <= 0 or wo <= 0 or n_tiles <= 0 or k_kept <= 0 or tile <= 0
+            or tile % KROWS or c * b * h * w >= 2 ** 31
+            or cpt not in FUSED_TILED_CPT or v <= 0 or v % np_
+            or not 1 <= group <= n_tiles or threads > FUSED_TILED_THREADS
+            or (threads % np_ and np_ % threads) or bk not in FUSED_TILED_BKS
+            or (itemsize == 2 and threads * FUSED_TILED_HELD < np_ * bk)):
+        return None
+    smem = fused_tiled_smem_bytes(kh * kw * c, cpt, group, tile, bk, itemsize)
+    if smem > SMEM_BYTES:
+        return None
+    n_pos = b * ho * wo
+    n_strips = -(-n_pos // v)
+    n_groups = -(-n_tiles // group)
+    return tuple(dict(ho=ho, wo=wo, n_strips=n_strips, cpt=cpt, group=group,
+                      bk=bk, threads=threads, smem=smem,
+                      blocks=n_strips * v // np_ * n_groups,
+                      live_blocks=-(-n_pos // np_) * n_groups).items())
+
+
+def fused_tiled_sm_threads(geo: dict) -> float:
+    """Threads of a tiled fused-conv launch resident on each of the H100's
+    SMs: its blocks that reach a live position spread over the SMs, as many
+    as an SM's shared memory, threads and block slots hold."""
+    per_sm = min(geo["live_blocks"] / H100_SMS,
+                 SM_SMEM_BYTES // (geo["smem"] + 1024),
+                 SM_THREADS // geo["threads"], SM_BLOCKS)
+    return per_sm * geo["threads"]
+
+
+@functools.lru_cache(maxsize=1024)  # ints in, ints out; called per launch
+def fused_tiled_config(c: int, b: int, h: int, w: int, kh: int, kw: int,
+                       stride: int, pad: int, v: int, n_tiles: int,
+                       k_kept: int, tile: int,
+                       itemsize: int) -> Optional[tuple]:
+    """The tiled fused conv's default instance for a shape, ``(cpt, group,
+    bk)``, or ``None`` where no instance fits: a rule of the shape alone,
+    fitted to ``repro_torch.kernels.conv_gemm.tune``'s sweep on the H100
+    (PERF.md).  A gathered slice feeds ``group`` tiles, so the rule takes
+    the most tiles a block that 256 threads hold; a thread's ``cpt`` cuts
+    the shared-memory loads a FMA and a taller slice the barriers and the
+    tiles' imbalance between them, but an SM wants threads, so it then
+    takes the most ``cpt``, then the tallest slice (no taller than the
+    im2col's rows), that keep ``FUSED_TILED_SM_THREADS`` threads resident
+    on each SM (:func:`fused_tiled_sm_threads`), else the first in that
+    order that keeps the most."""
+    k_rows = kh * kw * c
+    group = min(n_tiles, FUSED_TILED_THREADS // 32 // max(1, tile // KROWS))
+    pick, most = None, None
+    for cpt in FUSED_TILED_CPT[::-1]:
+        for bk in FUSED_TILED_BKS[::-1]:
+            if bk > max(16, k_rows):
+                continue
+            geo = _fused_tiled_launch(c, b, h, w, kh, kw, stride, pad, v,
+                                      n_tiles, k_kept, tile, itemsize, cpt,
+                                      group, bk)
+            if geo is None:
+                continue
+            resident = fused_tiled_sm_threads(geo)
+            if resident >= FUSED_TILED_SM_THREADS:
+                return cpt, group, bk
+            if most is None or resident > most:
+                pick, most = (cpt, group, bk), resident
+    return pick
+
+
+def fused_tiled_geometry(c: int, b: int, h: int, w: int, kh: int, kw: int,
+                         stride: int, pad: int, v: int, n_tiles: int,
+                         k_kept: int, tile: int, itemsize: int, *,
+                         cpt: Optional[int] = None,
+                         group: Optional[int] = None,
+                         bk: Optional[int] = None) -> Optional[dict]:
+    """The tiled fused conv's launch for this shape, or ``None`` where the
+    kernel takes no such shape: tiles of a multiple of 8 rows whose 8-row
+    groups fit one block's 256 threads (a warp each, so T <= 64), strips of
+    a multiple of 32 positions, a map of fewer than 2**31 elements, and
+    the row table and ring within a block's shared memory.  The instance is
+    :func:`fused_tiled_config`'s where not given."""
+    if cpt is None or group is None or bk is None:
+        config = fused_tiled_config(c, b, h, w, kh, kw, stride, pad, v,
+                                    n_tiles, k_kept, tile, itemsize)
+        if config is None:
+            return None
+        cpt, group, bk = (given if given is not None else default
+                          for given, default in zip((cpt, group, bk), config))
+    return _fused_tiled_launch(c, b, h, w, kh, kw, stride, pad, v, n_tiles,
+                               k_kept, tile, itemsize, cpt, group, bk)
+
+
+def _fused_tiled_geometry_of(x: torch.Tensor, values: torch.Tensor, kh: int,
+                             kw: int, stride: int, pad: int, v: int,
+                             **instance) -> Optional[dict]:
+    if (x.dim() != 4 or values.dim() != 3 or x.dtype not in FLOAT_DTYPES
+            or values.data_ptr() % 16):
+        return None
+    c, b, h, w = x.shape
+    n_tiles, k_kept, tile = values.shape
+    return fused_tiled_geometry(c, b, h, w, kh, kw, stride, pad, v, n_tiles,
+                                k_kept, tile, x.element_size(), **instance)
+
+
+def fused_tiled_takes(x: torch.Tensor, values: torch.Tensor, *, kh: int,
+                      kw: int, stride: int = 1, pad: int = 0,
+                      v: int = 128) -> bool:
+    """Whether the tiled fused conv takes this call: the shape rule of
+    :func:`fused_tiled_geometry` and 16-byte aligned values (the kernel
+    copies a kept row's 8 values by 16 bytes).  A rule of the shape and the
+    pointer alone: the wrapper never reacts to a failed build or launch."""
+    return _fused_tiled_geometry_of(x, values, kh, kw, stride, pad,
+                                    v) is not None
+
+
+def conv2d_fused_tiled_cuda(x: torch.Tensor, values: torch.Tensor,
+                            idx: torch.Tensor, *, kh: int, kw: int,
+                            stride: int = 1, pad: int = 0, v: int = 128,
+                            cpt: Optional[int] = None,
+                            group: Optional[int] = None,
+                            bk: Optional[int] = None) -> torch.Tensor:
+    """Launch ``csrc/conv2d_fused_tiled.cu``: the fused conv's function and
+    bits for the calls :func:`fused_tiled_takes` accepts (raises on any
+    other).  ``cpt`` (a block runs ``32 * cpt`` positions; one of
+    ``FUSED_TILED_CPT``), ``group`` tiles a block and ``bk`` dense rows a
+    slice (one of ``FUSED_TILED_BKS``) are the instance (each gives the
+    same bits); by default :func:`fused_tiled_config`'s."""
+    check_no_grad("conv2d_fused_tiled", x, values)
+    check_cuda_tensor("x", x, FLOAT_DTYPES, 4)
+    geo = _fused_tiled_geometry_of(x, values, kh, kw, stride, pad, v, cpt=cpt,
+                                   group=group, bk=bk)
+    if geo is None:
+        raise ValueError(
+            f"map {tuple(x.shape)} {x.dtype}, values {tuple(values.shape)}, "
+            f"k{kh}x{kw} s{stride} p{pad} v{v}, cpt {cpt}, group {group}, "
+            f"bk {bk}: the tiled fused conv takes tiles of a multiple of 8 "
+            f"rows up to {FUSED_TILED_THREADS // 32 * KROWS}, strips of a "
+            f"multiple of 32 * cpt positions, cpt in {FUSED_TILED_CPT}, at "
+            f"most {FUSED_TILED_THREADS} threads, bk in {FUSED_TILED_BKS}, "
+            "16-byte aligned values, and its row table and ring within "
+            f"{SMEM_BYTES} bytes of shared memory")
+    return _launch_fused_tiled(x, values, idx, geo, kh, kw, stride, pad, v)
+
+
+def _launch_fused_tiled(x, values, idx, geo, kh, kw, stride, pad,
+                        v) -> torch.Tensor:
+    """The tiled fused-conv launch for a geometry
+    :func:`fused_tiled_geometry` gave for ``x`` and ``values``."""
+    c, b, h, w = x.shape
+    n_tiles, k_kept, tile = values.shape
+    smem = geo["smem"]
+    check_compressed(values, idx, x.dtype, k_kept, smem)
+    check_same_device(x, values, idx)
+    out = torch.empty((n_tiles * tile, geo["n_strips"] * v), dtype=x.dtype,
+                      device=x.device)
+    CONV2D_FUSED_TILED.launch(
+        x.device, x.data_ptr(), values.data_ptr(), idx.data_ptr(),
+        out.data_ptr(), DTYPE_CODE[x.dtype], c, b, h, w, kh, kw, stride, pad,
+        geo["ho"], geo["wo"], v, geo["n_strips"], n_tiles, k_kept, tile,
+        geo["cpt"], geo["group"], geo["bk"], smem_bytes=smem)
     return out
 
 

@@ -2,7 +2,10 @@
 ladder (twin of ``repro/kernels/conv_gemm/ops.py``'s forward half).
 
   fused      : im2col + pack + sparse GEMM in one kernel (``conv2d_fused``);
-               the packed strips never reach device memory
+               the packed strips never reach device memory.  On the card
+               ``conv2d_fused_tiled`` (dense im2col slices gathered once for
+               a group of tiles) where ``fused_tiled_takes`` says so, else
+               ``conv2d_fused.cu``; the two give the same bits
   banded     : the same fused conv with only a double-buffered row band of
                the map in shared memory (``conv2d_fused_banded``)
   two-kernel : the im2col+pack kernel, then the strip-major sparse GEMM on

@@ -24,6 +24,25 @@ def conv2d_cnhw_ref(x: torch.Tensor, w_ohwi: torch.Tensor, stride: int = 1,
     return y.permute(1, 0, 2, 3).contiguous()
 
 
+def _map_rows(x: torch.Tensor, rows: torch.Tensor, *, kh: int, kw: int,
+              stride: int, pad: int, v: int) -> torch.Tensor:
+    """im2col rows ``rows`` (an integer tensor of any shape) of the CNHW map
+    at every position of the strips, gathered with :func:`tap_coords`:
+    ``[*rows.shape, n_strips*V]`` in float32, zero off the map and past the
+    last position."""
+    c, b, h, w = x.shape
+    ho = out_size(h, kh, stride, pad)
+    wo = out_size(w, kw, stride, pad)
+    n_strips = -(-b * ho * wo // v)
+    k_of, c_of = rows // c, rows % c  # tap ikh*kw + ikw, channel
+    p = torch.arange(n_strips * v, dtype=torch.int64, device=x.device)
+    valid, bc, ihc, iwc = tap_coords(
+        p, ikh=(k_of // kw)[..., None], ikw=(k_of % kw)[..., None],
+        stride=stride, pad=pad, b=b, h=h, w=w, ho=ho, wo=wo)
+    fidx = ((c_of[..., None] * b + bc) * h + ihc) * w + iwc
+    return torch.where(valid, x.reshape(-1)[fidx].float(), 0.0)
+
+
 def conv2d_fused_ref(x: torch.Tensor, values: torch.Tensor, idx: torch.Tensor,
                      *, kh: int, kw: int, stride: int = 1, pad: int = 0,
                      v: int = 128) -> torch.Tensor:
@@ -31,21 +50,48 @@ def conv2d_fused_ref(x: torch.Tensor, values: torch.Tensor, idx: torch.Tensor,
     straight from the CNHW map with :func:`tap_coords`, then the sparse
     GEMM with float32 accumulation.  Returns [O, n_strips*V] in ``x``'s
     dtype, zero past the last position."""
-    c, b, h, w = x.shape
-    ho = out_size(h, kh, stride, pad)
-    wo = out_size(w, kw, stride, pad)
-    n_strips = -(-b * ho * wo // v)
     n_tiles, _, tile = values.shape
-    ids = idx.long()
-    k_of, c_of = ids // c, ids % c  # [n_tiles, k]: tap ikh*kw + ikw, channel
-    p = torch.arange(n_strips * v, dtype=torch.int64, device=x.device)
-    valid, bc, ihc, iwc = tap_coords(
-        p, ikh=(k_of // kw)[..., None], ikw=(k_of % kw)[..., None],
-        stride=stride, pad=pad, b=b, h=h, w=w, ho=ho, wo=wo)  # [n_tiles, k, P]
-    fidx = ((c_of[..., None] * b + bc) * h + ihc) * w + iwc
-    patch = torch.where(valid, x.reshape(-1)[fidx].float(), 0.0)
+    patch = _map_rows(x, idx.long(), kh=kh, kw=kw, stride=stride, pad=pad,
+                      v=v)  # [n_tiles, k, P]
     y = torch.einsum("tkf,tkp->tfp", values.float(), patch)
-    return y.reshape(n_tiles * tile, n_strips * v).to(x.dtype)
+    return y.reshape(n_tiles * tile, -1).to(x.dtype)
+
+
+def conv2d_fused_tiled_ref(x: torch.Tensor, values: torch.Tensor,
+                           idx: torch.Tensor, *, kh: int, kw: int,
+                           stride: int = 1, pad: int = 0, v: int = 128,
+                           bk: int = 16) -> torch.Tensor:
+    """The tiled fused conv kernel's plain version (the walk of
+    ``csrc/conv2d_fused_tiled.cu``): the dense im2col rows gathered once,
+    in slices of ``bk`` rows, and each tile's kept rows taken
+    from their slices, where ``idx[t]`` is strictly ascending within
+    ``[0, K)``.  Any other tile takes its kept rows one by one from the map,
+    an index outside ``[0, K)`` giving NaN at every position before the
+    last.  Same function and bits as :func:`conv2d_fused_ref` (the same
+    gathered values meet the same einsum) but for such a NaN tile:
+    [O, n_strips*V], zero past the last position."""
+    c, b, h, w = x.shape
+    n_pos = b * out_size(h, kh, stride, pad) * out_size(w, kw, stride, pad)
+    n_cols = -(-n_pos // v) * v
+    k_rows = kh * kw * c
+    n_tiles, _, tile = values.shape
+    geo = dict(kh=kh, kw=kw, stride=stride, pad=pad, v=v)
+    dense = torch.arange(-(-k_rows // bk) * bk, device=x.device)
+    slices = torch.where((dense < k_rows)[:, None],
+                         _map_rows(x, dense.clamp(max=k_rows - 1), **geo),
+                         0.0).view(-1, bk, n_cols)
+    ids = idx.long()
+    inside = (ids >= 0) & (ids < k_rows)
+    ascending = inside.all(1) & (ids[:, 1:] > ids[:, :-1]).all(1)  # [n_tiles]
+    ids = ids.clamp(0, k_rows - 1)
+    walked = slices[ids // bk, ids % bk]  # [n_tiles, k, P]
+    one_by_one = torch.where(inside[..., None], _map_rows(x, ids, **geo),
+                             float("nan"))
+    patch = torch.where(ascending[:, None, None], walked, one_by_one)
+    y = torch.einsum("tkf,tkp->tfp", values.float(), patch)
+    live = torch.arange(n_cols, device=x.device) < n_pos
+    y = torch.where(live, y, 0.0)
+    return y.reshape(n_tiles * tile, -1).to(x.dtype)
 
 
 def conv2d_fused_banded_ref(x: torch.Tensor, values: torch.Tensor,

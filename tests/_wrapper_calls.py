@@ -66,6 +66,10 @@ def calls(dev):
                                          (rows, v64), (i64,), {}),
         "conv2d_fused_cuda": (conv.conv2d_fused_cuda, (x, values), (idx,),
                               conv_kw),
+        "conv2d_fused_scalar_cuda": (conv.conv2d_fused_scalar_cuda,
+                                     (x, values), (idx,), conv_kw),
+        "conv2d_fused_tiled_cuda": (conv.conv2d_fused_tiled_cuda, (x, values),
+                                    (idx,), conv_kw),
         "conv2d_fused_banded_cuda": (conv.conv2d_fused_banded_cuda,
                                      (x, values), (idx,), conv_kw),
         "conv2d_fused_banded_scalar_cuda": (

@@ -28,7 +28,11 @@ through ``attn_apply`` and the smoke model's forward; the tiled kernel gives
 the other's bits (``torch.equal``) under every instance over the sweep and
 the GQA cases, keys past Sk stay out even where NaN follows them in memory,
 and the wrapper routes by the shape rule (a misaligned view and heads that
-are not whole 16-byte rows go to ``flash_attention.cu``).
+are not whole 16-byte rows go to ``flash_attention.cu``).  The tiled
+fused conv gives the bits of ``conv2d_fused.cu`` under every instance over
+the CPU tests' cases and resnet-tiny's convs, with a tile whose ``idx`` is
+not ascending and with a bad index, and ``conv2d_fused_cuda`` routes by its
+shape rule.
 """
 import numpy as np
 import pytest
@@ -66,8 +70,13 @@ from repro_torch.kernels.colwise_nm import (
 )
 from repro_torch.kernels.conv_gemm import (
     BANDED_TILED_POSITIONS,
+    CONV2D_FUSED,
     CONV2D_FUSED_BANDED,
     CONV2D_FUSED_BANDED_TILED,
+    CONV2D_FUSED_TILED,
+    FUSED_TILED_CPT,
+    FUSED_TILED_GROUPS,
+    FUSED_TILED_BKS,
     banded_tiled_geometry,
     banded_tiled_takes,
     conv2d_fused_banded_cuda,
@@ -77,6 +86,11 @@ from repro_torch.kernels.conv_gemm import (
     conv2d_fused_banded_tiled_ref,
     conv2d_fused_cuda,
     conv2d_fused_ref,
+    conv2d_fused_scalar_cuda,
+    conv2d_fused_tiled_cuda,
+    conv2d_fused_tiled_ref,
+    fused_tiled_geometry,
+    fused_tiled_takes,
 )
 from repro_torch.kernels.flash_attn import (
     FLASH_ATTENTION,
@@ -800,7 +814,8 @@ def test_each_launch_counts_once(dev):
     flash_attention_cuda(*_flash_qkv(1, 8, 8, 2, 2, 18, torch.float32, dev))
     torch.cuda.synchronize()
     assert {k.name: k.launches for k in KERNELS} == {
-        "conv2d_fused": 2, "im2col_pack": 1, "colwise_nm_matmul_strips": 1,
+        "conv2d_fused_tiled": 2, "conv2d_fused": 0, "im2col_pack": 1,
+        "colwise_nm_matmul_strips": 1,
         "colwise_nm_matmul": 1, "colwise_nm_matmul_strips_pipelined": 1,
         "conv2d_fused_banded": 1, "flash_attention": 1, "paged_attention": 1,
         "colwise_nm_matmul_tiled": 1, "flash_attention_tiled": 1,
@@ -810,6 +825,11 @@ def test_each_launch_counts_once(dev):
 
 
 @pytest.mark.parametrize("kernel,op,name,args", [
+    (CONV2D_FUSED_TILED, "conv", "fused_sparse_pallas", (16, 8, 8, 8, 3, 1, 1)),
+    (CONV2D_FUSED_TILED, "conv", "fused_sparse_pallas@v256_bk128",
+     (16, 64, 8, 8, 3, 2, 1)),
+    (CONV2D_FUSED_TILED, "conv", "fused_sparse_pallas@v128_bk64",
+     (16, 8, 16, 16, 1, 2, 0)),
     (CONV2D_FUSED_BANDED_TILED, "conv", "fused_banded_pallas@v128_bk128_hb4",
      (16, 64, 8, 8, 3, 1, 1)),
     (CONV2D_FUSED_BANDED, "conv", "fused_banded_pallas@v128_bk64_hb1",
@@ -844,6 +864,125 @@ def test_launch_smem_equals_the_feasibility_footprint(dev, kernel, op, name,
     torch.cuda.synchronize()
     assert spec.feasible(key)[0]
     assert kernel.last_smem_bytes == spec.smem_bytes(key)
+
+
+# (C, B, H, W, k, stride, pad, V, n_tiles, k_kept, T): the CPU tests' cases
+# of the tiled fused conv (tests/test_torch_fused_tiled.py), then
+# resnet-tiny's convs at batch 16 and a deep ragged k_kept over 8 tiles
+FUSED_TILED_CASES = [
+    (4, 1, 7, 7, 3, 1, 1, 128, 2, 10, 8),
+    (4, 3, 10, 10, 3, 1, 1, 128, 2, 16, 8),
+    (4, 2, 9, 9, 3, 1, 1, 128, 1, 20, 16),
+    (3, 4, 12, 12, 3, 1, 1, 256, 2, 13, 16),
+    (4, 1, 12, 12, 3, 2, 1, 128, 3, 9, 8),
+    (5, 2, 9, 7, 3, 1, 0, 128, 2, 30, 8),
+    (16, 2, 8, 8, 1, 2, 0, 128, 2, 8, 8),
+    (8, 16, 16, 16, 3, 1, 1, 128, 2, 36, 8),
+    (16, 16, 16, 16, 3, 2, 1, 256, 2, 72, 8),
+    (32, 2, 9, 9, 3, 1, 1, 128, 8, 141, 8),
+]
+
+
+def _fused_tiled_problem(case, dtype, dev):
+    c, b, h, w, k, stride, pad, v, n_tiles, k_kept, tile = case
+    x = _x(c, b, h, w, dtype, dev)
+    values, idx = _compressed(n_tiles, k * k * c, k_kept, tile, dtype, dev)
+    return x, values, idx, dict(kh=k, kw=k, stride=stride, pad=pad, v=v)
+
+
+def _fused_tiled_instances(x, values, geo):
+    c, b, h, w = x.shape
+    n_tiles, k_kept, tile = values.shape
+    return [dict(cpt=cpt, group=group, bk=bk)
+            for cpt in FUSED_TILED_CPT for group in FUSED_TILED_GROUPS
+            for bk in FUSED_TILED_BKS
+            if fused_tiled_geometry(c, b, h, w, geo["kh"], geo["kw"],
+                                    geo["stride"], geo["pad"], geo["v"],
+                                    n_tiles, k_kept, tile, x.element_size(),
+                                    cpt=cpt, group=group,
+                                    bk=bk) is not None]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FUSED_TILED_CASES)
+def test_fused_tiled_gives_conv2d_fused_bits_under_every_instance(dev, case,
+                                                                  dtype):
+    x, values, idx, geo = _fused_tiled_problem(case, dtype, dev)
+    assert fused_tiled_takes(x, values, **geo)
+    want = conv2d_fused_scalar_cuda(x, values, idx, **geo)
+    _close(want, conv2d_fused_ref(x, values, idx, **geo), dtype)
+    _close(conv2d_fused_tiled_cuda(x, values, idx, **geo),
+           conv2d_fused_tiled_ref(x, values, idx, **geo), dtype)
+    insts = _fused_tiled_instances(x, values, geo)
+    assert dict(cpt=1, group=1, bk=16) in insts
+    for inst in insts:
+        got = conv2d_fused_tiled_cuda(x, values, idx, **inst, **geo)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), inst
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [FUSED_TILED_CASES[1], FUSED_TILED_CASES[5],
+                                  FUSED_TILED_CASES[9]])
+def test_fused_tiled_walks_a_tile_that_is_not_ascending_in_k_order(dev, case,
+                                                                   dtype):
+    """A tile whose idx is permuted takes the kernel's one-by-one walk and
+    still gives conv2d_fused.cu's bits; a bad index makes that tile, and
+    only it, NaN before the last position and 0 after it."""
+    x, values, idx, geo = _fused_tiled_problem(case, dtype, dev)
+    n_tiles, k_kept, tile = values.shape
+    idx[-1] = idx[-1].flip(0)
+    want = conv2d_fused_scalar_cuda(x, values, idx, **geo)
+    for inst in _fused_tiled_instances(x, values, geo):
+        got = conv2d_fused_tiled_cuda(x, values, idx, **inst, **geo)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), inst
+    idx[-1, k_kept // 2] = case[4] ** 2 * case[0]  # one past the last row
+    want = conv2d_fused_scalar_cuda(x, values, idx, **geo)
+    fg = fused_tiled_geometry(*x.shape, geo["kh"], geo["kw"], geo["stride"],
+                              geo["pad"], geo["v"], n_tiles, k_kept, tile,
+                              x.element_size())
+    n_pos = x.shape[1] * fg["ho"] * fg["wo"]
+    for inst in _fused_tiled_instances(x, values, geo):
+        got = conv2d_fused_tiled_cuda(x, values, idx, **inst, **geo)
+        torch.cuda.synchronize()
+        assert bool(torch.isnan(got[-tile:, :n_pos]).all()), inst
+        assert bool((got[-tile:, n_pos:] == 0).all()), inst
+        assert torch.equal(got[:-tile], want[:-tile]), inst
+        assert _nan_equal(got, want), inst
+
+
+def test_fused_routing_rule(dev):
+    """conv2d_fused_cuda takes the tiled kernel exactly where
+    fused_tiled_takes says so; a tile of 12 rows and a misaligned view of
+    the values go to conv2d_fused.cu, with the same bits; the checks of
+    conv2d_fused.cu come first."""
+    geo = dict(kh=3, kw=3, stride=1, pad=1)
+    x = _x(8, 2, 8, 8, torch.float32, dev)
+    values, idx = _compressed(2, 72, 36, 8, torch.float32, dev)
+    v12, i12 = _compressed(2, 72, 36, 12, torch.float32, dev)
+    flat = torch.empty(values.numel() + 1, dtype=values.dtype, device=dev)
+    v_mis = flat[1:].view(values.shape)
+    v_mis.copy_(values)
+    calls = [(values, idx, True), (v12, i12, False), (v_mis, idx, False)]
+    for vv, ii, takes in calls:
+        assert fused_tiled_takes(x, vv, **geo) == takes
+    want = [conv2d_fused_scalar_cuda(x, vv, ii, **geo) for vv, ii, _ in calls]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    got = [conv2d_fused_cuda(x, vv, ii, **geo) for vv, ii, _ in calls]
+    torch.cuda.synchronize()
+    assert (CONV2D_FUSED_TILED.launches, CONV2D_FUSED.launches) == (1, 2)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    with pytest.raises(ValueError, match="shared memory"):
+        conv2d_fused_cuda(x, values, idx, block_k=0, **geo)
+    with pytest.raises(ValueError, match="tiled fused conv takes"):
+        conv2d_fused_tiled_cuda(x, v12, i12, **geo)
+    with pytest.raises(ValueError, match="tiled fused conv takes"):
+        conv2d_fused_tiled_cuda(x, values, idx, cpt=3, **geo)
+    with pytest.raises(RuntimeError, match="forward only"):
+        conv2d_fused_tiled_cuda(x, values.clone().requires_grad_(), idx,
+                                **geo)
 
 
 def _to(tree, dev):
@@ -889,7 +1028,7 @@ def test_vision_forward_on_card_matches_cpu(dev, tmp_path):
             assert err <= 1e-4 * float(want.abs().max()), (impl, err)
             if impl is None:  # an empty DB: the fused kernel, as before
                 assert {k.name: k.launches for k in KERNELS if k.launches} == {
-                    "conv2d_fused": 5}
+                    "conv2d_fused_tiled": 5}
         plan = dispatch.plan_params(on_card, profile=True,
                                     conv_hints=conv_hints(cfg, batch=8))
         assert len(plan) == 5 and len(dispatch.get_db()) == 5
