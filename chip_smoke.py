@@ -6,7 +6,7 @@ Phases:
   2. build  : the hand-written kernels from src/repro_torch/csrc (nvcc, one
               process per source, all started together); the registers and
               spills of the tiled flash, tiled banded, tiled fused,
-              tiled strip-GEMM and split paged instances
+              tiled strip-GEMM, tiled pack and split paged instances
   3. kernels: each kernel against its plain PyTorch version at the main
               path's shapes: the five pruned-conv shapes of resnet-tiny at
               batch 256 (f32, and one bf16 case) for the conv kernels (both
@@ -16,9 +16,15 @@ Phases:
               cases and a case each rule refuses, each launching the kernel
               the shape rule picks, then the tiled banded kernel's
               tile-group path at ResNet-18 layer2's conv and the tiled
-              fused kernel at ResNet-18 layer3's and layer4's, bit for bit
-              against conv2d_fused.cu, beside cuDNN and, at layer3/4, the
-              two-kernel plan), and
+              fused kernel at ResNet-18 layer3's and layer4's in f32 and
+              bf16, bit for bit against conv2d_fused.cu, beside cuDNN and
+              the two-kernel plans); both pack kernels (im2col_pack.cu and
+              im2col_pack_tiled.cu) equal bit for bit to each other and to
+              the plain versions on the six cases, also on a map of NaN
+              payloads and -0.0, timed beside F.unfold and the bound (warm
+              and with L2 flushed), then im2col_pack_cuda over the six
+              cases and strips of 6, each launching the kernel the shape
+              rule picks, and both at ResNet-18 layer1-4 (f32, bf16); and
               smollm-360m's MLP widths (960 -> 2560, 2560 -> 960) at 256
               rows for the two sparse linear kernels, the tiled one (T a
               multiple of 64) equal bit for bit to the other (f32, bf16);
@@ -290,13 +296,13 @@ def check_kernels(params, cfg, dev):
         conv2d_fused_banded_tiled_ref, conv2d_fused_cuda, conv2d_fused_ref,
         conv2d_fused_scalar_cuda, conv2d_fused_tiled_cuda,
         conv2d_fused_tiled_ref, fused_tiled_geometry, fused_tiled_takes)
-    from repro_torch.kernels.im2col_pack import (
-        im2col_pack_cuda, im2col_pack_ref, out_size)
+    from repro_torch.kernels.im2col_pack import out_size
     from repro_torch.core.formats import ColwiseMeta, unpack_colwise
 
     rng = np.random.default_rng(SEED)
     tot = {}
     routed = []  # (x, values, idx, geometry) of each case, for the routing run
+    packs = []  # (x, geometry, strips) of each case, for the pack's routing run
     cases = [(*conv, torch.float32) for conv in main_path_convs(params, cfg)]
     cases.append((*cases[1][:-1], torch.bfloat16))
     check(len(cases) == 6, f"expected 5 pruned convs, got {len(cases) - 1}")
@@ -407,20 +413,7 @@ def check_kernels(params, cfg, dev):
               flush=True)
         routed.append((x, values, idx, geo))
 
-        # im2col + pack: exact copy
-        s_k = im2col_pack_cuda(x, kh, kw, stride, pad, 128)
-        s_p = im2col_pack_ref(x, kh, kw, stride, pad, 128)
-        torch.cuda.synchronize()
-        check(torch.equal(s_k, s_p), f"im2col_pack {tag}: not bit-exact")
-        all_rows = torch.arange(k_rows, device=dev)
-        nb = (touched_elems(x.shape, kh, kw, stride, pad, all_rows, dev) * isz
-              + s_k.numel() * isz)
-        r = measure(lambda: im2col_pack_cuda(x, kh, kw, stride, pad, 128),
-                    lambda: im2col_pack_ref(x, kh, kw, stride, pad, 128),
-                    lambda: F.unfold(x_nchw, (kh, kw), padding=pad,
-                                     stride=stride))
-        r["bound_ms"], by = bound_ms(nb, 0, dtype)
-        report(tot, "im2col_pack", tag, r, by, 0.0, dtype)
+        packs.append((x, geo, check_pack(x, geo, tag, tot)))
 
     # the banded routing rule over the six cases and a misaligned view of
     # the first: the tiled kernel takes the six, conv2d_fused_banded.cu the view
@@ -472,6 +465,7 @@ def check_kernels(params, cfg, dev):
     print(f"  conv2d_fused_cuda over the {len(routed)} cases and a misaligned "
           f"view of the values: launches {fused_route}; bit-identical",
           flush=True)
+    pack_route = route_packs(packs)
 
     # the tiled kernel's other path, which resnet-tiny never takes: ResNet-18
     # layer2's 3x3 conv (128 -> 128 at 28x28, batch 8, f32, 50% kept, bands
@@ -505,66 +499,220 @@ def check_kernels(params, cfg, dev):
           f"({group} of {n2} tiles staged at once): tiled {ms2:.5f} ms "
           f"({gf / ms2:.1f} GFLOP/s), F.conv2d {lib2:.5f} ms "
           f"({gf / lib2:.1f}); bit-identical to conv2d_fused", flush=True)
+    check_pack_resnet18(rng, dev)
     check_fused_resnet18(rng, dev)
-    return tot, route, fused_route
+    return tot, route, fused_route, pack_route
+
+
+def bits_of(t: torch.Tensor) -> torch.Tensor:
+    """The element bits of a f32 or bf16 tensor, as integers: NaN payloads
+    and -0.0 compare as what they are."""
+    return t.view(torch.int32 if t.element_size() == 4 else torch.int16)
+
+
+def with_specials(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with NaNs of several payloads (quiet and signalling, both
+    signs) and -0.0 spread over it, as element bits."""
+    specials = ([0x7FC01234, 0x7F800001, -0x3FE0000, -0x80000000]
+                if x.element_size() == 4 else [0x7FC3, 0x7F81, -0x7E, -0x8000])
+    flat = bits_of(x).clone().reshape(-1)
+    for i, b in enumerate(specials):
+        flat[i::7] = b
+    return flat.view(x.dtype).reshape(x.shape)
+
+
+def check_pack(x, geo, tag, tot):
+    """Phase 3, both pack kernels at one main-path conv (V 128):
+    im2col_pack.cu called directly (the rule gives every main-path conv to
+    the tiled kernel), then the tiled kernel, each equal bit for bit to the
+    plain versions and to each other, also on a map of NaN payloads and
+    -0.0; each timed beside F.unfold and the bound, and with L2 flushed
+    before each call.  Returns the strips."""
+    from repro_torch.kernels.im2col_pack import (
+        im2col_pack_ref, im2col_pack_scalar_cuda, im2col_pack_tiled_cuda,
+        im2col_pack_tiled_ref, im2col_tiled_geometry, im2col_tiled_takes)
+    from repro_torch.kernels.im2col_pack.tune import cold_us, pack_bytes
+
+    c, b, h, w = x.shape
+    args = (x, geo["kh"], geo["kw"], geo["stride"], geo["pad"], 128)
+    check(im2col_tiled_takes(*args),
+          f"{tag}: the tiled pack refuses a main-path conv")
+    ig = im2col_tiled_geometry(c, b, h, w, *args[1:], x.element_size())
+    scalar = lambda: im2col_pack_scalar_cuda(*args)  # noqa: E731
+    plain = lambda: im2col_pack_ref(*args)  # noqa: E731
+    tiled = lambda: im2col_pack_tiled_cuda(*args)  # noqa: E731
+    tiled_plain = lambda: im2col_pack_tiled_ref(  # noqa: E731
+        *args, cb=ig["cb"], tg=ig["tg"])
+    for label, xx in (("", x), (" (NaN payloads, -0.0)", with_specials(x))):
+        got = [bits_of(f(xx, *args[1:])) for f in (
+            im2col_pack_scalar_cuda, im2col_pack_tiled_cuda, im2col_pack_ref,
+            lambda *a: im2col_pack_tiled_ref(*a, cb=ig["cb"], tg=ig["tg"]))]
+        torch.cuda.synchronize()
+        check(all(torch.equal(g, got[0]) for g in got[1:]),
+              f"im2col_pack(_tiled) {tag}{label}: the two kernels and the "
+              "plain versions are not bit for bit the same")
+    strips = tiled()
+    n_bytes = pack_bytes(c, b, h, w, geo["kh"], geo["stride"], geo["pad"], 128,
+                         x.element_size())
+    unfold = lambda: F.unfold(  # noqa: E731
+        x.permute(1, 0, 2, 3).contiguous(), (geo["kh"], geo["kw"]),
+        padding=geo["pad"], stride=geo["stride"])
+    r_old = measure(scalar, plain, unfold)
+    r_old["bound_ms"], by = bound_ms(n_bytes, 0, x.dtype)
+    report(tot, "im2col_pack", tag, r_old, by, 0.0, x.dtype)
+    r = measure(tiled, tiled_plain, unfold)
+    r["bound_ms"], by = bound_ms(n_bytes, 0, x.dtype)
+    report(tot, "im2col_pack_tiled", tag, r, by, 0.0, x.dtype)
+    dev = x.device
+    cold, cold_old = cold_us(tiled, dev) / 1e3, cold_us(scalar, dev) / 1e3
+    print(f"  pack {tag}: tiled (cb={ig['cb']} tg={ig['tg']} "
+          f"U={ig['unroll']}, {ig['blocks']} blocks of {ig['threads']}) "
+          f"{r['ms']:.5f} ms ({cold:.5f} with L2 flushed), im2col_pack.cu "
+          f"{r_old['ms']:.5f} ms ({cold_old:.5f}), F.unfold "
+          f"{r['library_ms']:.5f} ms, bound {r['bound_ms']:.6f} ms; tiled "
+          f"{r_old['ms'] / r['ms']:.2f}x faster than the other, "
+          f"{r['bound_ms'] / r['ms']:.2f} of its bound; bit-identical",
+          flush=True)
+    return strips
+
+
+def route_packs(packs) -> dict:
+    """Phase 3, the pack's routing rule over the six cases and a strip
+    width it refuses (6): the tiled kernel takes the six, im2col_pack.cu the
+    narrow one; every result the bits of im2col_pack.cu."""
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.kernels.im2col_pack import (
+        IM2COL_PACK, IM2COL_PACK_TILED, im2col_pack_cuda,
+        im2col_pack_scalar_cuda, im2col_tiled_takes)
+
+    x0, g0, _ = packs[0]
+    narrow = (x0, g0["kh"], g0["kw"], g0["stride"], g0["pad"], 6)
+    check(not im2col_tiled_takes(*narrow), "the pack rule takes strips of 6")
+    want_narrow = im2col_pack_scalar_cuda(*narrow)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    got = [im2col_pack_cuda(x, g["kh"], g["kw"], g["stride"], g["pad"], 128)
+           for x, g, _ in packs]
+    got.append(im2col_pack_cuda(*narrow))
+    torch.cuda.synchronize()
+    route = {k.name: k.launches for k in (IM2COL_PACK_TILED, IM2COL_PACK)}
+    check(route == {"im2col_pack_tiled": len(packs), "im2col_pack": 1},
+          f"im2col_pack_cuda launched {route}")
+    want = [s for *_, s in packs] + [want_narrow]
+    check(all(torch.equal(bits_of(g), bits_of(w)) for g, w in zip(got, want)),
+          "the routed packs are not the bits of im2col_pack.cu")
+    print(f"  im2col_pack_cuda over the {len(packs)} cases and strips of 6: "
+          f"launches {route}; bit-identical", flush=True)
+    return route
+
+
+# ResNet-18's layer1-4 3x3 convs at batch 8: (name, C, H = W)
+RESNET18_CONVS = (("layer1", 64, 56), ("layer2", 128, 28), ("layer3", 256, 14),
+                  ("layer4", 512, 7))
+
+
+def check_pack_resnet18(rng, dev) -> None:
+    """Phase 3, both pack kernels at ResNet-18's layer1-4 3x3 convs (batch
+    8, V 128), f32 and bf16: the tiled kernel bit for bit against
+    im2col_pack.cu, both timed beside F.unfold and the bound, the tiled one
+    also with L2 flushed."""
+    from repro_torch.kernels.im2col_pack import (im2col_pack_scalar_cuda,
+                                                 im2col_pack_tiled_cuda,
+                                                 im2col_tiled_geometry)
+    from repro_torch.kernels.im2col_pack.tune import cold_us, pack_bytes
+
+    for name, c, hw in RESNET18_CONVS:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.from_numpy(rng.standard_normal((c, 8, hw, hw),
+                                                     dtype=np.float32))
+            x = x.to(dev, dtype)
+            args = (x, 3, 3, 1, 1, 128)
+            ig = im2col_tiled_geometry(c, 8, hw, hw, 3, 3, 1, 1, 128,
+                                       x.element_size())
+            got = im2col_pack_tiled_cuda(*args)
+            check(torch.equal(bits_of(got),
+                              bits_of(im2col_pack_scalar_cuda(*args))),
+                  f"im2col_pack_tiled resnet18/{name} {dtype}: not "
+                  "bit-identical to im2col_pack.cu")
+            x_nchw = x.permute(1, 0, 2, 3).contiguous()
+            ms = time_ms(lambda: im2col_pack_tiled_cuda(*args))
+            old = time_ms(lambda: im2col_pack_scalar_cuda(*args))
+            lib = time_ms(lambda: F.unfold(x_nchw, (3, 3), padding=1))
+            cold = cold_us(lambda: im2col_pack_tiled_cuda(*args), dev) / 1e3
+            bound = pack_bytes(c, 8, hw, hw, 3, 1, 1, 128, x.element_size()
+                               ) / HBM_BYTES_PER_S * 1e3
+            print(f"  pack resnet18/{name} {str(dtype)[6:]} C={c} {hw}x{hw} "
+                  f"batch 8 v128: tiled (cb={ig['cb']} tg={ig['tg']} "
+                  f"U={ig['unroll']}) {ms:.5f} ms ({cold:.5f} with L2 "
+                  f"flushed), im2col_pack.cu {old:.5f} ms, F.unfold {lib:.5f} "
+                  f"ms, bound {bound:.6f} ms (bytes); {bound / ms:.2f} of its "
+                  "bound; bit-identical", flush=True)
 
 
 def check_fused_resnet18(rng, dev) -> None:
     """Phase 3, the tiled fused kernel at ResNet-18's layer3 and layer4 3x3
-    convs (256 -> 256 at 14x14 and 512 -> 512 at 7x7, batch 8, f32, tile 8,
-    50% kept), which no banded kernel takes in f32: bit for bit against
-    conv2d_fused.cu, timed beside it, cuDNN and the two-kernel plans
-    (im2col_pack, then the strip GEMM at one strip or HB strips a block)."""
+    convs (256 -> 256 at 14x14 and 512 -> 512 at 7x7, batch 8, tile 8, 50%
+    kept), which no banded kernel takes in f32, in f32 and bf16: bit for
+    bit against conv2d_fused.cu, timed beside it, cuDNN and the two-kernel
+    plans (im2col_pack_cuda, which takes the tiled pack here, then the strip
+    GEMM at one strip or HB strips a block)."""
     from repro_torch.core.formats import ColwiseMeta, unpack_colwise
     from repro_torch.kernels.colwise_nm import (
         colwise_nm_matmul_strips_cuda, colwise_nm_matmul_strips_pipelined_cuda)
     from repro_torch.kernels.conv_gemm import (
         conv2d_fused_scalar_cuda, conv2d_fused_tiled_cuda,
         conv2d_fused_tiled_ref, fused_tiled_geometry)
-    from repro_torch.kernels.im2col_pack import im2col_pack_cuda
+    from repro_torch.kernels.im2col_pack import (im2col_pack_cuda,
+                                                 im2col_tiled_takes)
 
-    for name, c, hw in (("layer3", 256, 14), ("layer4", 512, 7)):
-        b, n_tiles, k_rows = 8, c // 8, 9 * c
-        x = torch.from_numpy(rng.standard_normal((c, b, hw, hw),
-                                                 dtype=np.float32)).to(dev)
-        vals = torch.from_numpy(rng.standard_normal((n_tiles, k_rows // 2, 8),
-                                                    dtype=np.float32)).to(dev)
-        ids = torch.from_numpy(np.stack([
-            np.sort(rng.choice(k_rows, k_rows // 2, replace=False))
-            for _ in range(n_tiles)]).astype(np.int32)).to(dev)
-        g = dict(kh=3, kw=3, stride=1, pad=1, v=128)
-        fg = fused_tiled_geometry(c, b, hw, hw, 3, 3, 1, 1, 128, n_tiles,
-                                  k_rows // 2, 8, 4)
-        y = conv2d_fused_tiled_cuda(x, vals, ids, **g)
-        max_err(y, conv2d_fused_tiled_ref(x, vals, ids, **g),
-                f"conv2d_fused_tiled resnet18/{name}", F32_RTOL)
-        check(torch.equal(y, conv2d_fused_scalar_cuda(x, vals, ids, **g)),
-              f"conv2d_fused_tiled resnet18/{name}: not bit-identical to "
-              "conv2d_fused")
-        w = unpack_colwise(vals, ids, ColwiseMeta(k_rows, c, 8, k_rows,
-                                                  k_rows // 2)).T
-        w = w.reshape(c, 3, 3, c).permute(0, 3, 1, 2).contiguous()
-        x_nchw = x.permute(1, 0, 2, 3).contiguous()
+    for name, c, hw in RESNET18_CONVS[2:]:
+        for dtype in (torch.float32, torch.bfloat16):
+            b, n_tiles, k_rows = 8, c // 8, 9 * c
+            x = torch.from_numpy(rng.standard_normal((c, b, hw, hw),
+                                                     dtype=np.float32))
+            x = x.to(dev, dtype)
+            vals = torch.from_numpy(rng.standard_normal(
+                (n_tiles, k_rows // 2, 8), dtype=np.float32)).to(dev, dtype)
+            ids = torch.from_numpy(np.stack([
+                np.sort(rng.choice(k_rows, k_rows // 2, replace=False))
+                for _ in range(n_tiles)]).astype(np.int32)).to(dev)
+            g = dict(kh=3, kw=3, stride=1, pad=1, v=128)
+            fg = fused_tiled_geometry(c, b, hw, hw, 3, 3, 1, 1, 128, n_tiles,
+                                      k_rows // 2, 8, x.element_size())
+            tag = f"resnet18/{name} {str(dtype)[6:]}"
+            y = conv2d_fused_tiled_cuda(x, vals, ids, **g)
+            max_err(y, conv2d_fused_tiled_ref(x, vals, ids, **g),
+                    f"conv2d_fused_tiled {tag}",
+                    F32_RTOL if dtype == torch.float32 else BF16_RTOL)
+            check(torch.equal(y, conv2d_fused_scalar_cuda(x, vals, ids, **g)),
+                  f"conv2d_fused_tiled {tag}: not bit-identical to "
+                  "conv2d_fused")
+            check(im2col_tiled_takes(x, 3, 3, 1, 1, 128),
+                  f"{tag}: the two-kernel plans do not take the tiled pack")
+            w = unpack_colwise(vals, ids, ColwiseMeta(k_rows, c, 8, k_rows,
+                                                      k_rows // 2)).T
+            w = w.reshape(c, 3, 3, c).permute(0, 3, 1, 2).contiguous()
+            x_nchw = x.permute(1, 0, 2, 3).contiguous()
 
-        def plan(hb):
-            strips = im2col_pack_cuda(x, 3, 3, 1, 1, 128)
-            if hb == 1:
-                return colwise_nm_matmul_strips_cuda(strips, vals, ids)
-            return colwise_nm_matmul_strips_pipelined_cuda(strips, vals, ids,
-                                                           hb=hb)
+            def plan(hb):
+                strips = im2col_pack_cuda(x, 3, 3, 1, 1, 128)
+                if hb == 1:
+                    return colwise_nm_matmul_strips_cuda(strips, vals, ids)
+                return colwise_nm_matmul_strips_pipelined_cuda(strips, vals,
+                                                               ids, hb=hb)
 
-        ms = time_ms(lambda: conv2d_fused_tiled_cuda(x, vals, ids, **g))
-        old = time_ms(lambda: conv2d_fused_scalar_cuda(x, vals, ids, **g))
-        lib = time_ms(lambda: F.conv2d(x_nchw, w, padding=1))
-        plans = {hb: time_ms(lambda: plan(hb)) for hb in (1, HB)}
-        gf = 2 * c * (k_rows // 2) * b * hw * hw / 1e6
-        print(f"  fused resnet18/{name} f32 C={c} {hw}x{hw} batch 8 v128 "
-              f"(CPT={fg['cpt']} G={fg['group']} BK={fg['bk']}): tiled "
-              f"{ms:.5f} ms "
-              f"({gf / ms:.1f} GFLOP/s), conv2d_fused {old:.5f} ms, two-kernel "
-              f"plan {plans[1]:.5f} ms (hb {HB}: {plans[HB]:.5f}), F.conv2d "
-              f"{lib:.5f} ms ({gf / lib:.1f}); bit-identical to conv2d_fused",
-              flush=True)
+            ms = time_ms(lambda: conv2d_fused_tiled_cuda(x, vals, ids, **g))
+            old = time_ms(lambda: conv2d_fused_scalar_cuda(x, vals, ids, **g))
+            lib = time_ms(lambda: F.conv2d(x_nchw, w, padding=1))
+            plans = {hb: time_ms(lambda: plan(hb)) for hb in (1, HB)}
+            gf = 2 * c * (k_rows // 2) * b * hw * hw / 1e6
+            print(f"  fused {tag} C={c} {hw}x{hw} batch 8 v128 "
+                  f"(CPT={fg['cpt']} G={fg['group']} BK={fg['bk']}): tiled "
+                  f"{ms:.5f} ms ({gf / ms:.1f} GFLOP/s), conv2d_fused "
+                  f"{old:.5f} ms, two-kernel plan (tiled pack + strip GEMM) "
+                  f"{plans[1]:.5f} ms (hb {HB}: {plans[HB]:.5f}), F.conv2d "
+                  f"{lib:.5f} ms ({gf / lib:.1f}); bit-identical to "
+                  "conv2d_fused", flush=True)
 
 
 def check_strip_kernels(params, cfg, dev, tot):
@@ -844,6 +992,7 @@ LIBRARY_CALLS = {
                           "fused conv",
     "im2col_pack": "F.unfold on NCHW; rows (c, kh, kw) instead of (kh, kw, c), "
                    "batch-leading [B, K, L], no V-wide strips",
+    "im2col_pack_tiled": "F.unfold on NCHW, as for im2col_pack",
     "colwise_nm_matmul_strips": "torch.matmul of the dense masked [O, K] "
                                 "weight by the [S, K, V] strips; every K row "
                                 "instead of the kept ones, out [S, O, V]",
@@ -942,16 +1091,11 @@ def rel_err(a, b) -> float:
 
 
 SPARSE = ("values", "idx")
-# Kernels each conv family launches for one pruned conv; the fused, banded
-# and two strip-GEMM families' kernels depend on the conv's shape
-# (family_kernels).
-FAMILY_KERNELS = {
-    "fused_sparse_pallas": None,
-    "fused_banded_pallas": None,
-    "two_kernel_pipelined": None,
-    "im2col_sparse_pallas": None,
-    "im2col_sparse_xla": {"im2col_pack": 1},
-}
+# The conv families phase 4 forces, in order.  The kernels each launches for
+# one pruned conv depend on the conv's shape (family_kernels).
+FAMILY_KERNELS = ("fused_sparse_pallas", "fused_banded_pallas",
+                  "two_kernel_pipelined", "im2col_sparse_pallas",
+                  "im2col_sparse_xla")
 PROFILE_DB = ROOT / "build" / "repro_torch" / "chip_smoke_profile.json"
 
 
@@ -960,19 +1104,18 @@ def family_kernels(impl, conv) -> dict:
     fused family's by the fused shape rule (``fused_tiled_geometry``) at the
     candidate's strip width, the banded family's by the banded shape rule
     (``banded_tiled_geometry``) at the candidate's strip width and band
-    depth, the strip GEMM families'
-    (after ``im2col_pack``) by the strip shape rule
-    (``strips_tiled_geometry``) at the strips they pack: the caller's width
-    and one strip a block, or the candidate's width and ``hb``."""
+    depth; the pack of the strip GEMM families and of the plain-GEMM family
+    by the pack's shape rule (``im2col_tiled_geometry``), and the strip
+    GEMM's by the strip shape rule (``strips_tiled_geometry``), each at the
+    strips they pack: the caller's width and one strip a block, or the
+    candidate's width and ``hb``."""
     from repro_torch import dispatch
     from repro_torch.kernels.colwise_nm import strips_tiled_geometry
     from repro_torch.kernels.conv_gemm import (banded_tiled_geometry,
                                                fused_tiled_geometry)
-    from repro_torch.kernels.im2col_pack import out_size
+    from repro_torch.kernels.im2col_pack import im2col_tiled_geometry, out_size
 
     family = impl.split("@")[0]
-    if FAMILY_KERNELS[family] is not None:
-        return FAMILY_KERNELS[family]
     spec = dispatch.REGISTRY.get("conv", impl)
     _name, layer, c, h, w, kh, kw, stride, pad = conv
     n_tiles, k_kept, tile = layer["values"].shape
@@ -991,12 +1134,17 @@ def family_kernels(impl, conv) -> dict:
     pipelined = family == "two_kernel_pipelined"
     v = spec.geom("v") if pipelined else 128
     hb = spec.geom("hb") if pipelined else 1
+    pack = ("im2col_pack_tiled" if im2col_tiled_geometry(
+        c, BATCH, h, w, kh, kw, stride, pad, v, isz) is not None
+        else "im2col_pack")
+    if family == "im2col_sparse_xla":
+        return {pack: 1}
     n_pos = BATCH * out_size(h, kh, stride, pad) * out_size(w, kw, stride, pad)
     tiled = strips_tiled_geometry(-(-n_pos // v), v, n_tiles, k_kept, tile,
                                   isz, hb) is not None
     name = ("colwise_nm_matmul_strips_pipelined" if pipelined
             else "colwise_nm_matmul_strips") + ("_tiled" if tiled else "")
-    return {"im2col_pack": 1, name: 1}
+    return {pack: 1, name: 1}
 
 
 def expected_launches(impls, convs, n_forwards: int) -> dict:
@@ -1898,6 +2046,7 @@ def main() -> int:
     from repro_torch.kernels.conv_gemm.tune import (banded_tiled_registers,
                                                     fused_tiled_registers)
     from repro_torch.kernels.flash_attn.tune import paged_split_registers
+    from repro_torch.kernels.im2col_pack.tune import tiled_registers
     from repro_torch.models.vision import vision_init
 
     print("== 1. card", flush=True)
@@ -1930,6 +2079,9 @@ def main() -> int:
     for inst, regs, spill in fused_tiled_registers(lib.parent / "build.log"):
         print(f"  conv2d_fused_tiled {inst}: {regs} registers, {spill}",
               flush=True)
+    for inst, regs, spill in tiled_registers(lib.parent / "build.log"):
+        print(f"  im2col_pack_tiled {inst}: {regs} registers, {spill}",
+              flush=True)
     for inst, regs, spill in strips_tiled_registers(lib.parent / "build.log"):
         print(f"  colwise_nm_strips_tiled {inst}: {regs} registers, {spill}",
               flush=True)
@@ -1943,7 +2095,8 @@ def main() -> int:
     print(f"== 3. kernels at the main path's shapes (batch {BATCH})", flush=True)
     for name, call in LIBRARY_CALLS.items():
         print(f"  library_ms of {name}: {call}", flush=True)
-    tot, banded_route, fused_route = check_kernels(params, cfg, dev)
+    tot, banded_route, fused_route, pack_route = check_kernels(params, cfg,
+                                                               dev)
     strip_route = check_strip_kernels(params, cfg, dev, tot)
     check_linear_kernel(dev, tot)
     sweep_linear_kernels(dev)
@@ -1980,7 +2133,9 @@ def main() -> int:
     launches = {
         "conv2d_fused": fused_route["conv2d_fused"],
         "conv2d_fused_tiled": counts["default"]["conv2d_fused_tiled"],
-        "im2col_pack": counts["im2col_sparse_pallas"]["im2col_pack"],
+        "im2col_pack": pack_route["im2col_pack"],
+        "im2col_pack_tiled":
+            counts["im2col_sparse_pallas"]["im2col_pack_tiled"],
         "colwise_nm_matmul_strips": strip_route["colwise_nm_matmul_strips"],
         "colwise_nm_matmul_strips_tiled":
             counts["im2col_sparse_pallas"]["colwise_nm_matmul_strips_tiled"],
@@ -2058,6 +2213,14 @@ def main() -> int:
                                                        "2; launches: the "
                                                        "forced pipelined plan "
                                                        "(5 per forward, x3)",
+           "im2col_pack": "ms etc.: sum over the 5 pruned convs of one "
+                          "batch-256 forward, called directly (the tiled "
+                          "kernel's bitwise yardstick); launches: "
+                          "im2col_pack_cuda over phase 3's six cases and "
+                          "strips of 6, the width the rule refuses",
+           "im2col_pack_tiled": "ms etc.: sum over the 5 pruned convs of one "
+                                "batch-256 forward; launches: the forced "
+                                "two-kernel plan (5 per forward, x3)",
            "conv2d_fused": "ms etc.: sum over the 5 pruned convs of one "
                            "batch-256 forward, called directly (the tiled "
                            "kernel's bitwise yardstick); launches: "

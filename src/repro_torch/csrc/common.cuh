@@ -59,6 +59,22 @@ __device__ __forceinline__ bool decode_position(int p, const ConvGeom& g, int& b
   return p < g.b * hw;
 }
 
+// next_position: decode_position of p + 1 from that of p, without a
+// division: ow steps by one and wraps to the next output row, oh wraps to
+// the next batch.  Past the end bb keeps counting, so bb < g.b is
+// decode_position's in-range test.
+__device__ __forceinline__ void next_position(const ConvGeom& g, int& bb, int& ih0, int& iw0) {
+  iw0 += g.stride;
+  if (iw0 > (g.wo - 1) * g.stride - g.pad) {
+    iw0 = -g.pad;
+    ih0 += g.stride;
+    if (ih0 > (g.ho - 1) * g.stride - g.pad) {
+      ih0 = -g.pad;
+      ++bb;
+    }
+  }
+}
+
 // tap_shift: map coordinates of tap (ikh, ikw) of a decoded position.
 // Returns false for an off-map tap.
 __device__ __forceinline__ bool tap_shift(int ih0, int iw0, int ikh, int ikw, const ConvGeom& g,

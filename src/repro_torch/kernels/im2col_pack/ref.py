@@ -44,3 +44,37 @@ def im2col_pack_ref(x: torch.Tensor, kh: int, kw: int, stride: int = 1,
     """Two-pass im2col, then pack: [n_strips, Kh*Kw*C, V]; the fused
     kernel's plain version (exact copy, so bit-identical)."""
     return pack_strips(im2col_cnhw(x, kh, kw, stride, pad), v)
+
+
+def im2col_pack_tiled_ref(x: torch.Tensor, kh: int, kw: int, stride: int = 1,
+                          pad: int = 0, v: int = 128, cb: int = 16,
+                          tg: int = 1) -> torch.Tensor:
+    """The tiled pack kernel's plain version (the walk of
+    ``csrc/im2col_pack_tiled.cu``): block (strip, ``tg`` taps, channels
+    [c0, c0 + cb)) finds each of its taps' source offsets once through
+    ``tap_coords`` and copies the block's channel rows with them, zero off
+    the map and past the last position.  The kernel's grid over tap groups
+    and channel chunks, each step taken for every strip side by side.  Same
+    function and bits as :func:`im2col_pack_ref`: [n_strips, Kh*Kw*C, V]."""
+    # kernel.py imports this module for out_size: import its index rule here
+    from repro_torch.kernels.im2col_pack.kernel import tap_coords
+
+    c, b, h, w = x.shape
+    ho, wo = out_size(h, kh, stride, pad), out_size(w, kw, stride, pad)
+    n_strips = -(-b * ho * wo // v)
+    out = torch.empty((n_strips, kh * kw * c, v), dtype=x.dtype,
+                      device=x.device)
+    planes = x.reshape(c, b * h * w)
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    p = torch.arange(n_strips * v, device=x.device)  # every strip's positions
+    for t0 in range(0, kh * kw, tg):
+        for c0 in range(0, c, cb):
+            for tap in range(t0, min(t0 + tg, kh * kw)):
+                valid, bc, ihc, iwc = tap_coords(
+                    p, ikh=tap // kw, ikw=tap % kw, stride=stride, pad=pad,
+                    b=b, h=h, w=w, ho=ho, wo=wo)
+                off = (bc * h + ihc) * w + iwc  # one a position, all channels
+                block = torch.where(valid, planes[c0:c0 + cb][:, off], zero)
+                out[:, tap * c + c0:tap * c + c0 + block.shape[0]] = (
+                    block.view(-1, n_strips, v).transpose(0, 1))
+    return out

@@ -43,6 +43,10 @@ def calls(dev):
     return {
         "im2col_pack_cuda": (im2col.im2col_pack_cuda, (x,), (),
                              dict(kh=3, kw=3, stride=1, pad=1)),
+        "im2col_pack_scalar_cuda": (im2col.im2col_pack_scalar_cuda, (x,), (),
+                                    dict(kh=3, kw=3, stride=1, pad=1)),
+        "im2col_pack_tiled_cuda": (im2col.im2col_pack_tiled_cuda, (x,), (),
+                                   dict(kh=3, kw=3, stride=1, pad=1)),
         "colwise_nm_matmul_strips_cuda": (
             colwise.colwise_nm_matmul_strips_cuda, (strips, values), (idx,), {}),
         "colwise_nm_matmul_strips_pipelined_cuda": (

@@ -32,7 +32,9 @@ are not whole 16-byte rows go to ``flash_attention.cu``).  The tiled
 fused conv gives the bits of ``conv2d_fused.cu`` under every instance over
 the CPU tests' cases and resnet-tiny's convs, with a tile whose ``idx`` is
 not ascending and with a bad index, and ``conv2d_fused_cuda`` routes by its
-shape rule.
+shape rule.  The tiled pack gives the bits of ``im2col_pack.cu`` and of the
+plain version under every instance, with NaN payloads and -0.0 in the map,
+and ``im2col_pack_cuda`` routes by its shape rule.
 """
 import numpy as np
 import pytest
@@ -121,7 +123,19 @@ from repro_torch.kernels.flash_attn import (
     paged_split_takes,
     paged_split_tile_bound,
 )
-from repro_torch.kernels.im2col_pack import im2col_pack_cuda, im2col_pack_ref
+from repro_torch.kernels.im2col_pack import (
+    IM2COL_PACK,
+    IM2COL_PACK_TILED,
+    IM2COL_TILED_CBS,
+    IM2COL_TILED_TGS,
+    IM2COL_TILED_UNROLLS,
+    im2col_pack_cuda,
+    im2col_pack_ref,
+    im2col_pack_scalar_cuda,
+    im2col_pack_tiled_cuda,
+    im2col_tiled_geometry,
+    im2col_tiled_takes,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -168,13 +182,78 @@ def _close(got, want, dtype):
     assert err <= TOL[dtype] * max(float(want.float().abs().max()), 1.0), err
 
 
+def _with_specials(x):
+    """``x`` with NaNs of several payloads (quiet and signalling, both
+    signs) and -0.0 spread over it, as element bits."""
+    ints = x.view(torch.int32 if x.element_size() == 4 else torch.int16)
+    specials = ([0x7FC01234, 0x7F800001, -0x3FE0000, -0x80000000]
+                if x.element_size() == 4 else [0x7FC3, 0x7F81, -0x7E, -0x8000])
+    flat = ints.clone().reshape(-1)
+    for i, bits in enumerate(specials):
+        flat[i::7] = bits
+    return flat.view(x.dtype).reshape(x.shape)
+
+
+def _im2col_instances(x, k, stride, pad, v):
+    c, b, h, w = x.shape
+    return [dict(cb=cb, tg=tg, unroll=u) for cb in IM2COL_TILED_CBS
+            for tg in IM2COL_TILED_TGS for u in IM2COL_TILED_UNROLLS
+            if im2col_tiled_geometry(c, b, h, w, k, k, stride, pad, v,
+                                     x.element_size(), cb=cb, tg=tg, unroll=u)]
+
+
+# the pack's cases: CASES, then channels no block divides (C 12, 24), the
+# 3x1 outputs whose rows and batches wrap inside a thread's positions, and
+# strip widths the tiled kernel refuses (6) or takes in f32 only (36)
+IM2COL_CASES = CASES + [
+    (12, 3, 6, 6, 3, 1, 1, 128),
+    (24, 2, 7, 7, 3, 2, 1, 256),
+    (4, 3, 5, 3, 3, 1, 0, 32),
+    (8, 2, 8, 8, 3, 1, 1, 6),
+    (8, 2, 8, 8, 3, 1, 1, 36),
+]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("c,b,h,w,k,stride,pad,v", CASES)
+@pytest.mark.parametrize("c,b,h,w,k,stride,pad,v", IM2COL_CASES)
 def test_im2col_pack_kernel_bit_exact(dev, c, b, h, w, k, stride, pad, v, dtype):
-    x = _x(c, b, h, w, dtype, dev)
-    got = im2col_pack_cuda(x, k, k, stride, pad, v)
-    torch.cuda.synchronize()
-    assert torch.equal(got, im2col_pack_ref(x, k, k, stride, pad, v))
+    """The routed pack, ``im2col_pack.cu`` and the tiled kernel under every
+    instance give the plain version's bits, also for a map of NaN payloads
+    and -0.0 (compared as integers: the bits, not the values)."""
+    ints = torch.int32 if dtype == torch.float32 else torch.int16
+    plain = _x(c, b, h, w, dtype, dev)
+    for x in (plain, _with_specials(plain)):
+        want = im2col_pack_ref(x, k, k, stride, pad, v).view(ints)
+        got = im2col_pack_cuda(x, k, k, stride, pad, v)
+        scalar = im2col_pack_scalar_cuda(x, k, k, stride, pad, v)
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(ints), want)
+        assert torch.equal(scalar.view(ints), want)
+        instances = _im2col_instances(x, k, stride, pad, v)
+        assert bool(instances) is im2col_tiled_takes(x, k, k, stride, pad, v)
+        for inst in instances:
+            tiled = im2col_pack_tiled_cuda(x, k, k, stride, pad, v, **inst)
+            torch.cuda.synchronize()
+            assert torch.equal(tiled.view(ints), want), inst
+
+
+def test_im2col_pack_routes_by_the_shape_rule(dev):
+    """Strips of whole 16-byte rows go to the tiled kernel, a width of 6 to
+    ``im2col_pack.cu``; the launch counters show which ran."""
+    x = _x(8, 2, 8, 8, torch.float32, dev)
+    for v, kernel in ((128, "im2col_pack_tiled"), (6, "im2col_pack"),
+                      (256, "im2col_pack_tiled")):
+        reset_launch_counts()
+        got = im2col_pack_cuda(x, 3, 3, 1, 1, v)
+        torch.cuda.synchronize()
+        assert {k.name: k.launches for k in (IM2COL_PACK, IM2COL_PACK_TILED)
+                } == {"im2col_pack": kernel == "im2col_pack",
+                      "im2col_pack_tiled": kernel == "im2col_pack_tiled"}
+        assert torch.equal(got, im2col_pack_ref(x, 3, 3, 1, 1, v))
+    with pytest.raises(ValueError, match="16-byte rows"):
+        im2col_pack_tiled_cuda(x, 3, 3, 1, 1, 6)
+    with pytest.raises(ValueError, match="16-byte rows"):
+        im2col_pack_tiled_cuda(x, 3, 3, 1, 1, 128, cb=12)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -814,7 +893,8 @@ def test_each_launch_counts_once(dev):
     flash_attention_cuda(*_flash_qkv(1, 8, 8, 2, 2, 18, torch.float32, dev))
     torch.cuda.synchronize()
     assert {k.name: k.launches for k in KERNELS} == {
-        "conv2d_fused_tiled": 2, "conv2d_fused": 0, "im2col_pack": 1,
+        "conv2d_fused_tiled": 2, "conv2d_fused": 0, "im2col_pack": 0,
+        "im2col_pack_tiled": 1,
         "colwise_nm_matmul_strips": 1,
         "colwise_nm_matmul": 1, "colwise_nm_matmul_strips_pipelined": 1,
         "conv2d_fused_banded": 1, "flash_attention": 1, "paged_attention": 1,
