@@ -85,8 +85,20 @@ Phases:
               the NLLs equal to the ones the other linear kernel and
               flash_attention.cu gave (the bits are the same), host and device ms per forward, tokens/s,
               idle share and the kernels' shares of the device time
- 10. report : one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
-              line last
+ 10. train  : pruned resnet-tiny finetuned at batch 256 through
+              ``train_step`` (SGD with momentum; the autograd twins of the
+              sparse conv and linear): 3 steps under the default plan, the
+              profiled plan and each conv family forced; launches per
+              forward equal to phase 4's (the backward launches none),
+              losses, parameters and momentum held against the same steps
+              through the plain versions on the CPU and against a dense
+              masked step on the card (F.conv2d), two runs equal bit for
+              bit; host and device ms a step (torch.profiler), idle share,
+              the forward kernels' share, beside the dense step; the convs'
+              backward with the repeatable scatter and with index_add_
+ 11. report : one ``{"kernels": [...]}`` line (launches in the main runs and
+              ``train_launches`` in phase 10), then the ``{"ok": true,
+              ...}`` line last
 
 Run from the repository root:  python3 chip_smoke.py
 Any failed check raises, so the script exits non-zero and prints no ok line.
@@ -2025,9 +2037,323 @@ def run_scoring(dev, cfg, params) -> dict:
     return counts
 
 
+# phase 10: 3 SGD steps a plan at the main path's batch, the batches of
+# batch_for_step(cfg, SEED, k); the step's timing windows
+TRAIN_STEPS = 3
+TRAIN_TIMED_STEPS = 10  # host clock, best of 2 windows
+TRAIN_PROFILED_STEPS = 5  # torch.profiler window for the device time
+TRAIN_LOSS_RTOL = 1e-5  # of the reference's loss
+# the port's own CUDA kernels as the profiler names them (csrc/*.cu); every
+# other kernel in a window is PyTorch's or cuDNN's
+PORT_KERNEL_RE = (r"^(void )?(\(anonymous namespace\)::)?"
+                  r"(conv2d_fused|fused_tiled|banded|banded_tiled|"
+                  r"im2col_pack|im2col_pack_tiled|strips|strips_tiled|"
+                  r"pipelined|linear|tiled|flash|flash_tiled|paged|"
+                  r"paged_split)_kernel\b")
+
+
+def masked_reference(params):
+    """The same network with every compressed conv unpacked to a masked
+    layer: its dense OHWI weight and the kept support as ``mask``, so a
+    train step on it runs autograd through F.conv2d on the unpacked masked
+    weights and keeps the same support."""
+    from repro_torch.core.formats import ColwiseMeta, unpack_colwise
+
+    def walk(t):
+        if isinstance(t, dict):
+            if "values" in t:
+                kh, kw, c = (int(v) for v in t["conv_geom"].tolist())
+                n_tiles, k_kept, tile = t["values"].shape
+                o, k_rows = n_tiles * tile, kh * kw * c
+                meta = ColwiseMeta(k_rows, o, tile, k_rows, k_kept)
+
+                def ohwi(vals):
+                    return unpack_colwise(vals, t["idx"], meta).T.reshape(
+                        o, kh, kw, c).contiguous()
+
+                return {"w": ohwi(t["values"]),
+                        "mask": ohwi(torch.ones_like(t["values"])) != 0}
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [walk(v) for v in t]
+        return t
+
+    return walk(params)
+
+
+def packed_like(sparse, masked):
+    """``masked`` (a tree of masked_reference's layout) read at ``sparse``'s
+    packed positions, as float leaves in ``sparse``'s structure: a masked
+    layer's [O, kh, kw, C] tensor becomes [n_tiles, k_kept, T] at ``idx``."""
+    if isinstance(sparse, dict):
+        if "values" in sparse:
+            n_tiles, _k, tile = sparse["values"].shape
+            idx = sparse["idx"].long()
+            w = masked["w"]
+            wmat = w.reshape(w.shape[0], -1).T  # [K, O]
+            return {"values": torch.stack([
+                wmat[idx[t], t * tile:(t + 1) * tile] for t in range(n_tiles)])}
+        return {k: packed_like(v, masked[k]) for k, v in sparse.items()}
+    if isinstance(sparse, list):
+        return [packed_like(a, b) for a, b in zip(sparse, masked, strict=True)]
+    return sparse if not masked.is_floating_point() else masked
+
+
+def float_leaves(tree):
+    return [t for t in tree_leaves(tree) if t.is_floating_point()]
+
+
+def run_steps(params, cfg, batches):
+    """``TRAIN_STEPS`` train steps from ``params``; returns the (params,
+    momentum, loss) after each."""
+    from repro_torch.models.vision import sgd_init, train_step
+
+    p, m = params, sgd_init(params)
+    out = []
+    for x, labels in batches:
+        p, m, loss = train_step(p, m, cfg, x, labels)
+        out.append((p, m, loss))
+    return out
+
+
+def hold_steps(got, want, label, what) -> float:
+    """Max over the steps of each float leaf's max |got - want| over its
+    max |want| (params and momentum), after the losses agree."""
+    worst = 0.0
+    for k, ((gp, gm, gl), (wp, wm, wl)) in enumerate(zip(got, want,
+                                                          strict=True)):
+        e = abs(float(gl) - float(wl)) / abs(float(wl))
+        check(e <= TRAIN_LOSS_RTOL, f"train {label} vs {what}, step {k}: "
+              f"loss {float(gl)} against {float(wl)}")
+        for a, b in zip(float_leaves((gp, gm)), float_leaves((wp, wm)),
+                        strict=True):
+            check(bool(torch.isfinite(a).all()),
+                  f"train {label}, step {k}: non-finite")
+            e = rel_err(a.float().cpu(), b.float().cpu())
+            check(e <= F32_RTOL, f"train {label} vs {what}, step {k}: {e}")
+            worst = max(worst, e)
+    return worst
+
+
+def profiled_ms(fn, n: int):
+    """(device ms per call, port-kernel device ms per call) of ``fn`` over
+    ``n`` calls, by torch.profiler tracing the device alone: the sum of the
+    kernel times, which on one stream do not overlap.  One call first as
+    the schedule's warm-up, whose events are dropped (tracing starts late
+    on its first kernels).  The port's kernels are told by name, and their
+    count must equal the launch counters' rise."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from repro_torch.kernels import KERNELS
+
+    traced = []
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=n),
+                 on_trace_ready=lambda p: traced.append(p.key_averages())
+                 ) as prof:
+        for i in range(n + 1):
+            if i == 1:
+                n0 = sum(k.launches for k in KERNELS)
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    check(len(traced) == 1, f"torch.profiler gave {len(traced)} traces")
+    total = port = 0.0
+    port_calls = 0
+    names = []
+    for e in traced[0]:
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        total += us
+        names.append(e.key[:80])
+        if re.match(PORT_KERNEL_RE, e.key):
+            port += us
+            port_calls += e.count
+    check(total > 0, "torch.profiler saw no device time")
+    launched = sum(k.launches for k in KERNELS) - n0
+    check(port_calls == launched, f"the profiler saw {port_calls} port "
+          f"kernels, the launch counters {launched}; device events {names}")
+    return total / n / 1e3, port / n / 1e3
+
+
+def host_ms_per_step(fn) -> float:
+    best = float("inf")
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_TIMED_STEPS):
+            fn()
+        torch.cuda.synchronize()
+        best = min(best, (time.perf_counter() - t0) * 1e3 / TRAIN_TIMED_STEPS)
+    return best
+
+
+def time_conv_backward(params, cfg, dev) -> dict:
+    """Device ms of the five pruned convs' backward (``conv2d_sparse_bwd``)
+    at batch 256 with the repeatable scatter, and with an ``index_add_``
+    scatter in its place (atomics, an order that changes from run to run;
+    timed here only, the port never runs it), each twice in turns."""
+    from repro_torch.kernels.colwise_nm import ops as colwise_ops
+    from repro_torch.kernels.conv_gemm import ops as conv_ops
+    from repro_torch.kernels.im2col_pack import out_size
+
+    rng = np.random.default_rng(SEED + 21)
+    calls = []
+    for _name, layer, c, h, w, kh, kw, stride, pad in main_path_convs(params,
+                                                                     cfg):
+        ho, wo = out_size(h, kh, stride, pad), out_size(w, kw, stride, pad)
+        o = layer["values"].shape[0] * layer["values"].shape[2]
+        x = torch.from_numpy(rng.standard_normal((c, BATCH, h, w),
+                                                 dtype=np.float32)).to(dev)
+        dy = torch.from_numpy(rng.standard_normal((o, BATCH, ho, wo),
+                                                  dtype=np.float32)).to(dev)
+        calls.append((x, layer["values"], layer["idx"], dy,
+                      dict(kh=kh, kw=kw, stride=stride, pad=pad)))
+
+    def backward():
+        for x, values, idx, dy, geo in calls:
+            conv_ops.conv2d_sparse_bwd(x, values, idx, dy, **geo)
+
+    def index_add(n, index, src):
+        out = torch.zeros(n, dtype=torch.float32, device=src.device)
+        return out.index_add_(0, index.reshape(-1), src.reshape(-1).float())
+
+    repeatable = colwise_ops.scatter_add_f32
+    out = {"repeatable": [], "index_add_": []}
+    try:
+        for which in ("repeatable", "index_add_", "index_add_", "repeatable"):
+            conv_ops.scatter_add_f32 = (repeatable if which == "repeatable"
+                                        else index_add)
+            out[which].append(profiled_ms(backward, 5)[0])
+    finally:
+        conv_ops.scatter_add_f32 = repeatable
+    return {k: min(v) for k, v in out.items()}
+
+
+def run_training(params, cfg, dev, forward_counts) -> dict:
+    """Phase 10: ``TRAIN_STEPS`` SGD steps of pruned resnet-tiny at batch
+    256 under the default plan (an empty DB), the profiled plan (phase 4's
+    DB) and each conv family forced.  Each plan's launches over the steps
+    equal phase 4's over as many forwards (the backward launches none);
+    its losses, parameters and momentum hold against the same steps through
+    the plain versions on the CPU and against a dense masked train step on
+    the card (autograd through F.conv2d on the unpacked weights); a second
+    run gives the same bits.  Then the step's host and device time, idle
+    share and the forward kernels' share, beside the dense step's, and the
+    convs' backward with either scatter.  Returns each kernel's launches
+    over the plans' counted runs."""
+    from repro_torch import dispatch
+    from repro_torch.kernels import KERNELS, reset_launch_counts
+    from repro_torch.models.vision import batch_for_step, sgd_init, train_step
+
+    batches = [batch_for_step(cfg, SEED, k, BATCH, device=dev)
+               for k in range(TRAIN_STEPS)]
+    t0 = time.perf_counter()
+    cpu_params = tree_to(params, torch.device("cpu"))
+    dispatch.set_db(dispatch.ProfileDB(path=PROFILE_DB.with_suffix(
+        ".train_cpu.json")))
+    plain = [tuple(tree_to(t, dev) for t in step) for step in run_steps(
+        cpu_params, cfg, [(x.cpu(), y.cpu()) for x, y in batches])]
+    print(f"  the plain versions on the CPU: {TRAIN_STEPS} steps in "
+          f"{time.perf_counter() - t0:.1f} s; losses "
+          f"{[round(float(s[2]), 6) for s in plain]}", flush=True)
+    masked = masked_reference(params)
+    dense_steps = run_steps(masked, cfg, batches)
+    dense = [(packed_like(params, p), packed_like(params, m), loss)
+             for p, m, loss in dense_steps]
+    e = hold_steps(dense, plain, "dense masked", "the plain versions")
+    print(f"  the dense masked step on the card (F.conv2d, TF32 off) vs the "
+          f"plain versions: rel err <= {e:.3e}", flush=True)
+
+    empty = dispatch.ProfileDB(path=PROFILE_DB.with_suffix(".train.json"))
+    empty.path.unlink(missing_ok=True)
+    profiled = dispatch.ProfileDB(path=PROFILE_DB)
+    check(len(profiled) == 5, f"phase 4's profile holds {len(profiled)} tokens")
+    plans = [("default", None, empty), ("profiled", None, profiled)] + [
+        (family, family, empty) for family in FAMILY_KERNELS]
+    x0, y0 = batches[0]
+    train_launches = {k.name: 0 for k in KERNELS}
+    report_rows = {}
+    for label, family, db in plans:
+        dispatch.set_db(db)
+        with dispatch.force_scope(**({"conv": family} if family else {})):
+            train_step(params, sgd_init(params), cfg, x0, y0)  # warm
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            first = run_steps(params, cfg, batches)
+            torch.cuda.synchronize()
+            counts = {k.name: k.launches for k in KERNELS}
+            check(counts == forward_counts[label],
+                  f"train {label}: launches {counts}, phase 4's forwards "
+                  f"{forward_counts[label]}")
+            for k in KERNELS:
+                train_launches[k.name] += counts[k.name]
+            second = run_steps(params, cfg, batches)
+            same = all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(first), tree_leaves(second), strict=True))
+            check(same, f"train {label}: two runs of the same steps differ")
+            e_plain = hold_steps(first, plain, label, "the plain versions")
+            e_dense = hold_steps(first, dense, label, "dense autograd")
+            mom = sgd_init(params)
+
+            def step():
+                train_step(params, mom, cfg, x0, y0)
+
+            host = host_ms_per_step(step)
+            dev_ms, port_ms = profiled_ms(step, TRAIN_PROFILED_STEPS)
+        per_forward = {k: n // TRAIN_STEPS for k, n in counts.items() if n}
+        row = {"losses": [float(s[2]) for s in first],
+               "launches_per_forward": per_forward, "bitwise_repeat": same,
+               "max_rel_err_plain": e_plain, "max_rel_err_dense": e_dense,
+               "host_ms": host, "device_ms": dev_ms,
+               "idle_share": max(0.0, 1 - dev_ms / host),
+               "forward_kernels_ms": port_ms,
+               "forward_kernels_share": port_ms / dev_ms}
+        report_rows[label] = row
+        print(f"  plan {label}: launches per forward {per_forward}; losses "
+              f"{[round(v, 6) for v in row['losses']]}; rel err vs plain "
+              f"{e_plain:.3e}, vs dense {e_dense:.3e}; two runs bitwise "
+              f"equal; step {host:.4f} host ms, {dev_ms:.4f} device ms "
+              f"(torch.profiler), idle share {row['idle_share']:.3f}; the "
+              f"forward kernels {port_ms:.4f} ms (share "
+              f"{row['forward_kernels_share']:.3f})", flush=True)
+    check(not empty.path.exists(), "a train step wrote a profile")
+    dispatch.set_db(empty)
+    dmom = sgd_init(masked)
+
+    def dense_step():
+        train_step(masked, dmom, cfg, x0, y0)
+
+    host = host_ms_per_step(dense_step)
+    dev_ms, port_ms = profiled_ms(dense_step, TRAIN_PROFILED_STEPS)
+    check(port_ms == 0, "the dense step ran a port kernel")
+    report_rows["dense"] = {"host_ms": host, "device_ms": dev_ms,
+                            "idle_share": max(0.0, 1 - dev_ms / host)}
+    print(f"  dense masked step (the library yardstick: autograd through "
+          f"F.conv2d on the unpacked masked weights, TF32 off): {host:.4f} "
+          f"host ms, {dev_ms:.4f} device ms, idle share "
+          f"{report_rows['dense']['idle_share']:.3f}", flush=True)
+    bwd = time_conv_backward(params, cfg, dev)
+    report_rows["conv_backward_ms"] = bwd
+    print(f"  the five convs' backward at batch {BATCH}: "
+          f"{bwd['repeatable']:.4f} device ms with the repeatable scatter "
+          f"(index_put_, accumulate), {bwd['index_add_']:.4f} with "
+          f"index_add_ (timed only)", flush=True)
+    dispatch.set_db(None)
+    print("TRAIN " + json.dumps(report_rows), flush=True)
+    return train_launches
+
+
 def tree_leaves(tree):
     if isinstance(tree, dict):
-        for v in tree.values():
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        for v in tree:
             yield from tree_leaves(v)
     else:
         yield tree
@@ -2129,7 +2455,12 @@ def main() -> int:
           flush=True)
     score_counts = run_scoring(dev, lm_cfg, lm_params)
 
-    print("== 10. report", flush=True)
+    print(f"== 10. train: resnet-tiny, batch {BATCH}", flush=True)
+    t0 = time.perf_counter()
+    train_launches = run_training(params, cfg, dev, counts)
+    print(f"  phase 10 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    print("== 11. report", flush=True)
     launches = {
         "conv2d_fused": fused_route["conv2d_fused"],
         "conv2d_fused_tiled": counts["default"]["conv2d_fused_tiled"],
@@ -2246,6 +2577,7 @@ def main() -> int:
         kernels.append({
             "name": k.name, "route": "cuda", "source": k.source,
             "replaces": k.replaces, "launches": launches[k.name],
+            "train_launches": train_launches[k.name],
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": max(t["bound_by"], key=t["bound_by"].get),

@@ -133,3 +133,24 @@ def rowwise_nm_mask(w: torch.Tensor, sparsity: float,
                     m: Optional[int] = None) -> torch.Tensor:
     """Row-based N:M baseline: the column-wise scheme with tile 1."""
     return colwise_nm_mask(w, sparsity, m=m, tile=1)
+
+
+def mask_project_tree(params):
+    """Re-apply every masked layer's stored ``mask`` to its ``w``: the
+    per-step projection of masked finetuning (paper §4.1.2: the support
+    stays fixed while the kept weights train), run after each optimizer
+    update so momentum cannot bring pruned positions back.  Walks dicts,
+    lists and tuples; linear ([d_in, d_out]) and conv (OHWI) layers alike,
+    everything else passes through."""
+    from repro_torch.core.sparse_conv import apply_conv_mask
+
+    def walk(t):
+        if isinstance(t, dict):
+            # apply_conv_mask holds the one copy of the w * mask projection;
+            # it does not read the layout, so linear layers go through it too
+            return apply_conv_mask({k: walk(v) for k, v in t.items()})
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(v) for v in t)
+        return t
+
+    return walk(params)

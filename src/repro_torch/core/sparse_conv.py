@@ -88,6 +88,31 @@ def conv_apply(params, x_cnhw: torch.Tensor, *, kh: int, kw: int,
     return y
 
 
+def apply_conv_mask(params):
+    """Project a masked layer's ``w`` onto its stored ``mask``: the per-step
+    projection of masked finetuning (the optimizer moves every position,
+    the projection zeroes the pruned ones, so the support stays fixed).  A
+    layer without both passes through unchanged; so does the input dict."""
+    if "mask" not in params or "w" not in params:
+        return params
+    w = params["w"]
+    return {**params, "w": w * params["mask"].to(w.dtype)}
+
+
+def refresh_conv_mask(params, cfg: SparsityConfig):
+    """Recompute a masked conv layer's column-wise mask from its current
+    weights and apply it: the mask-refresh hook of masked finetuning, which
+    lets the kept (kh, kw, c) taps follow the finetuned weights.  A layer
+    without a mask passes through unchanged."""
+    if "mask" not in params or "w" not in params:
+        return params
+    w = params["w"]
+    o, kh, kw, c_in = w.shape
+    meta = formats.meta_for(kh * kw * c_in, o, cfg)
+    mask = conv_colwise_nm_mask(w, cfg.sparsity, m=cfg.m, tile=meta.tile)
+    return {**params, "w": (w * mask).to(w.dtype), "mask": mask}
+
+
 def compress_conv_layer(params, kh: int, kw: int, cfg: SparsityConfig):
     """Convert a dense or masked conv layer (OHWI ``w``) to the compressed
     format.  A stored ``mask`` pins the kept support exactly, so the packed

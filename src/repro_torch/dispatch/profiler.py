@@ -3,7 +3,8 @@
 
   * :class:`ProfileDB`: a versioned, environment-fingerprinted JSON store of
     profiling results.  A file written under another GPU, CUDA or torch
-    version, or another schema, is ignored on load.  Writes are atomic
+    version, another schema, or another digest of the kernels' sources and
+    flags, is ignored on load.  Writes are atomic
     (temp file + ``os.replace``), and an in-memory LRU bounds the entries.
   * :func:`profile_op`: times every feasible candidate the device may run
     for an :class:`OpKey` and records the winner, so one pass picks the
@@ -24,10 +25,10 @@ import torch
 
 from repro_torch._compat import resolve_device
 from repro_torch.dispatch.registry import REGISTRY, ImplSpec, OpKey
-from repro_torch.kernels._build import BUILD_ROOT
+from repro_torch.kernels import _build
 
 SCHEMA_VERSION = 1
-DEFAULT_DB_PATH = BUILD_ROOT / "dispatch_profile.json"
+DEFAULT_DB_PATH = _build.BUILD_ROOT / "dispatch_profile.json"
 TIMER_REPS = 3  # replays (CUDA) or calls (CPU) whose median is the time
 
 
@@ -37,7 +38,10 @@ class TuningError(RuntimeError):
 
 def env_fingerprint() -> Dict[str, str]:
     """Identity of the profiling environment: a profile holds only on the
-    card and software that produced it."""
+    card and software that produced it, and only for the kernels it timed
+    (``kernels``: the digest the library is built under, which changes with
+    any ``.cu``/``.cuh`` source or ``nvcc`` flag; read from the files, so it
+    needs no compiler)."""
     if torch.cuda.is_available():
         major, minor = torch.cuda.get_device_capability(0)
         device, capability = torch.cuda.get_device_name(0), f"{major}.{minor}"
@@ -45,7 +49,7 @@ def env_fingerprint() -> Dict[str, str]:
         device, capability = "cpu", ""
     return {"device": device, "capability": capability,
             "cuda": str(torch.version.cuda), "torch": torch.__version__,
-            "schema": SCHEMA_VERSION}
+            "schema": SCHEMA_VERSION, "kernels": _build._digest()}
 
 
 def device_time_us(fn: Callable[[], object], iters: int = 20,

@@ -179,8 +179,9 @@ def check_cuda_tensor(name: str, t: torch.Tensor, dtypes, ndim: int) -> None:
 
 # why a kernel refuses an autograd-recorded call (check_no_grad's ``why``)
 NO_VJP = "the reference kernel has no gradient"
-VJP_LATER = ("its JAX counterpart differentiates through a custom VJP; the "
-             "port's autograd twins come with ROADMAP queue 1 item 6b")
+VJP_LATER = ("its JAX counterpart differentiates through a custom VJP, whose "
+             "twins here are the differentiable entries conv2d_sparse/"
+             "conv_apply and colwise_nm_matmul/linear_apply")
 
 
 def check_no_grad(kernel: str, *tensors: torch.Tensor,

@@ -16,7 +16,10 @@ ladder (twin of ``repro/kernels/conv_gemm/ops.py``'s forward half).
 
 ``conv2d_sparse`` runs the plan that ``repro_torch.dispatch`` resolves for
 the conv's shape (profile DB, else the heuristic), or the one ``impl``
-names.  Forward only: the conv backward is a later slice of the port.
+names, and differentiates in ``x`` and ``values`` whatever plan ran: its
+backward is the JAX package's ``_conv_bwd`` in plain PyTorch, the im2col
+gather and the transposed-conv scatter through the kept taps, accumulated
+in float32.  The single-plan functions below stay forward only on the card.
 """
 from __future__ import annotations
 
@@ -30,6 +33,9 @@ from repro_torch.core.sparse_linear import forward_compressed_xla
 from repro_torch.kernels.colwise_nm.ops import (
     colwise_nm_matmul_strips,
     colwise_nm_matmul_strips_pipelined,
+    scatter_add_f32,
+    sparse_grad_dvalues,
+    sparse_grad_dxg,
 )
 from repro_torch.kernels.conv_gemm.kernel import (
     conv2d_fused_banded_cuda,
@@ -40,6 +46,7 @@ from repro_torch.kernels.conv_gemm.ref import (
     conv2d_fused_banded_ref,
     conv2d_fused_ref,
 )
+from repro_torch.kernels.im2col_pack.kernel import tap_coords
 from repro_torch.kernels.im2col_pack.ops import im2col_pack
 from repro_torch.kernels.im2col_pack.ref import out_size
 
@@ -147,14 +154,72 @@ def conv2d_xla_ref(x_cnhw: torch.Tensor, values: torch.Tensor,
     return y.T.reshape(o, b, ho, wo).contiguous()
 
 
+def conv2d_sparse_bwd(x_cnhw: torch.Tensor, values: torch.Tensor,
+                      idx: torch.Tensor, dy: torch.Tensor, *, kh: int, kw: int,
+                      stride: int, pad: int):
+    """``(dx, dvalues)`` of ``y[t*T+f, p] = sum_j values[t, j, f] *
+    X_im2col[idx[t, j], p]`` under the cotangent ``dy`` [O, B, Ho, Wo], the
+    twin of the JAX package's ``conv_gemm/ops.py::_conv_bwd``, without the
+    im2col matrix.  The forward kernels' :func:`tap_coords` arithmetic, in
+    int32 as in the JAX package (int64 for a map of 2^31 elements or more),
+    gives ``fidx`` [P, n_tiles, k_kept], where output position p reads kept
+    row ``idx[t, j]`` in the flat CNHW map; the kept rows are gathered there
+    for ``dvalues`` (an einsum in float32, cast to the values' dtype), and
+    ``dx`` is the transposed conv's scatter-add through the kept taps in
+    float32 (output positions whose receptive fields overlap, and tiles that
+    share a kept row, collide there), cast to the map's dtype."""
+    c, b, h, w = x_cnhw.shape
+    o, _, ho, wo = dy.shape
+    n_pos = b * ho * wo
+    n_tiles, _, tile = values.shape
+    itype = torch.int32 if x_cnhw.numel() < 2 ** 31 else torch.int64
+    idx = idx.to(itype)
+    k_of = idx // c  # [n_tiles, k_kept] kernel tap ikh*kw + ikw
+    c_of = idx % c   # [n_tiles, k_kept] input channel
+    p = torch.arange(n_pos, dtype=itype, device=idx.device)[:, None, None]
+    valid, bc, ihc, iwc = tap_coords(
+        p, ikh=(k_of // kw)[None], ikw=(k_of % kw)[None], stride=stride,
+        pad=pad, b=b, h=h, w=w, ho=ho, wo=wo)
+    fidx = ((c_of[None] * b + bc) * h + ihc) * w + iwc  # [P, t, k]
+    dy_t = dy.reshape(o, n_pos).T.reshape(n_pos, n_tiles, tile)  # [P, t, f]
+
+    xg = torch.where(valid, x_cnhw.reshape(-1)[fidx], 0)  # [P, t, k]
+    dvalues = sparse_grad_dvalues(xg, dy_t, values.dtype)
+    dxg = sparse_grad_dxg(dy_t, values)  # [P, t, k] f32
+    dx = scatter_add_f32(c * b * h * w, fidx, torch.where(valid, dxg, 0))
+    return dx.reshape(c, b, h, w).to(x_cnhw.dtype), dvalues
+
+
+class _ConvSparse(torch.autograd.Function):
+    """``run(x, values, idx)``, the dispatched forward, with the backward of
+    :func:`conv2d_sparse_bwd`.  Autograd is off inside ``forward``, so the
+    kernel wrappers' no-grad check passes and the card runs the same kernels
+    as an inference forward."""
+
+    @staticmethod
+    def forward(ctx, x_cnhw, values, idx, run, geom):
+        ctx.geom = geom
+        ctx.save_for_backward(x_cnhw, values, idx)
+        return run(x_cnhw, values, idx)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x_cnhw, values, idx = ctx.saved_tensors
+        dx, dvalues = conv2d_sparse_bwd(x_cnhw, values, idx, dy.contiguous(),
+                                        **ctx.geom)
+        return dx, dvalues, None, None, None
+
+
 def conv2d_sparse(x_cnhw: torch.Tensor, values: torch.Tensor,
                   idx: torch.Tensor, *, kh: int, kw: int, stride: int = 1,
                   pad: int = 0, v: int = 128,
                   impl: Optional[str] = None) -> torch.Tensor:
-    """Sparse conv forward under the plan ``repro_torch.dispatch`` resolves
-    for this shape and device, or under the candidate ``impl`` names (the
-    JAX registry's names, geometry suffixes included).  A candidate that
-    cannot run raises.  Returns CNHW [O, B, Ho, Wo]."""
+    """Differentiable sparse conv under the plan ``repro_torch.dispatch``
+    resolves for this shape and device, or under the candidate ``impl``
+    names (the JAX registry's names, geometry suffixes included).  A
+    candidate that cannot run raises.  The backward
+    (:func:`conv2d_sparse_bwd`) is the same for every plan; ``idx`` gets no
+    gradient.  Returns CNHW [O, B, Ho, Wo]."""
     from repro_torch import dispatch
 
     phase = dispatch.current_phase()
@@ -171,5 +236,28 @@ def conv2d_sparse(x_cnhw: torch.Tensor, values: torch.Tensor,
     spec = dispatch.site_impl(site, make_key, param_keys=("values", "idx"),
                               force=dispatch.forced_impl("conv", impl),
                               device=x_cnhw.device)
-    return spec.apply({"values": values, "idx": idx}, x_cnhw, kh=kh, kw=kw,
-                      stride=stride, pad=pad, v=v)
+
+    def run(x, values, idx):
+        return spec.apply({"values": values, "idx": idx}, x, kh=kh, kw=kw,
+                          stride=stride, pad=pad, v=v)
+
+    return _ConvSparse.apply(x_cnhw, values, idx, run,
+                             dict(kh=kh, kw=kw, stride=stride, pad=pad))
+
+
+def conv2d_colwise_sparse(x_cnhw: torch.Tensor, values: torch.Tensor,
+                          idx: torch.Tensor, kh: int, kw: int, stride: int = 1,
+                          pad: int = 0, v: int = 128,
+                          use_pallas: Optional[bool] = None) -> torch.Tensor:
+    """Sparse conv with a selected plan, the twin of the JAX package's
+    entry: ``use_pallas=None`` the dispatched, differentiable
+    :func:`conv2d_sparse`; ``True`` the two-kernel plan; ``False`` the
+    reference plan.  Returns CNHW [O, B, Ho, Wo]."""
+    if use_pallas is None:
+        return conv2d_sparse(x_cnhw, values, idx, kh=kh, kw=kw, stride=stride,
+                             pad=pad, v=v)
+    if use_pallas:
+        return conv2d_two_kernel(x_cnhw, values, idx, kh=kh, kw=kw,
+                                 stride=stride, pad=pad, v=v)
+    return conv2d_xla_ref(x_cnhw, values, idx, kh=kh, kw=kw, stride=stride,
+                          pad=pad, v=v)

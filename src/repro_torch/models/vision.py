@@ -1,11 +1,12 @@
-"""ResNet-style vision model on ``conv_init``/``conv_apply`` (twin of
-``repro/models/vision.py``'s inference half).
+"""ResNet-style vision model on ``conv_init``/``conv_apply``, and its sparse
+finetune (twin of ``repro/models/vision.py``).
 
 CNHW layout throughout; norm layers are omitted, as in the JAX package.
 Params are a plain dict tree ``{"stem", "blocks": [...], "head"}``.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -13,6 +14,7 @@ import torch
 
 from repro_torch._compat import resolve_device
 from repro_torch.configs.base import VisionConfig
+from repro_torch.core.pruning import mask_project_tree
 from repro_torch.core.sparse_conv import conv_apply, conv_init
 from repro_torch.core.sparse_linear import linear_apply, linear_init
 from repro_torch.kernels.im2col_pack.ref import out_size
@@ -97,10 +99,11 @@ def vision_apply(params, cfg: VisionConfig, x_cnhw: torch.Tensor, *,
     return linear_apply(params["head"], feats)
 
 
-def synth_batch(cfg: VisionConfig, seed: int, batch: int, device=None):
-    """Synthetic classification batch drawn with numpy from ``seed``:
-    per-class Gaussian mean images (fixed by seed 0) plus noise.  Returns
-    (CNHW images [C, B, H, W] in ``cfg.dtype``, int64 labels [B])."""
+def synth_batch(cfg: VisionConfig, seed, batch: int, device=None):
+    """Synthetic classification batch drawn with numpy from ``seed`` (an int
+    or a sequence of ints, as ``np.random.default_rng`` takes): per-class
+    Gaussian mean images (fixed by seed 0) plus noise.  Returns (CNHW images
+    [C, B, H, W] in ``cfg.dtype``, int64 labels [B])."""
     dev = resolve_device(device)
     h, w = cfg.image_hw
     means = np.random.default_rng(0).standard_normal(
@@ -112,6 +115,132 @@ def synth_batch(cfg: VisionConfig, seed: int, batch: int, device=None):
                                               dtype=np.float32))
     return (x.to(device=dev, dtype=getattr(torch, cfg.dtype)),
             torch.from_numpy(labels).to(dev))
+
+
+def batch_for_step(cfg: VisionConfig, seed: int, step: int, batch: int,
+                   device=None):
+    """The finetune batch of global step ``step``, a pure function of
+    ``(seed, step)``: :func:`synth_batch` from a numpy generator seeded by
+    both, so a resumed run replays the same batches.  (The JAX package folds
+    the step into a ``jax.random`` key, which numpy cannot reproduce: the
+    batches are the same function of the step, not the same images.)"""
+    return synth_batch(cfg, (seed, step), batch, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Sparse finetuning: cross-entropy loss and an SGD/momentum train step.
+# ``conv_apply`` differentiates for compressed layers (``conv2d_sparse``'s
+# backward, whichever plan ran the forward) and masked ones (the library
+# conv on w * mask); ``mask_project_tree`` re-projects after each update.
+# ---------------------------------------------------------------------------
+
+
+def vision_loss(params, cfg: VisionConfig, x_cnhw: torch.Tensor,
+                labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy of ``vision_apply``'s logits against int labels,
+    the log-softmax taken in float32."""
+    logits = vision_apply(params, cfg, x_cnhw)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(-1, labels.long()[:, None]).mean()
+
+
+def _tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` (and the same leaves of ``rest``),
+    keeping its dicts, lists and tuples."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, *leaves)
+                          for leaves in zip(tree, *rest, strict=True))
+    return fn(tree, *rest)
+
+
+def sgd_init(params):
+    """Zero momentum, one buffer per leaf.  The integer and bool leaves
+    (``idx``, ``conv_geom``, ``mask``) get one too, so the momentum tree has
+    the params' structure; they are never updated."""
+    return _tree_map(torch.zeros_like, params)
+
+
+@contextlib.contextmanager
+def _deterministic_cudnn():
+    """cuDNN's deterministic algorithms in this scope, the setting as it was
+    after it.  Without them the dense convs' backward (the stem and the
+    unpruned projection) may add in an order that changes from run to run
+    on the card; the sparse layers' backward is repeatable by itself."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def train_step(params, mom, cfg: VisionConfig, x_cnhw: torch.Tensor,
+               labels: torch.Tensor, *, lr: float = 0.05,
+               momentum: float = 0.9):
+    """One SGD/momentum step of sparse vision finetuning; returns
+    ``(params, mom, loss)`` and leaves the input trees as they were.
+
+    The gradients of ``vision_loss`` are taken over the floating-point
+    leaves only (compressed convs into their packed ``values``, masked
+    layers into ``w``); ``idx``, ``conv_geom`` and ``mask`` pass through.
+    Then ``m = momentum * m + g``, ``p = p - lr * m`` and the mask
+    projection, as in the JAX package.  The same step on the same inputs
+    gives the same bits: both sparse backwards scatter in a fixed order,
+    and the loss and its gradients are taken with cuDNN's deterministic
+    algorithms."""
+    leaves = []
+
+    def live(p):
+        if not p.is_floating_point():
+            return p
+        p = p.detach().requires_grad_()
+        leaves.append(p)
+        return p
+
+    with _deterministic_cudnn():
+        loss = vision_loss(_tree_map(live, params), cfg, x_cnhw, labels)
+        found = iter(torch.autograd.grad(loss, leaves, allow_unused=True))
+
+    def grad_of(p):
+        if not p.is_floating_point():
+            return None
+        g = next(found)
+        return torch.zeros_like(p) if g is None else g
+
+    grads = _tree_map(grad_of, params)
+    with torch.no_grad():
+        mom = _tree_map(lambda m, g: m if g is None
+                        else momentum * m + g.to(m.dtype), mom, grads)
+        params = _tree_map(lambda p, m: p - lr * m.to(p.dtype)
+                           if p.is_floating_point() else p, params, mom)
+    return mask_project_tree(params), mom, loss.detach()
+
+
+def train_smoke(steps: int = 2, batch: int = 4, lr: float = 0.05,
+                arch: str = "resnet-tiny", verbose: bool = True, device=None):
+    """An N-step sparse finetune of resnet-tiny (compressed convs) on one
+    fixed batch, on ``device`` (``None``: the CUDA card): the check that
+    the conv backward stays alive end to end.  Raises unless the loss falls
+    over the run; returns the losses."""
+    from repro_torch.configs import get_vision_config
+
+    cfg = get_vision_config(arch)
+    params = vision_init(cfg, 0, device=device)
+    x, labels = synth_batch(cfg, 1, batch, device=device)
+    mom = sgd_init(params)
+    losses = []
+    for _ in range(max(steps, 2)):
+        params, mom, loss = train_step(params, mom, cfg, x, labels, lr=lr)
+        losses.append(float(loss))
+        if verbose:
+            print(f"train_smoke step {len(losses)}: loss={losses[-1]:.4f}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(
+            f"sparse finetune smoke did not reduce the loss: {losses}")
+    return losses
 
 
 def vision_accuracy(params, cfg: VisionConfig, x_cnhw: torch.Tensor,

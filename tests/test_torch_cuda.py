@@ -28,7 +28,11 @@ through ``attn_apply`` and the smoke model's forward; the tiled kernel gives
 the other's bits (``torch.equal``) under every instance over the sweep and
 the GQA cases, keys past Sk stay out even where NaN follows them in memory,
 and the wrapper routes by the shape rule (a misaligned view and heads that
-are not whole 16-byte rows go to ``flash_attention.cu``).  The tiled
+are not whole 16-byte rows go to ``flash_attention.cu``).  A resnet-tiny
+train step under each conv family launches the family's kernels in its
+forward and agrees with the same step on the CPU, two runs of the same
+steps give the same bits, the sparse linear's backward agrees with the CPU
+through both linear entries, and the raw wrappers still refuse autograd.  The tiled
 fused conv gives the bits of ``conv2d_fused.cu`` under every instance over
 the CPU tests' cases and resnet-tiny's convs, with a tile whose ``idx`` is
 not ascending and with a bad index, and ``conv2d_fused_cuda`` routes by its
@@ -1821,3 +1825,160 @@ def test_flash_tiled_rejects_what_the_kernel_does_not_take(dev):
         flash_attention_tiled_cuda(q.requires_grad_(), k, v)
     assert FLASH_ATTENTION_TILED.launches == 0
     assert set(FLASH_TILED_SHAPES) == {(64, 4), (64, 8), (128, 4), (128, 8)}
+
+
+# ---------------------------------------------------------------------------
+# Training: the autograd twins of the sparse conv and linear on the card
+# ---------------------------------------------------------------------------
+
+# the conv families a train step runs under force_scope, and the kernel
+# roles each launches once per pruned conv: {role: (old kernel, tiled)}
+TRAIN_FAMILIES = {
+    "fused_sparse_pallas": {"conv": ("conv2d_fused", "conv2d_fused_tiled")},
+    "fused_banded_pallas": {"conv": ("conv2d_fused_banded",
+                                     "conv2d_fused_banded_tiled")},
+    "two_kernel_pipelined": {
+        "pack": ("im2col_pack", "im2col_pack_tiled"),
+        "gemm": ("colwise_nm_matmul_strips_pipelined",
+                 "colwise_nm_matmul_strips_pipelined_tiled")},
+    "im2col_sparse_pallas": {
+        "pack": ("im2col_pack", "im2col_pack_tiled"),
+        "gemm": ("colwise_nm_matmul_strips", "colwise_nm_matmul_strips_tiled")},
+    "im2col_sparse_xla": {"pack": ("im2col_pack", "im2col_pack_tiled")},
+}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return [leaf for t in tree for leaf in _leaves(t)]
+    return [tree]
+
+
+def _train_problem(batch, seed=0):
+    from repro_torch.configs import get_vision_config
+    from repro_torch.models.vision import sgd_init, synth_batch, vision_init
+
+    cfg = get_vision_config("resnet-tiny")
+    params = vision_init(cfg, seed, device="cpu")
+    x, labels = synth_batch(cfg, seed + 1, batch, device="cpu")
+    return cfg, params, sgd_init(params), x, labels
+
+
+@pytest.mark.parametrize("family", list(TRAIN_FAMILIES))
+def test_train_step_runs_the_family_kernels_forward(dev, tmp_path, family):
+    """One resnet-tiny SGD step with the conv family forced: the forward
+    launches the family's kernels once per pruned conv and nothing else,
+    every trainable leaf gets a finite, non-zero gradient (the first step's
+    momentum), and the step agrees with the same step on the CPU."""
+    from repro_torch.models.vision import train_step
+
+    dispatch.set_db(dispatch.ProfileDB(path=tmp_path / "profile.json"))
+    try:
+        cfg, params, mom, x, labels = _train_problem(8)
+        want = train_step(params, mom, cfg, x, labels)
+        with dispatch.force_scope(conv=family):
+            reset_launch_counts()
+            got = train_step(_to(params, dev), _to(mom, dev), cfg, x.to(dev),
+                             labels.to(dev))
+            torch.cuda.synchronize()
+        counts = {k.name: k.launches for k in KERNELS if k.launches}
+        roles = TRAIN_FAMILIES[family]
+        for names in roles.values():
+            assert sum(counts.get(n, 0) for n in names) == 5, counts
+        assert sum(counts.values()) == 5 * len(roles), counts
+        assert abs(float(got[2]) - float(want[2])) <= 1e-5 * float(want[2])
+        for g_dev, g_cpu in zip(_leaves(got[1]), _leaves(want[1]),
+                                strict=True):
+            if not g_cpu.is_floating_point():
+                assert torch.equal(g_dev.cpu(), g_cpu)
+                continue
+            assert bool(torch.isfinite(g_dev).all())
+            assert float(g_dev.abs().max()) > 0
+            _close(g_dev.cpu(), g_cpu, torch.float32)
+        for p_dev, p_cpu in zip(_leaves(got[0]), _leaves(want[0]), strict=True):
+            _close(p_dev.cpu().float(), p_cpu.float(), torch.float32)
+    finally:
+        dispatch.set_db(None)
+
+
+def test_train_step_is_repeatable_bit_for_bit(dev, tmp_path):
+    """Two runs of the same steps give the same bits: the scatters of both
+    backwards add in a fixed order on the card."""
+    from repro_torch.models.vision import train_step
+
+    dispatch.set_db(dispatch.ProfileDB(path=tmp_path / "profile.json"))
+    try:
+        cfg, params, mom, x, labels = _train_problem(64)
+        runs = []
+        for _ in range(2):
+            p, m = _to(params, dev), _to(mom, dev)
+            losses = []
+            for _step in range(2):
+                p, m, loss = train_step(p, m, cfg, x.to(dev), labels.to(dev))
+                losses.append(loss)
+            runs.append((_leaves((p, m)), losses))
+        for a, b in zip(*(r[0] + r[1] for r in runs), strict=True):
+            assert torch.equal(a, b)
+    finally:
+        dispatch.set_db(None)
+
+
+@pytest.mark.parametrize("entry", ["colwise_nm_matmul",
+                                   "colwise_nm_matmul_tiled"])
+def test_linear_twin_on_card_matches_cpu(dev, entry):
+    """The sparse linear's backward on the card (the kernel forward) against
+    the same call on the CPU (the plain forward), tiles that share kept
+    rows included; the kernel launches once, for the forward."""
+    from repro_torch.kernels.colwise_nm import ops
+
+    fn = getattr(ops, entry)
+    x = _x(2, 3, 5, 128, torch.float32, "cpu").reshape(2, 3, 5, 128)
+    values, idx = _compressed(2, 128, 64, 64, torch.float32, "cpu")
+    cot = _x(2, 3, 5, 128, torch.float32, "cpu", seed=3)
+    grads = []
+    for d in ("cpu", dev):
+        xt = x.to(d).requires_grad_()
+        vt = values.to(d).requires_grad_()
+        reset_launch_counts()
+        y = fn(xt, vt, idx.to(d))
+        grads.append(torch.autograd.grad((y * cot.to(d)).sum(), (xt, vt)))
+    assert sum(k.launches for k in KERNELS) == 1
+    for g_dev, g_cpu in zip(grads[1], grads[0]):
+        _close(g_dev.cpu(), g_cpu, torch.float32)
+
+
+def test_conv_backward_is_repeatable_at_the_main_path_shape(dev):
+    """resnet-tiny's widest pruned conv at batch 256 (fidx [65536, 2, 72]):
+    the same backward twice gives the same bits."""
+    from repro_torch.kernels.conv_gemm import conv2d_sparse_bwd
+
+    x = _x(16, 256, 16, 16, torch.float32, dev)
+    values, idx = _compressed(2, 144, 72, 8, torch.float32, dev)
+    dy = _x(16, 256, 16, 16, torch.float32, dev, seed=5)
+    kw = dict(kh=3, kw=3, stride=1, pad=1)
+    a = conv2d_sparse_bwd(x, values, idx, dy, **kw)
+    b = conv2d_sparse_bwd(x, values, idx, dy, **kw)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert bool(torch.isfinite(a[0]).all()) and bool(torch.isfinite(a[1]).all())
+
+
+def test_raw_kernel_calls_still_raise_under_autograd(dev):
+    """conv2d_sparse differentiates on the card, while a raw kernel wrapper
+    and a single-plan function called on the same tensors under autograd
+    still refuse."""
+    from repro_torch.kernels.conv_gemm import conv2d_fused, conv2d_sparse
+
+    x = _x(8, 2, 8, 8, torch.float32, dev).requires_grad_()
+    values, idx = _compressed(2, 72, 36, 8, torch.float32, dev)
+    values.requires_grad_()
+    y = conv2d_sparse(x, values, idx, kh=3, kw=3, pad=1)
+    dx, dv = torch.autograd.grad(y.sum(), (x, values))
+    assert bool(torch.isfinite(dx).all()) and bool(torch.isfinite(dv).all())
+    for call in (lambda: conv2d_fused_cuda(x, values, idx, kh=3, kw=3, pad=1),
+                 lambda: conv2d_fused(x, values, idx, kh=3, kw=3, pad=1),
+                 lambda: colwise_nm_matmul_cuda(
+                     torch.ones(4, 72, device=dev), values, idx)):
+        with pytest.raises(RuntimeError, match="forward only"):
+            call()

@@ -510,7 +510,7 @@ class TestProfileDB:
 
     @pytest.mark.parametrize("field,value", [
         ("version", SCHEMA_VERSION - 1), ("device", "not-a-real-card"),
-        ("torch", "0.0")])
+        ("torch", "0.0"), ("kernels", "0" * 16)])
     def test_mismatch_invalidates(self, tmp_path, field, value):
         p = tmp_path / "db.json"
         ProfileDB(path=p).put("k1", {"impl": "x"})
