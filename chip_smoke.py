@@ -96,9 +96,22 @@ Phases:
               bit; host and device ms a step (torch.profiler), idle share,
               the forward kernels' share, beside the dense step; the convs'
               backward with the repeatable scatter and with index_add_
- 11. report : one ``{"kernels": [...]}`` line (launches in the main runs and
-              ``train_launches`` in phase 10), then the ``{"ok": true,
-              ...}`` line last
+ 11. tier   : the training tier: (a) resnet-tiny's ``SparseTrainer`` at
+              batch 256 under the default plan, 6 steps with a checkpoint
+              a step (step 1's loss bit-equal to phase 10's, 5 tiled-fused
+              launches a step); (b) the same run in child processes,
+              killed by SIGKILL after step 3's checkpoint and restarted,
+              then ended by SIGTERM and restarted: both end bit-equal to
+              (a), with no tmp.* left and every kept directory deep-valid;
+              (c) the LM ``Trainer`` on pruned smollm-360m at its published
+              widths, 4 AdamW steps on 4 x 256 uniform tokens under naive
+              attention (224 tiled-linear launches a step; step 1 against
+              a replay through the plain versions), its 2.5 GB checkpoint
+              restored bit for bit by a fresh trainer; host and device ms
+              a step and idle share of both trainers
+ 12. report : one ``{"kernels": [...]}`` line (launches in the main runs and
+              ``train_launches`` in phases 10 and 11), then the ``{"ok":
+              true, ...}`` line last
 
 Run from the repository root:  python3 chip_smoke.py
 Any failed check raises, so the script exits non-zero and prints no ok line.
@@ -106,8 +119,12 @@ Any failed check raises, so the script exits non-zero and prints no ok line.
 from __future__ import annotations
 
 import json
+import os
+import shutil
+import signal
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -2135,13 +2152,35 @@ def hold_steps(got, want, label, what) -> float:
     return worst
 
 
+PROFILE_TRACES = 3  # traces profiled_ms takes at most to see every launch
+
+
 def profiled_ms(fn, n: int):
     """(device ms per call, port-kernel device ms per call) of ``fn`` over
     ``n`` calls, by torch.profiler tracing the device alone: the sum of the
     kernel times, which on one stream do not overlap.  One call first as
     the schedule's warm-up, whose events are dropped (tracing starts late
     on its first kernels).  The port's kernels are told by name, and their
-    count must equal the launch counters' rise."""
+    count must equal the launch counters' rise: a trace that lost a call's
+    kernels (seen on the card, one step of five) is taken again, up to
+    ``PROFILE_TRACES`` traces, and only a complete one is used."""
+    for attempt in range(PROFILE_TRACES):
+        total, port, port_calls, launched, names = _trace(fn, n)
+        check(total > 0, "torch.profiler saw no device time")
+        if port_calls == launched:
+            return total / n / 1e3, port / n / 1e3
+        print(f"  torch.profiler trace {attempt + 1} saw {port_calls} port "
+              f"kernels, the launch counters {launched}: traced again",
+              flush=True)
+    check(False, f"the profiler saw {port_calls} port kernels, the launch "
+          f"counters {launched} in {PROFILE_TRACES} traces; device events "
+          f"{names}")
+
+
+def _trace(fn, n: int):
+    """One torch.profiler trace of ``n`` calls after a warm-up call:
+    (device us, port-kernel device us, port kernels seen, launch counters'
+    rise, device event names)."""
     import re
 
     from torch.autograd import DeviceType
@@ -2174,22 +2213,19 @@ def profiled_ms(fn, n: int):
         if re.match(PORT_KERNEL_RE, e.key):
             port += us
             port_calls += e.count
-    check(total > 0, "torch.profiler saw no device time")
     launched = sum(k.launches for k in KERNELS) - n0
-    check(port_calls == launched, f"the profiler saw {port_calls} port "
-          f"kernels, the launch counters {launched}; device events {names}")
-    return total / n / 1e3, port / n / 1e3
+    return total, port, port_calls, launched, names
 
 
-def host_ms_per_step(fn) -> float:
+def host_ms_per_step(fn, n: int = TRAIN_TIMED_STEPS) -> float:
     best = float("inf")
     for _ in range(2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(TRAIN_TIMED_STEPS):
+        for _ in range(n):
             fn()
         torch.cuda.synchronize()
-        best = min(best, (time.perf_counter() - t0) * 1e3 / TRAIN_TIMED_STEPS)
+        best = min(best, (time.perf_counter() - t0) * 1e3 / n)
     return best
 
 
@@ -2246,7 +2282,7 @@ def run_training(params, cfg, dev, forward_counts) -> dict:
     run gives the same bits.  Then the step's host and device time, idle
     share and the forward kernels' share, beside the dense step's, and the
     convs' backward with either scatter.  Returns each kernel's launches
-    over the plans' counted runs."""
+    over the plans' counted runs, and the default plan's first loss."""
     from repro_torch import dispatch
     from repro_torch.kernels import KERNELS, reset_launch_counts
     from repro_torch.models.vision import batch_for_step, sgd_init, train_step
@@ -2346,7 +2382,318 @@ def run_training(params, cfg, dev, forward_counts) -> dict:
           f"index_add_ (timed only)", flush=True)
     dispatch.set_db(None)
     print("TRAIN " + json.dumps(report_rows), flush=True)
-    return train_launches
+    return train_launches, report_rows["default"]["losses"][0]
+
+# phase 11: the training tier.  (a)/(b): resnet-tiny's SparseTrainer as
+# phase 10's default plan runs it, TIER_STEPS steps with a checkpoint a step
+TIER_STEPS = 6
+TIER_KEEP = 3
+# the children's pause before each step, so a signal sent after a step's
+# checkpoint lands while the run goes on (a step takes about 15 ms)
+TIER_PACE_S = 0.3
+TIER_CHILD_TIMEOUT_S = 300
+# (c): the LM Trainer on pruned smollm-360m at its published widths
+TIER_LM_STEPS = 4
+TIER_LM_BATCH, TIER_LM_SEQ = 4, 256
+TIER_LM_LR = 3e-4
+TIER_LM_RTOL = 1e-4  # of the plain replay's step-1 loss and grad norm
+TIER_LM_TIMED_STEPS = 5  # host clock, best of 2 windows; profiler window
+
+# a SparseTrainer in a child process, as a user's restarted job runs it:
+# argv = config JSON, profile DB path, pause before each step (s)
+TIER_CHILD = """
+import json, sys, time
+import torch
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+from repro_torch import dispatch
+from repro_torch.train import SparseTrainConfig, SparseTrainer
+
+dispatch.set_db(dispatch.ProfileDB(path=sys.argv[2]))
+pace = float(sys.argv[3])
+
+
+class Paced(SparseTrainer):
+    def batch_at(self, step):
+        time.sleep(pace)
+        return super().batch_at(step)
+
+
+out = Paced(SparseTrainConfig(**json.loads(sys.argv[1]))).run()
+print("RESULT " + json.dumps({k: out[k] for k in
+                              ("start_step", "final_step", "preempted")}))
+"""
+
+
+def tier_sparse_cfg(ckpt_dir):
+    from repro_torch.train import SparseTrainConfig
+
+    return SparseTrainConfig(steps=TIER_STEPS, batch=BATCH, lr=0.05,
+                             momentum=0.9, data_seed=SEED, init_seed=SEED,
+                             ckpt_dir=str(ckpt_dir) if ckpt_dir else None,
+                             ckpt_every=1 if ckpt_dir else 0, keep=TIER_KEEP)
+
+
+def tier_child(ckpt_dir, db, pace, stop_after=None, sig=None) -> dict:
+    """Run a SparseTrainer child to the budget; with ``stop_after`` (a
+    step), send it ``sig`` once that step's checkpoint is committed.
+    Returns {"rc", "result", "stopped_at"}: the exit code, the run's RESULT
+    line (None when killed) and the newest committed step when the signal
+    went out."""
+    import dataclasses
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    cfg = json.dumps(dataclasses.asdict(tier_sparse_cfg(ckpt_dir)))
+    proc = subprocess.Popen([sys.executable, "-c", TIER_CHILD, cfg, str(db),
+                             str(pace)], env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    stopped_at = None
+    try:
+        if stop_after is not None:
+            marker = Path(ckpt_dir) / f"step_{stop_after:08d}" / "manifest.json"
+            t0 = time.perf_counter()
+            while not marker.exists():
+                if proc.poll() is not None:
+                    check(False, f"the child ended before step {stop_after}'s "
+                          f"checkpoint: {proc.stderr.read()[-2000:]}")
+                check(time.perf_counter() - t0 < TIER_CHILD_TIMEOUT_S,
+                      f"no step {stop_after} checkpoint in time")
+                time.sleep(0.005)
+            proc.send_signal(sig)
+            stopped_at = max(int(d.name[5:]) for d in
+                             Path(ckpt_dir).glob("step_*"))
+        out, err = proc.communicate(timeout=TIER_CHILD_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    result = None
+    for line in out.splitlines():
+        if line.startswith("RESULT "):
+            result = json.loads(line[len("RESULT "):])
+    if sig != signal.SIGKILL:
+        check(proc.returncode == 0 and result is not None,
+              f"the child failed (rc {proc.returncode}): {err[-3000:]}")
+    return {"rc": proc.returncode, "result": result, "stopped_at": stopped_at}
+
+
+def same_bits(a, b) -> bool:
+    """The two trees hold the same leaves, float leaves compared as bits."""
+    def of(t):
+        return bits_of(t) if t.is_floating_point() else t
+
+    la, lb = list(tree_leaves(a)), list(tree_leaves(b))
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape
+        and torch.equal(of(x), of(y)) for x, y in zip(la, lb))
+
+
+def check_ckpt_dir(mgr, label) -> list:
+    """No tmp.* left, at most TIER_KEEP valid step directories, each deep
+    valid; returns the valid steps."""
+    check(not list(mgr.dir.glob("tmp.*")), f"{label}: a tmp.* directory "
+          f"was left: {sorted(p.name for p in mgr.dir.iterdir())}")
+    steps = mgr.valid_steps()
+    check(len(steps) <= TIER_KEEP, f"{label}: {len(steps)} valid "
+          f"checkpoints, keep is {TIER_KEEP}")
+    for s in steps:
+        reason = mgr.validate(mgr.dir / f"step_{s:08d}", deep=True)
+        check(reason is None, f"{label}: step {s} fails deep validation: "
+              f"{reason}")
+    return steps
+
+
+def tier_sparse(dev, first_loss, work) -> dict:
+    """(a) and (b): the SparseTrainer in this process, then killed and
+    preempted in child processes.  Returns the report row."""
+    from repro_torch import dispatch
+    from repro_torch.kernels import KERNELS, reset_launch_counts
+    from repro_torch.train import CheckpointManager, SparseTrainer
+
+    db = work / "empty_profile.json"
+    dispatch.set_db(dispatch.ProfileDB(path=db))
+    reset_launch_counts()
+    tr = SparseTrainer(tier_sparse_cfg(work / "a"), device=dev)
+    t0 = time.perf_counter()
+    out = tr.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = {k.name: k.launches for k in KERNELS if k.launches}
+    want = {"conv2d_fused_tiled": 5 * TIER_STEPS}
+    check(counts == want, f"SparseTrainer launches {counts}, want {want}")
+    losses = [h["loss"] for h in out["history"]]
+    check(all(np.isfinite(losses)), f"SparseTrainer losses {losses}")
+    check(losses[0] == first_loss, f"SparseTrainer step 1 loss {losses[0]!r} "
+          f"is not phase 10's {first_loss!r}")
+    check(out["final_step"] == TIER_STEPS, f"SparseTrainer {out}")
+    steps_a = check_ckpt_dir(tr.ckpt, "(a)")
+    print(f"  (a) {TIER_STEPS} steps in {run_s:.3f} s ({run_s * 1e3 / TIER_STEPS:.3f}"
+          f" host ms a step of run(), a checkpoint a step included); "
+          f"launches {counts}; losses {losses}; step 1 bit-equal to phase "
+          f"10's; valid checkpoints {steps_a}", flush=True)
+
+    lone = SparseTrainer(tier_sparse_cfg(None), device=dev)
+
+    def step():
+        lone.run(steps=1)
+
+    host = host_ms_per_step(step)
+    dev_ms, port_ms = profiled_ms(step, TRAIN_PROFILED_STEPS)
+    print(f"  (a) a step of run() without checkpoints: {host:.4f} host ms, "
+          f"{dev_ms:.4f} device ms (torch.profiler), idle share "
+          f"{max(0.0, 1 - dev_ms / host):.3f}; the forward kernels "
+          f"{port_ms:.4f} ms", flush=True)
+
+    protos = {"params": tr.params, "mom": tr.mom}
+    ref, _ = tr.ckpt.restore(TIER_STEPS, protos)
+    check(same_bits(ref, protos), "(a)'s last checkpoint is not its state")
+    rows = {}
+    for label, sig, stop_after in (("sigkill", signal.SIGKILL, 3),
+                                   ("sigterm", signal.SIGTERM, 2)):
+        d = work / label
+        t0 = time.perf_counter()
+        stopped = tier_child(d, db, TIER_PACE_S, stop_after, sig)
+        restarted = tier_child(d, db, 0.0)
+        secs = time.perf_counter() - t0
+        r = restarted["result"]
+        if sig == signal.SIGKILL:
+            check(stopped["rc"] == -signal.SIGKILL and stopped["result"] is None,
+                  f"{label}: the child was not killed mid-run: {stopped}")
+        else:
+            s = stopped["result"]
+            check(s["preempted"] and s["final_step"] < TIER_STEPS,
+                  f"{label}: the child was not preempted mid-run: {stopped}")
+            check(r["start_step"] == s["final_step"], f"{label}: restarted "
+                  f"at {r['start_step']}, preempted at {s['final_step']}")
+        check(stopped["stopped_at"] < TIER_STEPS and r["start_step"] < TIER_STEPS
+              and r["final_step"] == TIER_STEPS and not r["preempted"],
+              f"{label}: {stopped} then {restarted}")
+        mgr = CheckpointManager(d, keep=TIER_KEEP)
+        steps = check_ckpt_dir(mgr, label)
+        got, _ = mgr.restore(TIER_STEPS, protos)
+        check(same_bits(got, ref), f"{label}: step {TIER_STEPS} differs from "
+              f"the uninterrupted run's")
+        rows[label] = {"signal_after_step": stopped["stopped_at"],
+                       "stopped": stopped["result"] or {"rc": stopped["rc"]},
+                       "restart": r, "valid_steps": steps, "seconds": secs}
+        print(f"  (b) {label} once step {stopped['stopped_at']}'s checkpoint "
+              f"was committed (rc {stopped['rc']}, "
+              f"{stopped['result']}); restart {r}; step {TIER_STEPS} bit-equal "
+              f"to (a) (params and momentum); no tmp.*; valid {steps}, each "
+              f"deep-valid; {secs:.1f} s for both children", flush=True)
+    dispatch.set_db(None)
+    return {"launches": counts, "losses": losses, "run_host_ms_per_step":
+            run_s * 1e3 / TIER_STEPS, "host_ms": host, "device_ms": dev_ms,
+            "idle_share": max(0.0, 1 - dev_ms / host),
+            "forward_kernels_ms": port_ms, **rows}
+
+
+def tier_lm(dev, cfg, params, work) -> dict:
+    """(c): the LM Trainer on pruned smollm-360m at its published widths.
+    Returns the report row."""
+    from repro_torch import dispatch
+    from repro_torch._tree import tree_map
+    from repro_torch.core.pruning import SparsityConfig
+    from repro_torch.data import DataConfig
+    from repro_torch.kernels import KERNELS, reset_launch_counts
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig, Trainer
+
+    cfg = cfg.with_(attn_impl="naive", sparsity=SparsityConfig(
+        sparsity=0.5, m=None, tile=None, min_dim=64, format="compressed_xla"))
+    data = DataConfig(vocab_size=cfg.vocab_size, batch=TIER_LM_BATCH,
+                      seq_len=TIER_LM_SEQ, seed=0, kind="uniform")
+    opt = AdamWConfig(lr=TIER_LM_LR)
+    tcfg = TrainConfig(steps=TIER_LM_STEPS, ckpt_dir=str(work / "lm"),
+                       log_every=1)
+    dispatch.set_db(dispatch.ProfileDB(path=work / "lm_profile.json"))
+    tr = Trainer(cfg, data, opt, tcfg, params=params)
+    batch0 = tr.data.batch_at(0)
+    with dispatch.force_scope(linear="compressed_xla"):
+        _, _, plain = tr.step_fn(tr.params, tr.opt_state, batch0)
+        plain = {k: float(v) for k, v in plain.items()}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = tr.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = {k.name: k.launches for k in KERNELS if k.launches}
+    want = {"colwise_nm_matmul_tiled": 224 * TIER_LM_STEPS}
+    check(counts == want, f"Trainer launches {counts}, want {want}")
+    hist = out["history"]
+    losses = [h["loss"] for h in hist]
+    for k in ("loss", "grad_norm"):
+        e = abs(hist[0][k] - plain[k]) / abs(plain[k])
+        check(e <= TIER_LM_RTOL, f"Trainer step 1 {k} {hist[0][k]} against "
+              f"the plain replay's {plain[k]}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"Trainer losses {losses}")
+    steps_s = sum(h["sec_per_step"] for h in hist)
+    man = json.loads((tr.ckpt.dir / f"step_{TIER_LM_STEPS:08d}"
+                      / "manifest.json").read_text())
+    print(f"  (c) {cfg.name}, {cfg.n_layers} layers, {TIER_LM_STEPS} AdamW "
+          f"steps (lr {TIER_LM_LR}) on {TIER_LM_BATCH} x {TIER_LM_SEQ} uniform "
+          f"tokens, attn_impl naive: launches {counts}; losses {losses}; "
+          f"grad norms {[h['grad_norm'] for h in hist]}; step 1 vs the plain "
+          f"replay: loss {hist[0]['loss']!r} / {plain['loss']!r}, grad norm "
+          f"{hist[0]['grad_norm']!r} / {plain['grad_norm']!r}; host s a step "
+          f"{[round(h['sec_per_step'], 4) for h in hist]}", flush=True)
+    zeros = tree_map(torch.zeros_like, params)  # the fresh trainer's protos
+    fresh = Trainer(cfg, data, opt, tcfg, params=zeros)
+    t0 = time.perf_counter()
+    restored = fresh.maybe_restore()
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    check(restored == TIER_LM_STEPS, f"the fresh Trainer restored {restored}")
+    check(same_bits(fresh.params, tr.params)
+          and same_bits(fresh.opt_state, tr.opt_state),
+          "the restored params or opt state differ from the trained ones")
+    print(f"  (c) checkpoint at step {TIER_LM_STEPS}: {man['arrays_bytes']} "
+          f"bytes, {len(man['arrays'])} arrays, written in about "
+          f"{run_s - steps_s:.1f} s (run() minus its steps), restored by a "
+          f"fresh Trainer in {restore_s:.1f} s (deep crc check included), "
+          f"params and opt state bit for bit", flush=True)
+    del fresh, zeros
+
+    p, o = tr.params, tr.opt_state
+
+    def step():
+        return tr.step_fn(p, o, batch0)
+
+    a, b = step(), step()
+    repeat = same_bits(a[:2], b[:2])
+    del a, b
+    host = host_ms_per_step(step, TIER_LM_TIMED_STEPS)
+    dev_ms, port_ms = profiled_ms(step, TIER_LM_TIMED_STEPS)
+    print(f"  (c) a Trainer step: {host:.3f} host ms, {dev_ms:.3f} device ms "
+          f"(torch.profiler), idle share {max(0.0, 1 - dev_ms / host):.3f}; "
+          f"the tiled linear {port_ms:.3f} ms (share {port_ms / dev_ms:.3f}); "
+          f"the same step twice gives the same bits: {repeat}", flush=True)
+    dispatch.set_db(None)
+    return {"launches": counts, "losses": losses,
+            "grad_norms": [h["grad_norm"] for h in hist], "plain_step1": plain,
+            "ckpt_bytes": man["arrays_bytes"], "ckpt_write_s": run_s - steps_s,
+            "restore_s": restore_s, "host_ms": host, "device_ms": dev_ms,
+            "idle_share": max(0.0, 1 - dev_ms / host),
+            "tiled_linear_ms": port_ms, "bitwise_repeat": repeat}
+
+
+def run_tier(dev, first_loss, lm_cfg, lm_params) -> dict:
+    """Phase 11.  Returns each kernel's launches in this process's
+    counted runs ((a)'s and (c)'s)."""
+    work = Path(tempfile.mkdtemp(prefix="tier-", dir=ROOT / "build"))
+    try:
+        sparse = tier_sparse(dev, first_loss, work)
+        lm = tier_lm(dev, lm_cfg, lm_params, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print("TIER " + json.dumps({"sparse_trainer": sparse, "lm_trainer": lm}),
+          flush=True)
+    launches = dict(sparse["launches"])
+    for k, n in lm["launches"].items():
+        launches[k] = launches.get(k, 0) + n
+    return launches
 
 
 def tree_leaves(tree):
@@ -2457,10 +2804,18 @@ def main() -> int:
 
     print(f"== 10. train: resnet-tiny, batch {BATCH}", flush=True)
     t0 = time.perf_counter()
-    train_launches = run_training(params, cfg, dev, counts)
+    train_launches, first_loss = run_training(params, cfg, dev, counts)
     print(f"  phase 10 took {time.perf_counter() - t0:.1f} s", flush=True)
 
-    print("== 11. report", flush=True)
+    print(f"== 11. the training tier: SparseTrainer (resnet-tiny, batch "
+          f"{BATCH}) and Trainer (smollm-360m)", flush=True)
+    t0 = time.perf_counter()
+    tier_launches = run_tier(dev, first_loss, lm_cfg, lm_params)
+    for name, n in tier_launches.items():
+        train_launches[name] += n
+    print(f"  phase 11 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    print("== 12. report", flush=True)
     launches = {
         "conv2d_fused": fused_route["conv2d_fused"],
         "conv2d_fused_tiled": counts["default"]["conv2d_fused_tiled"],

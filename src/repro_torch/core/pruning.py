@@ -15,6 +15,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch._tree import tree_map, tree_map_with_path
+
 
 @dataclasses.dataclass(frozen=True)
 class SparsityConfig:
@@ -154,3 +156,74 @@ def mask_project_tree(params):
         return t
 
     return walk(params)
+
+
+def unstructured_mask(w: torch.Tensor, sparsity: float) -> torch.Tensor:
+    """Global magnitude pruning (upper bound on flexibility): keep the
+    ``round(numel * (1 - sparsity))`` largest |w|, ties to the earlier
+    position."""
+    k = max(int(round(w.numel() * (1.0 - sparsity))), 1)
+    return _topn_mask_lastdim(w.abs().reshape(-1), k).reshape(w.shape)
+
+
+# ---------------------------------------------------------------------------
+# Mask invariants (used by tests)
+# ---------------------------------------------------------------------------
+
+
+def mask_is_colwise(mask: torch.Tensor, tile: int) -> bool:
+    """Within each output tile, all columns share the keep pattern."""
+    d_in, d_out = mask.shape
+    m = torch.as_tensor(mask).reshape(d_in, d_out // tile, tile)
+    return bool(torch.all(m.all(dim=2) == m.any(dim=2)))
+
+
+def mask_nm_counts(mask: torch.Tensor, m_group: int) -> torch.Tensor:
+    """Per-(group, column) kept counts along d_in, for N:M verification."""
+    d_in, d_out = mask.shape
+    return torch.as_tensor(mask).reshape(d_in // m_group, m_group,
+                                         d_out).sum(dim=1)
+
+
+# ---------------------------------------------------------------------------
+# One-shot pruning over a parameter tree
+# ---------------------------------------------------------------------------
+
+
+def _mask_nd(w: torch.Tensor, mask_fn) -> torch.Tensor:
+    """Apply a 2-D mask function over the trailing two dims of an N-D weight
+    (stacked layers are [L, ..., d_in, d_out]), one layer at a time."""
+    if w.ndim == 2:
+        return mask_fn(w)
+    flat = w.reshape((-1,) + tuple(w.shape[-2:]))
+    return torch.stack([mask_fn(layer) for layer in flat]).reshape(w.shape)
+
+
+def prune_tree(params, cfg: SparsityConfig, is_weight=None):
+    """One-shot prune every >=2-D float weight in a tree (magnitude/L1, the
+    paper's one-shot recipe); stacked layer weights ([L, d_in, d_out]) are
+    masked per layer.  Returns (masked_params, masks), ``masks`` a matching
+    tree holding ``None`` for untouched leaves.
+
+    is_weight: optional predicate (path, leaf) -> bool to select leaves; a
+    path is the tuple of dict keys and sequence indices from the root.
+    """
+    def one(path, leaf):
+        take = (isinstance(leaf, torch.Tensor) and leaf.ndim >= 2
+                and leaf.is_floating_point()
+                and cfg.applies_to(leaf.shape[-2], leaf.shape[-1]))
+        if take and is_weight is not None:
+            take = is_weight(path, leaf)
+        if not take:
+            return leaf, None
+        if cfg.scheme == "rowwise":
+            fn = lambda w: rowwise_nm_mask(w, cfg.sparsity, m=cfg.m)  # noqa: E731
+        else:
+            fn = lambda w: colwise_nm_mask(w, cfg.sparsity, m=cfg.m,  # noqa: E731
+                                           tile=cfg.tile)
+        mask = _mask_nd(leaf, fn)
+        return leaf * mask.to(leaf.dtype), mask
+
+    out = tree_map_with_path(one, params)
+    return (tree_map(lambda _p, t: t[0], params, out),
+            tree_map(lambda _p, t: t[1], params, out))

@@ -104,3 +104,45 @@ def linear_apply(params, x: torch.Tensor, *,
     if "b" in params:
         y = y + params["b"]
     return y
+
+
+# ---------------------------------------------------------------------------
+# Conversions (prune a trained dense layer -> compressed)
+# ---------------------------------------------------------------------------
+
+
+def compress_layer(params, cfg: SparsityConfig):
+    """Convert a dense/masked layer's params into the compressed format,
+    ``{"values", "idx"[, "b"]}``.  A layer without a ``mask`` is pruned
+    by ``cfg`` first.  Stacked weights ([L, ..., d_in, d_out]) are packed
+    one layer at a time, and the stacked (values, idx) feed the layer loop
+    as they are."""
+    w = params["w"]
+    lead = tuple(w.shape[:-2])
+    d_in, d_out = w.shape[-2:]
+    meta = formats.meta_for(d_in, d_out, cfg)
+    mask = params.get("mask")
+
+    def pack2d(w2, m2):
+        if m2 is None:
+            if cfg.scheme == "rowwise":
+                m2 = rowwise_nm_mask(w2, cfg.sparsity, m=cfg.m)
+            else:
+                m2 = colwise_nm_mask(w2, cfg.sparsity, m=cfg.m, tile=meta.tile)
+        return formats.pack_colwise(w2, m2, meta)
+
+    if lead:
+        wf = w.reshape((-1, d_in, d_out))
+        mf = (mask.reshape((-1, d_in, d_out)) if mask is not None
+              else [None] * wf.shape[0])
+        packed = [pack2d(a, m) for a, m in zip(wf, mf)]
+        values = torch.stack([v for v, _ in packed])
+        idx = torch.stack([i for _, i in packed])
+        values = values.reshape(lead + tuple(values.shape[1:]))
+        idx = idx.reshape(lead + tuple(idx.shape[1:]))
+    else:
+        values, idx = pack2d(w, mask)
+    out = {"values": values, "idx": idx}
+    if "b" in params:
+        out["b"] = params["b"]
+    return out

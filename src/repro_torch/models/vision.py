@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch._compat import resolve_device
+from repro_torch._tree import tree_map, value_and_grad
 from repro_torch.configs.base import VisionConfig
 from repro_torch.core.pruning import mask_project_tree
 from repro_torch.core.sparse_conv import conv_apply, conv_init
@@ -144,23 +145,11 @@ def vision_loss(params, cfg: VisionConfig, x_cnhw: torch.Tensor,
     return -logp.gather(-1, labels.long()[:, None]).mean()
 
 
-def _tree_map(fn, tree, *rest):
-    """``fn`` over the leaves of ``tree`` (and the same leaves of ``rest``),
-    keeping its dicts, lists and tuples."""
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v, *(r[k] for r in rest))
-                for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_map(fn, *leaves)
-                          for leaves in zip(tree, *rest, strict=True))
-    return fn(tree, *rest)
-
-
 def sgd_init(params):
     """Zero momentum, one buffer per leaf.  The integer and bool leaves
     (``idx``, ``conv_geom``, ``mask``) get one too, so the momentum tree has
     the params' structure; they are never updated."""
-    return _tree_map(torch.zeros_like, params)
+    return tree_map(torch.zeros_like, params)
 
 
 @contextlib.contextmanager
@@ -191,32 +180,15 @@ def train_step(params, mom, cfg: VisionConfig, x_cnhw: torch.Tensor,
     gives the same bits: both sparse backwards scatter in a fixed order,
     and the loss and its gradients are taken with cuDNN's deterministic
     algorithms."""
-    leaves = []
-
-    def live(p):
-        if not p.is_floating_point():
-            return p
-        p = p.detach().requires_grad_()
-        leaves.append(p)
-        return p
-
     with _deterministic_cudnn():
-        loss = vision_loss(_tree_map(live, params), cfg, x_cnhw, labels)
-        found = iter(torch.autograd.grad(loss, leaves, allow_unused=True))
-
-    def grad_of(p):
-        if not p.is_floating_point():
-            return None
-        g = next(found)
-        return torch.zeros_like(p) if g is None else g
-
-    grads = _tree_map(grad_of, params)
+        loss, grads = value_and_grad(
+            lambda p: vision_loss(p, cfg, x_cnhw, labels), params)
     with torch.no_grad():
-        mom = _tree_map(lambda m, g: m if g is None
-                        else momentum * m + g.to(m.dtype), mom, grads)
-        params = _tree_map(lambda p, m: p - lr * m.to(p.dtype)
-                           if p.is_floating_point() else p, params, mom)
-    return mask_project_tree(params), mom, loss.detach()
+        mom = tree_map(lambda m, g: m if g is None
+                       else momentum * m + g.to(m.dtype), mom, grads)
+        params = tree_map(lambda p, m: p - lr * m.to(p.dtype)
+                          if p.is_floating_point() else p, params, mom)
+    return mask_project_tree(params), mom, loss
 
 
 def train_smoke(steps: int = 2, batch: int = 4, lr: float = 0.05,

@@ -38,7 +38,11 @@ the CPU tests' cases and resnet-tiny's convs, with a tile whose ``idx`` is
 not ascending and with a bad index, and ``conv2d_fused_cuda`` routes by its
 shape rule.  The tiled pack gives the bits of ``im2col_pack.cu`` and of the
 plain version under every instance, with NaN payloads and -0.0 in the map,
-and ``im2col_pack_cuda`` routes by its shape rule.
+and ``im2col_pack_cuda`` routes by its shape rule.  The training tier: the
+``SparseTrainer`` killed at step 3 and restarted ends with the bits of the
+uninterrupted run, card tensors (bf16 among them) round-trip through a
+checkpoint, AdamW agrees with the CPU, and the smoke LM ``Trainer``
+launches the tiled linear and no flash kernel.
 """
 import numpy as np
 import pytest
@@ -1982,3 +1986,158 @@ def test_raw_kernel_calls_still_raise_under_autograd(dev):
                      torch.ones(4, 72, device=dev), values, idx)):
         with pytest.raises(RuntimeError, match="forward only"):
             call()
+
+
+# ---------------------------------------------------------------------------
+# The training tier on the card: the SparseTrainer's kill -> resume, card
+# tensors through checkpoints, AdamW, the LM Trainer's kernels
+# ---------------------------------------------------------------------------
+
+
+def _tensor_bits(t):
+    t = t.detach().cpu().contiguous()
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else t.dtype)
+
+
+def test_sparse_trainer_kill_and_resume_bitwise_on_card(dev, tmp_path):
+    """resnet-tiny's SparseTrainer at batch 8 on the card: killed at the
+    top of step 3 and restarted, it ends with the params and momentum of
+    the uninterrupted run, bit for bit."""
+    from repro_torch.train import SparseTrainConfig, SparseTrainer
+
+    class Dies(SparseTrainer):
+        def batch_at(self, step):
+            if step == 3:
+                raise KeyboardInterrupt("killed at step 3")
+            return super().batch_at(step)
+
+    dispatch.set_db(dispatch.ProfileDB(path=tmp_path / "profile.json"))
+    try:
+        def cfg(d):
+            return SparseTrainConfig(steps=5, batch=8, ckpt_dir=str(d),
+                                     ckpt_every=1)
+
+        ta = SparseTrainer(cfg(tmp_path / "a"), device=dev)
+        ta.run()
+        tb = Dies(cfg(tmp_path / "b"), device=dev)
+        with pytest.raises(KeyboardInterrupt):
+            tb.run()
+        tb.ckpt.wait()
+        assert tb.ckpt.latest_step() == 3
+        tc = SparseTrainer(cfg(tmp_path / "b"), device=dev)
+        out = tc.run()
+        assert out["start_step"] == 3 and out["final_step"] == 5
+        assert tc.device.type == dev.type
+        for a, c in zip(_leaves((ta.params, ta.mom)), _leaves((tc.params, tc.mom)),
+                        strict=True):
+            assert a.device.type == dev.type and c.device.type == dev.type
+            assert torch.equal(_tensor_bits(a), _tensor_bits(c))
+    finally:
+        dispatch.set_db(None)
+
+
+def test_checkpoint_of_card_tensors_round_trips(dev, tmp_path):
+    """Card tensors of every dtype a checkpoint holds (bf16 among them)
+    are written from their host copies and restored onto the card, bit
+    for bit, also from an async save whose tensors change after it."""
+    from repro_torch.train import CheckpointManager
+
+    rng = np.random.default_rng(0)
+    tree = {"w": torch.from_numpy(rng.standard_normal((64, 32), dtype=np.float32)),
+            "h": torch.from_numpy(rng.standard_normal((8, 16), dtype=np.float32)
+                                  ).to(torch.bfloat16),
+            "idx": torch.arange(24, dtype=torch.int32).reshape(4, 6),
+            "m": torch.zeros((4, 6), dtype=torch.int8),
+            "mask": torch.from_numpy(rng.random(9) > 0.5),
+            "step": torch.tensor(7, dtype=torch.int32)}
+    want = {k: v.clone() for k, v in tree.items()}
+    on_card = _to(tree, dev)
+    mgr = CheckpointManager(tmp_path)
+    mgr.save(1, {"params": on_card}, blocking=False)
+    on_card["w"].add_(1.0)
+    on_card["h"].mul_(2)
+    mgr.wait()
+    protos = {"params": _to({k: torch.zeros_like(v) for k, v in tree.items()},
+                            dev)}
+    out, _ = mgr.restore(1, protos)
+    for k, v in want.items():
+        got = out["params"][k]
+        assert got.device.type == dev.type and got.dtype == v.dtype, k
+        assert torch.equal(_tensor_bits(got), _tensor_bits(v)), k
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adamw_update_on_card_matches_cpu(dev, dtype):
+    """Three AdamW steps on the card against the CPU on the same
+    gradients: every float leaf of params and state within 1e-6 of its
+    max (bf16 params within one bf16 step), integer leaves equal."""
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+
+    rng = np.random.default_rng(1)
+    params = {"w": torch.from_numpy(rng.standard_normal((64, 48), dtype=np.float32)
+                                    ).to(dtype),
+              "b": [torch.from_numpy(rng.standard_normal(48, dtype=np.float32)
+                                     ).to(dtype)],
+              "idx": torch.arange(12, dtype=torch.int32)}
+    cfg = AdamWConfig(lr=1e-2)
+    runs = []
+    for d in ("cpu", dev):
+        p = _to(params, d)
+        s = adamw_init(p)
+        grng = np.random.default_rng(2)
+        for _ in range(3):
+            g = {"w": torch.from_numpy(grng.standard_normal((64, 48),
+                                                            dtype=np.float32)),
+                 "b": [torch.from_numpy(grng.standard_normal(48, dtype=np.float32))],
+                 "idx": None}
+            g["w"], g["b"][0] = g["w"].to(d, dtype), g["b"][0].to(d, dtype)
+            p, s, norm = adamw_update(p, g, s, cfg)
+        runs.append((_leaves((p, s)), float(norm)))
+    (cpu_leaves, cpu_norm), (dev_leaves, dev_norm) = runs
+    assert abs(dev_norm - cpu_norm) <= 1e-6 * cpu_norm
+    for a, b in zip(dev_leaves, cpu_leaves, strict=True):
+        a = a.cpu()
+        if not b.is_floating_point():
+            assert torch.equal(a, b)
+        elif b.dtype == torch.bfloat16:
+            assert bool(((a.float() - b.float()).abs()
+                         <= 2.0 ** -7 * b.float().abs()).all())
+        else:
+            err = float((a - b).abs().max())
+            assert err <= 1e-6 * max(float(b.abs().max()), 1e-30), err
+
+
+def test_lm_trainer_runs_the_tiled_linear_and_no_flash(dev, tmp_path):
+    """The smoke LM (widths multiples of 64, so every compressed linear
+    takes the tiled kernel) trained 3 steps on the card: 7 tiled-linear
+    launches a layer a step, no other kernel (flash has no gradient, so
+    the trainer runs naive attention), losses within 1e-4 of the same
+    steps on the CPU."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.pruning import SparsityConfig
+    from repro_torch.data import DataConfig
+    from repro_torch.models.registry import init_params
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig, Trainer
+
+    cfg = smoke_config("smollm-360m").with_(
+        n_kv_heads=4, d_ff=128, attn_impl="naive",
+        sparsity=SparsityConfig(sparsity=0.5, min_dim=64,
+                                format="compressed_xla"))
+    params = init_params(cfg, 0, device="cpu")
+    data = DataConfig(vocab_size=cfg.vocab_size, batch=4, seq_len=32, seed=0)
+    tcfg = TrainConfig(steps=3, log_every=1)
+    dispatch.set_db(dispatch.ProfileDB(path=tmp_path / "profile.json"))
+    try:
+        want = Trainer(cfg, data, AdamWConfig(), tcfg, params=params).run()
+        reset_launch_counts()
+        got = Trainer(cfg, data, AdamWConfig(), tcfg,
+                      params=_to(params, dev)).run()
+        torch.cuda.synchronize()
+    finally:
+        dispatch.set_db(None)
+    counts = {k.name: k.launches for k in KERNELS if k.launches}
+    assert counts == {"colwise_nm_matmul_tiled": 7 * cfg.n_layers * 3}, counts
+    for g, w in zip(got["history"], want["history"], strict=True):
+        assert abs(g["loss"] - w["loss"]) <= 1e-4 * abs(w["loss"])
+        assert abs(g["grad_norm"] - w["grad_norm"]) <= 1e-4 * w["grad_norm"]

@@ -25,7 +25,13 @@ def test_importing_every_module_loads_no_jax_or_repro():
     mods = _modules()
     for m in ("repro_torch.data", "repro_torch.data.pipeline",
               "repro_torch.kernels.flash_attn.ops",
-              "repro_torch.kernels.flash_attn.kernel"):
+              "repro_torch.kernels.flash_attn.kernel", "repro_torch._tree",
+              "repro_torch.optim", "repro_torch.optim.adamw",
+              "repro_torch.optim.grad_compress", "repro_torch.train",
+              "repro_torch.train.checkpoint", "repro_torch.train.fault",
+              "repro_torch.train.sparse", "repro_torch.train.trainer",
+              "repro_torch.launch", "repro_torch.launch.steps",
+              "repro_torch.launch.train"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"
@@ -81,11 +87,14 @@ def test_entry_points_raise_without_a_card(no_card):
     from repro_torch.core.sparse_conv import conv_init
     from repro_torch.core.sparse_linear import linear_init
     from repro_torch.configs import smoke_config
+    from repro_torch.data import DataConfig
     from repro_torch.dispatch import choose_page_size
+    from repro_torch.launch.train import main as train_main
     from repro_torch.models.attention import paged_cache_init
     from repro_torch.models.common import embed_init, norm_init
     from repro_torch.models.lm import lm_init
     from repro_torch.models.vision import synth_batch, vision_init
+    from repro_torch.train import SparseTrainConfig, SparseTrainer, Trainer
 
     cfg = get_vision_config("resnet-tiny")
     lm_cfg = smoke_config("smollm-360m")
@@ -106,11 +115,18 @@ def test_entry_points_raise_without_a_card(no_card):
         lambda: norm_init(16),
         lambda: embed_init(gen, 8, 4),
         lambda: choose_page_size(4, 2, 16, 64),
+        lambda: SparseTrainer(SparseTrainConfig(steps=1, batch=2)),
+        lambda: Trainer(lm_cfg, DataConfig(vocab_size=lm_cfg.vocab_size)),
+        lambda: train_main(["--arch", "smollm-360m", "--smoke", "--steps", "1"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")
+    assert SparseTrainer(SparseTrainConfig(steps=1, batch=2),
+                         device="cpu").device == torch.device("cpu")
+    assert Trainer(lm_cfg, DataConfig(vocab_size=lm_cfg.vocab_size),
+                   device="cpu").device == torch.device("cpu")
 
 
 def test_kernel_launchers_never_take_cpu_tensors():
