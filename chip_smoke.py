@@ -109,7 +109,20 @@ Phases:
               a replay through the plain versions), its 2.5 GB checkpoint
               restored bit for bit by a fresh trainer; host and device ms
               a step and idle share of both trainers
- 12. report : one ``{"kernels": [...]}`` line (launches in the main runs and
+ 12. serve  : the rest of serving on the same pruned smollm-360m:
+              ``Engine.generate``, the contiguous ``Scheduler`` and the
+              paged ``alloc="grow"`` one (a pool that forces a preemption)
+              on 4 prompts of 128 tokens, 32 new tokens each, greedy:
+              exact launch counts (224 tiled-linear launches a prefill,
+              prefill chunk and contiguous decode step; 224 and 32
+              split-paged a paged decode step; no flash), the tokens
+              equal across the three runs or a near-tie where one departs,
+              a teacher-forced replay of generate's and the contiguous
+              run's steps through the plain versions, host and device ms
+              a contiguous and a paged decode step, a cancel, a deadline
+              and a drain, temperature draws against softmax(logits / T),
+              and ``launch.serve.main`` static and continuous paged grow
+ 13. report : one ``{"kernels": [...]}`` line (launches in the main runs and
               ``train_launches`` in phases 10 and 11), then the ``{"ok":
               true, ...}`` line last
 
@@ -1674,7 +1687,8 @@ def run_serving(dev, cfg, params) -> dict:
     wall = time.perf_counter() - t0
     counts = {k.name: k.launches for k in KERNELS if k.launches}
     engine.packed_prefill_step, engine.paged_decode_step = prefill, decode
-    st = dict(sched.stats)
+    st = dict(sched.stats, **sched.page_stats, prefill_calls=sched.prefill_calls,
+              prefill_s=sched.prefill_s)
 
     by_uid = {c.uid: c for c in comps}
     check(sorted(by_uid) == [r.uid for r in trace], f"completions {sorted(by_uid)}")
@@ -1685,7 +1699,7 @@ def run_serving(dev, cfg, params) -> dict:
               and bool((c.tokens >= 0).all() and (c.tokens < cfg.vocab_size).all()),
               f"request {r.uid}: {c.status}, {c.n_generated} of "
               f"{r.max_new_tokens} tokens")
-    check(st["pages_mapped"] == 0, f"{st['pages_mapped']} pages leaked")
+    check(st["pages_active"] == 0, f"{st['pages_active']} pages leaked")
     n_dec, n_pre = st["decode_steps"], st["prefill_calls"]
     want = {"paged_attention_split": cfg.n_layers * n_dec,
             "colwise_nm_matmul_tiled": len(LINEARS) * cfg.n_layers * (n_dec + n_pre)}
@@ -1806,6 +1820,399 @@ def run_serving(dev, cfg, params) -> dict:
     dispatch.set_db(None)
     db_path.unlink(missing_ok=True)
     return counts
+
+
+# phase 12: static generate, the contiguous scheduler and the paged grow
+# scheduler on the same GEN_BATCH prompts of GEN_PROMPT tokens, GEN_NEW new
+# tokens each, greedy
+GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 128, 32
+GEN_CHUNK = 32  # the contiguous scheduler's prefill chunk
+# the grow scheduler's pool: 32 pages of 16 rows hold the four prompts (8
+# pages each) and nothing more, so the first decode step's grow preempts
+GROW_BUDGET_ROWS = 512
+TEMP, TEMP_DRAWS, TEMP_BATCH = 0.7, 20000, 2500
+TEMP_P_MIN = 1e-3  # the chi-square test's p-value must exceed this
+
+
+class StepRecorder:
+    """Wraps an engine's step methods and ``sample`` for one run: records
+    every step's inputs and logits (for the teacher-forced replay) and the
+    logits row behind each request's j-th token, keyed (uid, j), by
+    following the scheduler's admit/preempt/retire log (``log``).  Under
+    ``generate`` (no log) row r of every sample is request r."""
+
+    STEPS = ("prefill_step", "prefill_chunk_step", "decode_step",
+             "packed_prefill_step", "paged_decode_step")
+
+    def __init__(self, engine, static: bool = False):
+        self.engine, self.static = engine, static
+        self.orig = {n: getattr(engine, n) for n in self.STEPS + ("sample",)}
+        self.steps = []  # (name, inputs, logits)
+        self.rows = {}  # (uid, j) -> logits row on the host
+        self.count = {}
+        self.slot_uid = {}
+        self.pending = []
+        self.admitting = False
+        for n in self.STEPS:
+            setattr(engine, n, self._step(n))
+        engine.sample = self._sample
+
+    def restore(self):
+        for n, f in self.orig.items():
+            setattr(self.engine, n, f)
+
+    def _step(self, name):
+        orig = self.orig[name]
+
+        def step(*args, **kw):
+            self.admitting = name in ("prefill_chunk_step", "packed_prefill_step")
+            inputs = [a.copy() if isinstance(a, np.ndarray) else a
+                      for a in args[1:]] if name != "prefill_step" else list(args)
+            if name == "prefill_chunk_step":  # the slot of the pool view
+                sub = args[0]["k"]
+                inputs.insert(0, sub.storage_offset() // sub.stride(1))
+            logits, cache = orig(*args, **kw)
+            if name in ("decode_step", "paged_decode_step"):
+                inputs.append(tuple(cache["k"].shape))
+            self.steps.append((name, inputs, kw,
+                               None if logits is None else logits.clone()))
+            return logits, cache
+        return step
+
+    def _put(self, uid, row):
+        j = self.count.get(uid, 0)
+        self.rows[(uid, j)] = row
+        self.count[uid] = j + 1
+
+    def _sample(self, logits):
+        rows = logits[:, -1].float().cpu()
+        if self.static:
+            for r in range(rows.shape[0]):
+                self._put(r, rows[r])
+        elif self.admitting:
+            self.pending.extend(rows)
+        else:
+            for slot, uid in self.slot_uid.items():
+                self._put(uid, rows[slot])
+        return self.orig["sample"](logits)
+
+    def log(self, msg: str):
+        fields = dict(f.split("=", 1) for f in msg.split() if "=" in f)
+        if msg.startswith("[admit]"):
+            uid, slot = int(fields["uid"]), int(fields["slot"])
+            self._put(uid, self.pending.pop(0))
+            self.slot_uid[slot] = uid
+        elif msg.startswith(("[retire]", "[preempt]")):
+            uid = int(fields["uid"])
+            self.slot_uid = {s: u for s, u in self.slot_uid.items() if u != uid}
+
+
+def replay_steps(rec, cfg, dev, label) -> float:
+    """Teacher-forced replay of a contiguous run's steps through the plain
+    versions (``compressed_xla``) on a fresh cache: each step's logits
+    within REPLAY_RTOL of max|logit|.  Returns the largest error."""
+    from repro_torch import dispatch
+    from repro_torch.kernels import KERNELS, reset_launch_counts
+    from repro_torch.models import registry as reg
+
+    shape = next(i[-1] for n, i, _, _ in rec.steps if n == "decode_step")
+    cache = reg.cache_init_fn(cfg, shape[1], shape[2], dev)()
+    worst = 0.0
+    reset_launch_counts()
+    with dispatch.force_scope(linear="compressed_xla"):
+        for name, inputs, kw, logits_k in rec.steps:
+            if name == "prefill_step":
+                logits_p, cache = rec.orig[name](*inputs)
+            elif name == "prefill_chunk_step":
+                slot, rest = inputs[0], inputs[1:]
+                sub = {k: v[:, slot:slot + 1] for k, v in cache.items()}
+                logits_p, _ = rec.orig[name](sub, *rest, **kw)
+            else:
+                logits_p, cache = rec.orig[name](cache, *inputs[:-1], **kw)
+            if logits_k is None:
+                continue
+            e = rel_err(logits_k, logits_p)
+            check(e <= REPLAY_RTOL, f"{label} {name}: kernel vs plain logits {e}")
+            worst = max(worst, e)
+    torch.cuda.synchronize()
+    check(all(k.launches == 0 for k in KERNELS), f"the {label} replay launched")
+    return worst
+
+
+def hold_tokens(ref, runs, cfg) -> list:
+    """Tokens of each request equal across the runs; where a run first
+    departs from ``generate``, that step's logits must agree within
+    REPLAY_RTOL and their top-2 gap be under it (a near-tie, returned)."""
+    ties = []
+    for label, (comps, rec) in runs.items():
+        for uid, c in comps.items():
+            want = ref["tokens"][uid]
+            diff = [j for j in range(len(want)) if j >= c.n_generated
+                    or c.tokens[j] != want[j]]
+            if not diff:
+                continue
+            j = diff[0]
+            la, lb = ref["rec"].rows[(uid, j)], rec.rows[(uid, j)]
+            e = rel_err(lb, la)
+            top = la[:cfg.vocab_size].topk(2).values
+            gap = float(top[0] - top[1]) / max(float(la.abs().max()), 1e-30)
+            check(e <= REPLAY_RTOL and gap < REPLAY_RTOL,
+                  f"{label} request {uid} departs from generate at token "
+                  f"{j}: logits differ by {e:.3e}, top-2 gap {gap:.3e} of "
+                  f"max|logit| (not a near-tie)")
+            ties.append((label, uid, j, e, gap))
+    return ties
+
+
+def chi_square_p(counts, probs) -> float:
+    """p-value of category counts against probabilities; the categories
+    expected fewer than 5 times are merged into one."""
+    from scipy import stats as sstats
+
+    exp = probs * counts.sum()
+    small = exp < 5
+    obs = np.append(counts[~small], counts[small].sum())
+    exp = np.append(exp[~small], exp[small].sum())
+    return float(sstats.chisquare(obs, exp).pvalue)
+
+
+def check_temperature(engine, cfg, dev) -> dict:
+    """TEMP_DRAWS draws at T = TEMP from one fixed logits row on the card:
+    none names a padded id, and their counts pass a chi-square test
+    against softmax(logits / T), as on the CPU; the same seed repeats."""
+    row = np.random.default_rng(SEED + 12).standard_normal(
+        cfg.padded_vocab).astype(np.float32) * 2.0
+    row[cfg.vocab_size:] = 50.0  # padded ids (if any): never drawn
+    logits = torch.from_numpy(row).to(dev).expand(TEMP_BATCH, 1, -1)
+    engine.scfg.temperature = TEMP
+    engine.reseed()
+    drawn = torch.cat([engine.sample(logits)
+                       for _ in range(TEMP_DRAWS // TEMP_BATCH)])
+    engine.reseed()
+    again = torch.cat([engine.sample(logits)
+                       for _ in range(TEMP_DRAWS // TEMP_BATCH)])
+    engine.scfg.temperature = 0.0
+    check(drawn.device.type == "cuda", "the draws left the card")
+    check(bool(torch.equal(drawn, again)), "the same seed drew other tokens")
+    counts = np.bincount(drawn.cpu().numpy(), minlength=cfg.padded_vocab)
+    check(int(counts[cfg.vocab_size:].sum()) == 0, "a padded id was drawn")
+    def softmax(t):
+        z = row[:cfg.vocab_size].astype(np.float64) / t
+        e = np.exp(z - z.max())
+        return e / e.sum()
+
+    p = chi_square_p(counts[:cfg.vocab_size], softmax(TEMP))
+    p_other = chi_square_p(counts[:cfg.vocab_size], softmax(1.0))
+    check(p > TEMP_P_MIN, f"temperature draws fail the chi-square test: p {p}")
+    check(p_other < TEMP_P_MIN, f"the test cannot tell T = 1: p {p_other}")
+    return {"p": p, "p_at_T1": p_other}
+
+
+def run_serving_rest(dev, cfg, params) -> dict:
+    """Phase 12: ``Engine.generate``, the contiguous ``Scheduler`` and the
+    paged ``alloc="grow"`` one on the same requests, at smollm-360m's
+    published widths; their launch counts, tokens, replays, lifecycle,
+    temperature draws and the serving launcher.  Returns the launch
+    counts of the three runs."""
+    from repro_torch import dispatch
+    from repro_torch.kernels import KERNELS, reset_launch_counts
+    from repro_torch.kernels.flash_attn import FLASH_ATTENTION, FLASH_ATTENTION_TILED
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import lm
+    from repro_torch.serve import (STATUSES, Engine, PagePool, Request,
+                                   Scheduler, ServeConfig)
+
+    db_path = PROFILE_DB.with_suffix(".serve12.json")
+    db_path.unlink(missing_ok=True)
+    dispatch.set_db(dispatch.ProfileDB(path=db_path))
+    n_lin = len(LINEARS) * cfg.n_layers
+    prompts = np.random.default_rng(SEED + 12).integers(
+        0, cfg.vocab_size, (GEN_BATCH, GEN_PROMPT)).astype(np.int32)
+
+    def requests():
+        return [Request(uid=i, prompt=prompts[i], max_new_tokens=GEN_NEW)
+                for i in range(GEN_BATCH)]
+
+    def counted(run):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        flash = FLASH_ATTENTION.launches + FLASH_ATTENTION_TILED.launches
+        counts = {k.name: k.launches for k in KERNELS if k.launches}
+        check(flash == 0, "a serving run launched flash")
+        return out, counts, wall
+
+    # warm-up (not counted): the first calls fill the dispatch memos
+    warm = Engine(cfg, params, ServeConfig(max_new_tokens=2))
+    warm.generate(prompts[:, :16])
+    Scheduler(warm, n_slots=GEN_BATCH, prefill_chunk=GEN_CHUNK).run(
+        [Request(0, prompts[0, :40], max_new_tokens=2)])
+
+    # (a) static generate
+    engine = Engine(cfg, params, ServeConfig(max_new_tokens=GEN_NEW))
+    rec_g = StepRecorder(engine, static=True)
+    res, counts_g, wall_g = counted(lambda: engine.generate(prompts))
+    rec_g.restore()
+    res["rec"] = rec_g
+    n_dec_g = sum(n == "decode_step" for n, *_ in rec_g.steps)
+    want = {"colwise_nm_matmul_tiled": n_lin * (1 + n_dec_g)}
+    check(counts_g == want, f"generate launches {counts_g}, want {want}")
+    print(f"  generate: {GEN_BATCH} prompts of {GEN_PROMPT} tokens, "
+          f"{GEN_NEW} new: 1 prefill + {n_dec_g} decode steps, launches "
+          f"{counts_g} ({n_lin} a step, 0 flash, 0 paged); prefill "
+          f"{res['prefill_s'] * 1e3:.3f} ms, decode {res['decode_s'] * 1e3:.3f}"
+          f" ms ({res['decode_s'] / n_dec_g * 1e3:.3f} ms a step), run "
+          f"{wall_g:.3f} s", flush=True)
+
+    # (b) the contiguous scheduler, (c) the paged grow scheduler
+    runs, scheds, walls, counts = {}, {}, {}, {}
+    for label, kw in (("contiguous", dict(prefill_chunk=GEN_CHUNK)),
+                      ("grow", dict(paged=True, page_size=PAGED_PS,
+                                    alloc="grow",
+                                    kv_budget_rows=GROW_BUDGET_ROWS))):
+        eng = Engine(cfg, params, ServeConfig(max_new_tokens=GEN_NEW))
+        sched = Scheduler(eng, n_slots=GEN_BATCH, **kw)
+        rec = StepRecorder(eng)
+        comps, counts[label], walls[label] = counted(
+            lambda: sched.run(requests(), log_fn=rec.log))
+        rec.restore()
+        st = sched.stats
+        check(sorted(c.uid for c in comps) == list(range(GEN_BATCH))
+              and all(c.status == "ok" and c.n_generated == GEN_NEW
+                      for c in comps), f"{label} completions")
+        n_dec, n_pre = st["decode_steps"], sched.prefill_calls
+        want = {"colwise_nm_matmul_tiled": n_lin * (n_pre + n_dec)}
+        if label == "grow":
+            want["paged_attention_split"] = cfg.n_layers * n_dec
+            check(st["preemptions"] >= 1, "the grow run preempted nothing")
+            check(sched.page_stats["pages_active"] == 0, "grow leaked pages")
+        check(counts[label] == want,
+              f"{label} launches {counts[label]}, want {want}")
+        runs[label] = ({c.uid: c for c in comps}, rec)
+        scheds[label] = sched
+        print(f"  {label} scheduler ({GEN_BATCH} slots"
+              + (f", chunk {GEN_CHUNK}" if label == "contiguous" else
+                 f", page size {PAGED_PS}, {GROW_BUDGET_ROWS} KV rows, "
+                 f"{st['preemptions']} preemption(s), pages peak "
+                 f"{sched.page_stats['pages_peak']}") +
+              f"): {n_pre} prefill calls, {n_dec} decode steps, launches "
+              f"{counts[label]} (want {want}); host "
+              f"{st['decode_s'] / n_dec * 1e3:.3f} ms a decode step, "
+              f"{st['decode_tok_s']:.1f} tokens/s, run {walls[label]:.3f} s",
+              flush=True)
+
+    ties = hold_tokens(res, runs, cfg)
+    same = {label: sum(np.array_equal(c.tokens, res["tokens"][u])
+                       for u, c in comps.items())
+            for label, (comps, _) in runs.items()}
+    print(f"  tokens equal to generate's: {same} of {GEN_BATCH} requests "
+          f"each; near-ties where a run departs (run, uid, token, logits "
+          f"rel err, top-2 gap): {ties or 'none'}", flush=True)
+
+    worst = {"generate": replay_steps(rec_g, cfg, dev, "generate"),
+             "contiguous": replay_steps(runs["contiguous"][1], cfg, dev,
+                                        "contiguous")}
+    print(f"  teacher-forced replay through the plain versions "
+          f"(compressed_xla): max rel err of the logits {worst} <= "
+          f"{REPLAY_RTOL} of max|logit|", flush=True)
+
+    # one contiguous and one paged decode step: launches and device time
+    _, cache = engine.prefill_step(prompts, GEN_PROMPT + GEN_NEW)
+    tok_d = torch.from_numpy(prompts[:, :1].copy()).to(dev)
+    pos_d = torch.full((GEN_BATCH,), GEN_PROMPT, dtype=torch.int32, device=dev)
+    with dispatch.phase_scope("decode"):
+        _, one, _ = counted(lambda: lm.decode_step(params, cfg, cache, tok_d,
+                                                   pos_d))
+        check(one == {"colwise_nm_matmul_tiled": n_lin},
+              f"a contiguous decode step launched {one}")
+        contig_ms = time_ms(lambda: lm.decode_step(params, cfg, cache, tok_d,
+                                                   pos_d), iters=3)
+        pool = PagePool(GEN_BATCH * 10, PAGED_PS)
+        for i in range(GEN_BATCH):
+            pool.alloc(i, GEN_PROMPT + GEN_NEW)
+        tables = torch.from_numpy(pool.table_array(GEN_BATCH, 10)).to(dev)
+        from repro_torch.models import registry as reg
+
+        pcache = reg.paged_cache_init_fn(cfg, pool.n_pages, PAGED_PS, dev)()
+        paged_ms = time_ms(lambda: lm.paged_decode_step(
+            params, cfg, pcache, tok_d, pos_d, tables, PAGED_PS), iters=3)
+    host = {label: scheds[label].stats["decode_s"]
+            / scheds[label].stats["decode_steps"] * 1e3 for label in scheds}
+    host["generate"] = res["decode_s"] / n_dec_g * 1e3
+    print(f"  a decode step at {GEN_BATCH} x {GEN_PROMPT} rows: device "
+          f"{contig_ms:.4f} ms contiguous (lm.decode_step, {n_lin} tiled "
+          f"linears, plain attention), {paged_ms:.4f} ms paged "
+          f"(lm.paged_decode_step); host ms a step with sampling: "
+          f"generate {host['generate']:.3f}, contiguous "
+          f"{host['contiguous']:.3f}, grow {host['grow']:.3f}; idle "
+          f"{max(0.0, 1 - contig_ms / host['contiguous']):.3f} contiguous, "
+          f"{max(0.0, 1 - paged_ms / host['grow']):.3f} paged", flush=True)
+
+    # lifecycle: a cancel, a deadline and a drain in one grow run
+    eng = Engine(cfg, params, ServeConfig(max_new_tokens=8))
+    sched = Scheduler(eng, n_slots=GEN_BATCH, paged=True, page_size=PAGED_PS,
+                      alloc="grow", kv_budget_rows=GROW_BUDGET_ROWS)
+    life = [Request(uid=i, prompt=prompts[i % GEN_BATCH, :16 + 8 * i],
+                    max_new_tokens=8) for i in range(8)]
+    life[5].deadline_s = 1e-9
+    sched.cancel(1)
+    seen, beats = [], []
+    for c in sched.run_iter(life, should_drain=lambda: len(seen) >= 2,
+                            heartbeat=lambda: beats.append(1)):
+        seen.append(c)
+    by = {c.uid: c.status for c in seen}
+    st = sched.stats
+    check(len(seen) == len(by) == len(life), f"lifecycle completions {by}")
+    check(all(s in STATUSES for s in by.values()), f"statuses {by}")
+    check(by[1] == "cancelled" and by[5] == "timeout"
+          and "ok" in by.values(), f"lifecycle statuses {by}")
+    check(sum(st[f"retired_{s}"] for s in STATUSES) == len(life),
+          "the retired counts do not add up")
+    check(sched.page_stats["pages_active"] == 0, "lifecycle leaked pages")
+    check(len(beats) >= st["decode_steps"], "a heartbeat was missed")
+    print(f"  lifecycle (grow, {len(life)} requests; uid 1 cancelled, uid 5 "
+          f"a 1 ns deadline, drain after 2 completions): statuses {by}, "
+          f"{len(beats)} heartbeats for {st['decode_steps']} decode steps; "
+          f"page pool invariants hold, 0 pages mapped at the end", flush=True)
+
+    temp = check_temperature(eng, cfg, dev)
+    print(f"  temperature {TEMP}: {TEMP_DRAWS} draws on the card from one "
+          f"row, no padded id, chi-square p {temp['p']:.4f} > {TEMP_P_MIN} "
+          f"against softmax(logits / T) (p {temp['p_at_T1']:.2e} against "
+          f"T = 1); the same seed repeats", flush=True)
+
+    # the serving launcher, in process, static and continuous paged grow
+    t0 = time.perf_counter()
+    for argv in (["--arch", "smollm-360m", "--batch", "4", "--prompt-len",
+                  "32", "--new-tokens", "8"],
+                 ["--arch", "smollm-360m", "--continuous", "--paged",
+                  "--alloc", "grow", "--requests", "6", "--slots", "4",
+                  "--prompt-len", "32", "--new-tokens", "8"]):
+        print(f"  python -m repro_torch.launch.serve {' '.join(argv)}:",
+              flush=True)
+        launch_serve.main(argv)
+    print(f"  both launcher runs exited normally in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    print("SERVE12 " + json.dumps({
+        "generate_decode_host_ms": host["generate"],
+        "contiguous_decode_host_ms": host["contiguous"],
+        "grow_decode_host_ms": host["grow"],
+        "contiguous_step_device_ms": contig_ms, "paged_step_device_ms": paged_ms,
+        "prefill_s": res["prefill_s"], "replay_max_rel_err": worst,
+        "tokens_equal": same, "near_ties": ties,
+        "preemptions": scheds["grow"].stats["preemptions"],
+        "temperature_p": temp["p"],
+        "launches": dict(counts, generate=counts_g)}), flush=True)
+    dispatch.set_db(None)
+    db_path.unlink(missing_ok=True)
+    total = {}
+    for c in (counts_g, counts["contiguous"], counts["grow"]):
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+    return total
 
 
 def flash_bound(b, sq, sk, h, kv, d, causal, dtype) -> tuple:
@@ -2815,7 +3222,14 @@ def main() -> int:
         train_launches[name] += n
     print(f"  phase 11 took {time.perf_counter() - t0:.1f} s", flush=True)
 
-    print("== 12. report", flush=True)
+    print(f"== 12. serving, the rest: pruned smollm-360m, generate, the "
+          f"contiguous and the paged grow Scheduler on {GEN_BATCH} prompts "
+          f"of {GEN_PROMPT} tokens", flush=True)
+    t0 = time.perf_counter()
+    rest_counts = run_serving_rest(dev, lm_cfg, lm_params)
+    print(f"  phase 12 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    print("== 13. report", flush=True)
     launches = {
         "conv2d_fused": fused_route["conv2d_fused"],
         "conv2d_fused_tiled": counts["default"]["conv2d_fused_tiled"],
@@ -2835,15 +3249,17 @@ def main() -> int:
                 "colwise_nm_matmul_strips_pipelined_tiled"],
         "colwise_nm_matmul": linear_launches["colwise_nm_matmul"],
         "paged_attention": paged_route["paged_attention"],
-        "paged_attention_split": serve_counts["paged_attention_split"],
+        "paged_attention_split": serve_counts["paged_attention_split"]
+        + rest_counts["paged_attention_split"],
         "flash_attention": flash_route["flash_attention"],
-        "colwise_nm_matmul_tiled": serve_counts["colwise_nm_matmul_tiled"],
+        "colwise_nm_matmul_tiled": serve_counts["colwise_nm_matmul_tiled"]
+        + rest_counts["colwise_nm_matmul_tiled"],
         "flash_attention_tiled": score_counts["flash_attention_tiled"],
     }
-    print(f"  the linear phase (5) launched {linear_launches}; the served run "
-          f"colwise_nm_matmul_tiled {launches['colwise_nm_matmul_tiled']} times "
-          f"and the scored run {score_counts['colwise_nm_matmul_tiled']}",
-          flush=True)
+    print(f"  the linear phase (5) launched {linear_launches}; the served runs "
+          f"(phases 7 and 12) colwise_nm_matmul_tiled "
+          f"{launches['colwise_nm_matmul_tiled']} times and the scored run "
+          f"{score_counts['colwise_nm_matmul_tiled']}", flush=True)
     check(all(launches.values()), f"a kernel was not launched: {launches}")
     per = {"colwise_nm_matmul": "ms etc.: sum over the 960->2560 and "
                                 "2560->960 layers at 256 rows (T = d_out); "
@@ -2852,7 +3268,8 @@ def main() -> int:
            "colwise_nm_matmul_tiled": "ms etc.: sum over the 960->2560 and "
                                       "2560->960 layers at 256 rows (T = "
                                       "d_out); launches: the served "
-                                      "smollm-360m run (7 per layer per step)",
+                                      "smollm-360m runs of phases 7 and 12 "
+                                      "(7 per layer per step)",
            "paged_attention": "ms etc.: B 4, Sq 1, f32, H 15, KV 5, D 64, "
                               "page size 16 (the decode step's shape), "
                               "called directly (the split kernel's "
@@ -2862,8 +3279,9 @@ def main() -> int:
            "paged_attention_split": "ms etc.: B 4, Sq 1, f32, H 15, KV 5, D "
                                     "64, page size 16 (the decode step's "
                                     "shape); launches: the served "
-                                    "smollm-360m run (1 per layer per decode "
-                                    "step)",
+                                    "smollm-360m runs of phases 7 and 12's "
+                                    "grow scheduler (1 per layer per paged "
+                                    "decode step)",
            "flash_attention": "ms etc.: B 4, S 2048, H 15, KV 5, D 64, "
                               "causal, f32 (the scoring forward's shape, "
                               "where it is the tiled kernel's bitwise "

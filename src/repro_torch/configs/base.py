@@ -17,7 +17,8 @@ class ModelConfig:
     """A decoder-only attention LM: the JAX ``ModelConfig``'s fields that
     its attention family reads, with the same defaults.  The MoE,
     recurrent, encoder-decoder, M-RoPE and sharding fields wait for the
-    slices that port those families."""
+    slices that port those families; ``block_pattern`` is carried so the
+    serving steps can refuse the recurrent ones by name."""
 
     name: str = "model"
     family: str = "dense"
@@ -27,6 +28,7 @@ class ModelConfig:
     n_kv_heads: int = 2
     d_ff: int = 256
     vocab_size: int = 256
+    block_pattern: str = "attn"            # the port runs "attn" only
     head_dim: Optional[int] = None
     qkv_bias: bool = False
     attn_impl: str = "naive"               # naive | chunked | pallas (flash kernel)

@@ -1,3 +1,3 @@
-"""Step builders and launchers (twin of ``repro/launch``): the train step
-and the training launcher.  The shardings, the serving step builders, the
-mesh and the dry run come with the port's sharding."""
+"""Step builders and launchers (twin of ``repro/launch``): the train step,
+the training launcher and the serving launcher.  The shardings, the serving
+step builders, the mesh and the dry run come with the port's sharding."""

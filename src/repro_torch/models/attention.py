@@ -1,17 +1,20 @@
 """GQA attention (twin of ``repro/models/attention.py``'s attention
 family): the QKV/O projections with RoPE; full self-attention for the
 scoring forward (``attn_apply``: naive, chunked online-softmax, or the flash
-kernel under ``attn_impl="pallas"``); packed multi-prompt prefill over one
-padding-free token stream; and one-token decode against a paged KV cache
-through the paged-attention kernel.
+kernel under ``attn_impl="pallas"``); chunked prefill and one-token decode
+against a contiguous KV cache (plain PyTorch, as the JAX package leaves
+them to XLA); packed multi-prompt prefill over one padding-free token
+stream; and one-token decode against a paged KV cache through the
+paged-attention kernel.
 
 GQA runs grouped (q reshaped [B, S, KV, G, D]) so the KV tensors are never
 expanded to H heads; only H % KV != 0 takes the head-mapped expansion.
 
-The paged cache is ``{"k", "v"}`` of ``[L, n_pages + 1, page_size, KV, D]``.
-The port writes the step's new K/V into it in place (the JAX package
-returns a new cache and donates the old one): the scheduler owns the cache
-alone, so nothing else holds the old value.
+The contiguous cache is ``{"k", "v"}`` of ``[L, B, S_max, KV, D]``, the
+paged one of ``[L, n_pages + 1, page_size, KV, D]``.  The port writes the
+step's new K/V into either in place (the JAX package returns a new cache
+and donates the old one): the engine or the scheduler owns the cache alone,
+so nothing else holds the old value.
 """
 from __future__ import annotations
 
@@ -219,6 +222,92 @@ def _cached_attention(q, k_new, v_new, kc, vc, *, limit: torch.Tensor,
     w = torch.softmax(torch.cat([s_c, s_n], dim=-1), dim=-1).to(q.dtype)
     o = torch.einsum("bhqs,bshd->bqhd", w[..., :s_max], vx)
     return o + torch.einsum("bhqs,bshd->bqhd", w[..., s_max:], vn)
+
+
+# ---------------------------------------------------------------------------
+# Contiguous KV cache
+# ---------------------------------------------------------------------------
+
+
+def cache_init(cfg: ModelConfig, batch: int, max_len: int, n_layers: int,
+               dtype, device=None):
+    """Contiguous decode cache, [L, B, max_len, KV, D] per leaf, on
+    ``device`` (``None``: the CUDA card)."""
+    kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    shape = (n_layers, batch, max_len, kv, hd)
+    dev = resolve_device(device)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def _pos_vector(pos, b: int, device) -> torch.Tensor:
+    """A scalar or [B] position (int, numpy or tensor) as a [B] int32
+    tensor on ``device``."""
+    pos = torch.as_tensor(pos, dtype=torch.int32).to(device)
+    return pos.reshape(-1).expand(b)
+
+
+def attn_decode(params, cfg: ModelConfig, x: torch.Tensor,
+                layer_cache: Tuple[torch.Tensor, torch.Tensor], *, pos):
+    """One-token decode against a contiguous cache it only reads.
+
+    x [B, 1, d]; layer_cache (k, v) [B, S_max, KV, D]; pos a scalar or a
+    per-sequence [B] vector (each slot at its own length).  Attention is
+    the softmax over (cache rows < pos) ++ the new token.  Returns (out,
+    (k_new [B, 1, KV, D], v_new)): the caller writes the new K/V with one
+    :func:`cache_write` after the layer loop.
+    """
+    b = x.shape[0]
+    pos_b = _pos_vector(pos, b, x.device)
+    q, k_new, v_new = _qkv(params, cfg, x, pos_b[:, None])
+    kc, vc = layer_cache
+    o = _cached_attention(q, k_new, v_new, kc, vc, limit=pos_b, causal=False)
+    return linear_apply(params["o"], o.reshape(b, 1, -1)), (k_new, v_new)
+
+
+def attn_prefill_chunk(params, cfg: ModelConfig, x: torch.Tensor,
+                       layer_cache: Tuple[torch.Tensor, torch.Tensor], *,
+                       start):
+    """Chunked prefill through one layer against a contiguous cache.
+
+    x [B, C, d] holds the tokens at positions [start, start + C); the
+    cache's rows < start hold the sequence's earlier chunks.  Attention is
+    the softmax over (cache rows < start) ++ the chunk, causal within it.
+    Returns (out, (k_chunk [B, C, KV, D], v_chunk)); the caller writes them
+    with one :func:`cache_write` after the layer loop.
+    """
+    b, c_len = x.shape[:2]
+    start_b = _pos_vector(start, b, x.device)
+    positions = start_b[:, None] + torch.arange(
+        c_len, dtype=torch.int32, device=x.device)[None, :]
+    q, k_new, v_new = _qkv(params, cfg, x, positions)
+    kc, vc = layer_cache
+    o = _cached_attention(q, k_new, v_new, kc, vc, limit=start_b, causal=True)
+    return linear_apply(params["o"], o.reshape(b, c_len, -1)), (k_new, v_new)
+
+
+def cache_write(cache_k, cache_v, k_news, v_news, pos):
+    """Write the step's new K/V into the stacked cache, in place.
+
+    cache_* [L, B, S, KV, D]; *_news [L, B, C, KV, D] (C = 1 for decode,
+    the chunk width for chunked prefill).  ``pos`` is the scalar row where
+    every sequence's write starts, or a per-sequence [B] vector.  The start
+    is taken as ``jax.lax.dynamic_update_slice`` takes it: a negative one
+    counts from the end, then it clamps to [0, S - C], so an idle slot
+    parked at its last row writes in bounds.  The cache may be
+    a view (one slot's rows of a pool): only rows [start, start + C) of
+    each sequence change.  Returns the two caches.
+    """
+    _, b, s, _, _ = cache_k.shape
+    c_len = k_news.shape[2]
+    dev = cache_k.device
+    start = _pos_vector(pos, b, dev).long()
+    start = torch.where(start < 0, start + s, start).clamp(0, s - c_len)
+    rows = start[:, None] + torch.arange(c_len, device=dev)[None, :]  # [B, C]
+    seqs = torch.arange(b, device=dev)[:, None]
+    cache_k[:, seqs, rows] = k_news.to(cache_k.dtype)
+    cache_v[:, seqs, rows] = v_news.to(cache_v.dtype)
+    return cache_k, cache_v
 
 
 # ---------------------------------------------------------------------------

@@ -54,6 +54,29 @@ def block_apply(params, cfg: ModelConfig, h, *, positions, causal=True):
     return h, torch.zeros((), dtype=torch.float32, device=h.device)
 
 
+def block_decode(params, cfg: ModelConfig, h, layer_cache, *, pos):
+    """One-token decode through a block against a contiguous cache.
+
+    layer_cache (k, v) [B, S_max, KV, D]; pos a scalar or [B].  Returns
+    (h, (k_new, v_new)); the caller writes the new K/V after the layer loop.
+    """
+    x = norm_apply(params["ln1"], h)
+    a, new_kv = attn.attn_decode(params["attn"], cfg, x, layer_cache, pos=pos)
+    h = h + a
+    return h + mlp_apply(params["mlp"], cfg, norm_apply(params["ln2"], h)), new_kv
+
+
+def block_prefill_chunk(params, cfg: ModelConfig, h, layer_cache, *, start):
+    """Chunked prefill through a block: h [B, C, d] at positions [start,
+    start + C) against a contiguous layer cache.  Returns (h, (k_chunk,
+    v_chunk))."""
+    x = norm_apply(params["ln1"], h)
+    a, kv_new = attn.attn_prefill_chunk(params["attn"], cfg, x, layer_cache,
+                                        start=start)
+    h = h + a
+    return h + mlp_apply(params["mlp"], cfg, norm_apply(params["ln2"], h)), kv_new
+
+
 def block_paged_decode(params, cfg: ModelConfig, h, layer_cache, *, pos,
                        tables, page_size: int):
     """One-token decode through a block against a paged cache.

@@ -1,7 +1,8 @@
 """The decoder-only LM (twin of the attention-pattern half of
 ``repro/models/lm.py``): init; the scoring forward (``lm_forward``) and its
-next-token loss (``loss_fn``); and the serving steps, packed prefill into a
-paged KV cache and one decode step against it.
+next-token loss (``loss_fn``); and the serving steps: prefill, chunked
+prefill and one decode step against a contiguous KV cache, and packed
+prefill and one decode step against a paged one.
 
 No step moves a tensor to the host: the caller reads only the logits it
 samples from.
@@ -14,16 +15,20 @@ import torch
 
 from repro_torch._compat import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.sparse_linear import linear_apply
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.blocks import (
     block_apply,
+    block_decode,
     block_init,
     block_paged_decode,
+    block_prefill_chunk,
     block_prefill_packed,
     layer_params,
     stack_layers,
 )
 from repro_torch.models.common import embed_init, embed_lookup, norm_apply, norm_init
+from repro_torch.models.mlp import mlp_apply
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -96,6 +101,103 @@ def loss_fn(params, cfg: ModelConfig, batch, aux_weight: float = 0.01):
     gold = torch.gather(logits, -1, labels[..., None])[..., 0]
     nll = (logz - gold).mean()
     return nll + aux_weight * aux, {"nll": nll, "aux": aux}
+
+
+def _check_attn(cfg: ModelConfig, what: str) -> None:
+    if cfg.block_pattern != "attn":
+        raise NotImplementedError(
+            f"{what} of block_pattern={cfg.block_pattern!r} ({cfg.name}) "
+            "waits for the recurrent families (ROADMAP queue 1 item 10); "
+            "the port serves attention families only")
+
+
+def cache_init(cfg: ModelConfig, batch: int, max_len: int, device=None):
+    """Contiguous decode cache ``{"k", "v"}`` of [L, B, max_len, KV, D] on
+    ``device`` (``None``: the CUDA card)."""
+    _check_attn(cfg, "the decode cache")
+    return attn_mod.cache_init(cfg, batch, max_len, cfg.n_layers,
+                               getattr(torch, cfg.dtype), device)
+
+
+def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor, pos):
+    """One decode step against a contiguous cache.
+
+    tokens [B, 1]; pos a scalar (the current length) or a per-sequence [B]
+    vector (slots at mixed lengths decode in one step).  The layers only
+    read the cache; one :func:`attention.cache_write` after the loop
+    commits every layer's new K/V in place.  Returns (logits [B, 1, V],
+    cache).
+    """
+    _check_attn(cfg, "decode_step")
+    h = _embed_tokens(params, cfg, tokens)
+    pos_b = attn_mod._pos_vector(pos, tokens.shape[0], tokens.device)
+    k_news, v_news = [], []
+    for l in range(cfg.n_layers):
+        h, (kn, vn) = block_decode(layer_params(params["layers"], l), cfg, h,
+                                   (cache["k"][l], cache["v"][l]), pos=pos_b)
+        k_news.append(kn)
+        v_news.append(vn)
+    attn_mod.cache_write(cache["k"], cache["v"], torch.stack(k_news),
+                         torch.stack(v_news), pos_b)
+    h = norm_apply(params["final_norm"], h)
+    return _unembed(params, cfg, h), cache
+
+
+def prefill(params, cfg: ModelConfig, tokens: torch.Tensor):
+    """Run prompts tokens [B, S] through the model.  Returns (last-token
+    logits [B, 1, V], cache {"k", "v"} of [L, B, S, KV, D]).
+
+    Attention is :func:`attention.sdpa_gqa`, or the online-softmax
+    :func:`attention.sdpa_gqa_chunked` under ``attn_impl="chunked"`` when S
+    exceeds ``attn_chunk``; never the flash kernel, as in the JAX package.
+    """
+    _check_attn(cfg, "prefill")
+    b, s = tokens.shape
+    h = _embed_tokens(params, cfg, tokens)
+    positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
+    ks, vs = [], []
+    for l in range(cfg.n_layers):
+        lp = layer_params(params["layers"], l)
+        x = norm_apply(lp["ln1"], h)
+        q, k, v = attn_mod._qkv(lp["attn"], cfg, x, positions)
+        if cfg.attn_impl == "chunked" and s > cfg.attn_chunk:
+            o = attn_mod.sdpa_gqa_chunked(q, k, v, causal=True,
+                                          chunk=cfg.attn_chunk)
+        else:
+            o = attn_mod.sdpa_gqa(q, k, v, causal=True)
+        h = h + linear_apply(lp["attn"]["o"], o.reshape(b, s, -1))
+        h = h + mlp_apply(lp["mlp"], cfg, norm_apply(lp["ln2"], h))
+        ks.append(k)
+        vs.append(v)
+    h = norm_apply(params["final_norm"], h[:, -1:])
+    return _unembed(params, cfg, h), {"k": torch.stack(ks), "v": torch.stack(vs)}
+
+
+def prefill_chunk(params, cfg: ModelConfig, cache, tokens: torch.Tensor,
+                  start, with_logits: bool = True):
+    """Prefill one chunk of a prompt into a contiguous cache.
+
+    tokens [B, C] sit at positions [start, start + C); the cache's rows <
+    start hold the sequence's earlier chunks.  The cache may be a view of
+    one slot's rows of a pool: the chunk's K/V are written through it in
+    place.  Returns (logits [B, C, V], cache); ``with_logits=False`` skips
+    the final norm and unembedding and returns (None, cache).
+    """
+    _check_attn(cfg, "prefill_chunk")
+    h = _embed_tokens(params, cfg, tokens)
+    k_news, v_news = [], []
+    for l in range(cfg.n_layers):
+        h, (kn, vn) = block_prefill_chunk(
+            layer_params(params["layers"], l), cfg, h,
+            (cache["k"][l], cache["v"][l]), start=start)
+        k_news.append(kn)
+        v_news.append(vn)
+    attn_mod.cache_write(cache["k"], cache["v"], torch.stack(k_news),
+                         torch.stack(v_news), start)
+    if not with_logits:
+        return None, cache
+    h = norm_apply(params["final_norm"], h)
+    return _unembed(params, cfg, h), cache
 
 
 def paged_decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor,

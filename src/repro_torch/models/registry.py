@@ -1,6 +1,6 @@
 """Model facade (twin of ``repro/models/registry.py`` for the attention
 family): params, the scoring forward and loss, and the serving step
-functions the engine calls."""
+functions the engine calls, for the contiguous and the paged cache."""
 from __future__ import annotations
 
 import torch
@@ -24,6 +24,33 @@ def loss_fn(cfg: ModelConfig):
 def forward_fn(cfg: ModelConfig):
     """(params, batch) -> logits [B, S, padded_vocab]."""
     return lambda params, batch: lm_mod.lm_forward(params, cfg, batch)[0]
+
+
+def prefill_fn(cfg: ModelConfig):
+    """(params, batch) -> (last-token logits [B, 1, V], cache of the
+    prompt's [L, B, S, KV, D] rows)."""
+    return lambda params, batch: lm_mod.prefill(params, cfg, batch["tokens"])
+
+
+def decode_fn(cfg: ModelConfig):
+    """Decode step against a contiguous cache: tokens [B, 1], pos a scalar
+    or [B]."""
+    return lambda params, cache, tokens, pos: lm_mod.decode_step(
+        params, cfg, cache, tokens, pos)
+
+
+def prefill_chunk_fn(cfg: ModelConfig):
+    """Chunked prefill (continuous batching): tokens [B, C] at positions
+    [start, start + C) into a preallocated contiguous cache."""
+    lm_mod._check_attn(cfg, "chunked prefill")
+    return lambda params, cache, tokens, start, with_logits=True: (
+        lm_mod.prefill_chunk(params, cfg, cache, tokens, start, with_logits))
+
+
+def cache_init_fn(cfg: ModelConfig, batch: int, max_len: int, device=None):
+    """Contiguous decode cache, [L, batch, max_len, KV, D] per leaf, on
+    ``device``."""
+    return lambda: lm_mod.cache_init(cfg, batch, max_len, device)
 
 
 def paged_decode_fn(cfg: ModelConfig, page_size: int):

@@ -1,5 +1,6 @@
-"""Paged serving (twin of ``repro/serve``): the engine's step primitives,
-the page and slot pools, and the continuous-batching scheduler."""
+"""Serving (twin of ``repro/serve``): the engine's step primitives and
+static ``generate``, the page and slot pools, and the continuous-batching
+scheduler over a contiguous or a paged KV cache."""
 from repro_torch.serve.engine import Engine, ServeConfig  # noqa: F401
 from repro_torch.serve.kv_pages import (  # noqa: F401
     PackedPrefill,
@@ -10,6 +11,7 @@ from repro_torch.serve.kv_pages import (  # noqa: F401
 )
 from repro_torch.serve.kv_slots import Slot, SlotError, SlotPool  # noqa: F401
 from repro_torch.serve.scheduler import (  # noqa: F401
+    STATUSES,
     Completion,
     Request,
     RequestQueue,

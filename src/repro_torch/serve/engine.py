@@ -1,17 +1,28 @@
-"""Serving engine: the paged step primitives the continuous-batching
-scheduler drives (twin of ``repro/serve/engine.py``'s paged half).
+"""Serving engine: batched prefill and decode with per-sequence completion,
+greedy or temperature sampling, and padded-vocab masking (twin of
+``repro/serve/engine.py``).
 
-``packed_prefill_step`` and ``paged_decode_step`` run under a
-:func:`repro_torch.dispatch.phase_scope`, so every sparse-operator lookup
-inside resolves a phase-tagged key: prefill ([T]-row operands) and decode
-([B]-row operands) get separately planned implementations.  The static
-``Engine.generate``, the contiguous-cache steps and temperature sampling
-wait for a later slice (ROADMAP).
+The engine owns the step primitives (``prefill_step``,
+``prefill_chunk_step``, ``decode_step`` on a contiguous cache,
+``packed_prefill_step`` and ``paged_decode_step`` on a paged one, and
+``sample``), which two consumers share: the static-batch
+:meth:`Engine.generate` and the continuous-batching
+:class:`repro_torch.serve.scheduler.Scheduler`.
+
+Every step runs under a :func:`repro_torch.dispatch.phase_scope`, so each
+sparse-operator lookup inside resolves a phase-tagged key: prefill
+([B*S]-row operands) and decode ([B]-row operands) get separately planned
+implementations.
+
+Temperature sampling draws on the logits' device from the engine's
+``torch.Generator``, seeded from ``ServeConfig.seed`` at each run; the JAX
+package's ``jax.random`` draws cannot be matched, only their distribution.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import time
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -25,8 +36,10 @@ NEG = -1e30
 
 @dataclasses.dataclass
 class ServeConfig:
-    temperature: float = 0.0  # 0 => greedy, the only sampling the port has
+    max_new_tokens: int = 32
+    temperature: float = 0.0  # 0 => greedy
     eos_id: Optional[int] = None
+    seed: int = 0
     # profile the sparse-operator candidates at engine build (else the plan
     # comes from the profile DB or the heuristic)
     profile_dispatch: bool = False
@@ -43,13 +56,12 @@ class Engine:
                  serve_cfg: Optional[ServeConfig] = None):
         self.cfg = cfg
         self.params = params
+        # None => a fresh config per engine (a shared default instance would
+        # be mutable state common to every Engine)
         self.scfg = serve_cfg if serve_cfg is not None else ServeConfig()
-        if self.scfg.temperature > 0:
-            raise NotImplementedError(
-                "temperature sampling waits for a later slice (ROADMAP queue "
-                "1 item 11): the JAX package's jax.random draws cannot be "
-                "matched; use temperature=0 (greedy)")
         self.device = params["embed"].device
+        self.generator = torch.Generator(device=self.device)
+        self.reseed()
         # Build-time dispatch: resolve (and optionally profile) every
         # compressed layer's implementation per phase before the first step.
         scfg = self.scfg
@@ -61,18 +73,84 @@ class Engine:
             },
             profile=scfg.profile_dispatch)
 
+    def reseed(self) -> None:
+        """Restart the sampling generator from ``ServeConfig.seed`` (each
+        ``generate`` and each scheduler run starts here, as the JAX engine
+        starts each from ``PRNGKey(seed)``)."""
+        self.generator.manual_seed(self.scfg.seed)
+
     def _ints(self, a) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a, np.int32)).to(self.device)
+        if isinstance(a, torch.Tensor):
+            return a.to(device=self.device, dtype=torch.int32)
+        return torch.from_numpy(np.array(a, np.int32)).to(self.device)
 
     def sample(self, logits: torch.Tensor) -> torch.Tensor:
-        """Greedy next tokens [N] int32 from [N, S, V] logits (last position);
-        the padded vocab ids are masked first.  Stays on the device."""
+        """Next tokens [N] int32 from [N, S, V] logits (last position), on
+        the logits' device.  The padded vocab ids are set to -1e30 first.
+        Greedy is ``argmax`` (the first maximum wins); temperature T > 0
+        draws from softmax(logits / T) by the Gumbel-max trick with the
+        engine's generator."""
         logits = logits[:, -1].float()
         v = self.cfg.vocab_size
         if self.cfg.padded_vocab != v:
             logits = logits.clone()
             logits[:, v:] = NEG
-        return torch.argmax(logits, dim=-1).to(torch.int32)
+        t = self.scfg.temperature
+        if t <= 0:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        u = torch.rand(logits.shape, generator=self.generator,
+                       device=logits.device)
+        gumbel = -torch.log(-torch.log(u))
+        return torch.argmax(logits / t + gumbel, dim=-1).to(torch.int32)
+
+    # ------------------------------------------------------------------
+    # Contiguous-cache steps (generate() and the contiguous Scheduler)
+    # ------------------------------------------------------------------
+
+    def prefill_step(self, prompts, max_len: int):
+        """Run prompts [B, S] through the model.  Returns (last-token
+        logits [B, 1, V], decode-ready cache of ``max_len`` rows).  The
+        recurrent families' prefill (a recurrence over the prompt) raises
+        in ``lm.prefill``, naming ROADMAP queue 1 item 10."""
+        tokens = self._ints(prompts)
+        b, s = tokens.shape
+        with dispatch.phase_scope("prefill"):
+            logits, cache = reg.prefill_fn(self.cfg)(self.params,
+                                                     {"tokens": tokens})
+        return logits, self._grow_cache(cache, b, max_len, s)
+
+    def prefill_chunk_step(self, cache, tokens, start: int,
+                           with_logits: bool = True):
+        """Prefill one fixed-width chunk of a prompt into a preallocated
+        contiguous cache (the scheduler's admission path), writing through
+        the given cache, which may be a view of one slot's rows.
+        ``with_logits=False`` skips the unembedding: only the chunk holding
+        the last prompt token needs logits."""
+        with dispatch.phase_scope("prefill"):
+            return reg.prefill_chunk_fn(self.cfg)(
+                self.params, cache, self._ints(tokens), int(start),
+                bool(with_logits))
+
+    def decode_step(self, cache, tokens, pos):
+        """One decode step.  tokens [B, 1]; pos a scalar or a per-sequence
+        [B] vector.  Returns (logits [B, 1, V], cache); the cache is
+        written in place."""
+        with dispatch.phase_scope("decode"):
+            return reg.decode_fn(self.cfg)(self.params, cache,
+                                           self._ints(tokens), self._ints(pos))
+
+    def _grow_cache(self, cache, b: int, max_len: int, cur_len: int):
+        """The prompt's cache of ``cur_len`` rows in a cache of ``max_len``."""
+        if cache["k"].shape[2] >= max_len:
+            return cache
+        full = reg.cache_init_fn(self.cfg, b, max_len, self.device)()
+        for key in ("k", "v"):
+            full[key][:, :, :cur_len] = cache[key]
+        return full
+
+    # ------------------------------------------------------------------
+    # Paged-cache steps (the paged Scheduler)
+    # ------------------------------------------------------------------
 
     def paged_decode_step(self, cache, tokens, pos, tables, *, page_size: int):
         """One decode step against a paged cache. tokens [B, 1]; pos [B];
@@ -93,3 +171,66 @@ class Engine:
                 self.params, cache, self._ints(packed.tokens),
                 self._ints(packed.slot_ids), self._ints(packed.positions),
                 self._ints(tables), self._ints(packed.last_idx))
+
+    # ------------------------------------------------------------------
+    # Static-batch generation
+    # ------------------------------------------------------------------
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def generate(self, prompts: np.ndarray) -> Dict:
+        """prompts [B, S_prompt] int32.  Returns the generated tokens
+        [B, n] and the timings.
+
+        With ``eos_id`` set, the positions after a sequence's EOS are set to
+        ``eos_id`` (never the live tokens the batch keeps sampling for the
+        sequences still running), and ``gen_lens[b]`` counts the tokens
+        sequence b generated, its EOS included.  The card is synchronised
+        before each clock read.
+        """
+        scfg = self.scfg
+        b, s = np.shape(prompts)
+        max_len = s + scfg.max_new_tokens
+        self.reseed()
+
+        self._sync()
+        t0 = time.perf_counter()
+        logits, cache = self.prefill_step(prompts, max_len)
+        self._sync()
+        t_prefill = time.perf_counter() - t0
+
+        out = []
+        done = np.zeros((b,), bool)
+        gen_len = np.zeros((b,), np.int32)
+
+        def record(tok: torch.Tensor) -> np.ndarray:
+            """Mask post-EOS samples, track done and lengths; returns the
+            token that is both emitted and fed to the next decode step."""
+            t = tok.cpu().numpy()
+            if scfg.eos_id is not None:
+                t = np.where(done, scfg.eos_id, t).astype(np.int32)
+            gen_len[:] += ~done
+            out.append(t)
+            if scfg.eos_id is not None:
+                done[:] |= t == scfg.eos_id
+            return t
+
+        tok = record(self.sample(logits))
+        t1 = time.perf_counter()
+        for i in range(scfg.max_new_tokens - 1):
+            if done.all():
+                break
+            logits, cache = self.decode_step(cache, tok[:, None], s + i)
+            tok = record(self.sample(logits))
+        self._sync()
+        t_decode = time.perf_counter() - t1
+        gen = np.stack(out, axis=1)
+        return {
+            "tokens": gen,
+            "gen_lens": gen_len.copy(),
+            "prefill_s": t_prefill,
+            "decode_s": t_decode,
+            "decode_tok_s": gen.shape[1] * b / max(t_decode, 1e-9),
+        }

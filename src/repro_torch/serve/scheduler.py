@@ -1,48 +1,71 @@
-"""Continuous-batching scheduler over a paged KV cache (twin of
-``repro/serve/scheduler.py`` in its ``paged=True, alloc="reserve"`` mode).
+"""Continuous-batching serve scheduler (twin of ``repro/serve/scheduler.py``).
 
-The scheduler admits variable-length requests into a fixed pool of
-``n_slots`` decode rows and a pool of KV pages, and runs one pool-shaped
-decode step per iteration:
+The static :meth:`Engine.generate` pads every request of a batch to the
+slowest one.  The :class:`Scheduler` instead admits variable-length
+requests into a fixed pool of ``n_slots`` decode rows and runs one
+pool-shaped decode step per iteration:
 
-  admit  : while a slot is free and the head request's prompt + budget fits
-           in the free pages, bind it to a slot and reserve its pages; all
-           of an iteration's admissions prefill as ONE packed,
-           padding-free stream (``Engine.packed_prefill_step``);
+  admit  : while a slot is free and requests wait, bind the next request to
+           a slot and prefill its prompt: in the contiguous mode through
+           fixed-width [1, C] chunks (``Engine.prefill_chunk_step``) into
+           the slot's rows of the pool cache; in the paged mode all of an
+           iteration's admissions as ONE packed, padding-free stream
+           (``Engine.packed_prefill_step``);
   decode : ONE batched decode step over all n_slots rows, each at its own
-           position, through the page tables;
+           position;
   retire : a request that hits EOS or its token budget completes at once
-           and frees its slot and pages for the next admission.
+           and frees its slot (and pages) for the next admission.
 
-The contiguous cache mode, ``alloc="grow"`` with its preemption, deadlines,
-cancellation, fault injection and the observability registry wait for
-later slices (ROADMAP queue 1 item 11); ``stats`` are plain numbers.
+Request lifecycle: every request ends at exactly one terminal
+:data:`STATUSES` value.  ``deadline_s`` expires a request, queued or in
+flight, relative to submission; :meth:`Scheduler.cancel` withdraws one by
+uid; ``should_drain`` stops admissions and flushes the queue; and under the
+paged ``alloc="grow"`` policy, page exhaustion preempts the latest-admitted
+request: its pages are freed and it is re-queued at the head with its
+generated prefix appended to the prompt, so the greedy re-prefill
+reproduces the identical continuation.
+
+``stats`` is a view over plain numbers with the JAX scheduler's key set;
+the fault sites and the metrics registry wait for ROADMAP queue 1 item 7,
+so ``iter_faults`` stays 0.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import math
 import time
-from typing import Dict, Iterable, Iterator, List, Optional
+from typing import Callable, Dict, Iterable, Iterator, List, Optional
 
 import numpy as np
 
 from repro_torch import dispatch
 from repro_torch.models import registry as reg
 from repro_torch.serve.engine import Engine
-from repro_torch.serve.kv_pages import PagePool, pack_prompts
+from repro_torch.serve.kv_pages import PageError, PagePool, pack_prompts
 from repro_torch.serve.kv_slots import SlotPool
 
-_LATER = "waits for a later slice (ROADMAP queue 1 item 11)"
+#: Terminal request statuses (every Completion carries exactly one).
+STATUSES = ("ok", "timeout", "cancelled", "failed", "preempted")
+
+_COUNTERS = ("decode_steps", "decode_s", "generated_tokens",
+             "completed_requests", "preemptions", "iter_faults",
+             "pages_stranded") + tuple(f"retired_{s}" for s in STATUSES)
+_GAUGES = ("requests", "total_s", "queue_depth", "slots_active",
+           "pages_active", "pages_free", "page_fragmentation", "pages_peak")
+_HISTS = ("ttft_s", "tpot_s", "latency_s")
 
 
 @dataclasses.dataclass
 class Request:
-    """One generation request: a prompt and a token budget."""
+    """One generation request: a prompt, a token budget, and an optional
+    deadline (seconds after submission; expiry retires the request with
+    status ``"timeout"`` whether it is queued or in flight)."""
 
     uid: int
     prompt: np.ndarray  # [S] int32
     max_new_tokens: int = 32
+    deadline_s: Optional[float] = None
 
     def __post_init__(self):
         self.prompt = np.asarray(self.prompt, np.int32).reshape(-1)
@@ -50,12 +73,16 @@ class Request:
             raise ValueError(f"request {self.uid}: empty prompt")
         if self.max_new_tokens < 1:
             raise ValueError(f"request {self.uid}: max_new_tokens < 1")
+        if self.deadline_s is not None and self.deadline_s <= 0:
+            raise ValueError(f"request {self.uid}: deadline_s <= 0")
 
 
 @dataclasses.dataclass
 class Completion:
     """A finished request: its generated tokens (EOS included when emitted),
-    its latency breakdown and its terminal status."""
+    its latency breakdown and its terminal status.  A non-``ok`` completion
+    carries what was generated before its terminal event (nothing for a
+    request never admitted)."""
 
     uid: int
     prompt_len: int
@@ -84,13 +111,28 @@ class RequestQueue:
     def __init__(self, requests: Iterable[Request] = ()):
         self._q = collections.deque(requests)
 
+    def push(self, req: Request) -> None:
+        self._q.append(req)
+
+    def push_front(self, req: Request) -> None:
+        """Re-enqueue at the head (a preempted request resumes first)."""
+        self._q.appendleft(req)
+
     def pop(self) -> Request:
         return self._q.popleft()
 
     def peek(self) -> Request:
-        """Head of the queue without removing it (admission checks the
+        """Head of the queue without removing it (paged admission checks the
         head's page cost before committing)."""
         return self._q[0]
+
+    def take(self, pred) -> List[Request]:
+        """Remove and return every queued request matching ``pred``, keeping
+        the order of the rest (the deadline and cancel sweeps)."""
+        taken = [r for r in self._q if pred(r)]
+        if taken:
+            self._q = collections.deque(r for r in self._q if not pred(r))
+        return taken
 
     def __len__(self) -> int:
         return len(self._q)
@@ -101,85 +143,185 @@ class RequestQueue:
 
 @dataclasses.dataclass
 class _InFlight:
+    """An admitted request's state.  ``admit_seq`` orders admissions (the
+    preemption victim is the highest)."""
+
     req: Request
     t_first: float
     tokens: List[int]
+    admit_seq: int = 0
+
+
+def _percentile(samples: List[float], p: float) -> float:
+    """Nearest-rank percentile of the samples; 0.0 when there are none."""
+    if not samples:
+        return 0.0
+    ranked = sorted(samples)
+    return ranked[max(int(math.ceil(p / 100.0 * len(ranked))), 1) - 1]
 
 
 class Scheduler:
-    """Slot-based continuous batching over a paged KV cache.
+    """Slot-based continuous batching on top of an :class:`Engine`.
 
     n_slots        : decode batch width == slot count
-    max_len        : per-request KV rows; defaults to the trace's
-                     max(prompt + max_new_tokens), rounded up to whole
-                     ``prefill_chunk`` rows as the JAX scheduler does
-    prefill_chunk  : the JAX scheduler's chunk width; here it sizes the
-                     default ``max_len`` and the prefill phase's dispatch
+    max_len        : per-slot KV rows; defaults to the trace's
+                     max(prompt + max_new_tokens), raised to hold the padded
+                     final prefill chunk
+    prefill_chunk  : the contiguous mode's chunk width C (``min(C,
+                     max_len)``); it also sizes the prefill phase's dispatch
                      plan
+    paged          : page the KV rows (``serve.kv_pages``): admission is
+                     charged in free pages and prompts prefill as one packed
+                     stream
     page_size      : KV rows per page; None lets
                      ``dispatch.choose_page_size`` pick the layout
     kv_budget_rows : physical KV rows of the page pool; defaults to
                      n_slots * max_len
-    paged, alloc   : only ``paged=True, alloc="reserve"`` (a request's whole
-                     prompt + budget is mapped at admission, so an admitted
-                     request never runs out of pages)
+    alloc          : paged allocation policy. ``"reserve"`` maps a
+                     request's prompt + budget at admission (an admitted
+                     request never runs out; EOS-early requests strand their
+                     unused tail, counted in ``pages_stranded``).  ``"grow"``
+                     maps the prompt at admission and one row ahead of each
+                     decode step; exhaustion preempts the latest-admitted
+                     request, restored token-identically by re-prefilling
+                     its prompt and generated prefix
+    max_restores   : preemptions a request survives before it retires with
+                     status ``"failed"``
     """
 
     def __init__(self, engine: Engine, *, n_slots: int = 4,
                  max_len: Optional[int] = None, prefill_chunk: int = 16,
                  paged: bool = False, page_size: Optional[int] = None,
-                 kv_budget_rows: Optional[int] = None, alloc: str = "reserve"):
-        if not paged:
-            raise NotImplementedError(f"the contiguous cache mode {_LATER}; "
-                                      "pass paged=True")
-        if alloc != "reserve":
-            raise NotImplementedError(f"alloc={alloc!r} {_LATER}; only "
-                                      "alloc='reserve' is ported")
+                 kv_budget_rows: Optional[int] = None,
+                 alloc: str = "reserve", max_restores: int = 8):
+        cfg = engine.cfg
+        if cfg.block_pattern != "attn":
+            raise ValueError(
+                f"continuous batching requires an attention family "
+                f"(slot-addressable KV rows); {cfg.name} has "
+                f"block_pattern={cfg.block_pattern!r}. Use Engine.generate.")
         if n_slots < 1:
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")
         if prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
         if page_size is not None and page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
+        if alloc not in ("reserve", "grow"):
+            raise ValueError(f"alloc must be 'reserve' or 'grow', got {alloc!r}")
+        if alloc == "grow" and not paged:
+            raise ValueError("alloc='grow' requires paged=True (the "
+                             "contiguous pool has nothing to grow)")
         self.engine = engine
         self.n_slots = n_slots
         self.max_len = max_len
         self.prefill_chunk = prefill_chunk
+        self.paged = bool(paged)
         self.page_size = page_size
         self.kv_budget_rows = kv_budget_rows
-        self.stats: Dict[str, float] = {}
+        self.alloc = alloc
+        self.max_restores = int(max_restores)
+        self._cancelled: set = set()
+        self._reset_metrics()
         # plan dispatch for the shapes this scheduler runs: [C]-row prefill
-        # hints and [n_slots]-row decode
+        # chunks and [n_slots]-row decode
         c_w = min(prefill_chunk, max_len) if max_len is not None else prefill_chunk
         self.dispatch_plan = dispatch.plan_params(
             engine.params, phase_hints={"prefill": c_w, "decode": n_slots},
             profile=engine.scfg.profile_dispatch)
         engine.dispatch_plan.update(self.dispatch_plan)
 
-    def run(self, requests: Iterable[Request]) -> List[Completion]:
-        """Serve every request; returns completions in finish order."""
-        return list(self.run_iter(requests))
+    # ------------------------------------------------------------------
+
+    def _reset_metrics(self) -> None:
+        self._counters: Dict[str, float] = dict.fromkeys(_COUNTERS, 0)
+        self._gauges: Dict[str, float] = dict.fromkeys(_GAUGES, 0)
+        self._hists: Dict[str, List[float]] = {h: [] for h in _HISTS}
+        # the run's prefill calls and their host seconds (not in ``stats``,
+        # whose key set is the JAX scheduler's)
+        self.prefill_calls = 0
+        self.prefill_s = 0.0
+
+    def cancel(self, uid: int) -> None:
+        """Withdraw request ``uid``: queued, it never admits; in flight, it
+        retires at the next iteration boundary.  Either way its Completion
+        carries status ``"cancelled"``.  Unknown uids are ignored."""
+        self._cancelled.add(uid)
+
+    @property
+    def stats(self) -> Dict[str, float]:
+        """Latency and throughput numbers, current at any point: all zeros
+        before the first run, and the work done so far while a
+        :meth:`run_iter` generator is part-consumed."""
+        c = self._counters
+        gen, dec_s = c["generated_tokens"], c["decode_s"]
+        out = {
+            "decode_steps": c["decode_steps"],
+            "decode_s": dec_s,
+            "total_s": self._gauges["total_s"],
+            "generated_tokens": gen,
+            "requests": self._gauges["requests"],
+            "completed_requests": c["completed_requests"],
+            "decode_tok_s": gen / dec_s if dec_s > 0 else 0.0,
+            "preemptions": c["preemptions"],
+            "iter_faults": c["iter_faults"],
+        }
+        for name in STATUSES:
+            out[f"retired_{name}"] = c[f"retired_{name}"]
+        for h in _HISTS:
+            out[f"{h[:-2]}_p50_s"] = _percentile(self._hists[h], 50)
+            out[f"{h[:-2]}_p99_s"] = _percentile(self._hists[h], 99)
+        return out
+
+    @property
+    def page_stats(self) -> Dict[str, float]:
+        """The page pool's occupancy (all zeros in the contiguous mode)."""
+        g = self._gauges
+        ps = self.page_size or 0
+        return {
+            "page_size": float(ps),
+            "pages_active": g["pages_active"],
+            "pages_free": g["pages_free"],
+            "page_fragmentation": g["page_fragmentation"],
+            "pages_peak": g["pages_peak"],
+            "kv_rows_hwm": g["pages_peak"] * ps,
+            "pages_stranded": self._counters["pages_stranded"],
+        }
+
+    def run(self, requests: Iterable[Request],
+            log_fn: Optional[Callable[[str], None]] = None,
+            should_drain: Optional[Callable[[], bool]] = None,
+            heartbeat: Optional[Callable[[], None]] = None) -> List[Completion]:
+        """Serve every request; returns completions in finish order (see
+        :meth:`run_iter`)."""
+        return list(self.run_iter(requests, log_fn=log_fn,
+                                  should_drain=should_drain,
+                                  heartbeat=heartbeat))
 
     def _sizes(self, reqs: List[Request]):
-        """(max_len, page_size, n_pages, max_pages) of a run."""
+        """(max_len, chunk width) of a run.  The padded final prefill chunk
+        writes rows up to round_up(prompt, C), so the cache must hold that
+        write: a start past S - C would clamp backwards over earlier rows."""
         needed = max(len(r.prompt) + r.max_new_tokens for r in reqs)
         c_w = self.prefill_chunk
         if self.max_len is None:
             pad_end = max(-(-len(r.prompt) // c_w) * c_w for r in reqs)
-            max_len = max(needed, pad_end)
-        else:
-            max_len = self.max_len
-            c_w = min(c_w, max_len)
-            if needed > max_len:
-                raise ValueError(
-                    f"max_len={max_len} cannot hold the longest request "
-                    f"(prompt+budget={needed})")
-            pad_end = max(-(-len(r.prompt) // c_w) * c_w for r in reqs)
-            if pad_end > max_len:
-                raise ValueError(
-                    f"prefill_chunk={c_w} pads the longest prompt to "
-                    f"{pad_end} rows > max_len={max_len}; lower "
-                    f"prefill_chunk or raise max_len")
+            return max(needed, pad_end), c_w
+        max_len = self.max_len
+        c_w = min(c_w, max_len)
+        if needed > max_len:
+            raise ValueError(
+                f"max_len={max_len} cannot hold the longest request "
+                f"(prompt+budget={needed})")
+        pad_end = max(-(-len(r.prompt) // c_w) * c_w for r in reqs)
+        if pad_end > max_len:
+            raise ValueError(
+                f"prefill_chunk={c_w} pads the longest prompt to "
+                f"{pad_end} rows > max_len={max_len}; lower "
+                f"prefill_chunk or raise max_len")
+        return max_len, c_w
+
+    def _page_sizes(self, max_len: int):
+        """(page_size, n_pages, max_pages) of a paged run."""
         cfg = self.engine.cfg
         if self.page_size is None:
             self.page_size = dispatch.choose_page_size(
@@ -195,115 +337,324 @@ class Scheduler:
             raise ValueError(
                 f"kv_budget_rows={budget_rows} ({n_pages} pages of {ps}) "
                 f"cannot hold one max-length request ({max_pages} pages)")
-        return max_len, ps, n_pages, max_pages
+        return ps, n_pages, max_pages
 
-    def run_iter(self, requests: Iterable[Request]) -> Iterator[Completion]:
+    def run_iter(self, requests: Iterable[Request],
+                 log_fn: Optional[Callable[[str], None]] = None,
+                 should_drain: Optional[Callable[[], bool]] = None,
+                 heartbeat: Optional[Callable[[], None]] = None
+                 ) -> Iterator[Completion]:
         """Generator form of :meth:`run`: yields each Completion the moment
         its iteration ends, while later requests are still decoding.  The
-        only device-to-host copies are the sampled tokens."""
+        only device-to-host copies are the sampled tokens.
+
+        ``log_fn`` receives the admit/preempt/retire/drain events as text.
+        ``should_drain`` is polled once per iteration; once it returns True
+        admissions stop, in-flight requests decode to completion, and the
+        queued ones flush with status ``"cancelled"`` (``"preempted"`` if
+        they hold a restore prefix).  ``heartbeat`` is called once per
+        iteration (``StepWatchdog.beat``)."""
         reqs = list(requests)
-        st = self.stats = {
-            "requests": len(reqs), "prefill_calls": 0, "prefill_s": 0.0,
-            "decode_steps": 0, "decode_s": 0.0, "generated_tokens": 0,
-            "completed_requests": 0, "pages_stranded": 0, "pages_peak": 0,
-            "pages_mapped": 0,
-            "total_s": 0.0, "decode_tok_s": 0.0}
+        log = log_fn or (lambda _msg: None)
+        self._reset_metrics()
+        cnt, gauge, hist = self._counters, self._gauges, self._hists
+        gauge["requests"] = len(reqs)
         if not reqs:
             return
-        engine = self.engine
-        max_len, ps, n_pages, max_pages = self._sizes(reqs)
+        engine, cfg = self.engine, self.engine.cfg
+        max_len, c_w = self._sizes(reqs)
         n = self.n_slots
         queue = RequestQueue(reqs)
         pool = SlotPool(n, max_len)
-        pages = PagePool(n_pages, ps)
-        cache = reg.paged_cache_init_fn(engine.cfg, n_pages, ps,
-                                        engine.device)()
+        pages: Optional[PagePool] = None
+        ps = max_pages = 0
+        if self.paged:
+            ps, n_pages, max_pages = self._page_sizes(max_len)
+            pages = PagePool(n_pages, ps)
+            cache = reg.paged_cache_init_fn(cfg, n_pages, ps, engine.device)()
+        else:
+            cache = reg.cache_init_fn(cfg, n, max_len, engine.device)()
         tok_buf = np.zeros((n,), np.int32)
         inflight: Dict[int, _InFlight] = {}
+        engine.reseed()
         eos = engine.scfg.eos_id
         t0 = time.perf_counter()
+        admit_seq = 0  # monotonic admission counter (preemption victim order)
+        grow = pages is not None and self.alloc == "grow"
 
-        def retire(idx: int) -> Completion:
-            fl = inflight.pop(idx)
-            # reserve policy: release the unused tail of the reservation the
-            # moment the request ends, and count it
-            st["pages_stranded"] += pages.release_unused(idx)
-            pages.free(idx)
+        def finish(comp: Completion) -> Completion:
+            """Shared retire bookkeeping; the latency samples count ``ok``
+            completions only."""
+            cnt["completed_requests"] += 1
+            cnt[f"retired_{comp.status}"] += 1
+            self._cancelled.discard(comp.uid)  # the cancel is consumed
+            if comp.status == "ok":
+                hist["ttft_s"].append(comp.ttft_s)
+                hist["tpot_s"].append((comp.t_done - comp.t_first)
+                                      / max(comp.n_generated - 1, 1))
+                hist["latency_s"].append(comp.latency_s)
+            log(f"[retire] uid={comp.uid} status={comp.status} "
+                f"generated={comp.n_generated} latency={comp.latency_s:.3f}s")
+            return comp
+
+        def retire(idx: int, status: str = "ok") -> Completion:
+            st = inflight.pop(idx)
+            if pages is not None:
+                if not grow:
+                    # reserve policy: release (and count) the unused tail of
+                    # the reservation the moment the request ends
+                    cnt["pages_stranded"] += pages.release_unused(idx)
+                pages.free(idx)
             pool.free(idx)
-            st["completed_requests"] += 1
-            return Completion(
-                uid=fl.req.uid, prompt_len=len(fl.req.prompt),
-                tokens=np.asarray(fl.tokens, np.int32), t_submit=t0,
-                t_first=fl.t_first, t_done=time.perf_counter())
+            return finish(Completion(
+                uid=st.req.uid,
+                prompt_len=getattr(st.req, "_orig_prompt_len",
+                                   len(st.req.prompt)),
+                tokens=np.asarray(st.tokens, np.int32), t_submit=t0,
+                t_first=st.t_first, t_done=time.perf_counter(),
+                status=status))
 
-        def finished(req: Request, tokens: List[int]) -> bool:
-            return ((eos is not None and tokens[-1] == eos)
-                    or len(tokens) >= req.max_new_tokens)
+        def finish_queued(req: Request, status: str) -> Completion:
+            """Terminal completion of a request not in flight (never
+            admitted, or preempted and not restored); it keeps the tokens
+            generated before a preemption."""
+            now = time.perf_counter()
+            prefix = getattr(req, "_prefix", None)
+            return finish(Completion(
+                uid=req.uid,
+                prompt_len=getattr(req, "_orig_prompt_len", len(req.prompt)),
+                tokens=np.asarray([] if prefix is None else prefix, np.int32),
+                t_submit=t0, t_first=getattr(req, "_t_first", now),
+                t_done=now, status=status))
 
+        def preempt(idx: int, reason: str) -> None:
+            """Free the victim's slot and pages and re-queue it at the head
+            with its generated prefix appended to the prompt: the greedy
+            re-prefill reproduces the same continuation."""
+            st = inflight.pop(idx)
+            pool.free(idx)
+            if pages is not None:
+                pages.free(idx)
+            base = st.req
+            orig_len = getattr(base, "_orig_prompt_len", len(base.prompt))
+            gen = np.asarray(st.tokens, np.int32)
+            restored = Request(
+                uid=base.uid,
+                prompt=np.concatenate([base.prompt[:orig_len], gen]),
+                max_new_tokens=base.max_new_tokens,
+                deadline_s=base.deadline_s)
+            restored._orig_prompt_len = orig_len
+            restored._prefix = gen
+            restored._t_first = st.t_first
+            restored._restores = getattr(base, "_restores", 0) + 1
+            queue.push_front(restored)
+            cnt["preemptions"] += 1
+            log(f"[preempt] uid={base.uid} slot={idx} "
+                f"generated={gen.shape[0]} ({reason})")
+
+        def set_page_gauges() -> None:
+            gauge["pages_active"] = pages.n_mapped
+            gauge["pages_free"] = pages.n_free
+            gauge["page_fragmentation"] = pages.fragmentation()
+            gauge["pages_peak"] = pages.peak_pages
+
+        draining = False
         while queue or pool.n_active:
+            if heartbeat is not None:
+                heartbeat()
             done_now: List[Completion] = []
-            admitted = []
-            while queue and pool.n_free:
-                head = queue.peek()
-                need = len(head.prompt) + head.max_new_tokens
-                if not pages.can_admit(need):
-                    break  # FIFO: the head waits for pages
-                req = queue.pop()
-                slot = pool.alloc(req.uid)
-                pages.alloc(slot.index, need, request_id=req.uid)
-                admitted.append((req, slot))
-            if admitted:
-                packed = pack_prompts([r.prompt for r, _ in admitted],
-                                      [s.index for _, s in admitted])
-                tables = pages.table_array(n, max_pages)
-                t1 = time.perf_counter()
-                logits, cache = engine.packed_prefill_step(
-                    cache, packed, tables, page_size=ps)
-                toks = engine.sample(logits).tolist()
-                st["prefill_s"] += time.perf_counter() - t1
-                st["prefill_calls"] += 1
-                for (req, slot), tok in zip(admitted, toks):
+            if not draining and should_drain is not None and should_drain():
+                draining = True
+                log(f"[drain] admissions stopped; {pool.n_active} in "
+                    f"flight, {len(queue)} queued")
+
+            # -- lifecycle sweep: cancellations and deadline expiries -------
+            now = time.perf_counter()
+
+            def expired(r: Request) -> bool:
+                return r.deadline_s is not None and now - t0 > r.deadline_s
+
+            for r in queue.take(lambda r: r.uid in self._cancelled
+                                or expired(r)):
+                status = "cancelled" if r.uid in self._cancelled else "timeout"
+                done_now.append(finish_queued(r, status))
+            for idx in sorted(inflight):
+                st = inflight[idx]
+                if st.req.uid in self._cancelled:
+                    done_now.append(retire(idx, "cancelled"))
+                elif expired(st.req):
+                    done_now.append(retire(idx, "timeout"))
+
+            def admit_token(req, slot, tok):
+                """The prompt's first sampled token either retires the
+                request at once or seeds its decode feed.  A restored
+                request resumes its token list and first-token time."""
+                nonlocal admit_seq
+                cnt["generated_tokens"] += 1
+                prefix = getattr(req, "_prefix", None)
+                toks = ([] if prefix is None else
+                        [int(t) for t in prefix]) + [tok]
+                admit_seq += 1
+                inflight[slot.index] = _InFlight(
+                    req=req,
+                    t_first=getattr(req, "_t_first", None)
+                    or time.perf_counter(),
+                    tokens=toks, admit_seq=admit_seq)
+                log(f"[admit] uid={req.uid} slot={slot.index} "
+                    f"prompt={len(req.prompt)} budget={req.max_new_tokens}")
+                if ((eos is not None and tok == eos)
+                        or len(toks) >= req.max_new_tokens):
+                    done_now.append(retire(slot.index))
+                else:
+                    tok_buf[slot.index] = tok
+
+            if pages is not None and not draining:
+                # -- paged admission: charged in free pages, then ONE packed
+                # padding-free prefill over every admitted prompt ----------
+                admitted = []
+                while queue and pool.n_free:
+                    head = queue.peek()
+                    # grow maps the prompt only; decode claims the budget
+                    need = (len(head.prompt) if grow
+                            else len(head.prompt) + head.max_new_tokens)
+                    if not pages.can_admit(need):
+                        break  # FIFO: the head waits for pages
+                    req = queue.pop()
+                    slot = pool.alloc(req.uid)
+                    try:
+                        pages.alloc(slot.index, need, request_id=req.uid)
+                    except PageError as e:
+                        # the allocator raises before it mutates: the
+                        # admission fails and the pools stay consistent
+                        pool.free(slot.index)
+                        done_now.append(finish_queued(req, "failed"))
+                        log(f"[fail] uid={req.uid} admission alloc: {e}")
+                        continue
+                    admitted.append((req, slot))
+                if admitted:
+                    packed = pack_prompts([r.prompt for r, _ in admitted],
+                                          [s.index for _, s in admitted])
+                    tables = pages.table_array(n, max_pages)
+                    t1 = time.perf_counter()
+                    logits, cache = engine.packed_prefill_step(
+                        cache, packed, tables, page_size=ps)
+                    toks = engine.sample(logits).tolist()
+                    self.prefill_s += time.perf_counter() - t1
+                    self.prefill_calls += 1
+                    for (req, slot), tok in zip(admitted, toks):
+                        slot.pos = len(req.prompt)
+                        pages.advance(slot.index, len(req.prompt))
+                        admit_token(req, slot, tok)
+            elif not draining:
+                # -- contiguous admission: chunked prefill per slot ---------
+                while queue and pool.n_free:
+                    req = queue.pop()
+                    slot = pool.alloc(req.uid)
+                    t1 = time.perf_counter()
+                    logits = self._prefill_into(cache, slot.index, req.prompt,
+                                                c_w)
+                    tok = int(engine.sample(logits)[0])
+                    self.prefill_s += time.perf_counter() - t1
+                    self.prefill_calls += -(-len(req.prompt) // c_w)
                     slot.pos = len(req.prompt)
-                    pages.advance(slot.index, len(req.prompt))
-                    st["generated_tokens"] += 1
-                    inflight[slot.index] = _InFlight(
-                        req=req, t_first=time.perf_counter(), tokens=[tok])
-                    if finished(req, [tok]):
-                        done_now.append(retire(slot.index))
-                    else:
-                        tok_buf[slot.index] = tok
-            st["pages_peak"] = pages.peak_pages
+                    admit_token(req, slot, tok)
+            gauge["queue_depth"] = len(queue)
+            gauge["slots_active"] = pool.n_active
+            if pages is not None:
+                set_page_gauges()
+
+            if grow and pool.n_active:
+                # -- grow on demand: map the next decode row of every live
+                # sequence; exhaustion preempts until the grow fits --------
+                pos_now = pool.positions()
+                for idx in sorted(inflight):
+                    while idx in inflight:
+                        try:
+                            pages.grow(idx, int(pos_now[idx]) + 1)
+                            break
+                        except PageError as e:
+                            victim = max(inflight,
+                                         key=lambda i: inflight[i].admit_seq)
+                            if (getattr(inflight[victim].req, "_restores", 0)
+                                    >= self.max_restores):
+                                done_now.append(retire(victim, "failed"))
+                            else:
+                                preempt(victim, reason=str(e))
+                set_page_gauges()
 
             if pool.n_active:
-                # tables are rebuilt every iteration: a retire frees pages a
-                # new admission may map, and a stale table would route an
-                # inactive slot's write into the new owner's page
-                tables = pages.table_array(n, max_pages)
+                # -- one pool-shaped decode step ----------------------------
+                pos_vec = pool.positions()
                 t1 = time.perf_counter()
-                logits, cache = engine.paged_decode_step(
-                    cache, tok_buf[:, None], pool.positions(), tables,
-                    page_size=ps)
+                if pages is not None:
+                    # tables are rebuilt every iteration: a retire frees
+                    # pages a new admission may map, and a stale table would
+                    # route an inactive slot's write into the new owner's
+                    # page
+                    tables = pages.table_array(n, max_pages)
+                    logits, cache = engine.paged_decode_step(
+                        cache, tok_buf[:, None], pos_vec, tables,
+                        page_size=ps)
+                else:
+                    logits, cache = engine.decode_step(
+                        cache, tok_buf[:, None], pos_vec)
                 toks = engine.sample(logits).tolist()
-                st["decode_s"] += time.perf_counter() - t1
-                st["decode_steps"] += 1
+                cnt["decode_s"] += time.perf_counter() - t1
+                cnt["decode_steps"] += 1
+                # -- retire finished sequences, advance the rest ------------
                 for idx in sorted(inflight):
-                    fl = inflight[idx]
+                    st = inflight[idx]
                     pool.advance(idx)  # the step wrote the token it was fed
-                    pages.advance(idx)
-                    fl.tokens.append(toks[idx])
-                    st["generated_tokens"] += 1
-                    if finished(fl.req, fl.tokens):
+                    if pages is not None:
+                        pages.advance(idx)  # bounds-checked against mapping
+                    tok = toks[idx]
+                    st.tokens.append(tok)
+                    cnt["generated_tokens"] += 1
+                    if ((eos is not None and tok == eos)
+                            or len(st.tokens) >= st.req.max_new_tokens):
                         done_now.append(retire(idx))
                     else:
-                        tok_buf[idx] = toks[idx]
-            st["pages_mapped"] = pages.n_mapped
-            st["total_s"] = time.perf_counter() - t0
+                        tok_buf[idx] = tok
+
+            if draining and not pool.n_active and queue:
+                # graceful drain: flush what will never admit (a restored
+                # prefix survives in the completion's tokens)
+                for r in queue.take(lambda _r: True):
+                    status = ("preempted"
+                              if getattr(r, "_prefix", None) is not None
+                              else "cancelled")
+                    done_now.append(finish_queued(r, status))
+            gauge["total_s"] = time.perf_counter() - t0
             yield from done_now
 
-        st["total_s"] = time.perf_counter() - t0
-        if st["decode_s"] > 0:
-            st["decode_tok_s"] = st["generated_tokens"] / st["decode_s"]
-        pages.check_invariants()  # end of run: no page leaked past retire
+        gauge["total_s"] = time.perf_counter() - t0
+        if pages is not None:
+            pages.check_invariants()  # end of run: no page leaked past retire
+            set_page_gauges()
+
+    # ------------------------------------------------------------------
+
+    def _prefill_into(self, cache, slot: int, prompt: np.ndarray, c_w: int):
+        """Chunked prefill of one prompt into one slot's rows of the pool.
+
+        Streams fixed-width [1, C] chunks through ``prefill_chunk_step``
+        into the slot's [L, 1, S_max, KV, D] view of the pool cache, so the
+        writes land in the pool in place and no other slot's rows move.
+        The final chunk is right-padded; its pad rows lie past the prompt
+        and decode overwrites them before they are ever attended.  Returns
+        the last real token's logits [1, 1, V].
+        """
+        s_len = int(len(prompt))
+        sub = {k: v[:, slot:slot + 1] for k, v in cache.items()}
+        logits = None
+        for start in range(0, s_len, c_w):
+            chunk = np.asarray(prompt[start:start + c_w], np.int32)[None, :]
+            if chunk.shape[1] < c_w:
+                chunk = np.pad(chunk, ((0, 0), (0, c_w - chunk.shape[1])))
+            logits, sub = self.engine.prefill_chunk_step(
+                sub, chunk, start, with_logits=start + c_w >= s_len)
+        last = (s_len - 1) % c_w
+        return logits[:, last:last + 1]
 
 
 def latency_percentiles(completions) -> tuple:

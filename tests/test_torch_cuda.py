@@ -17,7 +17,9 @@ padding tap and a window too short), and the tiled linear the same bits as the l
 tiles).  Both paged-attention kernels run the CPU parity tests'
 cases and smollm-360m's serving shapes, the trash-page, empty-cache and
 bad-page-id cases, their rejections, dispatch on the card, and a served
-request of the smoke model; the split kernel agrees with the plain version
+request of the smoke model; the contiguous serving steps, one generate
+and the contiguous and ``alloc="grow"`` schedulers on the card agree with
+the CPU and launch the linear kernels once per layer; the split kernel agrees with the plain version
 and with ``paged_attention.cu`` under every warp count, with more pages
 than warps and new keys past one page, and the wrapper routes by its shape
 rule.  Every kernel wrapper raises where autograd would record the call.  The flash-attention kernels run the JAX flash
@@ -1398,7 +1400,7 @@ def test_served_requests_launch_the_kernels(dev, tmp_path):
                                  ("attn", "o"), ("mlp", "gate"), ("mlp", "up"),
                                  ("mlp", "down")))
         assert tiled == 3
-        calls = cfg.n_layers * (st["decode_steps"] + st["prefill_calls"])
+        calls = cfg.n_layers * (st["decode_steps"] + sched.prefill_calls)
         assert counts == {
             "paged_attention_split": cfg.n_layers * st["decode_steps"],
             "colwise_nm_matmul_tiled": tiled * calls,
@@ -1406,6 +1408,96 @@ def test_served_requests_launch_the_kernels(dev, tmp_path):
         assert runs["cpu"].keys() == runs["cuda"].keys()
         for uid, toks in runs["cpu"].items():
             assert np.array_equal(toks, runs["cuda"][uid]), uid
+    finally:
+        dispatch.set_db(None)
+
+
+def _smoke_lm(tmp_path):
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.pruning import SparsityConfig
+    from repro_torch.models.lm import lm_init
+
+    dispatch.set_db(dispatch.ProfileDB(path=tmp_path / "profile.json"))
+    cfg = smoke_config("smollm-360m").with_(sparsity=SparsityConfig(
+        sparsity=0.5, m=None, tile=None, min_dim=16,
+        format="compressed_pallas"))
+    return cfg, lm_init(cfg, 0, device="cpu")
+
+
+def test_contiguous_steps_launch_the_kernels(dev, tmp_path):
+    """Prefill, a prefill chunk and a contiguous decode step on the card:
+    each launches its linear kernels once per layer (T = d_out: q, o and
+    down the tiled one, k, v, gate and up the other), and no paged or
+    flash kernel; the logits agree with the CPU's."""
+    from repro_torch.serve import Engine
+
+    try:
+        cfg, params = _smoke_lm(tmp_path)
+        engines = {w: Engine(cfg, _to(params, torch.device(w)))
+                   for w in ("cpu", "cuda")}
+        prompts = np.random.default_rng(0).integers(0, 503, (3, 9))
+        want = {"colwise_nm_matmul_tiled": 3 * cfg.n_layers,
+                "colwise_nm_matmul": 4 * cfg.n_layers}
+        out = {}
+        for where, eng in engines.items():
+            reset_launch_counts()
+            logits, cache = eng.prefill_step(prompts, 16)
+            torch.cuda.synchronize()
+            counts = [{k.name: k.launches for k in KERNELS if k.launches}]
+            reset_launch_counts()
+            lc, _ = eng.prefill_chunk_step(
+                {k: v[:, :1].clone() for k, v in cache.items()},
+                prompts[:1, :4], 9)
+            torch.cuda.synchronize()
+            counts.append({k.name: k.launches for k in KERNELS if k.launches})
+            reset_launch_counts()
+            ld, cache = eng.decode_step(cache, prompts[:, :1],
+                                        np.array([9, 4, 15], np.int32))
+            torch.cuda.synchronize()
+            counts.append({k.name: k.launches for k in KERNELS if k.launches})
+            out[where] = (logits, lc, ld, cache["k"])
+            assert counts == ([{}] * 3 if where == "cpu" else [want] * 3), counts
+        for a, b in zip(out["cpu"], out["cuda"]):
+            b = b.cpu()
+            assert torch.allclose(a, b, rtol=1e-4,
+                                  atol=1e-4 * float(a.abs().max())), (a - b).abs().max()
+    finally:
+        dispatch.set_db(None)
+
+
+def test_generate_and_schedulers_on_card_match_cpu(dev, tmp_path):
+    """One greedy generate, the contiguous scheduler and the paged
+    ``alloc="grow"`` scheduler (a budget that forces preemption) on the
+    card give the CPU's tokens and statuses; temperature draws on the card
+    never name a padded id."""
+    from repro_torch.serve import Engine, Scheduler, ServeConfig, synthetic_trace
+
+    try:
+        cfg, params = _smoke_lm(tmp_path)
+        prompts = np.random.default_rng(1).integers(0, 503, (4, 12))
+        trace = lambda: synthetic_trace(6, seed=2, vocab=503,  # noqa: E731
+                                        prompt_lens=(3, 14), new_tokens=(2, 10))
+        runs = {}
+        for where in ("cpu", "cuda"):
+            eng = Engine(cfg, _to(params, torch.device(where)),
+                         ServeConfig(max_new_tokens=10))
+            gen = eng.generate(prompts)
+            contig = Scheduler(eng, n_slots=3, prefill_chunk=4).run(trace())
+            grow = Scheduler(eng, n_slots=3, paged=True, page_size=8,
+                             max_len=24, kv_budget_rows=24, alloc="grow")
+            grown = grow.run(trace())
+            assert grow.stats["preemptions"] >= 1
+            runs[where] = (gen["tokens"], gen["gen_lens"],
+                           {c.uid: (c.status, c.tokens.tolist()) for c in contig},
+                           {c.uid: (c.status, c.tokens.tolist()) for c in grown})
+        cpu, card = runs["cpu"], runs["cuda"]
+        assert np.array_equal(cpu[0], card[0]) and np.array_equal(cpu[1], card[1])
+        assert cpu[2] == card[2] and cpu[3] == card[3] == cpu[2]
+        hot = Engine(cfg, _to(params, dev), ServeConfig(temperature=0.7))
+        logits = torch.randn((4096, 1, cfg.padded_vocab), device=dev)
+        logits[:, :, cfg.vocab_size:] = 1e3
+        drawn = hot.sample(logits)
+        assert drawn.device.type == "cuda" and int(drawn.max()) < cfg.vocab_size
     finally:
         dispatch.set_db(None)
 

@@ -31,7 +31,9 @@ def test_importing_every_module_loads_no_jax_or_repro():
               "repro_torch.train.checkpoint", "repro_torch.train.fault",
               "repro_torch.train.sparse", "repro_torch.train.trainer",
               "repro_torch.launch", "repro_torch.launch.steps",
-              "repro_torch.launch.train"):
+              "repro_torch.launch.train", "repro_torch.launch.serve",
+              "repro_torch.serve", "repro_torch.serve.engine",
+              "repro_torch.serve.scheduler"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"
@@ -89,7 +91,9 @@ def test_entry_points_raise_without_a_card(no_card):
     from repro_torch.configs import smoke_config
     from repro_torch.data import DataConfig
     from repro_torch.dispatch import choose_page_size
+    from repro_torch.launch.serve import main as serve_main
     from repro_torch.launch.train import main as train_main
+    from repro_torch.models.attention import cache_init
     from repro_torch.models.attention import paged_cache_init
     from repro_torch.models.common import embed_init, norm_init
     from repro_torch.models.lm import lm_init
@@ -118,6 +122,10 @@ def test_entry_points_raise_without_a_card(no_card):
         lambda: SparseTrainer(SparseTrainConfig(steps=1, batch=2)),
         lambda: Trainer(lm_cfg, DataConfig(vocab_size=lm_cfg.vocab_size)),
         lambda: train_main(["--arch", "smollm-360m", "--smoke", "--steps", "1"]),
+        lambda: cache_init(lm_cfg, 2, 8, 2, torch.float32),
+        lambda: serve_main(["--arch", "smollm-360m", "--smoke"]),
+        lambda: serve_main(["--arch", "smollm-360m", "--smoke",
+                            "--continuous", "--paged", "--alloc", "grow"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):

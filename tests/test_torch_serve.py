@@ -352,8 +352,12 @@ def test_engine_samples_greedy_with_the_vocab_mask():
     assert got.tolist() == np.asarray(want).tolist() and got[0] < 503
     assert sorted(engine.dispatch_plan) == sorted(jengine.dispatch_plan)
     assert all("|ph:" in t for t in engine.dispatch_plan)
-    with pytest.raises(NotImplementedError, match="temperature"):
-        Engine(_tcfg(), _tparams(), ServeConfig(temperature=0.7))
+    # temperature 0.7 builds and draws no padded id, not even the one with
+    # the largest logit (tests/test_torch_generate.py holds its draws to
+    # softmax(logits / T))
+    hot = Engine(_tcfg(), _tparams(), ServeConfig(temperature=0.7))
+    drawn = hot.sample(_t(np.repeat(logits[:1], 200, axis=0)))
+    assert drawn.dtype == torch.int32 and int(drawn.max()) < 503
 
 
 @pytest.mark.parametrize("ps,n_slots,eos", [(4, 3, False), (8, 2, True)])
@@ -403,11 +407,14 @@ def test_synthetic_trace_and_helpers_equal_jax():
 
 
 def test_scheduler_rejects_what_waits_for_later_slices():
+    """The contiguous mode and ``alloc="grow"`` run now (their parity with
+    JAX is in tests/test_torch_serve_lifecycle.py); what a run cannot hold
+    still raises."""
     engine = Engine(_tcfg(), _tparams())
-    with pytest.raises(NotImplementedError, match="contiguous"):
-        Scheduler(engine, n_slots=2)
-    with pytest.raises(NotImplementedError, match="grow"):
-        Scheduler(engine, paged=True, alloc="grow")
+    req = lambda: [Request(0, np.arange(5), max_new_tokens=3)]  # noqa: E731
+    for kw in (dict(n_slots=2), dict(paged=True, page_size=4, alloc="grow")):
+        done = Scheduler(engine, **kw).run(req())
+        assert [(c.status, c.n_generated) for c in done] == [("ok", 3)], kw
     sched = Scheduler(engine, n_slots=2, paged=True, page_size=4, max_len=8)
     with pytest.raises(ValueError, match="cannot hold"):
         sched.run([Request(0, np.arange(6), max_new_tokens=4)])
