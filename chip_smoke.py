@@ -122,8 +122,28 @@ Phases:
               a contiguous and a paged decode step, a cancel, a deadline
               and a drain, temperature draws against softmax(logits / T),
               and ``launch.serve.main`` static and continuous paged grow
- 13. report : one ``{"kernels": [...]}`` line (launches in the main runs and
-              ``train_launches`` in phases 10 and 11), then the ``{"ok":
+ 13. chaos  : faults injected through the port's fault sites, on the card:
+              (a) resnet-tiny's default-plan forward at batch 256 with the
+              fused family's first run faulted (dispatch.execute): one
+              quarantine, every conv on another hand-written family, the
+              logits within 1e-4 of phase 4's, and the tiled fused kernel
+              back after clear_quarantine(); (b) phase 12's grow run under
+              scheduler.iter:p=0.05,page_pool.alloc:n=1 with obs on: every
+              request terminal, no page leaked, the survivors' tokens equal
+              to phase 12's, iter_faults equal to the plan's, a trace that
+              validates with one serve.iter span per iteration run and one
+              fault.inject per injection; the probes a decode step makes;
+              a paged decode step's host ms with obs off and on; the
+              serving launcher with --faults and --trace; (c) phase 5's
+              960 -> 2560 layer at 4 rows with its tiled kernel faulted:
+              the retry on colwise_nm_linear.cu bit-equal, or a raise, never
+              a plain candidate; (d) the SparseTrainer of phase 11a faulted
+              at step 3 and resumed bit-equal to 11a, and a ckpt.rename
+              fault whose orphaned tmp.* the next run collects; then the
+              host cost of maybe_fail, span, instant and a metric update
+              with everything off, under 1% of a contiguous decode step
+ 14. report : one ``{"kernels": [...]}`` line (launches in the main runs and
+              ``train_launches`` in phases 10, 11 and 13), then the ``{"ok":
               true, ...}`` line last
 
 Run from the repository root:  python3 chip_smoke.py
@@ -1139,6 +1159,10 @@ FAMILY_KERNELS = ("fused_sparse_pallas", "fused_banded_pallas",
                   "two_kernel_pipelined", "im2col_sparse_pallas",
                   "im2col_sparse_xla")
 PROFILE_DB = ROOT / "build" / "repro_torch" / "chip_smoke_profile.json"
+# what phase 13 holds its chaos runs against, kept by the phases that made
+# it: phase 4's first batch and default-plan logits, phase 11a's final
+# state, phase 12's prompts, grow tokens and contiguous decode host ms
+PHASE_REFS: dict = {}
 
 
 def family_kernels(impl, conv) -> dict:
@@ -1278,6 +1302,7 @@ def run_main_path(params, cfg, dev):
               and spec.backend == "cuda",
               f"{name}: default resolves {spec.name} ({source})")
     drive("default", None, ["fused_sparse_pallas"] * len(keys))
+    PHASE_REFS["vision"] = (batches[0][0], runs["default"]["logits"][0])
 
     print("  (b) plan_params(profile=True) on the card (device time of each "
           "candidate, CUDA graph replay)", flush=True)
@@ -2104,6 +2129,8 @@ def run_serving_rest(dev, cfg, params) -> dict:
               f"{st['decode_tok_s']:.1f} tokens/s, run {walls[label]:.3f} s",
               flush=True)
 
+    PHASE_REFS["serve"] = {"prompts": prompts, "grow_tokens": {
+        u: c.tokens for u, c in runs["grow"][0].items()}}
     ties = hold_tokens(res, runs, cfg)
     same = {label: sum(np.array_equal(c.tokens, res["tokens"][u])
                        for u, c in comps.items())
@@ -2142,6 +2169,7 @@ def run_serving_rest(dev, cfg, params) -> dict:
     host = {label: scheds[label].stats["decode_s"]
             / scheds[label].stats["decode_steps"] * 1e3 for label in scheds}
     host["generate"] = res["decode_s"] / n_dec_g * 1e3
+    PHASE_REFS["serve"]["contiguous_decode_host_ms"] = host["contiguous"]
     print(f"  a decode step at {GEN_BATCH} x {GEN_PROMPT} rows: device "
           f"{contig_ms:.4f} ms contiguous (lm.decode_step, {n_lin} tiled "
           f"linears, plain attention), {paged_ms:.4f} ms paged "
@@ -2954,6 +2982,7 @@ def tier_sparse(dev, first_loss, work) -> dict:
     protos = {"params": tr.params, "mom": tr.mom}
     ref, _ = tr.ckpt.restore(TIER_STEPS, protos)
     check(same_bits(ref, protos), "(a)'s last checkpoint is not its state")
+    PHASE_REFS["tier_state"] = protos
     rows = {}
     for label, sig, stop_after in (("sigkill", signal.SIGKILL, 3),
                                    ("sigterm", signal.SIGTERM, 2)):
@@ -3113,6 +3142,466 @@ def tree_leaves(tree):
         yield tree
 
 
+# phase 13: chaos.  Faults injected on the card through the port's fault
+# sites: (a) a dispatch.execute fault on resnet-tiny's fused family, (b)
+# phase 12's grow scheduler under scheduler.iter and page_pool.alloc faults
+# with obs on, then the serving launcher with --faults and --trace, (c) a
+# guarded linear whose tiled kernel refuses, (d) SparseTrainer faults and
+# resume; then the cost of the probes with everything off
+CHAOS_CONV_SPEC = "dispatch.execute@fused_sparse_pallas:n=1"
+CHAOS_SERVE_SPEC = "scheduler.iter:p=0.05,page_pool.alloc:n=1"
+CHAOS_LINEAR_SPEC = "dispatch.execute@compressed_tiled:n=1"
+CHAOS_LINEAR_ROWS = 4  # decode's rows of phase 5's 960 -> 2560 layer
+CHAOS_PROBE_CALLS = 10 ** 6
+CHAOS_PROBE_SHARE = 0.01  # of a contiguous decode step's host ms, at most
+
+
+def chaos_vision(dev, params, cfg) -> dict:
+    """(a): one batch-256 forward of the default plan with the fused
+    family's first run faulted.  Returns the launches of both forwards."""
+    from repro_torch import dispatch, fault, obs
+    from repro_torch.kernels import KERNELS, reset_launch_counts
+    from repro_torch.models.vision import vision_apply
+
+    x, want = PHASE_REFS["vision"]
+    db_path = PROFILE_DB.with_suffix(".chaos.json")
+    db_path.unlink(missing_ok=True)
+    dispatch.set_db(dispatch.ProfileDB(path=db_path))  # empty: the heuristic
+    dispatch.clear_quarantine()
+    obs.reset()
+    obs.set_enabled(True)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with fault.fault_scope(CHAOS_CONV_SPEC) as plan:
+        y = vision_apply(params, cfg, x)
+    torch.cuda.synchronize()
+    counts = {k.name: k.launches for k in KERNELS if k.launches}
+    obs.set_enabled(False)
+    events = obs.events()
+    quarantines = [e["args"] for e in events
+                   if e["name"] == "dispatch.quarantine"]
+    retries = [e["args"] for e in events
+               if e["name"] == "dispatch.execute_retry"]
+    n_quarantined = obs.snapshot()["counters"]["dispatch.quarantine"]
+    check(plan.fired == {"dispatch.execute": 1}, f"(a) fired {plan.fired}")
+    check(n_quarantined == 1 and len(quarantines) == 1
+          and quarantines[0]["impl"] == "fused_sparse_pallas",
+          f"(a) quarantines: counter {n_quarantined}, events {quarantines}")
+    check(dispatch.quarantined("conv") == {"fused_sparse_pallas"},
+          f"(a) denylist {dispatch.quarantined()}")
+    impls = []
+    for name, key in main_path_keys(params, cfg):
+        spec = dispatch.resolve(key, param_keys=SPARSE, device=dev)[0]
+        check(spec.backend == "cuda"
+              and dispatch.family(spec.name) != "fused_sparse_pallas",
+              f"(a) {name} resolves {spec.name} under the quarantine")
+        impls.append(spec.name)
+    want_counts = {k: n for k, n in expected_launches(
+        impls, main_path_convs(params, cfg), 1).items() if n}
+    check(counts == want_counts, f"(a) launches {counts}, want {want_counts}")
+    check(not counts.get("conv2d_fused_tiled") and not counts.get("conv2d_fused"),
+          f"(a) the quarantined family launched: {counts}")
+    e = rel_err(y, want)
+    check(e <= F32_RTOL, f"(a) logits vs phase 4's default plan: {e}")
+    print(f"  (a) {CHAOS_CONV_SPEC}: fired {plan.fired}; 1 quarantine "
+          f"({quarantines[0]['impl']}: {quarantines[0]['reason'][:60]}); "
+          f"retry {[(r['failed'], r['retry']) for r in retries]}; the convs "
+          f"resolve {impls}; launches {counts}; logits rel err vs phase 4's "
+          f"default plan {e:.3e} (bit-equal: {torch.equal(y, want)})",
+          flush=True)
+
+    dispatch.clear_quarantine()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    y = vision_apply(params, cfg, x)
+    torch.cuda.synchronize()
+    after = {k.name: k.launches for k in KERNELS if k.launches}
+    check(after == {"conv2d_fused_tiled": 5},
+          f"(a) after clear_quarantine: launches {after}")
+    check(torch.equal(y, want), "(a) after clear_quarantine the logits are "
+          "not phase 4's default plan's")
+    print(f"  (a) clear_quarantine(): the next forward launches {after}, "
+          f"logits bit-equal to phase 4's", flush=True)
+    dispatch.set_db(None)
+    db_path.unlink(missing_ok=True)
+    total = dict(counts)
+    for k, n in after.items():
+        total[k] = total.get(k, 0) + n
+    return total
+
+
+def chaos_serving(dev, cfg, params, work) -> dict:
+    """(b): phase 12's paged grow run under CHAOS_SERVE_SPEC with obs on,
+    its trace dumped and validated, then the serving launcher with
+    --faults and --trace.  Returns the launches of the scheduler run and the
+    probe counts of a decode step."""
+    import contextlib
+    import io
+
+    from repro_torch import dispatch, fault, obs
+    from repro_torch.kernels import KERNELS, reset_launch_counts
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.obs import metrics as om
+    from repro_torch.serve import STATUSES, Engine, Request, Scheduler, ServeConfig
+
+    ref = PHASE_REFS["serve"]
+    db_path = PROFILE_DB.with_suffix(".chaos_serve.json")
+    db_path.unlink(missing_ok=True)
+    dispatch.set_db(dispatch.ProfileDB(path=db_path))
+
+    def requests():
+        return [Request(uid=i, prompt=ref["prompts"][i], max_new_tokens=GEN_NEW)
+                for i in range(GEN_BATCH)]
+
+    def grow_sched():
+        return Scheduler(Engine(cfg, params, ServeConfig(max_new_tokens=GEN_NEW)),
+                         n_slots=GEN_BATCH, paged=True, page_size=PAGED_PS,
+                         alloc="grow", kv_budget_rows=GROW_BUDGET_ROWS)
+
+    sched = grow_sched()
+    beats = []
+    obs.reset()
+    obs.set_enabled(True)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with fault.fault_scope(CHAOS_SERVE_SPEC, seed=0) as plan:
+        comps = sched.run(requests(), heartbeat=lambda: beats.append(1))
+    torch.cuda.synchronize()
+    counts = {k.name: k.launches for k in KERNELS if k.launches}
+    obs.set_enabled(False)
+    st = sched.stats
+    by = {c.uid: c for c in comps}
+    check(sorted(by) == list(range(GEN_BATCH))
+          and all(c.status in STATUSES for c in comps),
+          f"(b) completions {[(c.uid, c.status) for c in comps]}")
+    check(sched.page_stats["pages_active"] == 0, "(b) pages leaked")
+    survivors = [u for u, c in by.items() if c.status == "ok"]
+    for u, c in by.items():
+        want = ref["grow_tokens"][u]
+        if c.status == "ok":
+            check(np.array_equal(c.tokens, want), f"(b) uid {u}: tokens "
+                  f"{c.tokens.tolist()} differ from phase 12's grow run "
+                  f"{want.tolist()}")
+        else:
+            check(np.array_equal(c.tokens, want[:len(c.tokens)]),
+                  f"(b) uid {u} ({c.status}): its tokens are not a prefix "
+                  f"of phase 12's")
+    fired = dict(plan.fired)
+    check(st["iter_faults"] == fired.get("scheduler.iter", 0),
+          f"(b) iter_faults {st['iter_faults']}, fired {fired}")
+    # (the p=0.05 rule's first draw under 0.05 is its 36th: a run shorter
+    # than that sees no iteration fault; the launcher below forces one)
+    check(fired.get("page_pool.alloc", 0) >= 1, f"(b) fired {fired}")
+    path = work / "chaos_serve_trace.json"
+    n_events = obs.dump_chrome_trace(path, metadata={"metrics": obs.snapshot()})
+    summary = obs.validate_chrome_trace(path)
+    evs = json.loads(path.read_text())["traceEvents"]
+    n_iter = sum(e["name"] == "serve.iter" and e["ph"] == "B" for e in evs)
+    n_inject = sum(e["name"] == "fault.inject" for e in evs)
+    check(n_iter == len(beats) - st["iter_faults"],
+          f"(b) {n_iter} serve.iter spans for {len(beats)} iterations, "
+          f"{st['iter_faults']} of them faulted")
+    check(n_inject == sum(fired.values()),
+          f"(b) {n_inject} fault.inject instants, fired {fired}")
+    print(f"  (b) {CHAOS_SERVE_SPEC} (seed 0), phase 12's grow run: fired "
+          f"{fired}; statuses {[(u, c.status) for u, c in sorted(by.items())]};"
+          f" {len(survivors)} survivors token-equal to phase 12's; "
+          f"iter_faults {st['iter_faults']}, preemptions {st['preemptions']}, "
+          f"0 pages mapped at the end; launches {counts}; trace of {n_events} "
+          f"events validates ({summary}), {n_iter} serve.iter spans for "
+          f"{len(beats)} iterations less {st['iter_faults']} faulted, "
+          f"{n_inject} fault.inject instants", flush=True)
+
+    # the probes a decode step makes: a contiguous run with obs on, every
+    # site probed (a plan whose only rule never fires) and every update of
+    # the global registry counted
+    updates = [0]
+
+    def counting_on():
+        updates[0] += 1
+        return True
+
+    def contiguous_run():
+        eng = Engine(cfg, params, ServeConfig(max_new_tokens=GEN_NEW))
+        sched = Scheduler(eng, n_slots=GEN_BATCH, prefill_chunk=GEN_CHUNK)
+        sched.run(requests())
+        return sched
+
+    plain_ms = contiguous_run().stats
+    plain_ms = plain_ms["decode_s"] / plain_ms["decode_steps"] * 1e3
+    insts = list(om.REGISTRY._instruments.values())
+    obs.reset()
+    obs.set_enabled(True)
+    for inst in insts:
+        inst._on = counting_on
+    try:
+        with fault.fault_scope("data.batch:n=0") as probe_plan:
+            csched = contiguous_run()
+    finally:
+        for inst in insts:
+            inst._on = obs.enabled
+        obs.set_enabled(False)
+    snap = obs.snapshot()["counters"]
+    evs = obs.events()
+    n_steps = csched.stats["decode_steps"]
+    per_step = {"maybe_fail": sum(probe_plan.probes.values()) / n_steps,
+                "span": sum(e["ph"] == "B" for e in evs) / n_steps,
+                "instant": sum(e["ph"] == "i" for e in evs) / n_steps,
+                "metric": updates[0] / n_steps}
+    print(f"  probes a contiguous decode step makes (the whole run's, prefill "
+          f"included, over its {n_steps} decode steps): "
+          f"{ {k: round(v, 2) for k, v in per_step.items()} }; fault probes "
+          f"by site {dict(probe_plan.probes)}; dispatch counters "
+          f"{ {k: v for k, v in snap.items() if k.startswith('dispatch.')} };"
+          f" the run's decode step {csched.stats['decode_s'] / n_steps * 1e3:.3f}"
+          f" host ms with obs on and every site probed, {plain_ms:.3f} with "
+          f"both off", flush=True)
+
+    # one paged decode step's host ms with obs off and on (no plan)
+    host = {}
+    for label, on in (("off", False), ("on", True), ("off", False),
+                      ("on", True)):
+        s = grow_sched()
+        obs.reset()
+        obs.set_enabled(on)
+        s.run(requests())
+        obs.set_enabled(False)
+        ms = s.stats["decode_s"] / s.stats["decode_steps"] * 1e3
+        host[label] = min(ms, host.get(label, float("inf")))
+    obs.reset()
+    print(f"  a paged decode step (grow scheduler, {GEN_BATCH} x "
+          f"{GEN_PROMPT} rows), host ms with sampling, best of 2 runs: obs "
+          f"off {host['off']:.3f}, obs on {host['on']:.3f}", flush=True)
+
+    # the launcher, in process, at full width
+    trace_path = work / "chaos_launch_trace.json"
+    spec = "scheduler.iter:n=1,page_pool.alloc:n=1"
+    argv = ["--arch", "smollm-360m", "--continuous", "--paged", "--alloc",
+            "grow", "--requests", "6", "--slots", "4", "--prompt-len", "32",
+            "--new-tokens", "8", "--faults", spec, "--trace", str(trace_path)]
+    print(f"  python -m repro_torch.launch.serve {' '.join(argv)}:", flush=True)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        launch_serve.main(argv)
+    text = out.getvalue()
+    print("    " + text.rstrip().replace("\n", "\n    "), flush=True)
+    check("faults: fired {'scheduler.iter': 1, 'page_pool.alloc': 1}" in text
+          and "iter faults 1" in text,
+          "(b) the launcher printed no faults: fired line or iteration fault")
+    launch_summary = obs.validate_chrome_trace(trace_path)
+    check(not fault.enabled() and not obs.enabled(),
+          "(b) the launcher left a plan or obs on")
+    print(f"  (b) the launcher exited normally; its trace validates "
+          f"({launch_summary})", flush=True)
+    dispatch.set_db(None)
+    db_path.unlink(missing_ok=True)
+    return {"launches": counts, "per_step": per_step, "host": host,
+            "contiguous_host_ms": plain_ms, "fired": fired,
+            "statuses": {u: c.status for u, c in by.items()}}
+
+
+def chaos_linear(dev) -> dict:
+    """(c): phase 5's 960 -> 2560 layer at decode's rows with its tiled
+    kernel faulted: the retry lands on the other sparse linear kernel,
+    bit-equal, or raises; never a plain candidate.  Returns the launches."""
+    from repro_torch import dispatch, fault, obs
+    from repro_torch.core.pruning import SparsityConfig
+    from repro_torch.core.sparse_linear import linear_apply, linear_init
+    from repro_torch.kernels import KERNELS, reset_launch_counts
+
+    gen = torch.Generator().manual_seed(SEED + 3)  # phase 5's first layer
+    sp = SparsityConfig(sparsity=0.5, m=None, tile=None, min_dim=64,
+                        format="compressed_pallas")
+    layer = linear_init(gen, 960, 2560, sp, device=dev)
+    x = torch.from_numpy(np.random.default_rng(SEED + 13).standard_normal(
+        (CHAOS_LINEAR_ROWS, 960), dtype=np.float32)).to(dev)
+    db_path = PROFILE_DB.with_suffix(".chaos_linear.json")
+    db_path.unlink(missing_ok=True)
+    dispatch.set_db(dispatch.ProfileDB(path=db_path))
+    dispatch.clear_quarantine()
+    y_tiled = linear_apply(layer, x)
+    obs.reset()
+    obs.set_enabled(True)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    outcome = "retry"
+    with fault.fault_scope(CHAOS_LINEAR_SPEC) as plan:
+        try:
+            y = linear_apply(layer, x)
+        except fault.InjectedFault as e:
+            outcome = f"raised ({e}; cause {e.__cause__!r})"
+    torch.cuda.synchronize()
+    counts = {k.name: k.launches for k in KERNELS if k.launches}
+    obs.set_enabled(False)
+    retries = [(e["args"]["failed"], e["args"]["retry"]) for e in obs.events()
+               if e["name"] == "dispatch.execute_retry"]
+    check(plan.fired == {"dispatch.execute": 1}, f"(c) fired {plan.fired}")
+    for _failed, impl in retries:
+        check(dispatch.REGISTRY.get("linear", impl).backend == "cuda",
+              f"(c) the retry ran the plain candidate {impl}")
+    if outcome == "retry":
+        check(counts == {"colwise_nm_matmul": 1}, f"(c) launches {counts}")
+        check(torch.equal(y, y_tiled), "(c) the retry's output is not "
+              "bit-equal to the tiled kernel's")
+        detail = "bit-equal to the tiled kernel's"
+    else:
+        check(not counts, f"(c) launches {counts} before the raise")
+        detail = "no cuda candidate left"
+    print(f"  (c) {CHAOS_LINEAR_SPEC} on 960->2560 at {CHAOS_LINEAR_ROWS} "
+          f"rows: {outcome}; retries {retries}; launches {counts}; {detail}",
+          flush=True)
+    dispatch.clear_quarantine()
+    dispatch.set_db(None)
+    db_path.unlink(missing_ok=True)
+    return counts
+
+
+def chaos_training(dev, work) -> dict:
+    """(d): the SparseTrainer of phase 11a faulted at step 3 and resumed,
+    bit-equal to 11a; then a ckpt.rename fault, an orphaned tmp.* and a
+    fresh trainer's run.  Returns the launches."""
+    from repro_torch import dispatch, fault, obs
+    from repro_torch.kernels import KERNELS, reset_launch_counts
+    from repro_torch.train import CheckpointManager, SparseTrainer
+
+    dispatch.set_db(dispatch.ProfileDB(path=work / "chaos_empty_profile.json"))
+    obs.reset()
+    obs.set_enabled(True)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    d = work / "train_step"
+    tb = SparseTrainer(tier_sparse_cfg(d), device=dev)
+    with fault.fault_scope("train.step:iter=3") as plan:
+        try:
+            tb.run()
+            check(False, "(d) the train.step fault did not fire")
+        except fault.InjectedFault:
+            pass
+        tb.ckpt.wait()
+    check(plan.fired == {"train.step": 1} and tb.ckpt.latest_step() == 3,
+          f"(d) fired {plan.fired}, latest step {tb.ckpt.latest_step()}")
+    tc = SparseTrainer(tier_sparse_cfg(d), device=dev)
+    out = tc.run()
+    check(out["start_step"] == 3 and out["final_step"] == TIER_STEPS,
+          f"(d) resumed {out['start_step']} -> {out['final_step']}")
+    check(same_bits({"params": tc.params, "mom": tc.mom},
+                    PHASE_REFS["tier_state"]),
+          "(d) the resumed run is not bit-equal to phase 11a's")
+    steps_a = check_ckpt_dir(tc.ckpt, "(d) train.step")
+    print(f"  (d) train.step:iter=3: InjectedFault at step 3, a fresh "
+          f"trainer resumed 3 -> {TIER_STEPS}; params and momentum bit-equal "
+          f"to phase 11a's; valid {steps_a}, each deep-valid", flush=True)
+
+    d = work / "ckpt_rename"
+    td = SparseTrainer(tier_sparse_cfg(d), device=dev)
+    with fault.fault_scope("ckpt.rename:n=1") as plan:
+        try:
+            td.run()
+            check(False, "(d) the ckpt.rename fault did not surface")
+        except fault.InjectedFault:
+            pass
+        td.ckpt.wait()
+    orphans = sorted(p.name for p in d.glob("tmp.*"))
+    check(plan.fired == {"ckpt.rename": 1} and len(orphans) == 1
+          and not list(d.glob("step_*")),
+          f"(d) fired {plan.fired}, left {sorted(p.name for p in d.iterdir())}")
+    te = SparseTrainer(tier_sparse_cfg(d), device=dev)
+    out = te.run()
+    mgr = CheckpointManager(d, keep=TIER_KEEP)
+    steps_b = check_ckpt_dir(mgr, "(d) ckpt.rename")
+    check(out["start_step"] == 0 and out["final_step"] == TIER_STEPS
+          and same_bits({"params": te.params, "mom": te.mom},
+                        PHASE_REFS["tier_state"]),
+          f"(d) the run after the rename fault: {out['start_step']} -> "
+          f"{out['final_step']}, or not bit-equal to phase 11a's")
+    torch.cuda.synchronize()
+    counts = {k.name: k.launches for k in KERNELS if k.launches}
+    snap = obs.snapshot()["counters"]
+    obs.set_enabled(False)
+    n_steps = snap["train.steps"]
+    check(counts == {"conv2d_fused_tiled": 5 * n_steps},
+          f"(d) launches {counts} for {n_steps} steps")
+    print(f"  (d) ckpt.rename:n=1: the step-1 save died before its rename "
+          f"(surfaced at the next save), leaving {orphans} and no step "
+          f"directory; a fresh trainer ran 0 -> {TIER_STEPS} bit-equal to "
+          f"phase 11a's, no tmp.* left, valid {steps_b}, each deep-valid; "
+          f"{n_steps} steps in all, launches {counts}, ckpt.saved "
+          f"{snap['ckpt.saved']}, ckpt.tmp_gc {snap['ckpt.tmp_gc']}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    obs.reset()
+    dispatch.set_db(None)
+    return counts
+
+
+def probe_cost_us() -> dict:
+    """Host µs per call of each probe with everything off, over
+    CHAOS_PROBE_CALLS calls (the loop's own cost included)."""
+    from repro_torch import fault, obs
+    from repro_torch.obs import metrics as om
+
+    check(not fault.enabled() and not obs.enabled(), "a probe is armed")
+    counter = om.counter("serve.decode_steps")
+    out = {}
+    n = CHAOS_PROBE_CALLS
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fault.maybe_fail("scheduler.iter", it=0)
+    out["maybe_fail"] = (time.perf_counter() - t0) * 1e6 / n
+    t0 = time.perf_counter()
+    for _ in range(n):
+        with obs.span("serve.iter", it=0):
+            pass
+    out["span"] = (time.perf_counter() - t0) * 1e6 / n
+    t0 = time.perf_counter()
+    for _ in range(n):
+        obs.instant("serve.retire", uid=0)
+    out["instant"] = (time.perf_counter() - t0) * 1e6 / n
+    t0 = time.perf_counter()
+    for _ in range(n):
+        counter.inc()
+    out["metric"] = (time.perf_counter() - t0) * 1e6 / n
+    check(counter.value == 0 and not obs.events(), "an off probe recorded")
+    return out
+
+
+def run_chaos(dev, vision_cfg, vision_params, lm_cfg, lm_params) -> dict:
+    """Phase 13.  Returns each kernel's launches in its runs, the training
+    ones apart."""
+    work = Path(tempfile.mkdtemp(prefix="chaos-", dir=ROOT / "build"))
+    try:
+        conv = chaos_vision(dev, vision_params, vision_cfg)
+        serve = chaos_serving(dev, lm_cfg, lm_params, work)
+        linear = chaos_linear(dev)
+        train = chaos_training(dev, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    cost = probe_cost_us()
+    per_step = serve["per_step"]
+    step_us = sum(per_step[k] * cost[k] for k in cost)
+    host_ms = PHASE_REFS["serve"]["contiguous_decode_host_ms"]
+    # against the smaller of phase 12's step and this phase's own
+    share = step_us / (min(host_ms, serve["contiguous_host_ms"]) * 1e3)
+    print(f"  host cost per call with everything off, over "
+          f"{CHAOS_PROBE_CALLS} calls: "
+          f"{ {k: round(v, 4) for k, v in cost.items()} } us; times the "
+          f"probes of a decode step: {step_us:.2f} us, {share:.5f} of a "
+          f"contiguous decode step (phase 12's {host_ms:.3f}, this phase's "
+          f"{serve['contiguous_host_ms']:.3f} host ms)", flush=True)
+    check(share < CHAOS_PROBE_SHARE, f"the probes cost {share:.4f} of a "
+          f"decode step, at most {CHAOS_PROBE_SHARE}")
+    launches = dict(conv)
+    for c in (serve["launches"], linear):
+        for k, n in c.items():
+            launches[k] = launches.get(k, 0) + n
+    print("CHAOS " + json.dumps({
+        "launches": launches, "train_launches": train,
+        "probe_cost_us": cost, "probes_per_decode_step": per_step,
+        "probe_share_of_decode_step": share,
+        "paged_decode_host_ms": serve["host"], "serve_fired": serve["fired"],
+        "serve_statuses": serve["statuses"]}), flush=True)
+    return {"launches": launches, "train_launches": train}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3229,7 +3718,16 @@ def main() -> int:
     rest_counts = run_serving_rest(dev, lm_cfg, lm_params)
     print(f"  phase 12 took {time.perf_counter() - t0:.1f} s", flush=True)
 
-    print("== 13. report", flush=True)
+    print(f"== 13. chaos: faults on the card (resnet-tiny at batch {BATCH}, "
+          f"pruned smollm-360m serving, a guarded linear, the SparseTrainer)",
+          flush=True)
+    t0 = time.perf_counter()
+    chaos = run_chaos(dev, cfg, params, lm_cfg, lm_params)
+    for name, n in chaos["train_launches"].items():
+        train_launches[name] += n
+    print(f"  phase 13 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    print("== 14. report", flush=True)
     launches = {
         "conv2d_fused": fused_route["conv2d_fused"],
         "conv2d_fused_tiled": counts["default"]["conv2d_fused_tiled"],
@@ -3256,6 +3754,8 @@ def main() -> int:
         + rest_counts["colwise_nm_matmul_tiled"],
         "flash_attention_tiled": score_counts["flash_attention_tiled"],
     }
+    for name, n in chaos["launches"].items():
+        launches[name] += n
     print(f"  the linear phase (5) launched {linear_launches}; the served runs "
           f"(phases 7 and 12) colwise_nm_matmul_tiled "
           f"{launches['colwise_nm_matmul_tiled']} times and the scored run "
@@ -3264,12 +3764,14 @@ def main() -> int:
     per = {"colwise_nm_matmul": "ms etc.: sum over the 960->2560 and "
                                 "2560->960 layers at 256 rows (T = d_out); "
                                 "launches: the linear phase (5), tiles 8 and "
-                                "12 and any profiled winner",
+                                "12 and any profiled winner, and phase 13's "
+                                "retry of the faulted tiled kernel",
            "colwise_nm_matmul_tiled": "ms etc.: sum over the 960->2560 and "
                                       "2560->960 layers at 256 rows (T = "
                                       "d_out); launches: the served "
-                                      "smollm-360m runs of phases 7 and 12 "
-                                      "(7 per layer per step)",
+                                      "smollm-360m runs of phases 7, 12 and "
+                                      "13 (7 per layer per step) and phase "
+                                      "13's guarded linear",
            "paged_attention": "ms etc.: B 4, Sq 1, f32, H 15, KV 5, D 64, "
                               "page size 16 (the decode step's shape), "
                               "called directly (the split kernel's "
@@ -3280,8 +3782,8 @@ def main() -> int:
                                     "64, page size 16 (the decode step's "
                                     "shape); launches: the served "
                                     "smollm-360m runs of phases 7 and 12's "
-                                    "grow scheduler (1 per layer per paged "
-                                    "decode step)",
+                                    "and 13's grow schedulers (1 per layer "
+                                    "per paged decode step)",
            "flash_attention": "ms etc.: B 4, S 2048, H 15, KV 5, D 64, "
                               "causal, f32 (the scoring forward's shape, "
                               "where it is the tiled kernel's bitwise "
@@ -3333,7 +3835,8 @@ def main() -> int:
                            "refuses",
            "conv2d_fused_tiled": "ms etc.: sum over the 5 pruned convs of one "
                                  "batch-256 forward; launches: the default "
-                                 "plan (5 per forward, x3)",
+                                 "plan (5 per forward, x3) and phase 13's "
+                                 "forward after clear_quarantine",
            "conv2d_fused_banded": "ms etc.: sum over the 5 pruned convs of "
                                   "one batch-256 forward, called directly "
                                   "(the tiled kernel's bitwise yardstick); "
@@ -3343,7 +3846,8 @@ def main() -> int:
            "conv2d_fused_banded_tiled": "ms etc.: sum over the 5 pruned convs "
                                         "of one batch-256 forward; launches: "
                                         "the forced banded plan (5 per "
-                                        "forward, x3)"}
+                                        "forward, x3) and phase 13's forward "
+                                        "with the fused family quarantined"}
     kernels = []
     for k in KERNELS:
         t = tot[k.name]

@@ -82,8 +82,9 @@ def linear_apply(params, x: torch.Tensor, *,
     A compressed layer runs the candidate ``repro_torch.dispatch`` resolves
     for its shape, device and serving phase (profile DB, else the heuristic:
     the sparse linear kernel on the card, the gather-einsum on the CPU), or
-    the one ``impl`` (else an ambient ``dispatch.force_scope``) names.  A
-    candidate that cannot run raises.
+    the one ``impl`` (else an ambient ``dispatch.force_scope``) names,
+    through ``dispatch.run_guarded``: a candidate that refuses to run is
+    quarantined and the next one runs; raises when none is left.
     """
     if "values" in params:
         from repro_torch import dispatch
@@ -91,12 +92,19 @@ def linear_apply(params, x: torch.Tensor, *,
         phase = dispatch.current_phase()
         site = ("linear", x.shape, params["values"].shape, x.dtype, x.device,
                 phase)
+
+        def make_key():
+            return dispatch.linear_key_from(
+                x.shape, params["values"].shape, x.dtype, phase=phase)
+
         spec = dispatch.site_impl(
-            site, lambda: dispatch.linear_key_from(
-                x.shape, params["values"].shape, x.dtype, phase=phase),
-            param_keys=("values", "idx"),
+            site, make_key, param_keys=("values", "idx"),
             force=dispatch.forced_impl("linear", impl), device=x.device)
-        y = spec.apply(params, x)
+        # execution guard: a candidate that refuses to run is quarantined
+        # and the key re-resolves down the ladder
+        y = dispatch.run_guarded(make_key, spec, lambda s: s.apply(params, x),
+                                 param_keys=("values", "idx"),
+                                 device=x.device)
     elif "mask" in params:
         y = forward_masked(x, params["w"], params["mask"])
     else:

@@ -43,6 +43,9 @@ class SyntheticLM:
             self.table = p / p.sum(axis=1, keepdims=True)
 
     def batch_at(self, step: int) -> Dict[str, np.ndarray]:
+        from repro_torch import fault as _fault
+
+        _fault.maybe_fail("data.batch", step=step)
         cfg = self.cfg
         rng = np.random.default_rng((cfg.seed, step))
         if cfg.kind == "uniform":

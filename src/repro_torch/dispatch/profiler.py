@@ -26,6 +26,11 @@ import torch
 from repro_torch._compat import resolve_device
 from repro_torch.dispatch.registry import REGISTRY, ImplSpec, OpKey
 from repro_torch.kernels import _build
+from repro_torch.obs import metrics as _om
+from repro_torch.obs import trace as _ot
+
+_C_PROFILE_RUNS = _om.counter("dispatch.profile_runs")
+_C_PROFILED_CANDS = _om.counter("dispatch.profiled_candidates")
 
 SCHEMA_VERSION = 1
 DEFAULT_DB_PATH = _build.BUILD_ROOT / "dispatch_profile.json"
@@ -196,11 +201,22 @@ def profile_op(key: OpKey, db: Optional[ProfileDB] = None, *,
     if not feasible:
         reasons = {s.name: s.feasible(key)[1] for s in impls}
         raise TuningError(f"no feasible candidate for {key.token}: {reasons}")
+    _C_PROFILE_RUNS.inc()
     timings: Dict[str, float] = {}
-    for spec in feasible:
-        timings[spec.name] = device_time_us(spec.make_bench(key, dev),
-                                            iters=iters, device=dev)
-    winner = min(timings, key=timings.get)
+    with _ot.span("dispatch.profile", token=key.token,
+                  candidates=len(feasible)) as psp:
+        for spec in feasible:
+            with _ot.span("dispatch.profile.candidate", impl=spec.name) as sp:
+                timings[spec.name] = device_time_us(
+                    spec.make_bench(key, dev), iters=iters, device=dev)
+                sp.set(wall_us=timings[spec.name])
+            _C_PROFILED_CANDS.inc()
+            # each candidate's time as an event of its own, so a trace alone
+            # rebuilds the whole race
+            _ot.instant("dispatch.candidate_wall", token=key.token,
+                        impl=spec.name, wall_us=timings[spec.name])
+        winner = min(timings, key=timings.get)
+        psp.set(winner=winner, wall_us=timings[winner])
     record = {"impl": winner, "wall_us": timings[winner], "all": timings}
     if db is not None:
         db.put(key.token, record)

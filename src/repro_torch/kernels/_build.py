@@ -164,11 +164,16 @@ class CudaKernel:
         self.last_smem_bytes = smem_bytes
 
 
+class DeviceError(ValueError):
+    """A kernel wrapper was handed operands on a device it cannot launch on:
+    the caller's error, never a shape rule to degrade around."""
+
+
 def check_cuda_tensor(name: str, t: torch.Tensor, dtypes, ndim: int) -> None:
     """Raise unless ``t`` is a contiguous CUDA tensor of one of ``dtypes``
     with ``ndim`` dimensions: what every kernel wrapper accepts."""
     if t.device.type != "cuda":
-        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+        raise DeviceError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.dtype not in dtypes:
         raise TypeError(f"{name} must have dtype in {dtypes}, got {t.dtype}")
     if t.dim() != ndim:
@@ -201,7 +206,7 @@ def check_no_grad(kernel: str, *tensors: torch.Tensor,
 def check_same_device(*tensors: torch.Tensor) -> None:
     """Raise unless every operand lies on the first one's device."""
     if any(t.device != tensors[0].device for t in tensors[1:]):
-        raise ValueError("the operands must be on one device")
+        raise DeviceError("the operands must be on one device")
 
 
 def check_compressed(values: torch.Tensor, idx: torch.Tensor,

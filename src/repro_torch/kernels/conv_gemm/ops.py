@@ -216,8 +216,9 @@ def conv2d_sparse(x_cnhw: torch.Tensor, values: torch.Tensor,
                   impl: Optional[str] = None) -> torch.Tensor:
     """Differentiable sparse conv under the plan ``repro_torch.dispatch``
     resolves for this shape and device, or under the candidate ``impl``
-    names (the JAX registry's names, geometry suffixes included).  A
-    candidate that cannot run raises.  The backward
+    names (the JAX registry's names, geometry suffixes included), through
+    ``dispatch.run_guarded``: a candidate that refuses to run is quarantined
+    and the next one runs; raises when none is left.  The backward
     (:func:`conv2d_sparse_bwd`) is the same for every plan; ``idx`` gets no
     gradient.  Returns CNHW [O, B, Ho, Wo]."""
     from repro_torch import dispatch
@@ -238,8 +239,14 @@ def conv2d_sparse(x_cnhw: torch.Tensor, values: torch.Tensor,
                               device=x_cnhw.device)
 
     def run(x, values, idx):
-        return spec.apply({"values": values, "idx": idx}, x, kh=kh, kw=kw,
-                          stride=stride, pad=pad, v=v)
+        # execution guard, inside the autograd twin's forward so it holds
+        # when training too: a rung that refuses to run is quarantined and
+        # the plan re-resolves down the ladder
+        return dispatch.run_guarded(
+            make_key, spec,
+            lambda s: s.apply({"values": values, "idx": idx}, x, kh=kh, kw=kw,
+                              stride=stride, pad=pad, v=v),
+            param_keys=("values", "idx"), device=x.device)
 
     return _ConvSparse.apply(x_cnhw, values, idx, run,
                              dict(kh=kh, kw=kw, stride=stride, pad=pad))

@@ -334,9 +334,12 @@ def paged_attention(q, k_new, v_new, k_pages, v_pages, tables, lengths, *,
     device the kernel, or a ``TuningError`` when no geometry fits.  A CPU
     tensor runs the plain version, whichever candidate names it, as the
     other kernels' wrappers do.  ``impl`` forces a candidate, the plain
-    ``paged_attn_ref`` included.
+    ``paged_attn_ref`` included.  The call goes through
+    ``dispatch.run_guarded``, with the ``kernel.paged_attn`` fault site
+    inside it.
     """
     from repro_torch import dispatch
+    from repro_torch import fault as _fault
 
     b, sq, h, d = q.shape
     kv = k_pages.shape[2]
@@ -353,9 +356,17 @@ def paged_attention(q, k_new, v_new, k_pages, v_pages, tables, lengths, *,
     spec = dispatch.site_impl(site, make_key, param_keys=(),
                               force=dispatch.forced_impl("paged_attn", impl),
                               device=q.device)
-    if spec.backend == "cuda" and q.device.type != "cpu":
-        return paged_attention_cuda(q, k_new, v_new, k_pages, v_pages, tables,
-                                    lengths, page_size=page_size,
-                                    block_q=spec.geom("bq", 8))
-    return paged_attention_ref(q, k_new, v_new, k_pages, v_pages, tables,
-                               lengths)
+
+    def call(s):
+        # the kernel's own fault site: a hit quarantines the current rung
+        # and run_guarded re-resolves
+        _fault.maybe_fail("kernel.paged_attn", impl=s.name, phase=phase)
+        if s.backend == "cuda" and q.device.type != "cpu":
+            return paged_attention_cuda(q, k_new, v_new, k_pages, v_pages,
+                                        tables, lengths, page_size=page_size,
+                                        block_q=s.geom("bq", 8))
+        return paged_attention_ref(q, k_new, v_new, k_pages, v_pages, tables,
+                                   lengths)
+
+    return dispatch.run_guarded(make_key, spec, call, param_keys=(),
+                                device=q.device)

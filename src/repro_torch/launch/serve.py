@@ -22,9 +22,14 @@ decode reaches them, preempting and restoring on exhaustion:
 
 SIGTERM (or Ctrl-C) drains: admissions stop, in-flight requests finish and
 queued ones flush as cancelled.  ``--watchdog-s`` aborts a wedged serve
-loop.  ``--faults`` and ``--trace PATH`` (the fault-injection plan and the
-Chrome trace) wait for the port of ``repro.fault`` and ``repro.obs``
-(ROADMAP queue 1 item 7) and exit with an error.
+loop.  ``--faults SPEC`` (with ``--faults-seed``) installs a seeded
+fault-injection plan (``repro_torch.fault`` grammar) and prints what fired
+at exit; ``--trace PATH`` turns the obs layer on and writes a Chrome trace
+(Perfetto loads it) with the metrics snapshot under ``otherData``:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
+        --smoke --device cpu --continuous --paged --alloc grow \
+        --faults 'page_pool.alloc:n=1' --trace out.json
 """
 from __future__ import annotations
 
@@ -32,9 +37,12 @@ import argparse
 
 import numpy as np
 
+from repro_torch import fault as rfault
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.core.pruning import SparsityConfig
 from repro_torch.models import registry as reg
+from repro_torch.obs import metrics as _om
+from repro_torch.obs import trace as _ot
 from repro_torch.serve import (
     STATUSES,
     Engine,
@@ -44,8 +52,6 @@ from repro_torch.serve import (
     synthetic_trace,
 )
 from repro_torch.train.fault import PreemptionGuard, StepWatchdog
-
-_ITEM_7 = "waits for the port of repro.fault and repro.obs (ROADMAP queue 1 item 7)"
 
 
 def build_engine(args) -> Engine:
@@ -93,7 +99,8 @@ def run_continuous(args) -> None:
     # the watchdog aborts the process if no scheduler iteration completes
     # inside the window
     guard = PreemptionGuard().install()
-    dog = StepWatchdog(timeout_s=args.watchdog_s).start()
+    dog = StepWatchdog(timeout_s=args.watchdog_s,
+                       trace_path=args.trace or None).start()
     try:
         completions = sched.run(trace, log_fn=log,
                                 should_drain=lambda: guard.requested,
@@ -111,7 +118,8 @@ def run_continuous(args) -> None:
         f"{s}={int(stats[f'retired_{s}'])}" for s in STATUSES
         if stats[f"retired_{s}"])
     print(f"status: {by_status or 'none'}; "
-          f"preemptions {int(stats['preemptions'])}"
+          f"preemptions {int(stats['preemptions'])}, "
+          f"iter faults {int(stats['iter_faults'])}"
           + (" [drained]" if guard.requested else ""))
     print(f"decode {stats['decode_tok_s']:.1f} tok/s "
           f"({stats['generated_tokens']} tokens, "
@@ -130,6 +138,11 @@ def run_continuous(args) -> None:
               f"fragmentation {ps['page_fragmentation']:.2f}")
     for c in completions[:2]:
         print(f"  uid={c.uid}: {c.tokens[:16].tolist()}")
+
+
+def _finish_trace(path: str) -> None:
+    n = _ot.dump_chrome_trace(path, metadata={"metrics": _om.snapshot()})
+    print(f"trace: wrote {n} events to {path} (load in ui.perfetto.dev)")
 
 
 def main(argv=None) -> None:
@@ -170,30 +183,48 @@ def main(argv=None) -> None:
                          "stamped onto every trace request; expiry retires "
                          "with status=timeout")
     ap.add_argument("--faults", default=None, metavar="SPEC",
-                    help=f"fault-injection plan; {_ITEM_7}")
+                    help="seeded fault-injection plan, repro_torch.fault "
+                         "grammar (e.g. 'page_pool.alloc:n=2,"
+                         "kernel.paged_attn:iter=0')")
+    ap.add_argument("--faults-seed", type=int, default=0,
+                    help="seed for probabilistic (p=) fault rules")
     ap.add_argument("--watchdog-s", type=float, default=300.0,
                     help="scheduler-iteration watchdog: abort the process "
                          "if no iteration completes within this window")
     ap.add_argument("--trace", nargs="?", const="", default=None,
                     metavar="PATH",
                     help="bare: print per-request admit/retire events; "
-                         f"PATH (a Chrome trace) {_ITEM_7}")
+                         "with PATH: enable the obs layer and write a "
+                         "Perfetto-loadable Chrome trace to PATH")
     args = ap.parse_args(argv)
-    if args.faults is not None:
-        raise SystemExit(f"--faults {_ITEM_7}")
-    if args.trace:
-        raise SystemExit(f"--trace PATH {_ITEM_7}; bare --trace prints the "
-                         "admit/retire log")
     if args.paged and not args.continuous:
         raise SystemExit("--paged requires --continuous (the static engine "
                          "uses the contiguous per-batch cache)")
     if (args.alloc != "reserve" or args.deadline_s is not None) \
             and not args.continuous:
         raise SystemExit("--alloc/--deadline-s require --continuous")
-    if args.continuous:
-        run_continuous(args)
-    else:
-        run_static(args)
+    trace_path = args.trace if args.trace else None
+    obs_was_on = _ot.enabled()
+    if trace_path:
+        # the trace and its metrics describe this run alone
+        _ot.reset()
+        _om.reset()
+        _ot.set_enabled(True)
+    if args.faults:
+        rfault.install(args.faults, seed=args.faults_seed)
+    try:
+        if args.continuous:
+            run_continuous(args)
+        else:
+            run_static(args)
+    finally:
+        if args.faults:
+            print(f"faults: fired {dict(rfault.plan().fired)} "
+                  f"of probes {dict(rfault.plan().probes)}")
+            rfault.uninstall()
+        if trace_path:
+            _finish_trace(trace_path)
+            _ot.set_enabled(obs_was_on)
 
 
 if __name__ == "__main__":

@@ -124,7 +124,11 @@ def batch_for_step(cfg: VisionConfig, seed: int, step: int, batch: int,
     ``(seed, step)``: :func:`synth_batch` from a numpy generator seeded by
     both, so a resumed run replays the same batches.  (The JAX package folds
     the step into a ``jax.random`` key, which numpy cannot reproduce: the
-    batches are the same function of the step, not the same images.)"""
+    batches are the same function of the step, not the same images.)  The
+    ``data.batch`` fault site probes first."""
+    from repro_torch import fault as _fault
+
+    _fault.maybe_fail("data.batch", step=step)
     return synth_batch(cfg, (seed, step), batch, device=device)
 
 

@@ -30,6 +30,7 @@ import torch
 from repro_torch import dispatch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import registry as reg
+from repro_torch.obs import trace as _ot
 
 NEG = -1e30
 
@@ -65,13 +66,14 @@ class Engine:
         # Build-time dispatch: resolve (and optionally profile) every
         # compressed layer's implementation per phase before the first step.
         scfg = self.scfg
-        self.dispatch_plan = dispatch.plan_params(
-            params, batch_hint=scfg.dispatch_batch_hint,
-            phase_hints={
-                "prefill": scfg.dispatch_batch_hint * scfg.dispatch_seq_hint,
-                "decode": scfg.dispatch_batch_hint,
-            },
-            profile=scfg.profile_dispatch)
+        with _ot.span("engine.build", arch=cfg.name):
+            self.dispatch_plan = dispatch.plan_params(
+                params, batch_hint=scfg.dispatch_batch_hint,
+                phase_hints={
+                    "prefill": scfg.dispatch_batch_hint * scfg.dispatch_seq_hint,
+                    "decode": scfg.dispatch_batch_hint,
+                },
+                profile=scfg.profile_dispatch)
 
     def reseed(self) -> None:
         """Restart the sampling generator from ``ServeConfig.seed`` (each
@@ -197,7 +199,8 @@ class Engine:
 
         self._sync()
         t0 = time.perf_counter()
-        logits, cache = self.prefill_step(prompts, max_len)
+        with _ot.span("engine.prefill", batch=b, seq=s):
+            logits, cache = self.prefill_step(prompts, max_len)
         self._sync()
         t_prefill = time.perf_counter() - t0
 
@@ -219,11 +222,16 @@ class Engine:
 
         tok = record(self.sample(logits))
         t1 = time.perf_counter()
-        for i in range(scfg.max_new_tokens - 1):
-            if done.all():
-                break
-            logits, cache = self.decode_step(cache, tok[:, None], s + i)
-            tok = record(self.sample(logits))
+        with _ot.span("engine.decode_loop", batch=b,
+                      budget=scfg.max_new_tokens) as dsp:
+            steps = 0
+            for i in range(scfg.max_new_tokens - 1):
+                if done.all():
+                    break
+                logits, cache = self.decode_step(cache, tok[:, None], s + i)
+                tok = record(self.sample(logits))
+                steps += 1
+            dsp.set(steps=steps)
         self._sync()
         t_decode = time.perf_counter() - t1
         gen = np.stack(out, axis=1)

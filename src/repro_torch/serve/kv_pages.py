@@ -1,6 +1,5 @@
 """Paged KV-cache memory tier: fixed-size pages + packed prefill streams
-(twin of ``repro/serve/kv_pages.py``, without its fault-injection sites and
-observability gauges; pure numpy, same behaviour).
+(twin of ``repro/serve/kv_pages.py``; pure numpy, same behaviour).
 
 The contiguous :class:`~repro_torch.serve.kv_slots.SlotPool` binds one
 ``max_len``-row KV strip per slot, so every request costs worst-case memory
@@ -33,6 +32,14 @@ import dataclasses
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+
+from repro_torch import fault as _fault
+from repro_torch.obs import metrics as _om
+from repro_torch.obs import trace as _ot
+
+_G_PAGES_ACTIVE = _om.gauge("serve.pages_active")
+_G_PAGES_FREE = _om.gauge("serve.pages_free")
+_G_PAGE_FRAG = _om.gauge("serve.page_fragmentation")
 
 
 class PageError(RuntimeError):
@@ -79,6 +86,7 @@ class PagePool:
         self._tables: Dict[int, PageTable] = {}
         self.peak_pages = 0
         self.peak_seqs = 0
+        self._set_gauges()
 
     # -- properties ---------------------------------------------------------
 
@@ -130,6 +138,10 @@ class PagePool:
         """Reserve pages for ``n_rows`` logical rows under ``seq_id``."""
         if seq_id in self._tables:
             raise PageError(f"seq {seq_id} already holds a page table")
+        # the fault site fires BEFORE any mutation, so an injected failure
+        # looks like real exhaustion and never leaves a half-mapped table
+        _fault.maybe_fail("page_pool.alloc", seq=seq_id, rows=int(n_rows),
+                          kind="alloc")
         need = self.pages_for(n_rows)
         if need > len(self._free):
             raise PageError(
@@ -143,6 +155,10 @@ class PagePool:
         self.peak_pages = max(self.peak_pages, self.n_mapped)
         self.peak_seqs = max(self.peak_seqs, len(self._tables))
         self.check_invariants()
+        self._set_gauges()
+        _ot.instant("serve.page_alloc", seq=seq_id, pages=need,
+                    rows=int(n_rows), free=len(self._free),
+                    request=request_id)
         return table
 
     def grow(self, seq_id: int, n_rows: int) -> PageTable:
@@ -151,6 +167,10 @@ class PagePool:
         need = self.pages_for(n_rows) - len(table.pages)
         if need <= 0:
             return table
+        # probes only when the grow claims a page, so growth inside an
+        # already-mapped page never consults the plan
+        _fault.maybe_fail("page_pool.alloc", seq=seq_id, rows=int(n_rows),
+                          kind="grow")
         if need > len(self._free):
             raise PageError(
                 f"cannot grow seq {seq_id} by {need} pages: "
@@ -159,6 +179,9 @@ class PagePool:
         table._capacity = len(table.pages) * self.page_size
         self.peak_pages = max(self.peak_pages, self.n_mapped)
         self.check_invariants()
+        self._set_gauges()
+        _ot.instant("serve.page_alloc", seq=seq_id, pages=need,
+                    rows=int(n_rows), free=len(self._free), grow=True)
         return table
 
     def advance(self, seq_id: int, by: int = 1) -> int:
@@ -191,6 +214,9 @@ class PagePool:
         table._capacity = keep * self.page_size
         self._free.extend(reversed(released))
         self.check_invariants()
+        self._set_gauges()
+        _ot.instant("serve.page_release", seq=seq_id, pages=n_rel,
+                    free=len(self._free))
         return n_rel
 
     def free(self, seq_id: int) -> None:
@@ -201,6 +227,9 @@ class PagePool:
         # Reverse so re-allocation hands the same pages back in order.
         self._free.extend(reversed(table.pages))
         self.check_invariants()
+        self._set_gauges()
+        _ot.instant("serve.page_free", seq=seq_id, pages=len(table.pages),
+                    free=len(self._free))
 
     # -- views --------------------------------------------------------------
 
@@ -269,6 +298,13 @@ class PagePool:
         if table is None:
             raise PageError(f"seq {seq_id} holds no page table")
         return table
+
+    def _set_gauges(self) -> None:
+        if not _ot.enabled():
+            return  # fragmentation() walks every table: skip it while off
+        _G_PAGES_ACTIVE.set(self.n_mapped)
+        _G_PAGES_FREE.set(len(self._free))
+        _G_PAGE_FRAG.set(self.fragmentation())
 
     def __repr__(self) -> str:  # pragma: no cover - debugging aid
         return (f"PagePool(n_pages={self.n_pages}, page_size={self.page_size},"

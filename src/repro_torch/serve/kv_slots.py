@@ -1,5 +1,5 @@
 """Slot-based KV-cache management for continuous batching (twin of
-``repro/serve/kv_slots.py``, without its observability gauges).
+``repro/serve/kv_slots.py``).
 
 The scheduler preallocates ONE decode cache with batch dim ``n_slots`` and
 seq dim ``max_len`` and never reallocates it.  A :class:`SlotPool` tracks
@@ -20,6 +20,13 @@ import dataclasses
 from typing import Dict, List, Optional
 
 import numpy as np
+
+from repro_torch.obs import metrics as _om
+
+# process-global occupancy gauges (no-ops while obs is off): last write
+# wins, so a metrics snapshot shows the most recently active pool
+_G_POOL_ACTIVE = _om.gauge("serve.pool_active")
+_G_POOL_FREE = _om.gauge("serve.pool_free")
 
 
 class SlotError(RuntimeError):
@@ -82,6 +89,8 @@ class SlotPool:
         slot = Slot(index=index, request_id=request_id, pos=0)
         self._active[index] = slot
         self.check_invariants()
+        _G_POOL_ACTIVE.set(len(self._active))
+        _G_POOL_FREE.set(len(self._free))
         return slot
 
     def free(self, index: int) -> None:
@@ -93,6 +102,8 @@ class SlotPool:
             raise SlotError(f"slot {index} double-freed")
         self._free.append(index)
         self.check_invariants()
+        _G_POOL_ACTIVE.set(len(self._active))
+        _G_POOL_FREE.set(len(self._free))
 
     def advance(self, index: int, by: int = 1) -> int:
         """Advance a slot's written-position counter; bounds-checked against

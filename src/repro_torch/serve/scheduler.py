@@ -25,35 +25,51 @@ request: its pages are freed and it is re-queued at the head with its
 generated prefix appended to the prompt, so the greedy re-prefill
 reproduces the identical continuation.
 
-``stats`` is a view over plain numbers with the JAX scheduler's key set;
-the fault sites and the metrics registry wait for ROADMAP queue 1 item 7,
-so ``iter_faults`` stays 0.
+Injected faults (:mod:`repro_torch.fault`) fail or preempt requests
+without ever leaking a slot or page: a ``scheduler.iter`` fault skips one
+iteration (counted in ``iter_faults``), a ``page_pool.alloc`` fault fails an
+admission or triggers the grow policy's preemption, and a prefill or decode
+step that raises :class:`~repro_torch.fault.InjectedFault` (the dispatch
+ladder exhausted) fails the requests it was serving.
+
+``stats`` and ``page_stats`` are views over the scheduler's private,
+always-on metrics registry (``self.metrics``); the process-global registry
+and the trace spans (``serve.iter``/``admit``/``prefill``/``decode``) record
+only while obs is on.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
-import math
 import time
 from typing import Callable, Dict, Iterable, Iterator, List, Optional
 
 import numpy as np
 
 from repro_torch import dispatch
+from repro_torch import fault as _fault
 from repro_torch.models import registry as reg
+from repro_torch.obs import metrics as _om
+from repro_torch.obs import trace as _ot
 from repro_torch.serve.engine import Engine
 from repro_torch.serve.kv_pages import PageError, PagePool, pack_prompts
 from repro_torch.serve.kv_slots import SlotPool
 
+# Global-registry mirrors (no-ops while obs is off): the process-wide view a
+# trace file carries, beside each Scheduler's private always-on registry
+_G_STEPS = _om.counter("serve.decode_steps")
+_G_DECODE_S = _om.counter("serve.decode_s")
+_G_TOKENS = _om.counter("serve.generated_tokens")
+_G_COMPLETED = _om.counter("serve.completed_requests")
+_G_PREEMPTIONS = _om.counter("serve.preemptions")
+_G_QUEUE = _om.gauge("serve.queue_depth")
+_G_ACTIVE = _om.gauge("serve.slots_active")
+_G_TTFT = _om.histogram("serve.ttft_s")
+_G_TPOT = _om.histogram("serve.tpot_s")
+_G_LATENCY = _om.histogram("serve.latency_s")
+
 #: Terminal request statuses (every Completion carries exactly one).
 STATUSES = ("ok", "timeout", "cancelled", "failed", "preempted")
-
-_COUNTERS = ("decode_steps", "decode_s", "generated_tokens",
-             "completed_requests", "preemptions", "iter_faults",
-             "pages_stranded") + tuple(f"retired_{s}" for s in STATUSES)
-_GAUGES = ("requests", "total_s", "queue_depth", "slots_active",
-           "pages_active", "pages_free", "page_fragmentation", "pages_peak")
-_HISTS = ("ttft_s", "tpot_s", "latency_s")
 
 
 @dataclasses.dataclass
@@ -152,14 +168,6 @@ class _InFlight:
     admit_seq: int = 0
 
 
-def _percentile(samples: List[float], p: float) -> float:
-    """Nearest-rank percentile of the samples; 0.0 when there are none."""
-    if not samples:
-        return 0.0
-    ranked = sorted(samples)
-    return ranked[max(int(math.ceil(p / 100.0 * len(ranked))), 1) - 1]
-
-
 class Scheduler:
     """Slot-based continuous batching on top of an :class:`Engine`.
 
@@ -221,6 +229,21 @@ class Scheduler:
         self.alloc = alloc
         self.max_restores = int(max_restores)
         self._cancelled: set = set()
+        # always-on private registry backing ``stats``/``page_stats``: live
+        # numbers, so a part-consumed run_iter reports what it has done
+        self.metrics = _om.Registry()
+        for name in ("decode_steps", "decode_s", "generated_tokens",
+                     "completed_requests", "preemptions", "iter_faults",
+                     "pages_stranded"):
+            self.metrics.counter(name)
+        for name in STATUSES:
+            self.metrics.counter(f"retired_{name}")
+        for name in ("requests", "total_s", "queue_depth", "slots_active",
+                     "pages_active", "pages_free", "page_fragmentation",
+                     "pages_peak"):
+            self.metrics.gauge(name)
+        for name in ("ttft_s", "tpot_s", "latency_s"):
+            self.metrics.histogram(name)
         self._reset_metrics()
         # plan dispatch for the shapes this scheduler runs: [C]-row prefill
         # chunks and [n_slots]-row decode
@@ -233,9 +256,7 @@ class Scheduler:
     # ------------------------------------------------------------------
 
     def _reset_metrics(self) -> None:
-        self._counters: Dict[str, float] = dict.fromkeys(_COUNTERS, 0)
-        self._gauges: Dict[str, float] = dict.fromkeys(_GAUGES, 0)
-        self._hists: Dict[str, List[float]] = {h: [] for h in _HISTS}
+        self.metrics.reset()
         # the run's prefill calls and their host seconds (not in ``stats``,
         # whose key set is the JAX scheduler's)
         self.prefill_calls = 0
@@ -249,42 +270,47 @@ class Scheduler:
 
     @property
     def stats(self) -> Dict[str, float]:
-        """Latency and throughput numbers, current at any point: all zeros
-        before the first run, and the work done so far while a
-        :meth:`run_iter` generator is part-consumed."""
-        c = self._counters
-        gen, dec_s = c["generated_tokens"], c["decode_s"]
+        """Latency and throughput numbers as a view over :attr:`metrics`,
+        current at any point: all zeros before the first run, and the work
+        done so far while a :meth:`run_iter` generator is part-consumed.
+        The percentiles are the histograms' (the upper edge of the bucket
+        holding the ranked sample, as in the JAX package)."""
+        c = self.metrics
+        gen = c.counter("generated_tokens").value
+        dec_s = c.counter("decode_s").value
         out = {
-            "decode_steps": c["decode_steps"],
+            "decode_steps": c.counter("decode_steps").value,
             "decode_s": dec_s,
-            "total_s": self._gauges["total_s"],
+            "total_s": c.gauge("total_s").value,
             "generated_tokens": gen,
-            "requests": self._gauges["requests"],
-            "completed_requests": c["completed_requests"],
+            "requests": c.gauge("requests").value,
+            "completed_requests": c.counter("completed_requests").value,
             "decode_tok_s": gen / dec_s if dec_s > 0 else 0.0,
-            "preemptions": c["preemptions"],
-            "iter_faults": c["iter_faults"],
+            "preemptions": c.counter("preemptions").value,
+            "iter_faults": c.counter("iter_faults").value,
         }
         for name in STATUSES:
-            out[f"retired_{name}"] = c[f"retired_{name}"]
-        for h in _HISTS:
-            out[f"{h[:-2]}_p50_s"] = _percentile(self._hists[h], 50)
-            out[f"{h[:-2]}_p99_s"] = _percentile(self._hists[h], 99)
+            out[f"retired_{name}"] = c.counter(f"retired_{name}").value
+        for h in ("ttft_s", "tpot_s", "latency_s"):
+            hist = c.histogram(h)
+            out[f"{h[:-2]}_p50_s"] = hist.percentile(50)
+            out[f"{h[:-2]}_p99_s"] = hist.percentile(99)
         return out
 
     @property
     def page_stats(self) -> Dict[str, float]:
         """The page pool's occupancy (all zeros in the contiguous mode)."""
-        g = self._gauges
+        m = self.metrics
         ps = self.page_size or 0
+        peak = m.gauge("pages_peak").value
         return {
             "page_size": float(ps),
-            "pages_active": g["pages_active"],
-            "pages_free": g["pages_free"],
-            "page_fragmentation": g["page_fragmentation"],
-            "pages_peak": g["pages_peak"],
-            "kv_rows_hwm": g["pages_peak"] * ps,
-            "pages_stranded": self._counters["pages_stranded"],
+            "pages_active": m.gauge("pages_active").value,
+            "pages_free": m.gauge("pages_free").value,
+            "page_fragmentation": m.gauge("page_fragmentation").value,
+            "pages_peak": peak,
+            "kv_rows_hwm": peak * ps,
+            "pages_stranded": m.counter("pages_stranded").value,
         }
 
     def run(self, requests: Iterable[Request],
@@ -357,8 +383,8 @@ class Scheduler:
         reqs = list(requests)
         log = log_fn or (lambda _msg: None)
         self._reset_metrics()
-        cnt, gauge, hist = self._counters, self._gauges, self._hists
-        gauge["requests"] = len(reqs)
+        m = self.metrics
+        m.gauge("requests").set(len(reqs))
         if not reqs:
             return
         engine, cfg = self.engine, self.engine.cfg
@@ -379,20 +405,37 @@ class Scheduler:
         engine.reseed()
         eos = engine.scfg.eos_id
         t0 = time.perf_counter()
+        c_steps = m.counter("decode_steps")
+        c_decode_s = m.counter("decode_s")
+        c_gen = m.counter("generated_tokens")
+        c_done = m.counter("completed_requests")
+        c_preempt = m.counter("preemptions")
+        c_stranded = m.counter("pages_stranded")
+        g_total = m.gauge("total_s")
+        h_ttft, h_tpot, h_lat = (m.histogram("ttft_s"), m.histogram("tpot_s"),
+                                 m.histogram("latency_s"))
         admit_seq = 0  # monotonic admission counter (preemption victim order)
         grow = pages is not None and self.alloc == "grow"
 
         def finish(comp: Completion) -> Completion:
             """Shared retire bookkeeping; the latency samples count ``ok``
             completions only."""
-            cnt["completed_requests"] += 1
-            cnt[f"retired_{comp.status}"] += 1
+            c_done.inc()
+            _G_COMPLETED.inc()
+            m.counter(f"retired_{comp.status}").inc()
             self._cancelled.discard(comp.uid)  # the cancel is consumed
             if comp.status == "ok":
-                hist["ttft_s"].append(comp.ttft_s)
-                hist["tpot_s"].append((comp.t_done - comp.t_first)
-                                      / max(comp.n_generated - 1, 1))
-                hist["latency_s"].append(comp.latency_s)
+                tpot = (comp.t_done - comp.t_first) / max(comp.n_generated - 1, 1)
+                h_ttft.observe(comp.ttft_s)
+                h_tpot.observe(tpot)
+                h_lat.observe(comp.latency_s)
+                _G_TTFT.observe(comp.ttft_s)
+                _G_TPOT.observe(tpot)
+                _G_LATENCY.observe(comp.latency_s)
+            _ot.instant("serve.retire", uid=comp.uid, status=comp.status,
+                        generated=comp.n_generated,
+                        ttft_s=round(comp.ttft_s, 6),
+                        latency_s=round(comp.latency_s, 6))
             log(f"[retire] uid={comp.uid} status={comp.status} "
                 f"generated={comp.n_generated} latency={comp.latency_s:.3f}s")
             return comp
@@ -403,7 +446,7 @@ class Scheduler:
                 if not grow:
                     # reserve policy: release (and count) the unused tail of
                     # the reservation the moment the request ends
-                    cnt["pages_stranded"] += pages.release_unused(idx)
+                    c_stranded.inc(pages.release_unused(idx))
                 pages.free(idx)
             pool.free(idx)
             return finish(Completion(
@@ -448,186 +491,259 @@ class Scheduler:
             restored._t_first = st.t_first
             restored._restores = getattr(base, "_restores", 0) + 1
             queue.push_front(restored)
-            cnt["preemptions"] += 1
+            c_preempt.inc()
+            _G_PREEMPTIONS.inc()
+            _ot.instant("serve.preempt", uid=base.uid, slot=idx,
+                        generated=int(gen.shape[0]),
+                        restores=restored._restores, reason=reason[:120])
             log(f"[preempt] uid={base.uid} slot={idx} "
                 f"generated={gen.shape[0]} ({reason})")
 
         def set_page_gauges() -> None:
-            gauge["pages_active"] = pages.n_mapped
-            gauge["pages_free"] = pages.n_free
-            gauge["page_fragmentation"] = pages.fragmentation()
-            gauge["pages_peak"] = pages.peak_pages
+            m.gauge("pages_active").set(pages.n_mapped)
+            m.gauge("pages_free").set(pages.n_free)
+            m.gauge("page_fragmentation").set(pages.fragmentation())
+            m.gauge("pages_peak").set(pages.peak_pages)
 
+        it = 0
         draining = False
         while queue or pool.n_active:
             if heartbeat is not None:
                 heartbeat()
+            try:
+                _fault.maybe_fail("scheduler.iter", it=it)
+            except _fault.InjectedFault:
+                # a transient hiccup: nothing was mutated yet, so the
+                # iteration re-runs (the site's probe counter moved on, so a
+                # deterministic schedule does not fire again)
+                m.counter("iter_faults").inc()
+                _ot.instant("serve.iter_fault", it=it)
+                it += 1
+                continue
+            # completions are yielded after the iteration's span closes: a
+            # span open across a yield would interleave with whatever the
+            # consumer traces between iterations
             done_now: List[Completion] = []
-            if not draining and should_drain is not None and should_drain():
-                draining = True
-                log(f"[drain] admissions stopped; {pool.n_active} in "
-                    f"flight, {len(queue)} queued")
+            with _ot.span("serve.iter", it=it) as isp:
+                if not draining and should_drain is not None and should_drain():
+                    draining = True
+                    _ot.instant("serve.drain", it=it, queued=len(queue),
+                                active=pool.n_active)
+                    log(f"[drain] admissions stopped; {pool.n_active} in "
+                        f"flight, {len(queue)} queued")
+                # -- lifecycle sweep: cancellations and deadline expiries ---
+                now = time.perf_counter()
 
-            # -- lifecycle sweep: cancellations and deadline expiries -------
-            now = time.perf_counter()
+                def expired(r: Request) -> bool:
+                    return r.deadline_s is not None and now - t0 > r.deadline_s
 
-            def expired(r: Request) -> bool:
-                return r.deadline_s is not None and now - t0 > r.deadline_s
-
-            for r in queue.take(lambda r: r.uid in self._cancelled
-                                or expired(r)):
-                status = "cancelled" if r.uid in self._cancelled else "timeout"
-                done_now.append(finish_queued(r, status))
-            for idx in sorted(inflight):
-                st = inflight[idx]
-                if st.req.uid in self._cancelled:
-                    done_now.append(retire(idx, "cancelled"))
-                elif expired(st.req):
-                    done_now.append(retire(idx, "timeout"))
-
-            def admit_token(req, slot, tok):
-                """The prompt's first sampled token either retires the
-                request at once or seeds its decode feed.  A restored
-                request resumes its token list and first-token time."""
-                nonlocal admit_seq
-                cnt["generated_tokens"] += 1
-                prefix = getattr(req, "_prefix", None)
-                toks = ([] if prefix is None else
-                        [int(t) for t in prefix]) + [tok]
-                admit_seq += 1
-                inflight[slot.index] = _InFlight(
-                    req=req,
-                    t_first=getattr(req, "_t_first", None)
-                    or time.perf_counter(),
-                    tokens=toks, admit_seq=admit_seq)
-                log(f"[admit] uid={req.uid} slot={slot.index} "
-                    f"prompt={len(req.prompt)} budget={req.max_new_tokens}")
-                if ((eos is not None and tok == eos)
-                        or len(toks) >= req.max_new_tokens):
-                    done_now.append(retire(slot.index))
-                else:
-                    tok_buf[slot.index] = tok
-
-            if pages is not None and not draining:
-                # -- paged admission: charged in free pages, then ONE packed
-                # padding-free prefill over every admitted prompt ----------
-                admitted = []
-                while queue and pool.n_free:
-                    head = queue.peek()
-                    # grow maps the prompt only; decode claims the budget
-                    need = (len(head.prompt) if grow
-                            else len(head.prompt) + head.max_new_tokens)
-                    if not pages.can_admit(need):
-                        break  # FIFO: the head waits for pages
-                    req = queue.pop()
-                    slot = pool.alloc(req.uid)
-                    try:
-                        pages.alloc(slot.index, need, request_id=req.uid)
-                    except PageError as e:
-                        # the allocator raises before it mutates: the
-                        # admission fails and the pools stay consistent
-                        pool.free(slot.index)
-                        done_now.append(finish_queued(req, "failed"))
-                        log(f"[fail] uid={req.uid} admission alloc: {e}")
-                        continue
-                    admitted.append((req, slot))
-                if admitted:
-                    packed = pack_prompts([r.prompt for r, _ in admitted],
-                                          [s.index for _, s in admitted])
-                    tables = pages.table_array(n, max_pages)
-                    t1 = time.perf_counter()
-                    logits, cache = engine.packed_prefill_step(
-                        cache, packed, tables, page_size=ps)
-                    toks = engine.sample(logits).tolist()
-                    self.prefill_s += time.perf_counter() - t1
-                    self.prefill_calls += 1
-                    for (req, slot), tok in zip(admitted, toks):
-                        slot.pos = len(req.prompt)
-                        pages.advance(slot.index, len(req.prompt))
-                        admit_token(req, slot, tok)
-            elif not draining:
-                # -- contiguous admission: chunked prefill per slot ---------
-                while queue and pool.n_free:
-                    req = queue.pop()
-                    slot = pool.alloc(req.uid)
-                    t1 = time.perf_counter()
-                    logits = self._prefill_into(cache, slot.index, req.prompt,
-                                                c_w)
-                    tok = int(engine.sample(logits)[0])
-                    self.prefill_s += time.perf_counter() - t1
-                    self.prefill_calls += -(-len(req.prompt) // c_w)
-                    slot.pos = len(req.prompt)
-                    admit_token(req, slot, tok)
-            gauge["queue_depth"] = len(queue)
-            gauge["slots_active"] = pool.n_active
-            if pages is not None:
-                set_page_gauges()
-
-            if grow and pool.n_active:
-                # -- grow on demand: map the next decode row of every live
-                # sequence; exhaustion preempts until the grow fits --------
-                pos_now = pool.positions()
-                for idx in sorted(inflight):
-                    while idx in inflight:
-                        try:
-                            pages.grow(idx, int(pos_now[idx]) + 1)
-                            break
-                        except PageError as e:
-                            victim = max(inflight,
-                                         key=lambda i: inflight[i].admit_seq)
-                            if (getattr(inflight[victim].req, "_restores", 0)
-                                    >= self.max_restores):
-                                done_now.append(retire(victim, "failed"))
-                            else:
-                                preempt(victim, reason=str(e))
-                set_page_gauges()
-
-            if pool.n_active:
-                # -- one pool-shaped decode step ----------------------------
-                pos_vec = pool.positions()
-                t1 = time.perf_counter()
-                if pages is not None:
-                    # tables are rebuilt every iteration: a retire frees
-                    # pages a new admission may map, and a stale table would
-                    # route an inactive slot's write into the new owner's
-                    # page
-                    tables = pages.table_array(n, max_pages)
-                    logits, cache = engine.paged_decode_step(
-                        cache, tok_buf[:, None], pos_vec, tables,
-                        page_size=ps)
-                else:
-                    logits, cache = engine.decode_step(
-                        cache, tok_buf[:, None], pos_vec)
-                toks = engine.sample(logits).tolist()
-                cnt["decode_s"] += time.perf_counter() - t1
-                cnt["decode_steps"] += 1
-                # -- retire finished sequences, advance the rest ------------
+                for r in queue.take(lambda r: r.uid in self._cancelled
+                                    or expired(r)):
+                    status = ("cancelled" if r.uid in self._cancelled
+                              else "timeout")
+                    done_now.append(finish_queued(r, status))
                 for idx in sorted(inflight):
                     st = inflight[idx]
-                    pool.advance(idx)  # the step wrote the token it was fed
-                    if pages is not None:
-                        pages.advance(idx)  # bounds-checked against mapping
-                    tok = toks[idx]
-                    st.tokens.append(tok)
-                    cnt["generated_tokens"] += 1
+                    if st.req.uid in self._cancelled:
+                        done_now.append(retire(idx, "cancelled"))
+                    elif expired(st.req):
+                        done_now.append(retire(idx, "timeout"))
+
+                def admit_token(req, slot, tok):
+                    """The prompt's first sampled token either retires the
+                    request at once or seeds its decode feed.  A restored
+                    request resumes its token list and first-token time."""
+                    nonlocal admit_seq
+                    c_gen.inc()
+                    _G_TOKENS.inc()
+                    prefix = getattr(req, "_prefix", None)
+                    toks = ([] if prefix is None else
+                            [int(t) for t in prefix]) + [tok]
+                    admit_seq += 1
+                    inflight[slot.index] = _InFlight(
+                        req=req,
+                        t_first=getattr(req, "_t_first", None)
+                        or time.perf_counter(),
+                        tokens=toks, admit_seq=admit_seq)
+                    log(f"[admit] uid={req.uid} slot={slot.index} "
+                        f"prompt={len(req.prompt)} budget={req.max_new_tokens}")
                     if ((eos is not None and tok == eos)
-                            or len(st.tokens) >= st.req.max_new_tokens):
-                        done_now.append(retire(idx))
+                            or len(toks) >= req.max_new_tokens):
+                        done_now.append(retire(slot.index))
                     else:
-                        tok_buf[idx] = tok
+                        tok_buf[slot.index] = tok
 
-            if draining and not pool.n_active and queue:
-                # graceful drain: flush what will never admit (a restored
-                # prefix survives in the completion's tokens)
-                for r in queue.take(lambda _r: True):
-                    status = ("preempted"
-                              if getattr(r, "_prefix", None) is not None
-                              else "cancelled")
-                    done_now.append(finish_queued(r, status))
-            gauge["total_s"] = time.perf_counter() - t0
+                if pages is not None and not draining:
+                    # -- paged admission: charged in free pages, then ONE
+                    # packed padding-free prefill over every admitted prompt
+                    admitted = []
+                    while queue and pool.n_free:
+                        head = queue.peek()
+                        # grow maps the prompt only; decode claims the budget
+                        need = (len(head.prompt) if grow
+                                else len(head.prompt) + head.max_new_tokens)
+                        if not pages.can_admit(need):
+                            break  # FIFO: the head waits for pages
+                        req = queue.pop()
+                        slot = pool.alloc(req.uid)
+                        try:
+                            pages.alloc(slot.index, need, request_id=req.uid)
+                        except (PageError, _fault.InjectedFault) as e:
+                            # the allocator raises before it mutates (an
+                            # injected fault too): the admission fails and
+                            # the pools stay consistent
+                            pool.free(slot.index)
+                            done_now.append(finish_queued(req, "failed"))
+                            log(f"[fail] uid={req.uid} admission alloc: {e}")
+                            continue
+                        admitted.append((req, slot))
+                    if admitted:
+                        packed = pack_prompts([r.prompt for r, _ in admitted],
+                                              [s.index for _, s in admitted])
+                        tables = pages.table_array(n, max_pages)
+                        t1 = time.perf_counter()
+                        try:
+                            with _ot.span("serve.admit", n=len(admitted),
+                                          tokens=packed.total_tokens,
+                                          packed=True):
+                                logits, cache = engine.packed_prefill_step(
+                                    cache, packed, tables, page_size=ps)
+                                toks = engine.sample(logits).tolist()
+                                self.prefill_s += time.perf_counter() - t1
+                                self.prefill_calls += 1
+                                for (req, slot), tok in zip(admitted, toks):
+                                    slot.pos = len(req.prompt)
+                                    pages.advance(slot.index, len(req.prompt))
+                                    admit_token(req, slot, tok)
+                        except _fault.InjectedFault as e:
+                            # the prefill is unservable (the dispatch ladder
+                            # is exhausted): every admission of this packed
+                            # batch fails
+                            for req, slot in admitted:
+                                if slot.index in inflight:
+                                    done_now.append(
+                                        retire(slot.index, "failed"))
+                                else:
+                                    pages.free(slot.index)
+                                    pool.free(slot.index)
+                                    done_now.append(
+                                        finish_queued(req, "failed"))
+                            log(f"[fail] packed prefill: {e}")
+                elif not draining:
+                    # -- contiguous admission: chunked prefill per slot -----
+                    while queue and pool.n_free:
+                        req = queue.pop()
+                        slot = pool.alloc(req.uid)
+                        t1 = time.perf_counter()
+                        try:
+                            with _ot.span("serve.admit", uid=req.uid,
+                                          prompt=len(req.prompt),
+                                          budget=req.max_new_tokens) as asp:
+                                logits = self._prefill_into(
+                                    cache, slot.index, req.prompt, c_w)
+                                tok = int(engine.sample(logits)[0])
+                                asp.set(slot=slot.index)
+                        except _fault.InjectedFault as e:
+                            pool.free(slot.index)
+                            done_now.append(finish_queued(req, "failed"))
+                            log(f"[fail] uid={req.uid} prefill: {e}")
+                            continue
+                        self.prefill_s += time.perf_counter() - t1
+                        self.prefill_calls += -(-len(req.prompt) // c_w)
+                        slot.pos = len(req.prompt)
+                        admit_token(req, slot, tok)
+                m.gauge("queue_depth").set(len(queue))
+                m.gauge("slots_active").set(pool.n_active)
+                _G_QUEUE.set(len(queue))
+                _G_ACTIVE.set(pool.n_active)
+                if pages is not None:
+                    set_page_gauges()
+
+                if grow and pool.n_active:
+                    # -- grow on demand: map the next decode row of every
+                    # live sequence; exhaustion (real or injected) preempts
+                    # until the grow fits ---------------------------------
+                    pos_now = pool.positions()
+                    for idx in sorted(inflight):
+                        while idx in inflight:
+                            try:
+                                pages.grow(idx, int(pos_now[idx]) + 1)
+                                break
+                            except (PageError, _fault.InjectedFault) as e:
+                                victim = max(
+                                    inflight,
+                                    key=lambda i: inflight[i].admit_seq)
+                                if (getattr(inflight[victim].req, "_restores",
+                                            0) >= self.max_restores):
+                                    done_now.append(retire(victim, "failed"))
+                                else:
+                                    preempt(victim, reason=str(e))
+                    set_page_gauges()
+
+                if pool.n_active:
+                    # -- one pool-shaped decode step ------------------------
+                    pos_vec = pool.positions()
+                    t1 = time.perf_counter()
+                    try:
+                        with _ot.span("serve.decode", active=pool.n_active,
+                                      paged=pages is not None) as dsp:
+                            if pages is not None:
+                                # tables are rebuilt every iteration: a
+                                # retire frees pages a new admission may map,
+                                # and a stale table would route an inactive
+                                # slot's write into the new owner's page
+                                tables = pages.table_array(n, max_pages)
+                                logits, cache = engine.paged_decode_step(
+                                    cache, tok_buf[:, None], pos_vec, tables,
+                                    page_size=ps)
+                            else:
+                                logits, cache = engine.decode_step(
+                                    cache, tok_buf[:, None], pos_vec)
+                            toks = engine.sample(logits).tolist()
+                            dt = time.perf_counter() - t1
+                            dsp.set(wall_us=round(dt * 1e6, 1))
+                    except _fault.InjectedFault as e:
+                        # the decode step is unservable (the dispatch ladder
+                        # is exhausted): every request in flight fails
+                        # rather than wedging
+                        for idx in sorted(inflight):
+                            done_now.append(retire(idx, "failed"))
+                        log(f"[fail] decode step: {e}")
+                    else:
+                        c_decode_s.inc(dt)
+                        c_steps.inc()
+                        _G_DECODE_S.inc(dt)
+                        _G_STEPS.inc()
+                        # -- retire finished sequences, advance the rest ----
+                        for idx in sorted(inflight):
+                            st = inflight[idx]
+                            pool.advance(idx)  # the step wrote its fed token
+                            if pages is not None:
+                                pages.advance(idx)  # bounds-checked vs mapping
+                            tok = toks[idx]
+                            st.tokens.append(tok)
+                            c_gen.inc()
+                            _G_TOKENS.inc()
+                            if ((eos is not None and tok == eos)
+                                    or len(st.tokens) >= st.req.max_new_tokens):
+                                done_now.append(retire(idx))
+                            else:
+                                tok_buf[idx] = tok
+
+                if draining and not pool.n_active and queue:
+                    # graceful drain: flush what will never admit (a restored
+                    # prefix survives in the completion's tokens)
+                    for r in queue.take(lambda _r: True):
+                        status = ("preempted"
+                                  if getattr(r, "_prefix", None) is not None
+                                  else "cancelled")
+                        done_now.append(finish_queued(r, status))
+                isp.set(retired=len(done_now))
+            g_total.set(time.perf_counter() - t0)
             yield from done_now
+            it += 1
 
-        gauge["total_s"] = time.perf_counter() - t0
+        g_total.set(time.perf_counter() - t0)
         if pages is not None:
             pages.check_invariants()  # end of run: no page leaked past retire
             set_page_gauges()
@@ -647,12 +763,14 @@ class Scheduler:
         s_len = int(len(prompt))
         sub = {k: v[:, slot:slot + 1] for k, v in cache.items()}
         logits = None
-        for start in range(0, s_len, c_w):
-            chunk = np.asarray(prompt[start:start + c_w], np.int32)[None, :]
-            if chunk.shape[1] < c_w:
-                chunk = np.pad(chunk, ((0, 0), (0, c_w - chunk.shape[1])))
-            logits, sub = self.engine.prefill_chunk_step(
-                sub, chunk, start, with_logits=start + c_w >= s_len)
+        with _ot.span("serve.prefill", slot=slot, prompt=s_len,
+                      chunks=-(-s_len // c_w), chunk_w=c_w):
+            for start in range(0, s_len, c_w):
+                chunk = np.asarray(prompt[start:start + c_w], np.int32)[None, :]
+                if chunk.shape[1] < c_w:
+                    chunk = np.pad(chunk, ((0, 0), (0, c_w - chunk.shape[1])))
+                logits, sub = self.engine.prefill_chunk_step(
+                    sub, chunk, start, with_logits=start + c_w >= s_len)
         last = (s_len - 1) % c_w
         return logits[:, last:last + 1]
 

@@ -49,12 +49,19 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import fault as _fault
 from repro_torch._tree import keystr, leaves_with_path, tree_map_with_path
+from repro_torch.obs import metrics as _om
+from repro_torch.obs import trace as _ot
 
 ARRAYS = "arrays.npz"
 META = "meta.json"
 MANIFEST = "manifest.json"
 MANIFEST_FORMAT = 1
+
+_C_SAVED = _om.counter("ckpt.saved")
+_C_INVALID = _om.counter("ckpt.invalid_skipped")
+_C_TMP_GC = _om.counter("ckpt.tmp_gc")
 
 # logical dtypes numpy lacks: stored as void records of their width, read
 # back through the integer dtype of that width
@@ -169,6 +176,7 @@ class CheckpointManager:
         meta = dict(metadata or {}, step=step, time=time.time())
 
         def write():
+            _fault.maybe_fail("ckpt.write", step=step)
             tmp = self.dir / f"tmp.{step}.{os.getpid()}"
             tmp.mkdir(parents=True, exist_ok=True)
             np.savez(tmp / ARRAYS, **payload)
@@ -182,10 +190,14 @@ class CheckpointManager:
                            for k, v in payload.items()},
             }
             (tmp / MANIFEST).write_text(json.dumps(manifest))
+            _fault.maybe_fail("ckpt.rename", step=step)
             final = self.dir / f"step_{step:08d}"
             if final.exists():
                 shutil.rmtree(final)
             os.replace(tmp, final)  # atomic on POSIX
+            _C_SAVED.inc()
+            _ot.instant("ckpt.save", step=step, arrays=len(payload),
+                        bytes=manifest["arrays_bytes"])
             self._gc()
 
         if blocking:
@@ -214,6 +226,7 @@ class CheckpointManager:
         writer is in flight (saves serialize through :meth:`wait`)."""
         for t in self.dir.glob("tmp.*"):
             shutil.rmtree(t, ignore_errors=True)
+            _C_TMP_GC.inc()
 
     def _gc(self):
         self._gc_tmp()
@@ -325,6 +338,8 @@ class CheckpointManager:
                 except CheckpointError as e:
                     reason = str(e)
             tried.append(f"{d.name}: {reason}")
+            _C_INVALID.inc()
+            _ot.instant("ckpt.invalid", dir=d.name, reason=reason[:200])
         if tried:
             raise CheckpointError(
                 f"no valid checkpoint in {self.dir}; skipped: {tried}")

@@ -48,20 +48,30 @@ class StepWatchdog:
 
     The default abort is ``os._exit(42)``, which skips atexit handlers and
     the ``finally`` blocks of every thread: a hung step cannot block it.
-    (The JAX package's abort first dumps its obs trace; the port has no
-    obs trace yet.)
+    First it emits a ``fault.watchdog`` obs instant and, given a
+    ``trace_path``, dumps the trace ring there, the one record of where the
+    run hung (the JAX package takes the path from ``REPRO_OBS_TRACE``).
     """
 
-    def __init__(self, timeout_s: float = 1800.0, abort: Optional[Callable] = None):
+    def __init__(self, timeout_s: float = 1800.0, abort: Optional[Callable] = None,
+                 trace_path: Optional[str] = None):
         self.timeout_s = timeout_s
+        self.trace_path = trace_path
         self._last = time.monotonic()
         self._stop = threading.Event()
         self._abort = abort or self._default_abort
         self._thread: Optional[threading.Thread] = None
         self.fired = False
 
-    @staticmethod
-    def _default_abort():
+    def _default_abort(self):
+        from repro_torch.obs import trace as _ot
+
+        _ot.instant("fault.watchdog", timeout_s=self.timeout_s)
+        if self.trace_path:
+            try:
+                _ot.dump_chrome_trace(self.trace_path)
+            except OSError:
+                pass  # aborting anyway; never mask the exit
         os._exit(WATCHDOG_EXIT_CODE)
 
     def start(self):

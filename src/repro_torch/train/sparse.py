@@ -25,8 +25,13 @@ Everything the contract needs is checkpointed or derivable:
     (``torch.set_num_threads(1)``): PyTorch's threaded CPU kernels may
     split their sums differently from run to run on a loaded machine.
 
-The JAX package's fault probes (``train.step``, ``data.batch``,
-``ckpt.write``/``ckpt.rename``) and its obs counters have no twin yet.
+The JAX package's fault probes are planted at the same places: the
+``train.step`` site at the top of each step, ``data.batch`` in
+``vision.batch_for_step`` and ``ckpt.write``/``ckpt.rename`` in the
+checkpoint writer.  A fault there propagates like a crash, without the
+final save, and a fresh trainer on the same directory resumes from the last
+checkpoint.  Each step is a ``train.step`` span, counted in ``train.steps``,
+with the logged loss in the ``train.loss`` gauge.
 """
 from __future__ import annotations
 
@@ -34,11 +39,17 @@ import dataclasses
 import time
 from typing import Any, Dict, Optional
 
+from repro_torch import fault as _fault
 from repro_torch._compat import resolve_device
 from repro_torch._tree import tree_leaves
 from repro_torch.configs.base import VisionConfig
+from repro_torch.obs import metrics as _om
+from repro_torch.obs import trace as _ot
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.fault import PreemptionGuard, StepWatchdog, StragglerMonitor
+
+_C_STEPS = _om.counter("train.steps")
+_G_LOSS = _om.gauge("train.loss")
 
 
 @dataclasses.dataclass
@@ -143,12 +154,16 @@ class SparseTrainer:
         try:
             while step < end:
                 t0 = time.perf_counter()
-                x, y = self.batch_at(step)
-                self.params, self.mom, loss = self.step_fn(
-                    self.params, self.mom, x, y)
+                _fault.maybe_fail("train.step", step=step)
+                with _ot.span("train.step", step=step):
+                    x, y = self.batch_at(step)
+                    self.params, self.mom, loss = self.step_fn(
+                        self.params, self.mom, x, y)
+                _C_STEPS.inc()
                 dur = time.perf_counter() - t0
                 if (step % tc.log_every == 0) or step == end - 1:
                     loss = float(loss)
+                    _G_LOSS.set(loss)
                     self.history.append(
                         {"step": step, "loss": loss, "sec_per_step": dur})
                 self.watchdog.beat()

@@ -14,6 +14,7 @@ import dataclasses
 import time
 from typing import Any, Dict, Optional
 
+from repro_torch import fault as _fault
 from repro_torch._compat import resolve_device
 from repro_torch._tree import tree_leaves
 from repro_torch.configs.base import ModelConfig
@@ -109,6 +110,7 @@ class Trainer:
         try:
             while step < end:
                 t0 = time.perf_counter()
+                _fault.maybe_fail("train.step", step=step)
                 self.params, self.opt_state, metrics = self.step_fn(
                     self.params, self.opt_state, self.data.batch_at(step))
                 if (step % self.train_cfg.log_every == 0) or step == end - 1:

@@ -8,6 +8,7 @@ under a fake clock, cancel, drain, heartbeat; every request ends in exactly
 one of ``STATUSES``), ``stats``' key set, and the serving launcher with
 ``--device cpu``.  Params come from JAX through ``params_from_jax``."""
 import functools
+import json
 import types
 
 import jax
@@ -498,9 +499,42 @@ def test_launcher_runs_on_the_cpu(capsys, extra, expect):
         assert "[admit] uid=0" in out and "[retire] uid=0" in out, out
 
 
+@pytest.mark.parametrize("extra", [
+    ["--continuous", "--requests", "5"],
+    ["--continuous", "--requests", "5", "--paged", "--page-size", "4",
+     "--alloc", "grow", "--kv-budget-rows", "16"],
+])
+def test_launcher_injects_faults_and_writes_a_trace(capsys, tmp_path, extra):
+    """``--faults SPEC --trace PATH`` on the smoke model: the plan's counts
+    print at exit, and the Chrome trace carries the serving spans, the
+    injections and the metrics snapshot, and passes both packages'
+    validators."""
+    from repro.obs import validate_chrome_trace as jax_validate
+    from repro_torch import fault, obs
+
+    path = tmp_path / "out.json"
+    spec = "scheduler.iter:n=2,page_pool.alloc:n=1"
+    launch_serve.main(LAUNCH + extra + ["--faults", spec, "--faults-seed", "3",
+                                        "--trace", str(path)])
+    out = capsys.readouterr().out
+    fired = ("{'scheduler.iter': 2, 'page_pool.alloc': 1}" if "--paged" in extra
+             else "{'scheduler.iter': 2}")
+    assert f"faults: fired {fired}" in out, out
+    assert "iter faults 2" in out and f"trace: wrote" in out, out
+    assert not fault.enabled() and not obs.enabled()
+    summary = obs.validate_chrome_trace(path)
+    assert jax_validate(path) == summary
+    payload = json.loads(path.read_text())
+    names = [e["name"] for e in payload["traceEvents"]]
+    assert names.count("fault.inject") == (3 if "--paged" in extra else 2)
+    assert names.count("serve.iter_fault") == 2
+    assert "serve.iter" in names and "serve.decode" in names
+    counters = payload["otherData"]["metrics"]["counters"]
+    assert counters["fault.injected"] == names.count("fault.inject")
+    assert counters["serve.completed_requests"] == 5
+
+
 @pytest.mark.parametrize("extra,match", [
-    (["--faults", "page_pool.alloc:n=1"], "item 7"),
-    (["--continuous", "--trace", "out.json"], "item 7"),
     (["--paged"], "requires --continuous"),
     (["--alloc", "grow"], "require --continuous"),
 ])

@@ -582,7 +582,8 @@ def test_watchdog_fires_and_beats_keep_alive():
 
 def test_watchdog_default_abort_exits_42():
     """The default abort is os._exit(42), so the scheduler restarts the
-    run from its last checkpoint (the port dumps no obs trace yet)."""
+    run from its last checkpoint (given a ``trace_path`` it first dumps
+    the obs trace: ``tests/test_torch_obs.py``)."""
     snippet = ("import time\n"
                "from repro_torch.train.fault import StepWatchdog\n"
                "StepWatchdog(timeout_s=0.2).start()\n"
