@@ -142,9 +142,26 @@ Phases:
               fault whose orphaned tmp.* the next run collects; then the
               host cost of maybe_fail, span, instant and a metric update
               with everything off, under 1% of a contiguous decode step
- 14. report : one ``{"kernels": [...]}`` line (launches in the main runs and
-              ``train_launches`` in phases 10, 11 and 13), then the ``{"ok":
-              true, ...}`` line last
+ 14. zoo    : the dense LM zoo: pruned qwen2-7b and nemotron-4-15b (sparsity
+              0.5, T = d_out) at their published widths, the full padded
+              vocab and the untied unembedding, 2 layers each, and pruned
+              qwen2-0.5b whole, random weights from the seed: each served
+              through ``Scheduler(paged=True)`` (4 requests of 64 prompt
+              tokens, 8 new, greedy; exact launch counts: one tiled linear a
+              linear a layer a step, one split paged attention a layer a
+              decode step; a teacher-forced replay of every step through the
+              plain versions) and scored once on 2 x 512 tokens under
+              attn_impl="pallas" (one tiled flash a layer, the NLL against
+              the plain replay); ``Tuner.tune(profile=True)`` at 960 -> 2560,
+              each tile timed on the kernel it routes to; the twins of the
+              four JAX examples at the JAX sizes (conv_pipeline against its
+              dense oracle, quickstart's 120 steps, prune_and_finetune's
+              compressed forward against the masked one, serve_pruned at
+              0, 50% and 75%), each kernel launch counted; init, host and
+              device seconds
+ 15. report : one ``{"kernels": [...]}`` line (launches in the main runs and
+              ``train_launches`` in phases 10, 11, 13 and 14), then the
+              ``{"ok": true, ...}`` line last
 
 Run from the repository root:  python3 chip_smoke.py
 Any failed check raises, so the script exits non-zero and prints no ok line.
@@ -1933,18 +1950,25 @@ class StepRecorder:
 
 
 def replay_steps(rec, cfg, dev, label) -> float:
-    """Teacher-forced replay of a contiguous run's steps through the plain
-    versions (``compressed_xla``) on a fresh cache: each step's logits
-    within REPLAY_RTOL of max|logit|.  Returns the largest error."""
+    """Teacher-forced replay of a run's steps, contiguous or paged, through
+    the plain versions (``compressed_xla``, ``paged_attn_ref``) on a fresh
+    cache: each step's logits within REPLAY_RTOL of max|logit|.  Returns
+    the largest error."""
     from repro_torch import dispatch
     from repro_torch.kernels import KERNELS, reset_launch_counts
     from repro_torch.models import registry as reg
 
-    shape = next(i[-1] for n, i, _, _ in rec.steps if n == "decode_step")
-    cache = reg.cache_init_fn(cfg, shape[1], shape[2], dev)()
+    name, shape, kw = next((n, i[-1], k) for n, i, k, _ in rec.steps
+                           if n in ("decode_step", "paged_decode_step"))
+    if name == "paged_decode_step":
+        cache = reg.paged_cache_init_fn(cfg, shape[1] - 1, kw["page_size"],
+                                        dev)()
+    else:
+        cache = reg.cache_init_fn(cfg, shape[1], shape[2], dev)()
     worst = 0.0
     reset_launch_counts()
-    with dispatch.force_scope(linear="compressed_xla"):
+    with dispatch.force_scope(linear="compressed_xla",
+                              paged_attn="paged_attn_ref"):
         for name, inputs, kw, logits_k in rec.steps:
             if name == "prefill_step":
                 logits_p, cache = rec.orig[name](*inputs)
@@ -1952,6 +1976,8 @@ def replay_steps(rec, cfg, dev, label) -> float:
                 slot, rest = inputs[0], inputs[1:]
                 sub = {k: v[:, slot:slot + 1] for k, v in cache.items()}
                 logits_p, _ = rec.orig[name](sub, *rest, **kw)
+            elif name == "packed_prefill_step":
+                logits_p, cache = rec.orig[name](cache, *inputs, **kw)
             else:
                 logits_p, cache = rec.orig[name](cache, *inputs[:-1], **kw)
             if logits_k is None:
@@ -3602,6 +3628,340 @@ def run_chaos(dev, vision_cfg, vision_params, lm_cfg, lm_params) -> dict:
     return {"launches": launches, "train_launches": train}
 
 
+# phase 14: the dense LM zoo.  Pruned qwen2-7b and nemotron-4-15b at their
+# published widths (the full padded vocab and the untied unembedding), depth
+# cut to ZOO_LAYERS, and qwen2-0.5b whole, each served and scored; then the
+# Tuner shim and the twins of the JAX package's four examples
+ZOO_MODELS = (("qwen2-7b", 2), ("nemotron-4-15b", 2), ("qwen2-0.5b", None))
+ZOO_REQUESTS, ZOO_PROMPT, ZOO_NEW = 4, 64, 8
+ZOO_SCORE_BATCH, ZOO_SCORE_SEQ = 2, 512
+ZOO_TUNER_SHAPE = (LINEAR_ROWS, 960, 2560)  # rows, d_in, d_out
+
+
+def zoo_model(dev, arch, n_layers):
+    """``arch`` at its published widths, ``n_layers`` deep (``None``: its
+    own depth), every linear pruned to 50% with T = d_out, random weights
+    from ``SEED`` on the card.  Returns (cfg, params, linears, init s)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.pruning import SparsityConfig
+    from repro_torch.kernels.colwise_nm import TILED_BN
+    from repro_torch.models import lm
+
+    cfg = get_config(arch)
+    depth = (f"{cfg.n_layers} layers (published)" if n_layers is None else
+             f"{n_layers} layers (reduced from {cfg.n_layers})")
+    cfg = cfg.with_(n_layers=n_layers or cfg.n_layers,
+                    sparsity=SparsityConfig(sparsity=0.5, m=None, tile=None,
+                                            format="compressed_pallas"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = lm.lm_init(cfg, SEED, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    layers = params["layers"]
+    linears = [(a, n) for a, n in LINEARS if n in layers[a]]
+    check(all("values" in layers[a][n] for a, n in linears),
+          f"{arch}: every linear is compressed")
+    widths = sorted({int(layers[a][n]["values"].shape[-1])
+                     for a, n in linears})
+    check(all(w % TILED_BN == 0 for w in widths),
+          f"{arch}: T = d_out {widths}, each a multiple of {TILED_BN}")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    print(f"  {arch}: {depth}, d_model {cfg.d_model}, heads {cfg.n_heads}/"
+          f"{cfg.n_kv_heads}, head_dim {cfg.resolved_head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size} (padded {cfg.padded_vocab}), "
+          f"{cfg.norm}, {cfg.mlp_act}, "
+          f"{'tied' if cfg.tie_embeddings else 'untied'} embeddings, f32; "
+          f"sparsity 0.5, T = d_out {widths}; {len(linears)} linears a "
+          f"layer; {n_params} stored values and indices from seed {SEED}, "
+          f"built in {init_s:.1f} s", flush=True)
+    return cfg, params, linears, init_s
+
+
+def zoo_serve(dev, cfg, params, linears) -> dict:
+    """ZOO_REQUESTS requests of ZOO_PROMPT tokens and ZOO_NEW new ones,
+    greedy, through ``Scheduler(paged=True)``: exact launch counts, a
+    teacher-forced replay of every step through the plain versions, host
+    ms a decode step and the device ms of one."""
+    from repro_torch import dispatch
+    from repro_torch.kernels import KERNELS, reset_launch_counts
+    from repro_torch.models import lm
+    from repro_torch.models import registry as reg
+    from repro_torch.serve import Engine, Request, Scheduler
+
+    engine = Engine(cfg, params)
+    sched = Scheduler(engine, n_slots=ZOO_REQUESTS, paged=True,
+                      page_size=PAGED_PS, alloc="reserve")
+    rng = np.random.default_rng(SEED + 14)
+    trace = [Request(uid=i, prompt=rng.integers(
+        0, cfg.vocab_size, (ZOO_PROMPT,)).astype(np.int32),
+        max_new_tokens=ZOO_NEW) for i in range(ZOO_REQUESTS)]
+    rec = StepRecorder(engine)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    comps = sched.run(trace, log_fn=rec.log)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k.name: k.launches for k in KERNELS if k.launches}
+    rec.restore()
+    st = sched.stats
+    n_dec, n_pre = st["decode_steps"], sched.prefill_calls
+    check(sorted(c.uid for c in comps) == list(range(ZOO_REQUESTS))
+          and all(c.status == "ok" and c.n_generated == ZOO_NEW
+                  and bool(((c.tokens >= 0) & (c.tokens < cfg.vocab_size))
+                           .all()) for c in comps),
+          f"{cfg.name}: completions "
+          f"{[(c.uid, c.status, c.n_generated) for c in comps]}")
+    check(sched.page_stats["pages_active"] == 0, f"{cfg.name}: pages leaked")
+    want = {"paged_attention_split": cfg.n_layers * n_dec,
+            "colwise_nm_matmul_tiled":
+                len(linears) * cfg.n_layers * (n_dec + n_pre)}
+    print(f"  {cfg.name} served {len(comps)} requests of {ZOO_PROMPT} "
+          f"prompt tokens, {ZOO_NEW} new each: {n_pre} packed prefills, "
+          f"{n_dec} decode steps in {wall:.3f} s; launches {counts} (want "
+          f"{want}: {len(linears)} tiled linears a layer a step, one split "
+          "paged attention a layer a decode step)", flush=True)
+    check(counts == want, f"{cfg.name} serving launches {counts}, want {want}")
+    worst = replay_steps(rec, cfg, dev, cfg.name)
+
+    inputs = next(i for n, i, _, _ in rec.steps if n == "paged_decode_step")
+    cache = reg.paged_cache_init_fn(cfg, inputs[-1][1] - 1, PAGED_PS, dev)()
+    tok_d, pos_d, tab_d = (torch.from_numpy(a).to(dev) for a in inputs[:3])
+    with dispatch.phase_scope("decode"):
+        step_ms = time_ms(lambda: lm.paged_decode_step(
+            params, cfg, cache, tok_d, pos_d, tab_d, PAGED_PS), iters=2)
+    rec_ms = st["decode_s"] / n_dec * 1e3
+    # the same requests again with the recorder off, which clones the
+    # logits and copies rows to the host each step: the host ms the idle
+    # share reads
+    quiet = Scheduler(engine, n_slots=ZOO_REQUESTS, paged=True,
+                      page_size=PAGED_PS, alloc="reserve")
+    quiet.run([Request(uid=r.uid, prompt=r.prompt,
+                       max_new_tokens=ZOO_NEW) for r in trace])
+    torch.cuda.synchronize()
+    host_ms = quiet.stats["decode_s"] / quiet.stats["decode_steps"] * 1e3
+    idle = max(0.0, 1 - step_ms / host_ms)
+    print(f"  {cfg.name} replay of all {len(rec.steps)} steps through the "
+          f"plain versions: max rel err of the logits {worst:.3e} <= "
+          f"{REPLAY_RTOL} of max|logit|; decode step host {host_ms:.3f} ms "
+          f"(the recorder off; {rec_ms:.3f} on), device {step_ms:.4f} ms "
+          f"(graph replay), idle share {idle:.3f}", flush=True)
+    return {"launches": counts, "host_s": wall,
+            "device_s": n_dec * step_ms / 1e3, "decode_host_ms": host_ms,
+            "decode_host_ms_recorder_on": rec_ms,
+            "decode_device_ms": step_ms, "replay_max_rel_err": worst}
+
+
+def zoo_score(dev, cfg, params, linears) -> dict:
+    """One ``loss_fn`` and one ``forward_fn`` on ZOO_SCORE_BATCH x
+    ZOO_SCORE_SEQ uniform tokens under attn_impl="pallas": exact launch
+    counts, logits and NLL against the plain replay."""
+    from repro_torch import dispatch
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels import KERNELS, reset_launch_counts
+    from repro_torch.models import registry as reg
+
+    cfg = cfg.with_(attn_impl="pallas")
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  batch=ZOO_SCORE_BATCH, seq_len=ZOO_SCORE_SEQ,
+                                  kind="uniform", seed=SEED))
+    batch = {"tokens": torch.from_numpy(data.batch_at(0)["tokens"]).to(dev)}
+    forward, loss = reg.forward_fn(cfg), reg.loss_fn(cfg)
+    with torch.no_grad():
+        forward(params, batch)  # warm-up: the dispatch memos at these rows
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        total, aux = loss(params, batch)
+        logits = forward(params, batch)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / 2
+        counts = {k.name: k.launches for k in KERNELS if k.launches}
+        want = {"flash_attention_tiled": 2 * cfg.n_layers,
+                "colwise_nm_matmul_tiled": 2 * len(linears) * cfg.n_layers}
+        check(counts == want, f"{cfg.name} scoring launches {counts}, want "
+              f"{want}")
+        check(tuple(logits.shape) == (ZOO_SCORE_BATCH, ZOO_SCORE_SEQ,
+                                      cfg.padded_vocab)
+              and bool(torch.isfinite(logits).all()),
+              f"{cfg.name} logits {tuple(logits.shape)}")
+        nll = float(aux["nll"])
+        check(np.isfinite(nll) and float(total) == nll,
+              f"{cfg.name} loss {float(total)} vs nll {nll}")
+        reset_launch_counts()
+        plain = cfg.with_(attn_impl="naive")
+        with dispatch.force_scope(linear="compressed_xla"):
+            e = rel_err(logits, reg.forward_fn(plain)(params, batch))
+            nll_p = float(reg.loss_fn(plain)(params, batch)[1]["nll"])
+        torch.cuda.synchronize()
+        check(all(k.launches == 0 for k in KERNELS),
+              "the replay launched a kernel")
+        e_nll = abs(nll - nll_p) / nll_p
+        check(e <= REPLAY_RTOL, f"{cfg.name} scoring logits vs plain: {e}")
+        check(e_nll <= SCORE_NLL_RTOL, f"{cfg.name} NLL vs plain: {e_nll}")
+        del logits
+        dev_ms = time_ms(lambda: forward(params, batch), iters=1)
+    print(f"  {cfg.name} scored {ZOO_SCORE_BATCH} x {ZOO_SCORE_SEQ} tokens: "
+          f"launches {counts} (want {want}); NLL {nll} against the plain "
+          f"replay's {nll_p} (rel err {e_nll:.3e} <= {SCORE_NLL_RTOL}; "
+          f"ln(vocab) {np.log(cfg.vocab_size):.4f}), logits rel err "
+          f"{e:.3e} <= {REPLAY_RTOL}; host {host_ms:.3f} ms, device "
+          f"{dev_ms:.3f} ms a forward (graph replay)", flush=True)
+    return {"launches": counts, "host_s": 2 * host_ms / 1e3,
+            "device_s": 2 * dev_ms / 1e3, "nll": [nll, nll_p],
+            "forward_host_ms": host_ms, "forward_device_ms": dev_ms}
+
+
+def zoo_tuner(dev) -> dict:
+    """``Tuner.tune(profile=True)`` at ZOO_TUNER_SHAPE into a fresh cache
+    under build/: each tile timed on the kernel it routes to."""
+    from repro_torch.core.tuning import Tuner, enumerate_candidates
+    from repro_torch.kernels import KERNELS, reset_launch_counts
+    from repro_torch.kernels.colwise_nm import TILED_BN
+
+    rows, d_in, d_out = ZOO_TUNER_SHAPE
+    path = ROOT / "build" / "repro_torch" / "chip_smoke_tuning.json"
+    path.unlink(missing_ok=True)
+    reset_launch_counts()
+    r = Tuner(cache_path=path, device=dev).tune(rows, d_in, d_out,
+                                                profile=True)
+    torch.cuda.synchronize()
+    counts = {k.name: k.launches for k in KERNELS if k.launches}
+    tiles = sorted({c.tile for c in enumerate_candidates(d_in, d_out)})
+    routed = {"colwise_nm_matmul_tiled": sum(t % TILED_BN == 0 for t in tiles),
+              "colwise_nm_matmul": sum(t % TILED_BN != 0 for t in tiles)}
+    check(set(counts) == {k for k, n in routed.items() if n}
+          and all(counts[k] >= routed[k] for k in counts),
+          f"the tuner launched {counts}, tiles {tiles}")
+    check(r["tile"] in tiles and r["wall_us"] > 0 and path.exists(),
+          f"the tuner's pick {r}")
+    again = Tuner(cache_path=path, device=dev).tune(rows, d_in, d_out)
+    check(again == r, f"the cached pick {again} is not {r}")
+    print(f"  Tuner.tune(profile=True) at {rows} rows, {d_in} -> {d_out}: "
+          f"tiles {tiles} timed on the card, launches {counts}; pick {r}, "
+          f"cached in {path.relative_to(ROOT)}", flush=True)
+    path.unlink(missing_ok=True)
+    return counts
+
+
+def zoo_examples(dev) -> tuple:
+    """The four example twins on the card at the JAX examples' sizes, each
+    launch counted; returns (inference launches, training launches)."""
+    from repro_torch.examples import (conv_pipeline, prune_and_finetune,
+                                      quickstart, serve_pruned)
+    from repro_torch.kernels import KERNELS, reset_launch_counts
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k.name: k.launches for k in KERNELS if k.launches}, (
+            time.perf_counter() - t0)
+
+    work = Path(tempfile.mkdtemp(prefix="examples-", dir=ROOT / "build"))
+    try:
+        conv, c_conv, s_conv = counted(lambda: conv_pipeline.main(dev))
+        quick, c_quick, s_quick = counted(lambda: quickstart.main(
+            dev, ckpt_dir=work / "quickstart"))
+        prune, c_prune, s_prune = counted(lambda: prune_and_finetune.main(dev))
+        serve, c_serve, s_serve = counted(lambda: serve_pruned.main(dev))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    n_conv = len(conv_pipeline.LAYERS)
+    check(set(c_conv) <= {"conv2d_fused", "conv2d_fused_tiled"}
+          and sum(c_conv.values()) == n_conv,
+          f"conv_pipeline launched {c_conv}: one fused conv a layer")
+    worst = max(layer["max_err"] / layer["max_ref"] for layer in conv["layers"])
+    print(f"  conv_pipeline ({s_conv:.2f} s): launches {c_conv}; max|err| "
+          f"{[layer['max_err'] for layer in conv['layers']]}, at most "
+          f"{worst:.2e} of max|y| <= {conv_pipeline.RTOL}", flush=True)
+    steps = quick["final_step"]
+    n_lin = 7 * quick["cfg"].n_layers
+    check(steps == 120 and c_quick == {"colwise_nm_matmul_tiled":
+                                       n_lin * steps},
+          f"quickstart: {steps} steps, launches {c_quick}")
+    print(f"  quickstart ({s_quick:.2f} s): {steps} steps, loss "
+          f"{quick['history'][0]['loss']:.4f} -> "
+          f"{quick['history'][-1]['loss']:.4f}, launches {c_quick} ({n_lin} "
+          "tiled linears a step forward; the backward is plain)", flush=True)
+    check(c_prune == {"colwise_nm_matmul": 14},
+          f"prune_and_finetune launched {c_prune}: the masked steps none, "
+          "the compressed forward (tile 8) 7 linears x 2 layers")
+    print(f"  prune_and_finetune ({s_prune:.2f} s): dense nll "
+          f"{prune['dense_nll']:.4f}, {prune['results']}; compressed loss "
+          f"{prune['compressed_loss']:.6f} vs masked "
+          f"{prune['masked_loss']:.6f} (<= {prune_and_finetune.LOSS_RTOL} "
+          f"rel); launches {c_prune}", flush=True)
+    n_gen = 0
+    for s, res in serve.items():
+        check(res["tokens"].shape == (32, 24), f"serve_pruned at {s}: tokens "
+              f"{res['tokens'].shape}")
+        n_gen += 2 if s else 0  # warm-up and timed generate of the pruned
+    want = {"colwise_nm_matmul_tiled": n_gen * 24 * 7 * 4}
+    check(c_serve == want, f"serve_pruned launched {c_serve}, want {want}")
+    print(f"  serve_pruned ({s_serve:.2f} s): tokens at sparsity "
+          f"{list(serve)}, launches {c_serve} (7 tiled linears x 4 layers x "
+          "24 steps a generate, 2 generates a pruned model)", flush=True)
+    launches = {}
+    for c in (c_conv, c_prune, c_serve):
+        for k, n in c.items():
+            launches[k] = launches.get(k, 0) + n
+    return launches, c_quick, s_conv + s_quick + s_prune + s_serve
+
+
+def run_zoo(dev) -> dict:
+    """Phase 14.  Returns each kernel's launches, the training ones
+    apart."""
+    from repro_torch import dispatch
+
+    t0 = time.perf_counter()
+    db_path = PROFILE_DB.with_suffix(".zoo.json")
+    db_path.unlink(missing_ok=True)
+    dispatch.set_db(dispatch.ProfileDB(path=db_path))
+    launches, init_s, host_s, device_s, rows = {}, 0.0, 0.0, 0.0, {}
+
+    def add(c):
+        for k, n in c.items():
+            launches[k] = launches.get(k, 0) + n
+
+    try:
+        for arch, n_layers in ZOO_MODELS:
+            cfg, params, linears, s = zoo_model(dev, arch, n_layers)
+            served = zoo_serve(dev, cfg, params, linears)
+            scored = zoo_score(dev, cfg, params, linears)
+            del params
+            torch.cuda.empty_cache()
+            init_s += s
+            host_s += served["host_s"] + scored["host_s"]
+            device_s += served["device_s"] + scored["device_s"]
+            add(served["launches"])
+            add(scored["launches"])
+            rows[arch] = {"layers": cfg.n_layers, "init_s": s,
+                          "serve": {k: v for k, v in served.items()
+                                    if k != "launches"},
+                          "score": {k: v for k, v in scored.items()
+                                    if k != "launches"}}
+        add(zoo_tuner(dev))
+        ex_launches, train, ex_s = zoo_examples(dev)
+        add(ex_launches)
+    finally:
+        dispatch.set_db(None)
+        db_path.unlink(missing_ok=True)
+    print(f"  the zoo's models: init {init_s:.1f} s, served and scored "
+          f"{host_s:.3f} host s, of which {device_s:.4f} device s measured "
+          f"(decode steps and forwards by graph replay); the examples "
+          f"{ex_s:.1f} s; phase 14 took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    print("ZOO " + json.dumps({"models": rows, "launches": launches,
+                               "train_launches": train, "init_s": init_s,
+                               "host_s": host_s, "device_s": device_s,
+                               "examples_s": ex_s}), flush=True)
+    return {"launches": launches, "train_launches": train}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3727,7 +4087,14 @@ def main() -> int:
         train_launches[name] += n
     print(f"  phase 13 took {time.perf_counter() - t0:.1f} s", flush=True)
 
-    print("== 14. report", flush=True)
+    print("== 14. the dense LM zoo: pruned qwen2-7b and nemotron-4-15b at "
+          "their published widths, qwen2-0.5b whole, the Tuner shim and the "
+          "example twins", flush=True)
+    zoo = run_zoo(dev)
+    for name, n in zoo["train_launches"].items():
+        train_launches[name] += n
+
+    print("== 15. report", flush=True)
     launches = {
         "conv2d_fused": fused_route["conv2d_fused"],
         "conv2d_fused_tiled": counts["default"]["conv2d_fused_tiled"],
@@ -3754,7 +4121,8 @@ def main() -> int:
         + rest_counts["colwise_nm_matmul_tiled"],
         "flash_attention_tiled": score_counts["flash_attention_tiled"],
     }
-    for name, n in chaos["launches"].items():
+    for name, n in list(chaos["launches"].items()) + list(
+            zoo["launches"].items()):
         launches[name] += n
     print(f"  the linear phase (5) launched {linear_launches}; the served runs "
           f"(phases 7 and 12) colwise_nm_matmul_tiled "
@@ -3764,14 +4132,18 @@ def main() -> int:
     per = {"colwise_nm_matmul": "ms etc.: sum over the 960->2560 and "
                                 "2560->960 layers at 256 rows (T = d_out); "
                                 "launches: the linear phase (5), tiles 8 and "
-                                "12 and any profiled winner, and phase 13's "
-                                "retry of the faulted tiled kernel",
+                                "12 and any profiled winner, phase 13's "
+                                "retry of the faulted tiled kernel, and "
+                                "phase 14's tuner (tile 32) and "
+                                "prune_and_finetune (tile 8)",
            "colwise_nm_matmul_tiled": "ms etc.: sum over the 960->2560 and "
                                       "2560->960 layers at 256 rows (T = "
                                       "d_out); launches: the served "
                                       "smollm-360m runs of phases 7, 12 and "
-                                      "13 (7 per layer per step) and phase "
-                                      "13's guarded linear",
+                                      "13 (7 per layer per step), phase "
+                                      "13's guarded linear, and phase 14's "
+                                      "zoo (served and scored models, the "
+                                      "tuner, serve_pruned)",
            "paged_attention": "ms etc.: B 4, Sq 1, f32, H 15, KV 5, D 64, "
                               "page size 16 (the decode step's shape), "
                               "called directly (the split kernel's "
@@ -3782,7 +4154,8 @@ def main() -> int:
                                     "64, page size 16 (the decode step's "
                                     "shape); launches: the served "
                                     "smollm-360m runs of phases 7 and 12's "
-                                    "and 13's grow schedulers (1 per layer "
+                                    "and 13's grow schedulers and phase "
+                                    "14's served zoo models (1 per layer "
                                     "per paged decode step)",
            "flash_attention": "ms etc.: B 4, S 2048, H 15, KV 5, D 64, "
                               "causal, f32 (the scoring forward's shape, "
@@ -3793,8 +4166,8 @@ def main() -> int:
            "flash_attention_tiled": "ms etc.: B 4, S 2048, H 15, KV 5, D "
                                     "64, causal, f32 (the scoring forward's "
                                     "shape); launches: the scored "
-                                    "smollm-360m run (1 per layer per "
-                                    "forward)",
+                                    "smollm-360m run and phase 14's scored "
+                                    "zoo models (1 per layer per forward)",
            "colwise_nm_matmul_strips": "ms etc.: sum over the 5 pruned convs "
                                        "of one batch-256 forward, called "
                                        "directly (the tiled kernel's bitwise "
@@ -3832,11 +4205,14 @@ def main() -> int:
                            "kernel's bitwise yardstick); launches: "
                            "conv2d_fused_cuda over phase 3's six cases and a "
                            "misaligned view of the values, the view the rule "
-                           "refuses",
+                           "refuses, and any conv of phase 14's "
+                           "conv_pipeline the tiled rule refuses",
            "conv2d_fused_tiled": "ms etc.: sum over the 5 pruned convs of one "
                                  "batch-256 forward; launches: the default "
-                                 "plan (5 per forward, x3) and phase 13's "
-                                 "forward after clear_quarantine",
+                                 "plan (5 per forward, x3), phase 13's "
+                                 "forward after clear_quarantine and "
+                                 "phase 14's conv_pipeline (the kernel the "
+                                 "fused shape rule picks)",
            "conv2d_fused_banded": "ms etc.: sum over the 5 pruned convs of "
                                   "one batch-256 forward, called directly "
                                   "(the tiled kernel's bitwise yardstick); "

@@ -11,6 +11,8 @@ from repro_torch.configs.base import ModelConfig, VisionConfig  # noqa: F401
 _MODULES = {
     "smollm-360m": "repro_torch.configs.smollm_360m",
     "qwen2-0.5b": "repro_torch.configs.qwen2_0_5b",
+    "qwen2-7b": "repro_torch.configs.qwen2_7b",
+    "nemotron-4-15b": "repro_torch.configs.nemotron_4_15b",
 }
 
 _VISION_MODULES = {

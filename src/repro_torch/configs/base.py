@@ -15,10 +15,10 @@ def pad_to_multiple(x: int, m: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """A decoder-only attention LM: the JAX ``ModelConfig``'s fields that
-    its attention family reads, with the same defaults.  The MoE,
-    recurrent, encoder-decoder, M-RoPE and sharding fields wait for the
-    slices that port those families; ``block_pattern`` is carried so the
-    serving steps can refuse the recurrent ones by name."""
+    its dense attention family reads, with the same defaults.  The rest of
+    the MoE, recurrent, encoder-decoder and sharding fields wait for the
+    slices that port those families; ``block_pattern``, ``mrope`` and
+    ``n_experts`` are carried so the model can refuse them by name."""
 
     name: str = "model"
     family: str = "dense"
@@ -35,9 +35,11 @@ class ModelConfig:
     attn_chunk: int = 512
     use_rope: bool = True
     rope_theta: float = 1e4
-    mlp_act: str = "swiglu"                # the port has SwiGLU only
-    norm: str = "rmsnorm"                  # the port has RMSNorm only
+    mrope: bool = False                    # Qwen2-VL M-RoPE: not ported yet
+    mlp_act: str = "swiglu"                # swiglu | sq_relu | gelu
+    norm: str = "rmsnorm"                  # rmsnorm | layernorm
     tie_embeddings: bool = False
+    n_experts: int = 0                     # MoE: not ported yet
     sparsity: SparsityConfig = DENSE       # the paper's technique
     dtype: str = "float32"                 # activation/compute dtype
     param_dtype: str = "float32"
@@ -58,6 +60,10 @@ class ModelConfig:
     def padded_vocab(self) -> int:
         """vocab padded to a multiple of 128; sampling masks the padded ids."""
         return pad_to_multiple(self.vocab_size, 128)
+
+    @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
 
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

@@ -1,5 +1,5 @@
 """Profiler and persistent profile DB (paper §3.3; twin of
-``repro/dispatch/profiler.py`` without the deprecated ``Tuner`` shim).
+``repro/dispatch/profiler.py``).
 
   * :class:`ProfileDB`: a versioned, environment-fingerprinted JSON store of
     profiling results.  A file written under another GPU, CUDA or torch
@@ -10,9 +10,13 @@
     for an :class:`OpKey` and records the winner, so one pass picks the
     implementation and its geometry together.
   * :func:`device_time_us`: the timer, the device's time of one call.
+  * :class:`Tuner`: the deprecated (tile, block_b, block_k) tuner, kept
+    for callers of the seed's ``core.tuning``.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 import json
 import os
 import tempfile
@@ -24,8 +28,10 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from repro_torch._compat import resolve_device
-from repro_torch.dispatch.registry import REGISTRY, ImplSpec, OpKey
+from repro_torch.dispatch.registry import (LINEAR_GEOMETRY, REGISTRY,
+                                           ImplSpec, OpKey)
 from repro_torch.kernels import _build
+from repro_torch.kernels.colwise_nm.kernel import linear_smem_bytes
 from repro_torch.obs import metrics as _om
 from repro_torch.obs import trace as _ot
 
@@ -221,3 +227,152 @@ def profile_op(key: OpKey, db: Optional[ProfileDB] = None, *,
     if db is not None:
         db.put(key.token, record)
     return record
+
+
+# ---------------------------------------------------------------------------
+# DEPRECATED geometry-level tuning shim (the seed's Tuner: tile x block_b x
+# block_k).  profile_op over the registry's geometry-pinned candidates
+# replaces it; the class stays for callers of ``core.tuning``.  Its block
+# grid is the registry's LINEAR_GEOMETRY, and its feasibility the linear
+# kernel's shared memory against a Hopper block's, where the JAX package
+# weighs VMEM: that predicate does not grow with d_in, so shapes the JAX
+# tuner refuses for VMEM are feasible here.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class Candidate:
+    tile: int
+    block_b: int
+    block_k: int
+    wall_us: Optional[float] = None
+    smem_bytes: int = 0
+    feasible: bool = True
+    score: float = 0.0
+
+
+def _linear_smem(block_b: int, block_k: int, tile: int) -> int:
+    return linear_smem_bytes(tile, block_b, block_k)
+
+
+def _takes_geometry(tile: int, device: torch.device) -> bool:
+    """Whether the linear that ``tile`` routes to on ``device`` takes the
+    block geometry: ``colwise_nm_linear.cu`` does; the tiled kernel (a
+    multiple of 64 columns) and the plain version do not."""
+    from repro_torch.kernels.colwise_nm import TILED_BN
+
+    return device.type == "cuda" and tile % TILED_BN != 0
+
+
+def _time_tile(batch, d_in, d_out, sparsity, tile, device,
+               *geometry) -> float:
+    """Device time of the sparse linear at ``tile``: on the card the
+    hand-written kernel the tile routes to (the tiled one for a multiple
+    of 64 columns, else ``colwise_nm_linear.cu`` at ``geometry``, a
+    ``(block_b, block_k)`` pair), on the CPU its plain version."""
+    from repro_torch.core.formats import init_compressed
+    from repro_torch.core.pruning import SparsityConfig
+    from repro_torch.kernels.colwise_nm import (TILED_BN, colwise_nm_matmul,
+                                                colwise_nm_matmul_tiled)
+
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((batch, d_in), generator=gen).to(device)
+    cfg = SparsityConfig(sparsity, m=None, tile=tile, format="compressed_xla")
+    values, idx = init_compressed(gen, d_in, d_out, cfg, device=device)
+    if tile % TILED_BN == 0:
+        fn = colwise_nm_matmul_tiled
+    elif geometry:
+        bb, bk = geometry
+        fn = functools.partial(colwise_nm_matmul, block_b=bb, block_k=bk)
+    else:
+        fn = colwise_nm_matmul
+    with torch.no_grad():
+        return device_time_us(lambda: fn(x, values, idx), iters=5,
+                              device=device)
+
+
+def enumerate_candidates(d_in: int, d_out: int) -> List[Candidate]:
+    tiles = sorted({t for t in (32, 64, 128, 256, 512, d_out)
+                    if d_out % t == 0})
+    blocks = [(dict(g)["bb"], dict(g)["bk"]) for g in LINEAR_GEOMETRY]
+    out = []
+    for t in tiles:
+        for bb, bk in blocks:
+            sm = _linear_smem(bb, bk, t)
+            out.append(Candidate(tile=t, block_b=bb, block_k=bk,
+                                 smem_bytes=sm,
+                                 feasible=sm <= _build.SMEM_BYTES))
+    return out
+
+
+class Tuner:
+    """DEPRECATED block-geometry tuner over (tile, block_b, block_k).
+
+    Geometry selection lives in the dispatch candidate space: profile the
+    :class:`OpKey` and the winning candidate's ``geometry`` is the tuned
+    block.  Backed by a :class:`ProfileDB`, so a pick is versioned,
+    fingerprinted and written atomically, and a seed-era cache (a bare
+    dict, no version) is dropped on load.  ``profile=True`` times each
+    tile on ``device`` (``None``: the CUDA card), and on the card each
+    block geometry of a tile that routes to ``colwise_nm_linear.cu``.
+    """
+
+    def __init__(self, cache_path=None, device=None):
+        self.device = resolve_device(device)
+        self.db = ProfileDB(path=cache_path if cache_path is not None
+                            else _build.BUILD_ROOT / "tuning_cache.json")
+        self.path = self.db.path
+
+    @property
+    def cache(self) -> Dict[str, Dict]:
+        return dict(self.db._entries)
+
+    def _key(self, batch, d_in, d_out, sparsity) -> str:
+        return f"b{batch}_i{d_in}_o{d_out}_s{int(sparsity * 100)}"
+
+    def tune(self, batch: int, d_in: int, d_out: int, sparsity: float = 0.5,
+             profile: bool = True) -> Dict:
+        """The winning ``{"tile", "block_b", "block_k", "wall_us",
+        "smem_bytes"}`` (cached).  ``profile=False`` times nothing and takes
+        the feasible candidate of least shared memory, then least tile."""
+        key = self._key(batch, d_in, d_out, sparsity)
+        cached = self.db.get(key)
+        if cached is not None:
+            return cached
+        cands = enumerate_candidates(d_in, d_out)
+        feasible = [c for c in cands if c.feasible]
+        if not feasible:
+            least = min(c.smem_bytes for c in cands) if cands else 0
+            raise TuningError(
+                f"no feasible kernel candidate for shape batch={batch}, "
+                f"d_in={d_in}, d_out={d_out}, sparsity={sparsity}: smallest "
+                f"candidate needs {least} B of shared memory (budget "
+                f"{_build.SMEM_BYTES} B)")
+        if not profile:
+            best = min(feasible, key=lambda c: (c.smem_bytes, c.tile))
+        else:
+            # a tile routed to colwise_nm_linear.cu on the card is timed at
+            # each block geometry; elsewhere the time depends on the tile
+            # alone, and within it the geometry of least shared memory
+            # scores best
+            walls: Dict[tuple, float] = {}
+            for c in feasible:
+                geo = ((c.block_b, c.block_k)
+                       if _takes_geometry(c.tile, self.device) else ())
+                if (c.tile, geo) not in walls:
+                    walls[(c.tile, geo)] = _time_tile(
+                        batch, d_in, d_out, sparsity, c.tile, self.device,
+                        *geo)
+                c.wall_us = walls[(c.tile, geo)]
+                c.score = c.wall_us * (1.0 + c.smem_bytes
+                                       / _build.SMEM_BYTES * 0.1)
+            best = min(feasible, key=lambda c: c.score)
+        result = {"tile": best.tile, "block_b": best.block_b,
+                  "block_k": best.block_k, "wall_us": best.wall_us,
+                  "smem_bytes": best.smem_bytes}
+        self.db.put(key, result)
+        return result
+
+    def tuned_tile(self, batch: int, d_in: int, d_out: int,
+                   sparsity: float = 0.5) -> int:
+        return int(self.tune(batch, d_in, d_out, sparsity)["tile"])

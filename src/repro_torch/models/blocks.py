@@ -1,6 +1,6 @@
 """The transformer block of the scoring forward and the serving steps, and
-the stacked-layers layout (twin of ``repro/models/blocks.py``'s attention
-block).
+the stacked-layers layout (twin of ``repro/models/blocks.py``'s dense
+attention block, under ``cfg.norm`` and ``cfg.mlp_act``).
 
 Every leaf of ``params["layers"]`` carries a leading ``[L, ...]`` axis, as
 the JAX package stacks its layers for ``scan``: the two trees compare leaf
@@ -36,9 +36,9 @@ def layer_params(stacked, l: int):
 def block_init(generator: torch.Generator, cfg: ModelConfig, device=None):
     dtype = getattr(torch, cfg.param_dtype)
     return {
-        "ln1": norm_init(cfg.d_model, dtype, device),
+        "ln1": norm_init(cfg.d_model, cfg.norm, dtype, device),
         "attn": attn.attn_init(generator, cfg, device),
-        "ln2": norm_init(cfg.d_model, dtype, device),
+        "ln2": norm_init(cfg.d_model, cfg.norm, dtype, device),
         "mlp": mlp_init(generator, cfg, device),
     }
 
@@ -47,10 +47,11 @@ def block_apply(params, cfg: ModelConfig, h, *, positions, causal=True):
     """Full self-attention block over h [B, S, d] (the scoring forward).
     Returns (h, aux): aux is a zero f32 scalar, as the JAX package's dense
     block gives (only its MoE blocks have an auxiliary loss)."""
-    x = norm_apply(params["ln1"], h)
+    x = norm_apply(params["ln1"], h, cfg.norm)
     h = h + attn.attn_apply(params["attn"], cfg, x, positions=positions,
                             causal=causal)
-    h = h + mlp_apply(params["mlp"], cfg, norm_apply(params["ln2"], h))
+    x = norm_apply(params["ln2"], h, cfg.norm)
+    h = h + mlp_apply(params["mlp"], cfg, x)
     return h, torch.zeros((), dtype=torch.float32, device=h.device)
 
 
@@ -60,21 +61,23 @@ def block_decode(params, cfg: ModelConfig, h, layer_cache, *, pos):
     layer_cache (k, v) [B, S_max, KV, D]; pos a scalar or [B].  Returns
     (h, (k_new, v_new)); the caller writes the new K/V after the layer loop.
     """
-    x = norm_apply(params["ln1"], h)
+    x = norm_apply(params["ln1"], h, cfg.norm)
     a, new_kv = attn.attn_decode(params["attn"], cfg, x, layer_cache, pos=pos)
     h = h + a
-    return h + mlp_apply(params["mlp"], cfg, norm_apply(params["ln2"], h)), new_kv
+    x = norm_apply(params["ln2"], h, cfg.norm)
+    return h + mlp_apply(params["mlp"], cfg, x), new_kv
 
 
 def block_prefill_chunk(params, cfg: ModelConfig, h, layer_cache, *, start):
     """Chunked prefill through a block: h [B, C, d] at positions [start,
     start + C) against a contiguous layer cache.  Returns (h, (k_chunk,
     v_chunk))."""
-    x = norm_apply(params["ln1"], h)
+    x = norm_apply(params["ln1"], h, cfg.norm)
     a, kv_new = attn.attn_prefill_chunk(params["attn"], cfg, x, layer_cache,
                                         start=start)
     h = h + a
-    return h + mlp_apply(params["mlp"], cfg, norm_apply(params["ln2"], h)), kv_new
+    x = norm_apply(params["ln2"], h, cfg.norm)
+    return h + mlp_apply(params["mlp"], cfg, x), kv_new
 
 
 def block_paged_decode(params, cfg: ModelConfig, h, layer_cache, *, pos,
@@ -85,12 +88,13 @@ def block_paged_decode(params, cfg: ModelConfig, h, layer_cache, *, pos,
     [B, n_max].  Returns (h, (k_new, v_new)); the caller scatters the new
     K/V through the tables after the layer loop.
     """
-    x = norm_apply(params["ln1"], h)
+    x = norm_apply(params["ln1"], h, cfg.norm)
     a, new_kv = attn.paged_attn_decode(params["attn"], cfg, x, layer_cache,
                                        pos=pos, tables=tables,
                                        page_size=page_size)
     h = h + a
-    return h + mlp_apply(params["mlp"], cfg, norm_apply(params["ln2"], h)), new_kv
+    x = norm_apply(params["ln2"], h, cfg.norm)
+    return h + mlp_apply(params["mlp"], cfg, x), new_kv
 
 
 def block_prefill_packed(params, cfg: ModelConfig, h, *, seq_ids, positions):
@@ -99,8 +103,9 @@ def block_prefill_packed(params, cfg: ModelConfig, h, *, seq_ids, positions):
     h [1, T, d] is the concatenated padding-free stream; seq_ids/positions
     [T].  Returns (h, (k [1, T, KV, D], v)).
     """
-    x = norm_apply(params["ln1"], h)
+    x = norm_apply(params["ln1"], h, cfg.norm)
     a, kv_new = attn.attn_prefill_packed(params["attn"], cfg, x,
                                          seq_ids=seq_ids, positions=positions)
     h = h + a
-    return h + mlp_apply(params["mlp"], cfg, norm_apply(params["ln2"], h)), kv_new
+    x = norm_apply(params["ln2"], h, cfg.norm)
+    return h + mlp_apply(params["mlp"], cfg, x), kv_new

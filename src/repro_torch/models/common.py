@@ -1,5 +1,5 @@
-"""Shared LM components (twin of ``repro/models/common.py``): RMSNorm, RoPE
-and the token embedding."""
+"""Shared LM components (twin of ``repro/models/common.py``): RMSNorm and
+LayerNorm, RoPE and the token embedding."""
 from __future__ import annotations
 
 import functools
@@ -10,16 +10,30 @@ import torch
 from repro_torch._compat import resolve_device
 
 
-def norm_init(d: int, dtype=torch.float32, device=None):
-    return {"scale": torch.ones((d,), dtype=dtype,
-                                device=resolve_device(device))}
+def norm_init(d: int, kind: str = "rmsnorm", dtype=torch.float32,
+              device=None):
+    """``{"scale"}`` of ones, and for ``kind="layernorm"`` a ``"bias"`` of
+    zeros, on ``device`` (``None``: the CUDA card)."""
+    dev = resolve_device(device)
+    p = {"scale": torch.ones((d,), dtype=dtype, device=dev)}
+    if kind == "layernorm":
+        p["bias"] = torch.zeros((d,), dtype=dtype, device=dev)
+    return p
 
 
-def norm_apply(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm in float32, returned in ``x``'s dtype."""
+def norm_apply(params, x: torch.Tensor, kind: str = "rmsnorm",
+               eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm, or LayerNorm for ``kind="layernorm"``, in float32, returned
+    in ``x``'s dtype."""
     xf = x.float()
-    var = (xf * xf).mean(-1, keepdim=True)
-    y = xf * torch.rsqrt(var + eps) * params["scale"].float()
+    if kind == "layernorm":
+        mu = xf.mean(-1, keepdim=True)
+        var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+        y = y * params["scale"].float() + params["bias"].float()
+    else:
+        var = (xf * xf).mean(-1, keepdim=True)
+        y = xf * torch.rsqrt(var + eps) * params["scale"].float()
     return y.to(x.dtype)
 
 

@@ -32,28 +32,42 @@ from repro_torch.models.mlp import mlp_apply
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if not cfg.tie_embeddings:
+    """Refuse what the port does not have yet: the recurrent patterns, MoE
+    and M-RoPE (ROADMAP queue 1 item 10)."""
+    if cfg.block_pattern != "attn":
         raise NotImplementedError(
-            f"{cfg.name}: the port has tied embeddings only")
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(f"{cfg.name}: the port has RMSNorm only")
+            f"{cfg.name}: block_pattern={cfg.block_pattern!r} waits for the "
+            "recurrent families (ROADMAP queue 1 item 10)")
+    if cfg.is_moe:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE blocks ({cfg.n_experts} experts) wait for "
+            "ROADMAP queue 1 item 10")
+    if cfg.mrope:
+        raise NotImplementedError(
+            f"{cfg.name}: M-RoPE waits for ROADMAP queue 1 item 10")
 
 
 def lm_init(cfg: ModelConfig, seed: int, device=None) -> Dict[str, Any]:
     """Random params from ``seed`` on ``device`` (``None``: the CUDA card),
     drawn from a CPU generator so they do not depend on the device.  The
-    tree is the JAX package's: ``{"embed", "final_norm", "layers"}`` with
-    every layer leaf stacked on a leading [L] axis."""
+    tree is the JAX package's: ``{"embed", "final_norm", "layers"}``, and
+    ``"unembed"`` [d_model, padded_vocab] where the embeddings are untied,
+    with every layer leaf stacked on a leading [L] axis."""
     _check_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     dtype = getattr(torch, cfg.param_dtype)
-    return {
+    p = {
         "embed": embed_init(gen, cfg.padded_vocab, cfg.d_model, dtype, dev),
-        "final_norm": norm_init(cfg.d_model, dtype, dev),
-        "layers": stack_layers([block_init(gen, cfg, dev)
-                                for _ in range(cfg.n_layers)]),
+        "final_norm": norm_init(cfg.d_model, cfg.norm, dtype, dev),
     }
+    if not cfg.tie_embeddings:
+        u = torch.randn((cfg.d_model, cfg.padded_vocab), generator=gen,
+                        dtype=torch.float32) * 0.02
+        p["unembed"] = u.to(dev, dtype)
+    p["layers"] = stack_layers([block_init(gen, cfg, dev)
+                                for _ in range(cfg.n_layers)])
+    return p
 
 
 def _embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
@@ -61,9 +75,12 @@ def _embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tenso
 
 
 def _unembed(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
-    """Tied unembedding: h [B, S, d] -> logits [B, S, padded_vocab]."""
+    """h [B, S, d] -> logits [B, S, padded_vocab]: by the embedding table
+    where the embeddings are tied, else by ``unembed``."""
     _check_supported(cfg)
-    return torch.matmul(h, params["embed"].to(h.dtype).T)
+    if cfg.tie_embeddings:
+        return torch.matmul(h, params["embed"].to(h.dtype).T)
+    return torch.matmul(h, params["unembed"].to(h.dtype))
 
 
 def lm_forward(params, cfg: ModelConfig, batch) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -81,7 +98,7 @@ def lm_forward(params, cfg: ModelConfig, batch) -> Tuple[torch.Tensor, torch.Ten
         h, a = block_apply(layer_params(params["layers"], l), cfg, h,
                            positions=positions)
         auxs.append(a)
-    h = norm_apply(params["final_norm"], h)
+    h = norm_apply(params["final_norm"], h, cfg.norm)
     return _unembed(params, cfg, h), torch.stack(auxs).mean()
 
 
@@ -139,7 +156,7 @@ def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor, pos):
         v_news.append(vn)
     attn_mod.cache_write(cache["k"], cache["v"], torch.stack(k_news),
                          torch.stack(v_news), pos_b)
-    h = norm_apply(params["final_norm"], h)
+    h = norm_apply(params["final_norm"], h, cfg.norm)
     return _unembed(params, cfg, h), cache
 
 
@@ -158,7 +175,7 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor):
     ks, vs = [], []
     for l in range(cfg.n_layers):
         lp = layer_params(params["layers"], l)
-        x = norm_apply(lp["ln1"], h)
+        x = norm_apply(lp["ln1"], h, cfg.norm)
         q, k, v = attn_mod._qkv(lp["attn"], cfg, x, positions)
         if cfg.attn_impl == "chunked" and s > cfg.attn_chunk:
             o = attn_mod.sdpa_gqa_chunked(q, k, v, causal=True,
@@ -166,10 +183,10 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor):
         else:
             o = attn_mod.sdpa_gqa(q, k, v, causal=True)
         h = h + linear_apply(lp["attn"]["o"], o.reshape(b, s, -1))
-        h = h + mlp_apply(lp["mlp"], cfg, norm_apply(lp["ln2"], h))
+        h = h + mlp_apply(lp["mlp"], cfg, norm_apply(lp["ln2"], h, cfg.norm))
         ks.append(k)
         vs.append(v)
-    h = norm_apply(params["final_norm"], h[:, -1:])
+    h = norm_apply(params["final_norm"], h[:, -1:], cfg.norm)
     return _unembed(params, cfg, h), {"k": torch.stack(ks), "v": torch.stack(vs)}
 
 
@@ -196,7 +213,7 @@ def prefill_chunk(params, cfg: ModelConfig, cache, tokens: torch.Tensor,
                          torch.stack(v_news), start)
     if not with_logits:
         return None, cache
-    h = norm_apply(params["final_norm"], h)
+    h = norm_apply(params["final_norm"], h, cfg.norm)
     return _unembed(params, cfg, h), cache
 
 
@@ -226,7 +243,7 @@ def paged_decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor,
         page_size)
     attn_mod.paged_cache_write(cache["k"], cache["v"], torch.stack(k_news),
                                torch.stack(v_news), rows)
-    h = norm_apply(params["final_norm"], h)
+    h = norm_apply(params["final_norm"], h, cfg.norm)
     return _unembed(params, cfg, h), cache
 
 
@@ -254,6 +271,6 @@ def prefill_packed(params, cfg: ModelConfig, cache, tokens: torch.Tensor,
     rows = attn_mod.page_rows(tables, slot_ids, positions, page_size)
     attn_mod.paged_cache_write(cache["k"], cache["v"], torch.stack(k_news),
                                torch.stack(v_news), rows)
-    h = norm_apply(params["final_norm"], h)
+    h = norm_apply(params["final_norm"], h, cfg.norm)
     h_last = h[0, last_idx.long()]  # [n_new, d]
     return _unembed(params, cfg, h_last[:, None, :]), cache

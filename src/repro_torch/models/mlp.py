@@ -1,5 +1,6 @@
-"""SwiGLU MLP over the (possibly compressed) linear layer (twin of
-``repro/models/mlp.py``'s SwiGLU branch)."""
+"""MLP variants over the (possibly compressed) linear layer (twin of
+``repro/models/mlp.py``): SwiGLU (the llama/qwen family), squared ReLU
+(nemotron) and GELU, the tanh approximation (whisper)."""
 from __future__ import annotations
 
 import torch
@@ -8,22 +9,32 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.sparse_linear import linear_apply, linear_init
 
+MLP_ACTS = ("swiglu", "sq_relu", "gelu")
 
-def mlp_init(generator: torch.Generator, cfg: ModelConfig, device=None):
-    if cfg.mlp_act != "swiglu":
-        raise NotImplementedError(
-            f"mlp_act={cfg.mlp_act!r}: the port has the SwiGLU MLP only")
-    d, f = cfg.d_model, cfg.d_ff
+
+def mlp_init(generator: torch.Generator, cfg: ModelConfig, device=None,
+             d_ff=None):
+    """``{"gate", "up", "down"}`` for SwiGLU, ``{"up", "down"}`` for the
+    others; ``d_ff`` overrides ``cfg.d_ff``."""
+    if cfg.mlp_act not in MLP_ACTS:
+        raise ValueError(f"mlp_act={cfg.mlp_act!r}: one of {MLP_ACTS}")
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     opts = dict(dtype=getattr(torch, cfg.param_dtype), device=device)
-    return {
-        "gate": linear_init(generator, d, f, cfg.sparsity, **opts),
-        "up": linear_init(generator, d, f, cfg.sparsity, **opts),
-        "down": linear_init(generator, f, d, cfg.sparsity, mode="reduce",
-                            **opts),
-    }
+    p = {}
+    if cfg.mlp_act == "swiglu":
+        p["gate"] = linear_init(generator, d, f, cfg.sparsity, **opts)
+    p["up"] = linear_init(generator, d, f, cfg.sparsity, **opts)
+    p["down"] = linear_init(generator, f, d, cfg.sparsity, mode="reduce",
+                            **opts)
+    return p
 
 
 def mlp_apply(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    g = linear_apply(params["gate"], x)
-    u = linear_apply(params["up"], x)
-    return linear_apply(params["down"], F.silu(g) * u)
+    if cfg.mlp_act == "swiglu":
+        g = linear_apply(params["gate"], x)
+        h = F.silu(g) * linear_apply(params["up"], x)
+    elif cfg.mlp_act == "sq_relu":
+        h = torch.square(F.relu(linear_apply(params["up"], x)))
+    else:  # gelu
+        h = F.gelu(linear_apply(params["up"], x), approximate="tanh")
+    return linear_apply(params["down"], h)

@@ -2233,3 +2233,131 @@ def test_lm_trainer_runs_the_tiled_linear_and_no_flash(dev, tmp_path):
     for g, w in zip(got["history"], want["history"], strict=True):
         assert abs(g["loss"] - w["loss"]) <= 1e-4 * abs(w["loss"])
         assert abs(g["grad_norm"] - w["grad_norm"]) <= 1e-4 * w["grad_norm"]
+
+
+# ---------------------------------------------------------------------------
+# The dense LM zoo: untied embeddings, LayerNorm, squared ReLU and GELU
+# ---------------------------------------------------------------------------
+
+
+def _zoo_smoke(arch, **kw):
+    """The arch's smoke config at widths that are multiples of 64 (4 KV
+    heads of 16, d_ff 128), so every compressed linear takes the tiled
+    kernel, as at the published widths."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.pruning import SparsityConfig
+
+    return smoke_config(arch).with_(
+        n_kv_heads=4, d_ff=128, sparsity=SparsityConfig(
+            sparsity=0.5, m=None, tile=None, min_dim=16,
+            format="compressed_pallas"), **kw)
+
+
+ZOO_CASES = {"qwen2-7b": ("qwen2-7b", {}),
+             "nemotron-4-15b": ("nemotron-4-15b", {}),
+             "qwen2-7b-gelu": ("qwen2-7b", {"mlp_act": "gelu"})}
+
+
+@pytest.mark.parametrize("case", list(ZOO_CASES))
+def test_zoo_served_requests_launch_the_kernels(dev, tmp_path, case):
+    """Paged serving on the card: one split paged attention a layer a
+    decode step, one tiled linear a linear a layer a step (7 with SwiGLU,
+    6 without a gate), nothing else; the tokens are the CPU run's."""
+    from repro_torch.models.lm import lm_init
+    from repro_torch.serve import Engine, Scheduler, synthetic_trace
+
+    arch, kw = ZOO_CASES[case]
+    cfg = _zoo_smoke(arch, **kw)
+    n_lin = 7 if cfg.mlp_act == "swiglu" else 6
+    dispatch.set_db(dispatch.ProfileDB(path=tmp_path / "profile.json"))
+    try:
+        params = lm_init(cfg, 0, device="cpu")
+        runs = {}
+        for where in ("cpu", "cuda"):
+            reset_launch_counts()
+            sched = Scheduler(Engine(cfg, _to(params, torch.device(where))),
+                              n_slots=3, paged=True, page_size=8)
+            runs[where] = {c.uid: c.tokens for c in sched.run(synthetic_trace(
+                5, seed=1, vocab=cfg.vocab_size, prompt_lens=(3, 20),
+                new_tokens=(2, 9)))}
+            torch.cuda.synchronize()
+            counts = {k.name: k.launches for k in KERNELS if k.launches}
+        st = sched.stats
+        assert counts == {
+            "paged_attention_split": cfg.n_layers * st["decode_steps"],
+            "colwise_nm_matmul_tiled": n_lin * cfg.n_layers * (
+                st["decode_steps"] + sched.prefill_calls)}
+        for uid, toks in runs["cpu"].items():
+            assert np.array_equal(toks, runs["cuda"][uid]), uid
+    finally:
+        dispatch.set_db(None)
+
+
+@pytest.mark.parametrize("case", list(ZOO_CASES))
+def test_zoo_scoring_launches_flash_and_matches_cpu(dev, tmp_path, case):
+    """A scoring forward under attn_impl="pallas": one tiled flash a layer
+    and one tiled linear a linear a layer; logits within 1e-4 of max|logit|
+    of the CPU's, the untied unembedding and LayerNorm's bias included."""
+    from repro_torch.models import registry as reg
+    from repro_torch.models.lm import lm_init
+
+    arch, kw = ZOO_CASES[case]
+    cfg = _zoo_smoke(arch, attn_impl="pallas", **kw)
+    n_lin = 7 if cfg.mlp_act == "swiglu" else 6
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 40)).astype(np.int32))
+    dispatch.set_db(dispatch.ProfileDB(path=tmp_path / "profile.json"))
+    try:
+        params = lm_init(cfg, 0, device="cpu")
+        assert "unembed" in params
+        with torch.no_grad():
+            want = reg.forward_fn(cfg)(params, {"tokens": tokens})
+            reset_launch_counts()
+            got = reg.forward_fn(cfg)(_to(params, dev),
+                                      {"tokens": tokens.to(dev)})
+            torch.cuda.synchronize()
+        counts = {k.name: k.launches for k in KERNELS if k.launches}
+        assert counts == {"flash_attention_tiled": cfg.n_layers,
+                          "colwise_nm_matmul_tiled": n_lin * cfg.n_layers}
+        err = float((got.cpu() - want).abs().max())
+        assert err <= 1e-4 * float(want.abs().max()), err
+    finally:
+        dispatch.set_db(None)
+
+
+def test_tuner_times_each_tile_on_its_kernel(dev, tmp_path):
+    """``Tuner.tune(profile=True)`` on the card: the tile of 32 columns on
+    ``colwise_nm_linear.cu`` at each feasible block geometry, the
+    multiples of 64 on the tiled kernel once each."""
+    from repro_torch.core.tuning import Tuner, enumerate_candidates
+
+    reset_launch_counts()
+    r = Tuner(cache_path=tmp_path / "t.json", device=dev).tune(64, 256, 256)
+    torch.cuda.synchronize()
+    counts = {k.name: k.launches for k in KERNELS if k.launches}
+    assert set(counts) == {"colwise_nm_matmul", "colwise_nm_matmul_tiled"}
+    geos = sum(c.feasible for c in enumerate_candidates(256, 256)
+               if c.tile == 32)
+    per = counts["colwise_nm_matmul_tiled"] // 3  # launches a timing
+    assert per > 0 and counts["colwise_nm_matmul_tiled"] == 3 * per
+    assert counts["colwise_nm_matmul"] == geos * per
+    assert r["tile"] in (32, 64, 128, 256) and r["wall_us"] > 0
+
+
+def test_conv_pipeline_twin_on_card(dev, tmp_path):
+    """The conv example's twin on the card: one fused conv kernel a layer,
+    every layer within its tolerance of the float64 oracle."""
+    from repro_torch.examples import conv_pipeline
+
+    dispatch.set_db(dispatch.ProfileDB(path=tmp_path / "profile.json"))
+    try:
+        reset_launch_counts()
+        out = conv_pipeline.main(dev)
+        torch.cuda.synchronize()
+    finally:
+        dispatch.set_db(None)
+    counts = {k.name: k.launches for k in KERNELS if k.launches}
+    assert set(counts) <= {"conv2d_fused", "conv2d_fused_tiled"}
+    assert sum(counts.values()) == len(conv_pipeline.LAYERS)
+    for layer in out["layers"]:
+        assert layer["max_err"] <= conv_pipeline.RTOL * layer["max_ref"]

@@ -251,6 +251,27 @@ def test_recurrent_patterns_raise_naming_item_10():
         Scheduler(Engine(tcfg, tp))
 
 
+@pytest.mark.parametrize("kw", [dict(block_pattern="xlstm"),
+                                dict(block_pattern="mamba_shared_attn"),
+                                dict(n_experts=4), dict(mrope=True)],
+                         ids=["xlstm", "zamba", "moe", "mrope"])
+def test_unported_families_raise_naming_item_10(kw):
+    """What the dense widening left: the recurrent patterns, MoE and M-RoPE
+    raise at init and in every step that reaches the unembedding."""
+    tcfg = _tcfg(**kw)
+    tp = _tparams()
+    with pytest.raises(NotImplementedError, match="item 10"):
+        treg.init_params(tcfg, 0, device="cpu")
+    for call in (lambda: treg.forward_fn(tcfg)(tp, {"tokens": _ints([[1, 2]])}),
+                 lambda: treg.loss_fn(tcfg)(tp, {"tokens": _ints([[1, 2]])})):
+        with pytest.raises(NotImplementedError, match="item 10"):
+            call()
+    if "block_pattern" not in kw:
+        cache = treg.cache_init_fn(tcfg, 1, 8, "cpu")()
+        with pytest.raises(NotImplementedError, match="item 10"):
+            treg.decode_fn(tcfg)(tp, cache, _ints([[1]]), 0)
+
+
 # ---------------------------------------------------------------------------
 # Engine.generate
 # ---------------------------------------------------------------------------

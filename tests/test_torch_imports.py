@@ -33,7 +33,13 @@ def test_importing_every_module_loads_no_jax_or_repro():
               "repro_torch.launch", "repro_torch.launch.steps",
               "repro_torch.launch.train", "repro_torch.launch.serve",
               "repro_torch.serve", "repro_torch.serve.engine",
-              "repro_torch.serve.scheduler"):
+              "repro_torch.serve.scheduler", "repro_torch.core.tuning",
+              "repro_torch.configs.qwen2_7b",
+              "repro_torch.configs.nemotron_4_15b",
+              "repro_torch.examples", "repro_torch.examples.conv_pipeline",
+              "repro_torch.examples.quickstart",
+              "repro_torch.examples.prune_and_finetune",
+              "repro_torch.examples.serve_pruned"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"
