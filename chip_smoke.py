@@ -159,7 +159,30 @@ Phases:
               compressed forward against the masked one, serve_pruned at
               0, 50% and 75%), each kernel launch counted; init, host and
               device seconds
- 15. report : one ``{"kernels": [...]}`` line (launches in the main runs and
+ 15. moe    : the MoE family: pruned olmoe-1b-7b whole (16 layers) and
+              moonshot-v1-16b-a3b at its published widths cut to 2 layers
+              (sparsity 0.5, T = d_out, the full padded vocab), random
+              weights from the seed: each served through
+              ``Scheduler(paged=True)`` (4 requests of 64 prompt tokens, 8
+              new, greedy) and ``Engine.generate`` (prefill and the
+              contiguous decode step) on the same prompts, with exact launch
+              counts (4 tiled linears a layer a step, one split paged
+              attention a layer a paged decode step; the experts run as the
+              JAX package's XLA path does, no kernel), the assignments each
+              prefill dropped (none in a decode step), a teacher-forced
+              replay of every step through the plain versions; and scored
+              once on 2 x 512 tokens under attn_impl="pallas" (one tiled
+              flash a layer; NLL and aux against the plain replay).  The
+              router is wrapped (``RouteLog``) and each replay is held row
+              by row: a request's first token routed apart from the
+              replay's must be a near-tie (its top k + 1 probabilities
+              within 1e-5 of a neighbour), and only the logits rows of a
+              request so routed apart are exempt.  Init s, a paged decode
+              step's host and device ms, idle share, the experts' and the
+              attention linears' shares of its device kernel time
+              (torch.profiler, each kernel counted once, within 0.8-1.25x
+              of the step's graph replay) and the peak device memory
+ 16. report : one ``{"kernels": [...]}`` line (launches in the main runs and
               ``train_launches`` in phases 10, 11, 13 and 14), then the
               ``{"ok": true, ...}`` line last
 
@@ -176,6 +199,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -1900,8 +1924,11 @@ class StepRecorder:
         engine.sample = self._sample
 
     def restore(self):
-        for n, f in self.orig.items():
-            setattr(self.engine, n, f)
+        # drop the wrappers: a bound method of the engine stored back on the
+        # engine would make a cycle that keeps its params alive until the
+        # cycle collector runs
+        for n in self.orig:
+            delattr(self.engine, n)
 
     def _step(self, name):
         orig = self.orig[name]
@@ -1949,11 +1976,16 @@ class StepRecorder:
             self.slot_uid = {s: u for s, u in self.slot_uid.items() if u != uid}
 
 
-def replay_steps(rec, cfg, dev, label) -> float:
+def replay_steps(rec, cfg, dev, label, routes=None) -> float:
     """Teacher-forced replay of a run's steps, contiguous or paged, through
     the plain versions (``compressed_xla``, ``paged_attn_ref``) on a fresh
     cache: each step's logits within REPLAY_RTOL of max|logit|.  Returns
-    the largest error."""
+    the largest error.
+
+    With ``routes`` (a ``RouteLog`` that recorded the run under ``label``)
+    the replay's routing is recorded under ``label + " plain"`` and
+    ``RouteLog.hold`` judges the logits row by row: a row is exempt only
+    where its request's tokens were routed apart by a near-tie."""
     from repro_torch import dispatch
     from repro_torch.kernels import KERNELS, reset_launch_counts
     from repro_torch.models import registry as reg
@@ -1965,10 +1997,11 @@ def replay_steps(rec, cfg, dev, label) -> float:
                                         dev)()
     else:
         cache = reg.cache_init_fn(cfg, shape[1], shape[2], dev)()
-    worst = 0.0
+    worst, held = 0.0, []
     reset_launch_counts()
     with dispatch.force_scope(linear="compressed_xla",
-                              paged_attn="paged_attn_ref"):
+                              paged_attn="paged_attn_ref"), (
+            routes.record(label + " plain") if routes else nullcontext()):
         for name, inputs, kw, logits_k in rec.steps:
             if name == "prefill_step":
                 logits_p, cache = rec.orig[name](*inputs)
@@ -1980,14 +2013,47 @@ def replay_steps(rec, cfg, dev, label) -> float:
                 logits_p, cache = rec.orig[name](cache, *inputs, **kw)
             else:
                 logits_p, cache = rec.orig[name](cache, *inputs[:-1], **kw)
+            if routes is not None:
+                held.append(step_owners(name, inputs)
+                            + (row_errs(logits_k, logits_p),))
+                continue
             if logits_k is None:
                 continue
             e = rel_err(logits_k, logits_p)
-            check(e <= REPLAY_RTOL, f"{label} {name}: kernel vs plain logits {e}")
+            check(e <= REPLAY_RTOL, f"{label} {name}: kernel vs plain "
+                  f"logits {e}")
             worst = max(worst, e)
     torch.cuda.synchronize()
     check(all(k.launches == 0 for k in KERNELS), f"the {label} replay launched")
+    if routes is not None:
+        worst = routes.hold(label, held, cfg.n_layers)
     return worst
+
+
+def row_errs(a, b):
+    """Each logits row's largest |a - b| over max|b| of the whole step, on
+    the host."""
+    d = (a - b).abs().reshape(a.shape[0], -1).amax(dim=1)
+    return (d / max(float(b.abs().max()), 1e-30)).cpu()
+
+
+def step_owners(name, inputs) -> tuple:
+    """(owner of each token the step routes, owners it starts afresh, owner
+    of each logits row) of a recorded engine step.  An owner is a slot:
+    its tokens' hidden states depend on one another (attention) and on
+    the other owners' only through the experts' capacity."""
+    if name == "prefill_step":
+        b, s = np.asarray(inputs[0]).shape
+        rows = np.arange(b)
+        return np.repeat(rows, s), set(rows.tolist()), rows
+    if name == "packed_prefill_step":
+        packed = inputs[0]
+        ids = np.asarray(packed.slot_ids)
+        return ids, set(ids.tolist()), ids[np.asarray(packed.last_idx)]
+    check(name in ("decode_step", "paged_decode_step"),
+          f"no owners known for a {name}")
+    rows = np.arange(np.asarray(inputs[0]).shape[0])
+    return rows, set(), rows
 
 
 def hold_tokens(ref, runs, cfg) -> list:
@@ -3659,9 +3725,18 @@ def zoo_model(dev, arch, n_layers):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     layers = params["layers"]
-    linears = [(a, n) for a, n in LINEARS if n in layers[a]]
+    linears = [(a, n) for a, n in LINEARS if a in layers and n in layers[a]]
     check(all("values" in layers[a][n] for a, n in linears),
           f"{arch}: every linear is compressed")
+    experts = ""
+    if cfg.is_moe:
+        stacks = [layers["moe"][n] for n in ("gate", "up", "down")
+                  if n in layers["moe"]]
+        check(all("values" in t for t in stacks)
+              and layers["moe"]["router"].dtype == torch.float32,
+              f"{arch}: every expert compressed, the router f32")
+        experts = (f"{cfg.n_experts} experts, top {cfg.top_k}, expert values "
+                   f"{[tuple(t['values'].shape) for t in stacks]}; ")
     widths = sorted({int(layers[a][n]["values"].shape[-1])
                      for a, n in linears})
     check(all(w % TILED_BN == 0 for w in widths),
@@ -3673,34 +3748,44 @@ def zoo_model(dev, arch, n_layers):
           f"{cfg.norm}, {cfg.mlp_act}, "
           f"{'tied' if cfg.tie_embeddings else 'untied'} embeddings, f32; "
           f"sparsity 0.5, T = d_out {widths}; {len(linears)} linears a "
-          f"layer; {n_params} stored values and indices from seed {SEED}, "
+          f"layer; {experts}{n_params} stored values and indices from seed "
+          f"{SEED}, "
           f"built in {init_s:.1f} s", flush=True)
     return cfg, params, linears, init_s
 
 
-def zoo_serve(dev, cfg, params, linears) -> dict:
+def zoo_prompts(cfg, seed) -> np.ndarray:
+    """ZOO_REQUESTS uniform prompts of ZOO_PROMPT tokens from ``seed``."""
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (ZOO_REQUESTS, ZOO_PROMPT)).astype(np.int32)
+
+
+def zoo_serve(dev, cfg, params, linears, routes=None) -> dict:
     """ZOO_REQUESTS requests of ZOO_PROMPT tokens and ZOO_NEW new ones,
     greedy, through ``Scheduler(paged=True)``: exact launch counts, a
     teacher-forced replay of every step through the plain versions, host
-    ms a decode step and the device ms of one."""
+    ms a decode step and the device ms of one.  With ``routes`` (an MoE
+    model): the run's routing recorded, the replay held under the near-tie
+    rule, the assignments each step dropped, and the decode step's
+    experts' and attention linears' shares of its device time."""
     from repro_torch import dispatch
     from repro_torch.kernels import KERNELS, reset_launch_counts
     from repro_torch.models import lm
     from repro_torch.models import registry as reg
     from repro_torch.serve import Engine, Request, Scheduler
 
+    label = f"{cfg.name} paged"
     engine = Engine(cfg, params)
     sched = Scheduler(engine, n_slots=ZOO_REQUESTS, paged=True,
                       page_size=PAGED_PS, alloc="reserve")
-    rng = np.random.default_rng(SEED + 14)
-    trace = [Request(uid=i, prompt=rng.integers(
-        0, cfg.vocab_size, (ZOO_PROMPT,)).astype(np.int32),
-        max_new_tokens=ZOO_NEW) for i in range(ZOO_REQUESTS)]
+    trace = [Request(uid=i, prompt=p, max_new_tokens=ZOO_NEW)
+             for i, p in enumerate(zoo_prompts(cfg, SEED + 14))]
     rec = StepRecorder(engine)
     torch.cuda.synchronize()
     reset_launch_counts()
     t0 = time.perf_counter()
-    comps = sched.run(trace, log_fn=rec.log)
+    with routes.record(label) if routes else nullcontext():
+        comps = sched.run(trace, log_fn=rec.log)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {k.name: k.launches for k in KERNELS if k.launches}
@@ -3721,16 +3806,27 @@ def zoo_serve(dev, cfg, params, linears) -> dict:
           f"prompt tokens, {ZOO_NEW} new each: {n_pre} packed prefills, "
           f"{n_dec} decode steps in {wall:.3f} s; launches {counts} (want "
           f"{want}: {len(linears)} tiled linears a layer a step, one split "
-          "paged attention a layer a decode step)", flush=True)
+          "paged attention a layer a decode step"
+          + ("; the experts none)" if routes else ")"), flush=True)
     check(counts == want, f"{cfg.name} serving launches {counts}, want {want}")
-    worst = replay_steps(rec, cfg, dev, cfg.name)
+    out = {"launches": counts, "host_s": wall}
+    if routes:
+        out["drops"] = moe_drops(routes, label, rec, cfg)
+    out["replay_max_rel_err"] = replay_steps(rec, cfg, dev, label, routes)
 
     inputs = next(i for n, i, _, _ in rec.steps if n == "paged_decode_step")
     cache = reg.paged_cache_init_fn(cfg, inputs[-1][1] - 1, PAGED_PS, dev)()
     tok_d, pos_d, tab_d = (torch.from_numpy(a).to(dev) for a in inputs[:3])
+
+    def step():
+        return lm.paged_decode_step(params, cfg, cache, tok_d, pos_d, tab_d,
+                                    PAGED_PS)
+
     with dispatch.phase_scope("decode"):
-        step_ms = time_ms(lambda: lm.paged_decode_step(
-            params, cfg, cache, tok_d, pos_d, tab_d, PAGED_PS), iters=2)
+        step_ms = time_ms(step, iters=2)
+        if routes:
+            (out["decode_profiled_ms"], out["expert_share"],
+             out["attn_linear_share"]) = moe_step_shares(step, step_ms)
     rec_ms = st["decode_s"] / n_dec * 1e3
     # the same requests again with the recorder off, which clones the
     # logits and copies rows to the host each step: the host ms the idle
@@ -3743,26 +3839,37 @@ def zoo_serve(dev, cfg, params, linears) -> dict:
     host_ms = quiet.stats["decode_s"] / quiet.stats["decode_steps"] * 1e3
     idle = max(0.0, 1 - step_ms / host_ms)
     print(f"  {cfg.name} replay of all {len(rec.steps)} steps through the "
-          f"plain versions: max rel err of the logits {worst:.3e} <= "
-          f"{REPLAY_RTOL} of max|logit|; decode step host {host_ms:.3f} ms "
-          f"(the recorder off; {rec_ms:.3f} on), device {step_ms:.4f} ms "
-          f"(graph replay), idle share {idle:.3f}", flush=True)
-    return {"launches": counts, "host_s": wall,
-            "device_s": n_dec * step_ms / 1e3, "decode_host_ms": host_ms,
-            "decode_host_ms_recorder_on": rec_ms,
-            "decode_device_ms": step_ms, "replay_max_rel_err": worst}
+          f"plain versions: max rel err of the logits "
+          f"{out['replay_max_rel_err']:.3e} <= {REPLAY_RTOL} of max|logit|"
+          + (f" in the rows held (RouteLog.hold: {routes.ties[label]})"
+             if routes else "")
+          + f"; decode step host {host_ms:.3f} ms (the recorder off; "
+          f"{rec_ms:.3f} on), device {step_ms:.4f} ms (graph replay), idle "
+          f"share {idle:.3f}"
+          + (f"; torch.profiler {out['decode_profiled_ms']:.4f} ms a step, "
+             f"the experts {out['expert_share']:.3f} of it, the attention "
+             f"linears (#1b) {out['attn_linear_share']:.3f}"
+             if routes else ""), flush=True)
+    out.update({"device_s": n_dec * step_ms / 1e3, "decode_host_ms": host_ms,
+                "decode_host_ms_recorder_on": rec_ms,
+                "decode_device_ms": step_ms, "idle": idle})
+    return out
 
 
-def zoo_score(dev, cfg, params, linears) -> dict:
+def zoo_score(dev, cfg, params, linears, routes=None) -> dict:
     """One ``loss_fn`` and one ``forward_fn`` on ZOO_SCORE_BATCH x
     ZOO_SCORE_SEQ uniform tokens under attn_impl="pallas": exact launch
-    counts, logits and NLL against the plain replay."""
+    counts, logits and NLL (and an MoE model's aux) against the plain
+    replay; with ``routes`` (an MoE model) the logits are held row by row
+    under ``RouteLog.hold``, and the NLL and aux only where no batch row
+    was routed apart."""
     from repro_torch import dispatch
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.kernels import KERNELS, reset_launch_counts
     from repro_torch.models import registry as reg
 
     cfg = cfg.with_(attn_impl="pallas")
+    label = f"{cfg.name} score"
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
                                   batch=ZOO_SCORE_BATCH, seq_len=ZOO_SCORE_SEQ,
                                   kind="uniform", seed=SEED))
@@ -3774,7 +3881,8 @@ def zoo_score(dev, cfg, params, linears) -> dict:
         reset_launch_counts()
         t0 = time.perf_counter()
         total, aux = loss(params, batch)
-        logits = forward(params, batch)
+        with routes.record(label) if routes else nullcontext():
+            logits = forward(params, batch)
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3 / 2
         counts = {k.name: k.launches for k in KERNELS if k.launches}
@@ -3786,31 +3894,55 @@ def zoo_score(dev, cfg, params, linears) -> dict:
                                       cfg.padded_vocab)
               and bool(torch.isfinite(logits).all()),
               f"{cfg.name} logits {tuple(logits.shape)}")
-        nll = float(aux["nll"])
-        check(np.isfinite(nll) and float(total) == nll,
-              f"{cfg.name} loss {float(total)} vs nll {nll}")
+        nll, aux_k = float(aux["nll"]), float(aux["aux"])
+        check(np.isfinite(nll)
+              and float(total) == float(aux["nll"] + 0.01 * aux["aux"]),
+              f"{cfg.name} loss {float(total)} vs nll {nll}, aux {aux_k}")
         reset_launch_counts()
         plain = cfg.with_(attn_impl="naive")
         with dispatch.force_scope(linear="compressed_xla"):
-            e = rel_err(logits, reg.forward_fn(plain)(params, batch))
-            nll_p = float(reg.loss_fn(plain)(params, batch)[1]["nll"])
+            with routes.record(label + " plain") if routes else nullcontext():
+                logits_p = reg.forward_fn(plain)(params, batch)
+            parts = reg.loss_fn(plain)(params, batch)[1]
+            nll_p, aux_p = float(parts["nll"]), float(parts["aux"])
         torch.cuda.synchronize()
         check(all(k.launches == 0 for k in KERNELS),
               "the replay launched a kernel")
         e_nll = abs(nll - nll_p) / nll_p
-        check(e <= REPLAY_RTOL, f"{cfg.name} scoring logits vs plain: {e}")
-        check(e_nll <= SCORE_NLL_RTOL, f"{cfg.name} NLL vs plain: {e_nll}")
-        del logits
+        e_aux = abs(aux_k - aux_p) / max(abs(aux_p), 1e-30)
+        if cfg.is_moe:
+            check(aux_k > 0, f"{cfg.name} aux {aux_k}")
+        if routes is None:
+            e = rel_err(logits, logits_p)
+            check(e <= REPLAY_RTOL, f"{cfg.name} scoring vs plain: logits "
+                  f"{e} (<= {REPLAY_RTOL})")
+        else:  # an MoE model: the rows of a batch row routed apart exempt
+            b, s = batch["tokens"].shape
+            e = routes.hold(label, [(np.repeat(np.arange(b), s),
+                                     set(range(b)), np.arange(b),
+                                     row_errs(logits, logits_p))],
+                            cfg.n_layers)
+        # the loss's forward routes as ``forward`` did: where a batch row
+        # was routed apart, the NLL and aux are the run's and not held
+        apart = routes is not None and routes.ties[label]["rows_exempt"] > 0
+        check(apart or (e_nll <= SCORE_NLL_RTOL
+                        and e_aux <= SCORE_NLL_RTOL),
+              f"{cfg.name} scoring vs plain: NLL {e_nll}, aux {e_aux} "
+              f"(<= {SCORE_NLL_RTOL})")
+        del logits, logits_p
         dev_ms = time_ms(lambda: forward(params, batch), iters=1)
     print(f"  {cfg.name} scored {ZOO_SCORE_BATCH} x {ZOO_SCORE_SEQ} tokens: "
           f"launches {counts} (want {want}); NLL {nll} against the plain "
           f"replay's {nll_p} (rel err {e_nll:.3e} <= {SCORE_NLL_RTOL}; "
-          f"ln(vocab) {np.log(cfg.vocab_size):.4f}), logits rel err "
-          f"{e:.3e} <= {REPLAY_RTOL}; host {host_ms:.3f} ms, device "
-          f"{dev_ms:.3f} ms a forward (graph replay)", flush=True)
+          f"ln(vocab) {np.log(cfg.vocab_size):.4f}), "
+          + (f"aux {aux_k} against {aux_p} (rel err {e_aux:.3e}), "
+             if cfg.is_moe else "")
+          + f"logits rel err {e:.3e} <= {REPLAY_RTOL}; host {host_ms:.3f} ms, "
+          f"device {dev_ms:.3f} ms a forward (graph replay)", flush=True)
     return {"launches": counts, "host_s": 2 * host_ms / 1e3,
             "device_s": 2 * dev_ms / 1e3, "nll": [nll, nll_p],
-            "forward_host_ms": host_ms, "forward_device_ms": dev_ms}
+            "aux": [aux_k, aux_p], "forward_host_ms": host_ms,
+            "forward_device_ms": dev_ms}
 
 
 def zoo_tuner(dev) -> dict:
@@ -3962,6 +4094,302 @@ def run_zoo(dev) -> dict:
     return {"launches": launches, "train_launches": train}
 
 
+# phase 15: the MoE family.  Pruned olmoe-1b-7b whole and moonshot-v1-16b-a3b
+# at its published widths, depth cut to 2 (its 48 layers would draw about
+# 14 G values on the host), each served paged and contiguous and scored
+MOE_MODELS = (("olmoe-1b-7b", None), ("moonshot-v1-16b-a3b", 2))
+# a token's margin: the least gap between neighbours among its k + 1
+# highest routing probabilities.  A token whose routing departs from the
+# replay's, of a request whose routing had not departed yet, must have a
+# margin under this (a near-tie)
+NEAR_TIE_MARGIN = 1e-5
+MOE_PROFILED_STEPS = 3  # torch.profiler window of the paged decode step
+# the profiled kernels' sum a step over its graph replay's device ms: eager
+# steps run the same kernels with host gaps between them, which the sum
+# leaves out; a range counted twice would land near 2
+MOE_PROFILE_BAND = (0.8, 1.25)
+# the sparse linear kernel (#1b) as the profiler names it
+LINEAR_TILED_RE = r"^(void )?(\(anonymous namespace\)::)?tiled_kernel\b"
+
+
+class RouteLog:
+    """Wraps the port's MoE router and dispatch (``moe._route``,
+    ``moe._dispatch_group``) while phase 15 runs, as the launch counters
+    wrap the kernels.  Under a label (``record``) it keeps, on the card,
+    each router call's ``top_i``, each token's margin and each
+    assignment's ``keep``.
+
+    ``hold`` judges a run against its plain replay.  The two differ by
+    rounding, so a token near a tie may be routed apart, and then its
+    request's hidden states, its cache rows and, through the experts'
+    capacity, other requests' assignments in that call move too.  Owners
+    (requests' slots, or batch rows) are followed call by call: an owner
+    is apart from the call where one of its tokens routes apart (``top_i``
+    in another order or set, or another ``keep``) until a prefill starts
+    it afresh.  A token of an owner not yet apart may route apart only
+    within NEAR_TIE_MARGIN; the logits rows of an owner not apart are held
+    within REPLAY_RTOL, and only the rows of an owner apart are exempt."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+
+        self.moe = moe
+        self.orig = (moe._route, moe._dispatch_group)
+        self.runs, self.label, self.ties = {}, None, {}
+        moe._route, moe._dispatch_group = self._route, self._dispatch
+
+    def restore(self):
+        self.moe._route, self.moe._dispatch_group = self.orig
+
+    @contextmanager
+    def record(self, label):
+        self.runs[label] = {"top_i": [], "gap": [], "keep": []}
+        prev, self.label = self.label, label
+        try:
+            yield self.runs[label]
+        finally:
+            self.label = prev
+
+    def _route(self, params, cfg, xg):
+        probs, top_p, top_i = self.orig[0](params, cfg, xg)
+        if self.label is not None:
+            top = torch.topk(probs, cfg.top_k + 1, dim=-1).values
+            run = self.runs[self.label]
+            run["top_i"].append(top_i.clone())
+            run["gap"].append((top[..., :-1] - top[..., 1:]).amin(dim=-1))
+        return probs, top_p, top_i
+
+    def _dispatch(self, xt, top_i, e, cap, k):
+        out = self.orig[1](xt, top_i, e, cap, k)
+        if self.label is not None:
+            self.runs[self.label]["keep"].append(out[3].clone())
+        return out
+
+    def hold(self, label, steps, n_layers) -> float:
+        """Judge ``label``'s run against its replay (``label + " plain"``).
+        ``steps``: a step's (owner of each routed token, owners it starts
+        afresh, owner of each logits row, each row's error from
+        ``row_errs``), each step n_layers router calls.  Returns the
+        largest error of a row held; records the tokens routed apart and
+        the rows exempt in ``ties``."""
+        a, b = self.runs[label], self.runs[label + " plain"]
+        n_calls = len(steps) * n_layers
+        check(len(a["top_i"]) == len(b["top_i"]) == n_calls,
+              f"{label}: {len(a['top_i'])} and {len(b['top_i'])} router "
+              f"calls for {len(steps)} steps of {n_layers} layers")
+        apart, worst, moved, exempt, worst_exempt = set(), 0.0, 0, 0, 0.0
+        for i, (owner, fresh, row_owner, errs) in enumerate(steps):
+            apart -= fresh
+            owner = torch.as_tensor(owner)
+            for c in range(i * n_layers, (i + 1) * n_layers):
+                ia, ib = a["top_i"][c], b["top_i"][c]
+                k = ia.shape[-1]
+                went = (ia != ib).any(dim=-1).reshape(-1).cpu()
+                dropped = (a["keep"][c] != b["keep"][c]).reshape(
+                    -1, k).any(dim=-1).cpu()
+                was = torch.tensor([int(o) in apart for o in owner])
+                new = went & ~was
+                if bool(new.any()):
+                    gap = float(a["gap"][c].reshape(-1).cpu()[new].max())
+                    check(gap < NEAR_TIE_MARGIN,
+                          f"{label} step {i} layer {c - i * n_layers}: "
+                          f"{int(new.sum())} tokens routed apart from the "
+                          f"replay's, largest margin {gap:.3e} (not a "
+                          f"near-tie: under {NEAR_TIE_MARGIN})")
+                moved += int(went.sum())
+                apart |= {int(o) for o in owner[went | dropped]}
+            off = torch.tensor([int(o) in apart for o in row_owner])
+            if bool((~off).any()):
+                e = float(errs[~off].max())
+                check(e <= REPLAY_RTOL, f"{label} step {i}: kernel vs plain "
+                      f"logits {e} in a row whose routing never departed")
+                worst = max(worst, e)
+            if bool(off.any()):
+                exempt += int(off.sum())
+                worst_exempt = max(worst_exempt, float(errs[off].max()))
+        self.ties[label] = {"tokens_routed_apart": moved,
+                            "rows_exempt": exempt,
+                            "worst_exempt": worst_exempt}
+        if moved:
+            print(f"  near-tie: {label}: {moved} tokens routed apart from "
+                  f"the replay's, each first one of its request within "
+                  f"{NEAR_TIE_MARGIN}; {exempt} logits rows of those "
+                  f"requests exempt (largest error {worst_exempt:.3e})",
+                  flush=True)
+        return worst
+
+    def drops(self, label, steps, n_layers) -> list:
+        """(step name, dropped, assigned) of each step of a run."""
+        keep = self.runs[label]["keep"]
+        check(len(keep) == len(steps) * n_layers,
+              f"{label}: {len(keep)} dispatches for {len(steps)} steps")
+        d = [int((~x).sum()) for x in keep]
+        a = [x.numel() for x in keep]
+        return [(name, sum(d[i * n_layers:(i + 1) * n_layers]),
+                 sum(a[i * n_layers:(i + 1) * n_layers]))
+                for i, name in enumerate(steps)]
+
+
+def moe_step_shares(fn, graph_ms) -> tuple:
+    """(device ms a call, the experts' share, the attention linears' share)
+    of ``fn`` over MOE_PROFILED_STEPS calls after a warm-up, by
+    torch.profiler.  The device time sums the kernels (and copies) only:
+    a ``record_function`` range also shows as a device event of its own,
+    a span that would count its kernels twice.  The experts are the
+    kernels launched under a ``moe.experts`` range around
+    ``moe._expert_ffn`` (its host event's device time), the attention
+    linears the sparse linear kernel (#1b) by name.  The kernels' sum a
+    call must lie within MOE_PROFILE_BAND of ``graph_ms``, the same step's
+    graph replay."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.models import moe
+
+    ffn = moe._expert_ffn
+
+    def ranged(*args):
+        with record_function("moe.experts"):
+            return ffn(*args)
+
+    moe._expert_ffn = ranged
+    try:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(MOE_PROFILED_STEPS):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        moe._expert_ffn = ffn
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and e.name != "moe.experts"]
+    total = sum(e.time_range.elapsed_us() for e in kernels)
+    experts = sum(e.device_time_total for e in events
+                  if e.name == "moe.experts"
+                  and e.device_type == DeviceType.CPU)
+    linears = sum(e.time_range.elapsed_us() for e in kernels
+                  if re.match(LINEAR_TILED_RE, e.name))
+    ms = total / MOE_PROFILED_STEPS / 1e3
+    lo, hi = MOE_PROFILE_BAND
+    check(0 < experts < total and 0 < linears < total
+          and lo <= ms / graph_ms <= hi,
+          f"torch.profiler: kernels {total} us over {MOE_PROFILED_STEPS} "
+          f"steps ({ms} ms a step, graph replay {graph_ms} ms), experts "
+          f"{experts} us, attention linears {linears} us")
+    return ms, experts / total, linears / total
+
+
+def moe_drops(routes, label, rec, cfg) -> dict:
+    """The assignments each prefill of a recorded run dropped (printed);
+    a decode step of ZOO_REQUESTS slots drops none."""
+    per = routes.drops(label, [n for n, *_ in rec.steps], cfg.n_layers)
+    pre = [(d, a) for n, d, a in per if "prefill" in n]
+    dec = [(d, a) for n, d, a in per if "decode" in n]
+    check(sum(d for d, _ in dec) == 0, f"{label}: a decode step of "
+          f"{ZOO_REQUESTS} slots dropped {[d for d, _ in dec]}")
+    print(f"  {label}: (dropped, routed) assignments of each prefill over "
+          f"{cfg.n_layers} layers (capacity factor {cfg.capacity_factor}): "
+          f"{pre}; its decode steps dropped 0 of {sum(a for _, a in dec)}",
+          flush=True)
+    return {"prefill": pre, "decode": sum(a for _, a in dec)}
+
+
+def moe_generate(dev, cfg, params, linears, routes) -> dict:
+    """``Engine.generate`` (prefill and the contiguous decode step) on the
+    prompts ``zoo_serve`` serves: exact launch counts, the assignments its
+    prefill dropped, a teacher-forced replay under the near-tie rule."""
+    from repro_torch.kernels import KERNELS, reset_launch_counts
+    from repro_torch.serve import Engine, ServeConfig
+
+    label = f"{cfg.name} generate"
+    engine = Engine(cfg, params, ServeConfig(max_new_tokens=ZOO_NEW))
+    rec = StepRecorder(engine, static=True)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with routes.record(label):
+        res = engine.generate(zoo_prompts(cfg, SEED + 14))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k.name: k.launches for k in KERNELS if k.launches}
+    rec.restore()
+    n_dec = sum(n == "decode_step" for n, *_ in rec.steps)
+    want = {"colwise_nm_matmul_tiled": len(linears) * cfg.n_layers
+            * (1 + n_dec)}
+    check(counts == want, f"{label} launches {counts}, want {want}")
+    check(res["tokens"].shape == (ZOO_REQUESTS, ZOO_NEW)
+          and bool(((res["tokens"] >= 0)
+                    & (res["tokens"] < cfg.vocab_size)).all()),
+          f"{label} tokens {res['tokens'].shape}")
+    print(f"  {label} (contiguous): 1 prefill + {n_dec} decode steps in "
+          f"{wall:.3f} s, launches {counts} (want {want}); its tokens are "
+          "not held to the paged run's: capacity drops depend on which "
+          "tokens share a call", flush=True)
+    drops = moe_drops(routes, label, rec, cfg)
+    worst = replay_steps(rec, cfg, dev, label, routes)
+    print(f"  {label} replay of all {len(rec.steps)} steps through the "
+          f"plain versions: max rel err of the logits {worst:.3e} <= "
+          f"{REPLAY_RTOL} of max|logit| in the rows held (RouteLog.hold: "
+          f"{routes.ties[label]})", flush=True)
+    return {"launches": counts, "host_s": wall, "drops": drops,
+            "replay_max_rel_err": worst}
+
+
+def run_moe(dev) -> dict:
+    """Phase 15.  Returns each kernel's launches."""
+    from repro_torch import dispatch
+
+    t0 = time.perf_counter()
+    db_path = PROFILE_DB.with_suffix(".moe.json")
+    db_path.unlink(missing_ok=True)
+    dispatch.set_db(dispatch.ProfileDB(path=db_path))
+    routes = RouteLog()
+    launches, rows = {}, {}
+    try:
+        for arch, n_layers in MOE_MODELS:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            cfg, params, linears, init_s = zoo_model(dev, arch, n_layers)
+            check(cfg.is_moe
+                  and [n for _, n in linears] == ["q", "k", "v", "o"],
+                  f"{arch}: MoE with the 4 attention linears, {linears}")
+            served = zoo_serve(dev, cfg, params, linears, routes)
+            gen = moe_generate(dev, cfg, params, linears, routes)
+            scored = zoo_score(dev, cfg, params, linears, routes)
+            peak = torch.cuda.max_memory_allocated()
+            del params
+            routes.runs.clear()
+            torch.cuda.empty_cache()
+            for c in (served["launches"], gen["launches"],
+                      scored["launches"]):
+                for k, n in c.items():
+                    launches[k] = launches.get(k, 0) + n
+            print(f"  {arch}: init {init_s:.1f} s, peak device memory "
+                  f"{peak} bytes (torch.cuda.max_memory_allocated; {held} "
+                  "held before its init)", flush=True)
+            rows[arch] = {"layers": cfg.n_layers, "init_s": init_s,
+                          "peak_bytes": peak, "held_bytes": held,
+                          "serve": served, "generate": gen,
+                          "score": scored}
+    finally:
+        routes.restore()
+        dispatch.set_db(None)
+        db_path.unlink(missing_ok=True)
+    print(f"  routings apart from the replays' (RouteLog.hold): "
+          f"{routes.ties}; "
+          f"phase 15 took {time.perf_counter() - t0:.1f} s", flush=True)
+    print("MOE " + json.dumps({"models": rows, "launches": launches,
+                               "near_ties": routes.ties}), flush=True)
+    return {"launches": launches}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4094,7 +4522,12 @@ def main() -> int:
     for name, n in zoo["train_launches"].items():
         train_launches[name] += n
 
-    print("== 15. report", flush=True)
+    print("== 15. the MoE family: pruned olmoe-1b-7b whole and "
+          "moonshot-v1-16b-a3b at its published widths (2 layers), served "
+          "paged and contiguous and scored", flush=True)
+    moe = run_moe(dev)
+
+    print("== 16. report", flush=True)
     launches = {
         "conv2d_fused": fused_route["conv2d_fused"],
         "conv2d_fused_tiled": counts["default"]["conv2d_fused_tiled"],
@@ -4121,8 +4554,9 @@ def main() -> int:
         + rest_counts["colwise_nm_matmul_tiled"],
         "flash_attention_tiled": score_counts["flash_attention_tiled"],
     }
-    for name, n in list(chaos["launches"].items()) + list(
-            zoo["launches"].items()):
+    for name, n in (list(chaos["launches"].items())
+                    + list(zoo["launches"].items())
+                    + list(moe["launches"].items())):
         launches[name] += n
     print(f"  the linear phase (5) launched {linear_launches}; the served runs "
           f"(phases 7 and 12) colwise_nm_matmul_tiled "
@@ -4141,9 +4575,11 @@ def main() -> int:
                                       "d_out); launches: the served "
                                       "smollm-360m runs of phases 7, 12 and "
                                       "13 (7 per layer per step), phase "
-                                      "13's guarded linear, and phase 14's "
+                                      "13's guarded linear, phase 14's "
                                       "zoo (served and scored models, the "
-                                      "tuner, serve_pruned)",
+                                      "tuner, serve_pruned) and phase 15's "
+                                      "MoE models (4 per layer per step: "
+                                      "served paged, generate, scored)",
            "paged_attention": "ms etc.: B 4, Sq 1, f32, H 15, KV 5, D 64, "
                               "page size 16 (the decode step's shape), "
                               "called directly (the split kernel's "
@@ -4154,9 +4590,9 @@ def main() -> int:
                                     "64, page size 16 (the decode step's "
                                     "shape); launches: the served "
                                     "smollm-360m runs of phases 7 and 12's "
-                                    "and 13's grow schedulers and phase "
-                                    "14's served zoo models (1 per layer "
-                                    "per paged decode step)",
+                                    "and 13's grow schedulers and phases "
+                                    "14's and 15's served models (1 per "
+                                    "layer per paged decode step)",
            "flash_attention": "ms etc.: B 4, S 2048, H 15, KV 5, D 64, "
                               "causal, f32 (the scoring forward's shape, "
                               "where it is the tiled kernel's bitwise "
@@ -4166,8 +4602,9 @@ def main() -> int:
            "flash_attention_tiled": "ms etc.: B 4, S 2048, H 15, KV 5, D "
                                     "64, causal, f32 (the scoring forward's "
                                     "shape); launches: the scored "
-                                    "smollm-360m run and phase 14's scored "
-                                    "zoo models (1 per layer per forward)",
+                                    "smollm-360m run and phases 14's and "
+                                    "15's scored models (1 per layer per "
+                                    "forward)",
            "colwise_nm_matmul_strips": "ms etc.: sum over the 5 pruned convs "
                                        "of one batch-256 forward, called "
                                        "directly (the tiled kernel's bitwise "

@@ -13,6 +13,8 @@ _MODULES = {
     "qwen2-0.5b": "repro_torch.configs.qwen2_0_5b",
     "qwen2-7b": "repro_torch.configs.qwen2_7b",
     "nemotron-4-15b": "repro_torch.configs.nemotron_4_15b",
+    "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
+    "moonshot-v1-16b-a3b": "repro_torch.configs.moonshot_v1_16b_a3b",
 }
 
 _VISION_MODULES = {
@@ -44,8 +46,10 @@ def get_vision_config(name: str) -> VisionConfig:
 def smoke_config(name: str) -> ModelConfig:
     """Reduced same-family config for CPU tests: small widths, two layers, a
     tiny vocab that is not a multiple of 128 (so the padding is exercised);
-    the JAX package's ``smoke_config`` for the attention family."""
+    the JAX package's ``smoke_config`` for the attention family, with its
+    MoE override (4 experts, top 2)."""
     cfg = get_config(name)
+    over = dict(n_experts=4, top_k=2) if cfg.is_moe else {}
     return cfg.with_(
         n_layers=2,
         d_model=64,
@@ -57,4 +61,5 @@ def smoke_config(name: str) -> ModelConfig:
         max_seq_len=64,
         dtype="float32",
         param_dtype="float32",
+        **over,
     )

@@ -15,10 +15,10 @@ def pad_to_multiple(x: int, m: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """A decoder-only attention LM: the JAX ``ModelConfig``'s fields that
-    its dense attention family reads, with the same defaults.  The rest of
-    the MoE, recurrent, encoder-decoder and sharding fields wait for the
-    slices that port those families; ``block_pattern``, ``mrope`` and
-    ``n_experts`` are carried so the model can refuse them by name."""
+    its dense and MoE attention families read, with the same defaults.  The
+    recurrent, encoder-decoder and the other sharding fields wait for the
+    slices that port those families; ``block_pattern`` and ``mrope`` are
+    carried so the model can refuse them by name."""
 
     name: str = "model"
     family: str = "dense"
@@ -39,12 +39,16 @@ class ModelConfig:
     mlp_act: str = "swiglu"                # swiglu | sq_relu | gelu
     norm: str = "rmsnorm"                  # rmsnorm | layernorm
     tie_embeddings: bool = False
-    n_experts: int = 0                     # MoE: not ported yet
+    # --- MoE ---
+    n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
     sparsity: SparsityConfig = DENSE       # the paper's technique
     dtype: str = "float32"                 # activation/compute dtype
     param_dtype: str = "float32"
     max_seq_len: int = 8192
     tp: int = 1                            # tensor-parallel degree (head padding)
+    dp: int = 1                            # MoE dispatch groups (data-parallel)
     source: str = ""
 
     @property

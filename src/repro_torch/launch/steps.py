@@ -16,6 +16,17 @@ from repro_torch.models import registry as reg
 from repro_torch.optim import AdamWConfig, adamw_update
 
 
+def check_trainable(cfg: ModelConfig) -> None:
+    """Refuse a mixture-of-experts config: its auxiliary loss's gradient
+    through the LM ``Trainer`` waits for MoE training (ROADMAP queue 1 item
+    10d)."""
+    if cfg.is_moe:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE training ({cfg.n_experts} experts) waits for "
+            "ROADMAP queue 1 item 10d, MoE training; the port serves and "
+            "scores MoE models")
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, microbatches: int = 1):
     """(params, opt_state, batch) -> (params, opt_state, metrics).
 
@@ -24,6 +35,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, microbatches: int = 
     train cells.  The step is functional: it returns new trees and leaves
     its inputs as they were.
     """
+    check_trainable(cfg)
     lfn = reg.loss_fn(cfg)
 
     def step(params, opt_state, batch):

@@ -1,6 +1,7 @@
 """The transformer block of the scoring forward and the serving steps, and
-the stacked-layers layout (twin of ``repro/models/blocks.py``'s dense
-attention block, under ``cfg.norm`` and ``cfg.mlp_act``).
+the stacked-layers layout (twin of ``repro/models/blocks.py``'s attention
+block, under ``cfg.norm`` and ``cfg.mlp_act``, with an MLP or, where
+``cfg.is_moe``, a mixture of experts).
 
 Every leaf of ``params["layers"]`` carries a leading ``[L, ...]`` axis, as
 the JAX package stacks its layers for ``scan``: the two trees compare leaf
@@ -16,6 +17,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.common import norm_apply, norm_init
 from repro_torch.models.mlp import mlp_apply, mlp_init
+from repro_torch.models.moe import moe_apply, moe_init
 
 
 def stack_layers(layers: List[Dict[str, Any]]) -> Dict[str, Any]:
@@ -35,24 +37,36 @@ def layer_params(stacked, l: int):
 
 def block_init(generator: torch.Generator, cfg: ModelConfig, device=None):
     dtype = getattr(torch, cfg.param_dtype)
-    return {
+    p = {
         "ln1": norm_init(cfg.d_model, cfg.norm, dtype, device),
         "attn": attn.attn_init(generator, cfg, device),
         "ln2": norm_init(cfg.d_model, cfg.norm, dtype, device),
-        "mlp": mlp_init(generator, cfg, device),
     }
+    if cfg.is_moe:
+        p["moe"] = moe_init(generator, cfg, device)
+    else:
+        p["mlp"] = mlp_init(generator, cfg, device)
+    return p
+
+
+def ffn_apply(params, cfg: ModelConfig, x):
+    """The block's feed-forward half over the normed x: (y, aux).  A mixture
+    of experts with its auxiliary loss, else the MLP and ``None``."""
+    if cfg.is_moe:
+        return moe_apply(params["moe"], cfg, x)
+    return mlp_apply(params["mlp"], cfg, x), None
 
 
 def block_apply(params, cfg: ModelConfig, h, *, positions, causal=True):
     """Full self-attention block over h [B, S, d] (the scoring forward).
-    Returns (h, aux): aux is a zero f32 scalar, as the JAX package's dense
-    block gives (only its MoE blocks have an auxiliary loss)."""
+    Returns (h, aux): the layer's auxiliary loss, zero for an MLP block."""
     x = norm_apply(params["ln1"], h, cfg.norm)
     h = h + attn.attn_apply(params["attn"], cfg, x, positions=positions,
                             causal=causal)
-    x = norm_apply(params["ln2"], h, cfg.norm)
-    h = h + mlp_apply(params["mlp"], cfg, x)
-    return h, torch.zeros((), dtype=torch.float32, device=h.device)
+    y, aux = ffn_apply(params, cfg, norm_apply(params["ln2"], h, cfg.norm))
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return h + y, aux
 
 
 def block_decode(params, cfg: ModelConfig, h, layer_cache, *, pos):
@@ -65,7 +79,7 @@ def block_decode(params, cfg: ModelConfig, h, layer_cache, *, pos):
     a, new_kv = attn.attn_decode(params["attn"], cfg, x, layer_cache, pos=pos)
     h = h + a
     x = norm_apply(params["ln2"], h, cfg.norm)
-    return h + mlp_apply(params["mlp"], cfg, x), new_kv
+    return h + ffn_apply(params, cfg, x)[0], new_kv
 
 
 def block_prefill_chunk(params, cfg: ModelConfig, h, layer_cache, *, start):
@@ -77,7 +91,7 @@ def block_prefill_chunk(params, cfg: ModelConfig, h, layer_cache, *, start):
                                         start=start)
     h = h + a
     x = norm_apply(params["ln2"], h, cfg.norm)
-    return h + mlp_apply(params["mlp"], cfg, x), kv_new
+    return h + ffn_apply(params, cfg, x)[0], kv_new
 
 
 def block_paged_decode(params, cfg: ModelConfig, h, layer_cache, *, pos,
@@ -94,7 +108,7 @@ def block_paged_decode(params, cfg: ModelConfig, h, layer_cache, *, pos,
                                        page_size=page_size)
     h = h + a
     x = norm_apply(params["ln2"], h, cfg.norm)
-    return h + mlp_apply(params["mlp"], cfg, x), new_kv
+    return h + ffn_apply(params, cfg, x)[0], new_kv
 
 
 def block_prefill_packed(params, cfg: ModelConfig, h, *, seq_ids, positions):
@@ -108,4 +122,4 @@ def block_prefill_packed(params, cfg: ModelConfig, h, *, seq_ids, positions):
                                          seq_ids=seq_ids, positions=positions)
     h = h + a
     x = norm_apply(params["ln2"], h, cfg.norm)
-    return h + mlp_apply(params["mlp"], cfg, x), kv_new
+    return h + ffn_apply(params, cfg, x)[0], kv_new

@@ -1,8 +1,9 @@
 """The decoder-only LM (twin of the attention-pattern half of
-``repro/models/lm.py``): init; the scoring forward (``lm_forward``) and its
-next-token loss (``loss_fn``); and the serving steps: prefill, chunked
-prefill and one decode step against a contiguous KV cache, and packed
-prefill and one decode step against a paged one.
+``repro/models/lm.py``, dense or mixture-of-experts): init; the scoring
+forward (``lm_forward``) and its next-token loss (``loss_fn``); and the
+serving steps: prefill, chunked prefill and one decode step against a
+contiguous KV cache, and packed prefill and one decode step against a
+paged one.
 
 No step moves a tensor to the host: the caller reads only the logits it
 samples from.
@@ -24,24 +25,20 @@ from repro_torch.models.blocks import (
     block_paged_decode,
     block_prefill_chunk,
     block_prefill_packed,
+    ffn_apply,
     layer_params,
     stack_layers,
 )
 from repro_torch.models.common import embed_init, embed_lookup, norm_apply, norm_init
-from repro_torch.models.mlp import mlp_apply
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    """Refuse what the port does not have yet: the recurrent patterns, MoE
-    and M-RoPE (ROADMAP queue 1 item 10)."""
+    """Refuse what the port does not have yet: the recurrent patterns and
+    M-RoPE (ROADMAP queue 1 item 10)."""
     if cfg.block_pattern != "attn":
         raise NotImplementedError(
             f"{cfg.name}: block_pattern={cfg.block_pattern!r} waits for the "
             "recurrent families (ROADMAP queue 1 item 10)")
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE blocks ({cfg.n_experts} experts) wait for "
-            "ROADMAP queue 1 item 10")
     if cfg.mrope:
         raise NotImplementedError(
             f"{cfg.name}: M-RoPE waits for ROADMAP queue 1 item 10")
@@ -88,7 +85,7 @@ def lm_forward(params, cfg: ModelConfig, batch) -> Tuple[torch.Tensor, torch.Ten
     array, moved to the params' device) -> (logits [B, S, padded_vocab],
     aux), with causal full self-attention in every layer as
     ``cfg.attn_impl`` picks it.  aux is the mean of the blocks' auxiliary
-    losses: zero, as the port has dense blocks only."""
+    losses (zero for a dense model)."""
     tokens = torch.as_tensor(batch["tokens"], device=params["embed"].device)
     h = _embed_tokens(params, cfg, tokens)
     b, s = tokens.shape
@@ -183,7 +180,7 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor):
         else:
             o = attn_mod.sdpa_gqa(q, k, v, causal=True)
         h = h + linear_apply(lp["attn"]["o"], o.reshape(b, s, -1))
-        h = h + mlp_apply(lp["mlp"], cfg, norm_apply(lp["ln2"], h, cfg.norm))
+        h = h + ffn_apply(lp, cfg, norm_apply(lp["ln2"], h, cfg.norm))[0]
         ks.append(k)
         vs.append(v)
     h = norm_apply(params["final_norm"], h[:, -1:], cfg.norm)

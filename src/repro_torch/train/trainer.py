@@ -19,7 +19,7 @@ from repro_torch._compat import resolve_device
 from repro_torch._tree import tree_leaves
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
-from repro_torch.launch.steps import make_train_step
+from repro_torch.launch.steps import check_trainable, make_train_step
 from repro_torch.models import registry as reg
 from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.train.checkpoint import CheckpointManager
@@ -50,6 +50,7 @@ class Trainer:
         params=None,
         device=None,
     ):
+        check_trainable(cfg)
         self.cfg = cfg
         self.train_cfg = train_cfg
         self.data = SyntheticLM(data_cfg)

@@ -2325,6 +2325,75 @@ def test_zoo_scoring_launches_flash_and_matches_cpu(dev, tmp_path, case):
         dispatch.set_db(None)
 
 
+def test_moe_served_requests_launch_the_kernels(dev, tmp_path, monkeypatch):
+    """Smoke olmoe-1b-7b served paged on the card: 4 tiled linears (q, k,
+    v, o) a layer a step and one split paged attention a layer a decode
+    step, the experts no kernel; the tokens are the CPU run's (the plain
+    versions), and a paged decode step at the run's last inputs agrees with
+    the CPU's within 1e-4 of max|logit|.  Equal tokens need clear routing:
+    every routing of both runs has its k-th and (k+1)-th probabilities
+    more than 1e-4 apart, asserted first."""
+    from repro_torch.models import moe
+    from repro_torch.models import registry as reg
+    from repro_torch.models.lm import lm_init
+    from repro_torch.serve import Engine, Scheduler, synthetic_trace
+
+    cfg = _zoo_smoke("olmoe-1b-7b")
+    margins, route = [], moe._route
+
+    def recording(params, cfg, xg):
+        out = route(params, cfg, xg)
+        top = torch.sort(out[0], dim=-1, descending=True).values
+        margins.append(float(
+            (top[..., cfg.top_k - 1] - top[..., cfg.top_k]).min()))
+        return out
+
+    monkeypatch.setattr(moe, "_route", recording)
+    dispatch.set_db(dispatch.ProfileDB(path=tmp_path / "profile.json"))
+    try:
+        params = lm_init(cfg, 0, device="cpu")
+        runs, steps = {}, {}
+        for where in ("cpu", "cuda"):
+            engine = Engine(cfg, _to(params, torch.device(where)))
+            seen = []
+            orig = engine.paged_decode_step
+
+            def step(cache, *args, orig=orig, seen=seen, **kw):
+                seen.append([np.array(torch.as_tensor(a).cpu()) for a in args])
+                return orig(cache, *args, **kw)
+
+            engine.paged_decode_step = step
+            reset_launch_counts()
+            sched = Scheduler(engine, n_slots=3, paged=True, page_size=8)
+            runs[where] = {c.uid: c.tokens for c in sched.run(synthetic_trace(
+                5, seed=1, vocab=cfg.vocab_size, prompt_lens=(3, 20),
+                new_tokens=(2, 9)))}
+            torch.cuda.synchronize()
+            counts = {k.name: k.launches for k in KERNELS if k.launches}
+            steps[where] = seen[-1]
+        st = sched.stats
+        assert counts == {
+            "paged_attention_split": cfg.n_layers * st["decode_steps"],
+            "colwise_nm_matmul_tiled": 4 * cfg.n_layers * (
+                st["decode_steps"] + sched.prefill_calls)}
+        assert min(margins) > 1e-4, f"precondition: margin {min(margins)}"
+        for uid, toks in runs["cpu"].items():
+            assert np.array_equal(toks, runs["cuda"][uid]), uid
+        tok, pos, tables = steps["cpu"]
+        logits = {}
+        for where in ("cpu", "cuda"):
+            d = torch.device(where)
+            cache = reg.paged_cache_init_fn(cfg, int(tables.max()) + 1, 8, d)()
+            logits[where], _ = reg.paged_decode_fn(cfg, 8)(
+                _to(params, d), cache, *(torch.from_numpy(a).to(d)
+                                         for a in (tok, pos, tables)))
+        want = logits["cpu"]
+        err = float((logits["cuda"].cpu() - want).abs().max())
+        assert err <= 1e-4 * float(want.abs().max()), err
+    finally:
+        dispatch.set_db(None)
+
+
 def test_tuner_times_each_tile_on_its_kernel(dev, tmp_path):
     """``Tuner.tune(profile=True)`` on the card: the tile of 32 columns on
     ``colwise_nm_linear.cu`` at each feasible block geometry, the

@@ -256,9 +256,24 @@ def test_recurrent_patterns_raise_naming_item_10():
                                 dict(n_experts=4), dict(mrope=True)],
                          ids=["xlstm", "zamba", "moe", "mrope"])
 def test_unported_families_raise_naming_item_10(kw):
-    """What the dense widening left: the recurrent patterns, MoE and M-RoPE
-    raise at init and in every step that reaches the unembedding."""
+    """What is left of item 10: the recurrent patterns and M-RoPE raise at
+    init and in every step that reaches the unembedding.  MoE is ported:
+    its case runs init, the forward, the loss and a decode step."""
     tcfg = _tcfg(**kw)
+    if tcfg.is_moe:
+        tcfg = tcfg.with_(top_k=2)
+        tp = treg.init_params(tcfg, 0, device="cpu")
+        assert tuple(tp["layers"]["moe"]["router"].shape) == (2, 64, 4)
+        toks = {"tokens": _ints([[1, 2, 3]])}
+        logits = treg.forward_fn(tcfg)(tp, toks)
+        loss, parts = treg.loss_fn(tcfg)(tp, toks)
+        cache = treg.cache_init_fn(tcfg, 1, 8, "cpu")()
+        step, _ = treg.decode_fn(tcfg)(tp, cache, _ints([[1]]), 0)
+        assert tuple(logits.shape) == (1, 3, tcfg.padded_vocab)
+        assert tuple(step.shape) == (1, 1, tcfg.padded_vocab)
+        assert float(parts["aux"]) > 0 and torch.isfinite(loss)
+        assert bool(torch.isfinite(logits).all() & torch.isfinite(step).all())
+        return
     tp = _tparams()
     with pytest.raises(NotImplementedError, match="item 10"):
         treg.init_params(tcfg, 0, device="cpu")

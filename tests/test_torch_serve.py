@@ -116,7 +116,7 @@ def test_configs_match_jax():
                 assert getattr(mine, prop) == getattr(theirs, prop), prop
     assert get_config("smollm-360m").padded_heads == 15
     with pytest.raises(KeyError, match="unknown arch"):
-        get_config("olmoe-1b-7b")
+        get_config("zamba2-7b")
 
 
 @pytest.mark.parametrize("sparse", [True, False])
