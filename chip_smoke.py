@@ -182,7 +182,31 @@ Phases:
               attention linears' shares of its device kernel time
               (torch.profiler, each kernel counted once, within 0.8-1.25x
               of the step's graph replay) and the peak device memory
- 16. report : one ``{"kernels": [...]}`` line (launches in the main runs and
+ 16. recur. : the recurrent families: colwise_nm_linear.cu (#1a) at
+              zamba2-7b's in_proj (3584 -> 14576, T = 14576, which no
+              multiple of 64 divides) at 4 and 1024 rows against its plain
+              version, timed beside torch.matmul and its bound; then pruned
+              xlstm-350m whole (24 layers) and zamba2-7b at its published
+              widths cut to 15 layers (2 superblocks of 6 Mamba2 layers and
+              the shared block, a tail of 3), sparsity 0.5, T = d_out, the
+              full padded vocab, random weights from the seed: each served
+              by ``Engine.generate`` (4 prompts of 64 tokens, 8 new,
+              greedy; the prefill is 64 decode steps into the state cache)
+              with exact launch counts (xlstm-350m 111 #1b a token step;
+              zamba2-7b 15 #1a and 31 #1b), every linear launch held
+              against its plain version on its own input (LinearCheck), a
+              teacher-forced replay of every step through the plain
+              versions (zamba2-7b: tokens equal, logits within 1e-3 of
+              max|logit|; xlstm-350m, whose random weights amplify
+              rounding through its depth: measured beside the same replay
+              on the CPU, not held), and scored once on 2 x 512 tokens
+              under attn_impl="pallas" (the same linears a forward, and
+              zamba2-7b 2 tiled flash; NLL within 1e-4 of the plain
+              replay).  Init s, a decode step's host and device ms, idle
+              share, the shares of its device kernel time taken by #1a, #1b
+              and the blocks' plain scan code (torch.profiler), and the peak
+              device memory
+ 17. report : one ``{"kernels": [...]}`` line (launches in the main runs and
               ``train_launches`` in phases 10, 11, 13 and 14), then the
               ``{"ok": true, ...}`` line last
 
@@ -1942,7 +1966,9 @@ class StepRecorder:
                 inputs.insert(0, sub.storage_offset() // sub.stride(1))
             logits, cache = orig(*args, **kw)
             if name in ("decode_step", "paged_decode_step"):
-                inputs.append(tuple(cache["k"].shape))
+                # a recurrent model's state cache has no KV rows
+                inputs.append(tuple(cache["k"].shape) if "k" in cache
+                              else None)
             self.steps.append((name, inputs, kw,
                                None if logits is None else logits.clone()))
             return logits, cache
@@ -3856,13 +3882,14 @@ def zoo_serve(dev, cfg, params, linears, routes=None) -> dict:
     return out
 
 
-def zoo_score(dev, cfg, params, linears, routes=None) -> dict:
+def zoo_score(dev, cfg, params, linears, routes=None, want=None) -> dict:
     """One ``loss_fn`` and one ``forward_fn`` on ZOO_SCORE_BATCH x
     ZOO_SCORE_SEQ uniform tokens under attn_impl="pallas": exact launch
-    counts, logits and NLL (and an MoE model's aux) against the plain
-    replay; with ``routes`` (an MoE model) the logits are held row by row
-    under ``RouteLog.hold``, and the NLL and aux only where no batch row
-    was routed apart."""
+    counts (``want``, the two forwards' launches, else one tiled flash and
+    one tiled linear of ``linears`` a layer a forward), logits and NLL (and
+    an MoE model's aux) against the plain replay; with ``routes`` (an MoE
+    model) the logits are held row by row under ``RouteLog.hold``, and the
+    NLL and aux only where no batch row was routed apart."""
     from repro_torch import dispatch
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.kernels import KERNELS, reset_launch_counts
@@ -3886,8 +3913,9 @@ def zoo_score(dev, cfg, params, linears, routes=None) -> dict:
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3 / 2
         counts = {k.name: k.launches for k in KERNELS if k.launches}
-        want = {"flash_attention_tiled": 2 * cfg.n_layers,
-                "colwise_nm_matmul_tiled": 2 * len(linears) * cfg.n_layers}
+        if want is None:
+            want = {"flash_attention_tiled": 2 * cfg.n_layers,
+                    "colwise_nm_matmul_tiled": 2 * len(linears) * cfg.n_layers}
         check(counts == want, f"{cfg.name} scoring launches {counts}, want "
               f"{want}")
         check(tuple(logits.shape) == (ZOO_SCORE_BATCH, ZOO_SCORE_SEQ,
@@ -4390,6 +4418,480 @@ def run_moe(dev) -> dict:
     return {"launches": launches}
 
 
+# phase 16: the recurrent families.  xlstm-350m whole, and zamba2-7b at its
+# published widths with its depth cut to 15 layers: 2 superblocks of 6 Mamba2
+# layers, each followed by the shared attention block, and a tail of 3 (81 =
+# 13 x 6 + 3 in miniature; all 81 layers would draw about 3.5 G values on the
+# host).  Each: (arch, layers or None, launches a token step, tiled flash
+# launches a scored forward, whether its step replay is held to
+# REPLAY_RTOL).  A token step is one decode step, and one scored forward
+# launches the same linears.  xlstm-350m at random weights amplifies
+# rounding through its depth (no block has a pre-norm, the hidden state
+# grows about 3x every few blocks): its plain version on the CPU departs
+# from its plain version on the card by up to a third of max|logit| within
+# 8 steps (PERF.md), so no float order meets REPLAY_RTOL there; its
+# replay is measured beside the CPU's, and every linear launch of both
+# models is held against its plain version on its own input (LinearCheck)
+RECURRENT_MODELS = (
+    ("xlstm-350m", None, {"colwise_nm_matmul_tiled": 111}, 0, False),
+    ("zamba2-7b", 15, {"colwise_nm_matmul": 15,
+                       "colwise_nm_matmul_tiled": 31}, 2, True),
+)
+RECURRENT_PROFILED_STEPS = 3  # torch.profiler window of the decode step
+# the old sparse linear kernel (#1a) as the profiler names it
+LINEAR_OLD_RE = r"^(void )?(\(anonymous namespace\)::)?linear_kernel\b"
+# zamba2-7b's in_proj: d_out = 2 x 7168 + 2 x 64 + 112 = 14576 = 16 x 911,
+# so no tile that divides it is a multiple of 64: #1a takes it.  Its rows in
+# a decode step of 4 sequences, and in a scored 2 x 512 forward
+IN_PROJ_SHAPE = (3584, 14576)
+IN_PROJ_ROWS = (4, 1024)
+
+
+def linear_launches(params, n_shared: int) -> dict:
+    """Each sparse linear kernel's launches in one pass over ``params``:
+    one a stacked layer (the leading axes of ``values``), the shared block's
+    ``n_shared`` times; #1b where T is a multiple of its 64 columns, else
+    #1a."""
+    from repro_torch.kernels.colwise_nm import TILED_BN
+
+    counts = {}
+
+    def walk(tree, mult):
+        if "values" in tree:
+            v = tree["values"]
+            k = ("colwise_nm_matmul_tiled" if v.shape[-1] % TILED_BN == 0
+                 else "colwise_nm_matmul")
+            counts[k] = counts.get(k, 0) + mult * int(np.prod(v.shape[:-3]))
+            return
+        for key, sub in tree.items():
+            if isinstance(sub, dict):
+                walk(sub, mult * (n_shared if key == "shared" else 1))
+
+    walk(params, 1)
+    return counts
+
+
+def check_in_proj_kernel(dev) -> list:
+    """Phase 16: colwise_nm_linear.cu (#1a) at zamba2-7b's in_proj, 3584 ->
+    14576 at 50% with T = 14576, at IN_PROJ_ROWS rows, against its plain
+    version within F32_RTOL, timed by graph replay beside the bound, the
+    plain version and ``torch.matmul`` of the dense masked weight (TF32
+    off).  These launches are not counted."""
+    from repro_torch.core.formats import ColwiseMeta, unpack_colwise
+    from repro_torch.core.pruning import SparsityConfig
+    from repro_torch.core.sparse_linear import linear_init
+    from repro_torch.kernels.colwise_nm import (colwise_nm_matmul_cuda,
+                                                colwise_nm_matmul_ref)
+
+    d_in, d_out = IN_PROJ_SHAPE
+    gen = torch.Generator().manual_seed(SEED + 16)
+    rng = np.random.default_rng(SEED + 17)
+    sp = SparsityConfig(sparsity=0.5, m=None, tile=None,
+                        format="compressed_pallas")
+    layer = linear_init(gen, d_in, d_out, sp, device=dev)
+    values, idx = layer["values"], layer["idx"]
+    k_kept = values.shape[1]
+    check(tuple(values.shape) == (1, d_in // 2, d_out),
+          f"in_proj values {tuple(values.shape)}")
+    w_dense = unpack_colwise(values, idx, ColwiseMeta(d_in, d_out, d_out,
+                                                      d_in, k_kept))
+    recs = []
+    for rows in IN_PROJ_ROWS:
+        x = torch.from_numpy(rng.standard_normal(
+            (rows, d_in), dtype=np.float32)).to(dev)
+        err = max_err(colwise_nm_matmul_cuda(x, values, idx),
+                      colwise_nm_matmul_ref(x, values, idx),
+                      f"colwise_nm_matmul in_proj rows={rows}", F32_RTOL)
+        kernel = lambda: colwise_nm_matmul_cuda(x, values, idx)  # noqa: E731
+        bound, by = linear_bound(rows, values, idx, torch.float32)
+        rec = {"d_in": d_in, "d_out": d_out, "rows": rows, "k_kept": k_kept,
+               "max_abs_err": err, "ms": time_ms(kernel),
+               "eager_ms": eager_ms(kernel),
+               "plain_ms": time_ms(lambda: colwise_nm_matmul_ref(
+                   x, values, idx), iters=5),
+               "matmul_ms": time_ms(lambda: torch.matmul(x, w_dense)),
+               "bound_ms": bound, "bound_by": by,
+               "sparse_gflop": 2 * rows * k_kept * d_out / 1e9}
+        recs.append(rec)
+        print(f"  colwise_nm_matmul (#1a) at zamba2-7b's in_proj {d_in}->"
+              f"{d_out} (T = {d_out}, k_kept {k_kept}) rows={rows}: max|err| "
+              f"{err:.3e} (<= {F32_RTOL} of max|y|); ms={rec['ms']:.5f} "
+              f"(eager {rec['eager_ms']:.5f}) plain_ms={rec['plain_ms']:.5f} "
+              f"torch.matmul ms={rec['matmul_ms']:.5f} (dense masked, TF32 "
+              f"off) bound_ms={bound:.6f} ({by}); "
+              f"{rec['sparse_gflop'] / rec['ms']:.2f} TFLOP/s", flush=True)
+    del w_dense
+    return recs
+
+
+def recurrent_model(dev, arch, n_layers, per_step):
+    """``arch`` at its published widths, ``n_layers`` deep (``None``: its
+    own depth), every linear pruned to 50% with T = d_out, random weights
+    from ``SEED`` on the card.  Returns (cfg, params, init s)."""
+    from repro_torch._tree import leaves_with_path
+    from repro_torch.configs import get_config
+    from repro_torch.core.pruning import SparsityConfig
+    from repro_torch.models import lm
+
+    cfg = get_config(arch)
+    depth = (f"{cfg.n_layers} layers (published)" if n_layers is None else
+             f"{n_layers} layers (reduced from {cfg.n_layers})")
+    cfg = cfg.with_(n_layers=n_layers or cfg.n_layers,
+                    sparsity=SparsityConfig(sparsity=0.5, m=None, tile=None,
+                                            format="compressed_pallas"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = lm.lm_init(cfg, SEED, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_shared = (lm.n_shared_applications(cfg)
+                if cfg.block_pattern == "mamba_shared_attn" else 0)
+    got = linear_launches(params, n_shared)
+    check(got == per_step, f"{arch}: sparse linears a token step {got}, "
+          f"want {per_step}")
+    widths = sorted({int(t.shape[-1]) for path, t in leaves_with_path(params)
+                     if path[-1] == "values"})
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    if cfg.block_pattern == "xlstm":
+        blocks = (f"{cfg.n_layers // cfg.slstm_every} superblocks of "
+                  f"{cfg.slstm_every - 1} mLSTM + 1 sLSTM, {cfg.n_heads} heads")
+    else:
+        every = cfg.shared_attn_every
+        blocks = (f"{n_shared} superblocks of {every} Mamba2 + the shared "
+                  f"block (one KV cache each), a tail of "
+                  f"{cfg.n_layers - n_shared * every}; heads {cfg.n_heads}/"
+                  f"{cfg.n_kv_heads}, head_dim {cfg.resolved_head_dim}, SSM "
+                  f"state {cfg.ssm_state}, d_ff {cfg.d_ff}")
+    print(f"  {arch}: {depth}, {blocks}, d_model {cfg.d_model}, expand "
+          f"{cfg.expand}, vocab {cfg.vocab_size} (padded {cfg.padded_vocab}), "
+          f"untied embeddings, f32; sparsity 0.5, T = d_out {widths}; "
+          f"sparse linears a token step {got}; {n_params} "
+          f"stored values and indices from seed {SEED}, built in "
+          f"{init_s:.1f} s", flush=True)
+    return cfg, params, init_s
+
+
+class LinearCheck:
+    """Holds every sparse linear call of the models (``linear_apply`` as
+    the model modules bound it) against the plain version on the same
+    input while it is entered: each output within F32_RTOL of its max|y|.
+    The plain call launches no kernel, so the launch counts stay the
+    run's."""
+
+    MODULES = ("attention", "blocks", "mlp", "ssm", "xlstm")
+
+    def __enter__(self):
+        import importlib
+
+        from repro_torch import dispatch
+
+        self.mods = [importlib.import_module(f"repro_torch.models.{m}")
+                     for m in self.MODULES]
+        orig = self.orig = self.mods[0].linear_apply
+        self.calls, self.worst = 0, 0.0
+
+        def held(params, x, **kw):
+            y = orig(params, x, **kw)
+            if "values" in params:
+                with dispatch.force_scope(linear="compressed_xla"):
+                    want = orig(params, x, **kw)
+                err = rel_err(y, want)
+                check(err <= F32_RTOL, f"a linear {tuple(x.shape)} -> "
+                      f"{tuple(y.shape)}: kernel vs plain on its input {err}")
+                self.calls += 1
+                self.worst = max(self.worst, err)
+            return y
+
+        for m in self.mods:
+            m.linear_apply = held
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.mods:
+            m.linear_apply = self.orig
+        return False
+
+
+def recurrent_replay(run_steps, steps, cfg, label, tokens, held) -> dict:
+    """Teacher-forced replay of a ``generate`` run's recorded ``steps`` (the
+    prefill by decode steps, then each decode step) through ``run_steps``
+    (the recorded engine's or another's step methods) with the plain
+    versions, on a fresh cache.  With ``held``, each step's logits within
+    REPLAY_RTOL of max|logit| of the recorded ones, and each greedy token
+    equal to the replay's unless the replay puts the run's token within
+    twice the step's error of its maximum (a near-tie).  Returns each
+    step's error against the recorded logits, the replay's logits, the
+    near-ties and the tokens apart from the replay's greedy ones."""
+    from repro_torch import dispatch
+    from repro_torch.kernels import KERNELS, reset_launch_counts
+
+    errs, logits, ties, apart_n, cache = [], [], 0, 0, None
+    reset_launch_counts()
+    with dispatch.force_scope(linear="compressed_xla"):
+        for j, (name, inputs, kw, logits_k) in enumerate(steps):
+            if name == "prefill_step":
+                logits_p, cache = run_steps[name](*inputs)
+            else:
+                logits_p, cache = run_steps[name](cache, *inputs[:-1], **kw)
+            logits_p = logits_p.to(logits_k.device)
+            logits.append(logits_p)
+            e = rel_err(logits_k, logits_p)
+            errs.append(e)
+            lp = logits_p[:, -1, :cfg.vocab_size].float()
+            top = lp.max(dim=-1).values
+            tok = torch.from_numpy(tokens[:, j].astype(np.int64)).to(lp.device)
+            apart = lp.argmax(dim=-1) != tok
+            apart_n += int(apart.sum())
+            if held:
+                check(e <= REPLAY_RTOL, f"{label} {name} {j}: kernel vs "
+                      f"plain logits {e}")
+            if held and bool(apart.any()):
+                gap = float((top - lp.gather(1, tok[:, None])[:, 0])[apart]
+                            .max())
+                slack = 2 * e * float(logits_p.abs().max())
+                check(gap <= slack, f"{label} {name} {j}: token apart from "
+                      f"the replay's by {gap} (not a near-tie: over {slack})")
+                ties += int(apart.sum())
+    torch.cuda.synchronize()
+    check(all(k.launches == 0 for k in KERNELS), f"the {label} replay launched")
+    return {"errs": errs, "logits": logits, "ties": ties, "apart": apart_n}
+
+
+def recurrent_generate(dev, cfg, params, per_step, held) -> dict:
+    """``Engine.generate`` on ZOO_REQUESTS prompts of ZOO_PROMPT tokens,
+    ZOO_NEW new, greedy: the prefill is ZOO_PROMPT decode steps into an empty
+    state cache, then ZOO_NEW - 1 decode steps.  Exact launch counts, every
+    linear launch held against its plain version on its input
+    (``LinearCheck``), the plain replay (held to REPLAY_RTOL where
+    ``held``, else measured beside the plain version's replay on the CPU),
+    and the run again with the recorder off for the host times."""
+    from repro_torch._tree import tree_map
+    from repro_torch.kernels import KERNELS, reset_launch_counts
+    from repro_torch.serve import Engine, ServeConfig
+
+    label = f"{cfg.name} generate"
+    prompts = zoo_prompts(cfg, SEED + 16)
+    engine = Engine(cfg, params, ServeConfig(max_new_tokens=ZOO_NEW))
+    rec = StepRecorder(engine, static=True)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with LinearCheck() as lin:
+        res = engine.generate(prompts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k.name: k.launches for k in KERNELS if k.launches}
+    rec.restore()
+    n_dec = sum(n == "decode_step" for n, *_ in rec.steps)
+    steps = ZOO_PROMPT + n_dec
+    want = {k: n * steps for k, n in per_step.items()}
+    check(n_dec == ZOO_NEW - 1 and len(rec.steps) == ZOO_NEW,
+          f"{label}: steps {[n for n, *_ in rec.steps]}")
+    check(counts == want, f"{label} launches {counts}, want {want}")
+    toks = res["tokens"]
+    check(toks.shape == (ZOO_REQUESTS, ZOO_NEW)
+          and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          f"{label} tokens {toks.shape}")
+    check(lin.calls == sum(want.values()), f"{label}: {lin.calls} linear "
+          f"calls held, {sum(want.values())} launched")
+    print(f"  {label}: a prefill of {ZOO_PROMPT} decode steps into the state "
+          f"cache, then {n_dec} decode steps, in {wall:.3f} s (each linear "
+          f"held as it ran); launches {counts} (want {want}: {per_step} a "
+          f"token step, {steps} token steps); every one of the {lin.calls} "
+          f"linear launches within {lin.worst:.3e} <= {F32_RTOL} of max|y| "
+          "of the plain version on its own input", flush=True)
+    out = {"launches": counts, "host_s": wall, "linear_calls": lin.calls,
+           "linear_max_rel_err": lin.worst}
+    plain = recurrent_replay(rec.orig, rec.steps, cfg, label, toks, held)
+    worst = max(plain["errs"])
+    out.update(replay_max_rel_err=worst, near_ties=plain["ties"],
+               tokens_apart=plain["apart"])
+    if held:
+        print(f"  {label} replay of all {len(rec.steps)} steps through the "
+              f"plain versions ({steps} token steps): max rel err of the "
+              f"logits {worst:.3e} <= {REPLAY_RTOL} of max|logit|, tokens "
+              f"equal (near-ties {plain['ties']})", flush=True)
+    else:
+        # the same steps through the plain versions on the CPU, held to
+        # nothing either: how far two float orders of the plain version
+        # part on this model
+        cpu = Engine(cfg, tree_map(lambda t: t.cpu(), params),
+                     ServeConfig(max_new_tokens=ZOO_NEW))
+        card_plain = [(n, i, k, lg) for (n, i, k, _), lg in zip(
+            rec.steps, plain["logits"])]
+        on_cpu = recurrent_replay({n: getattr(cpu, n) for n in rec.orig},
+                                  card_plain, cfg, label + " cpu", toks, False)
+        del cpu
+        out.update(cpu_vs_card_errs=on_cpu["errs"],
+                   kernel_errs=plain["errs"])
+        print(f"  {label} replay of all {len(rec.steps)} steps through the "
+              f"plain versions ({steps} token steps), not held: the logits' "
+              f"rel err per step {[f'{e:.2e}' for e in plain['errs']]} (max "
+              f"{worst:.3e}), {plain['apart']} of {toks.size} tokens apart "
+              f"from the replay's greedy ones; the plain versions on the CPU "
+              f"against the card's: {[f'{e:.2e}' for e in on_cpu['errs']]} "
+              f"(max {max(on_cpu['errs']):.3e})", flush=True)
+    quiet = engine.generate(prompts)
+    check(np.array_equal(quiet["tokens"], toks),
+          f"{label}: the recorder-off run's tokens differ")
+    prefill_ms = quiet["prefill_s"] / ZOO_PROMPT * 1e3
+    host_ms = quiet["decode_s"] / (ZOO_NEW - 1) * 1e3
+    print(f"  {label} with the recorder off: tokens equal again, host "
+          f"{prefill_ms:.3f} ms a prefill token step, {host_ms:.3f} ms a "
+          "decode step (sampling included)", flush=True)
+    out.update(prefill_host_ms_a_step=prefill_ms, decode_host_ms=host_ms)
+    return out
+
+
+def recurrent_step_shares(fn, graph_ms) -> dict:
+    """Device ms a call of ``fn`` (a decode step) over
+    RECURRENT_PROFILED_STEPS calls after a warm-up, by torch.profiler, each
+    kernel counted once, and the shares of that kernel time taken by #1a
+    and #1b (by name) and by the recurrent blocks' own code: the kernels
+    under a ``recurrent.block`` range around each Mamba2, mLSTM and sLSTM
+    decode, less those under a ``recurrent.linear`` range around their
+    projections.  The kernels' sum a call must lie within MOE_PROFILE_BAND
+    of ``graph_ms``, the same step's graph replay."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.models import ssm, xlstm
+
+    saved = []
+
+    def ranged(mod, name, label):
+        f = getattr(mod, name)
+        saved.append((mod, name, f))
+
+        def g(*args, **kw):
+            with record_function(label):
+                return f(*args, **kw)
+        setattr(mod, name, g)
+
+    for mod in (ssm, xlstm):
+        ranged(mod, "linear_apply", "recurrent.linear")
+    for mod, name in ((ssm, "mamba_decode"), (xlstm, "mlstm_decode"),
+                      (xlstm, "slstm_decode")):
+        ranged(mod, name, "recurrent.block")
+    labels = ("recurrent.linear", "recurrent.block")
+    try:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(RECURRENT_PROFILED_STEPS):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        for mod, name, f in saved:
+            setattr(mod, name, f)
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and e.name not in labels]
+    total = sum(e.time_range.elapsed_us() for e in kernels)
+
+    def ranged_us(label):
+        return sum(e.device_time_total for e in events
+                   if e.name == label and e.device_type == DeviceType.CPU)
+
+    old = sum(e.time_range.elapsed_us() for e in kernels
+              if re.match(LINEAR_OLD_RE, e.name))
+    tiled = sum(e.time_range.elapsed_us() for e in kernels
+                if re.match(LINEAR_TILED_RE, e.name))
+    scan = ranged_us("recurrent.block") - ranged_us("recurrent.linear")
+    ms = total / RECURRENT_PROFILED_STEPS / 1e3
+    lo, hi = MOE_PROFILE_BAND
+    check(0 < tiled < total and 0 <= old < total and 0 < scan < total
+          and lo <= ms / graph_ms <= hi,
+          f"torch.profiler: kernels {total} us over {RECURRENT_PROFILED_STEPS}"
+          f" steps ({ms} ms a step, graph replay {graph_ms} ms), #1a {old} "
+          f"us, #1b {tiled} us, the blocks' own code {scan} us")
+    return {"profiled_ms": ms, "linear_share": old / total,
+            "linear_tiled_share": tiled / total, "scan_share": scan / total,
+            "other_share": 1 - (old + tiled + scan) / total}
+
+
+def recurrent_decode_step(dev, cfg, params, host_ms) -> dict:
+    """One decode step of ZOO_REQUESTS sequences at position ZOO_PROMPT
+    (the shared block's attention over ZOO_PROMPT rows): device ms by graph
+    replay, the idle share against ``host_ms`` (generate's decode step),
+    and the kernels' shares (``recurrent_step_shares``)."""
+    from repro_torch import dispatch
+    from repro_torch.models import lm
+
+    cache = lm.cache_init(cfg, ZOO_REQUESTS, ZOO_PROMPT + ZOO_NEW, dev)
+    tok = torch.from_numpy(zoo_prompts(cfg, SEED + 16)[:, :1].copy()).to(dev)
+    pos = torch.full((ZOO_REQUESTS,), ZOO_PROMPT, dtype=torch.int32,
+                     device=dev)
+
+    def step():
+        return lm.decode_step(params, cfg, cache, tok, pos)
+
+    with dispatch.phase_scope("decode"):
+        step_ms = time_ms(step, iters=2)
+        shares = recurrent_step_shares(step, step_ms)
+    idle = max(0.0, 1 - step_ms / host_ms)
+    print(f"  {cfg.name} decode step: host {host_ms:.3f} ms (generate, "
+          f"recorder off), device {step_ms:.4f} ms (graph replay), idle share "
+          f"{idle:.3f}; torch.profiler {shares['profiled_ms']:.4f} ms a step, "
+          f"of it #1a {shares['linear_share']:.3f}, #1b "
+          f"{shares['linear_tiled_share']:.3f}, the recurrent blocks' plain "
+          f"code (scans, conv, gates) {shares['scan_share']:.3f}, the rest "
+          f"(embedding, norms, shared attention core, unembedding) "
+          f"{shares['other_share']:.3f}", flush=True)
+    return dict(shares, decode_device_ms=step_ms, idle=idle)
+
+
+def run_recurrent(dev) -> dict:
+    """Phase 16.  Returns each kernel's launches."""
+    from repro_torch import dispatch
+
+    t0 = time.perf_counter()
+    in_proj = check_in_proj_kernel(dev)
+    db_path = PROFILE_DB.with_suffix(".recurrent.json")
+    db_path.unlink(missing_ok=True)
+    dispatch.set_db(dispatch.ProfileDB(path=db_path))
+    launches, rows = {}, {}
+    try:
+        for arch, n_layers, per_step, flash, replay_held in RECURRENT_MODELS:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            cfg, params, init_s = recurrent_model(dev, arch, n_layers,
+                                                  per_step)
+            gen = recurrent_generate(dev, cfg, params, per_step,
+                                     replay_held)
+            step = recurrent_decode_step(dev, cfg, params,
+                                         gen["decode_host_ms"])
+            want = {k: 2 * n for k, n in per_step.items()}
+            if flash:
+                want["flash_attention_tiled"] = 2 * flash
+            scored = zoo_score(dev, cfg, params, None, want=want)
+            peak = torch.cuda.max_memory_allocated()
+            del params
+            torch.cuda.empty_cache()
+            for c in (gen["launches"], scored["launches"]):
+                for k, n in c.items():
+                    launches[k] = launches.get(k, 0) + n
+            print(f"  {arch}: init {init_s:.1f} s, peak device memory {peak} "
+                  f"bytes (torch.cuda.max_memory_allocated; {held} held "
+                  "before its init)", flush=True)
+            rows[arch] = {"layers": cfg.n_layers, "init_s": init_s,
+                          "peak_bytes": peak, "held_bytes": held,
+                          "generate": gen, "decode_step": step,
+                          "score": scored}
+    finally:
+        dispatch.set_db(None)
+        db_path.unlink(missing_ok=True)
+    print(f"  phase 16 took {time.perf_counter() - t0:.1f} s", flush=True)
+    print("RECURRENT " + json.dumps({"in_proj": in_proj, "models": rows,
+                                     "launches": launches}), flush=True)
+    return {"launches": launches}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4527,7 +5029,12 @@ def main() -> int:
           "paged and contiguous and scored", flush=True)
     moe = run_moe(dev)
 
-    print("== 16. report", flush=True)
+    print("== 16. the recurrent families: #1a at zamba2-7b's in_proj, pruned "
+          "xlstm-350m whole and zamba2-7b at its published widths (15 "
+          "layers), served by generate and scored", flush=True)
+    recurrent = run_recurrent(dev)
+
+    print("== 17. report", flush=True)
     launches = {
         "conv2d_fused": fused_route["conv2d_fused"],
         "conv2d_fused_tiled": counts["default"]["conv2d_fused_tiled"],
@@ -4556,7 +5063,8 @@ def main() -> int:
     }
     for name, n in (list(chaos["launches"].items())
                     + list(zoo["launches"].items())
-                    + list(moe["launches"].items())):
+                    + list(moe["launches"].items())
+                    + list(recurrent["launches"].items())):
         launches[name] += n
     print(f"  the linear phase (5) launched {linear_launches}; the served runs "
           f"(phases 7 and 12) colwise_nm_matmul_tiled "
@@ -4567,9 +5075,12 @@ def main() -> int:
                                 "2560->960 layers at 256 rows (T = d_out); "
                                 "launches: the linear phase (5), tiles 8 and "
                                 "12 and any profiled winner, phase 13's "
-                                "retry of the faulted tiled kernel, and "
+                                "retry of the faulted tiled kernel, "
                                 "phase 14's tuner (tile 32) and "
-                                "prune_and_finetune (tile 8)",
+                                "prune_and_finetune (tile 8), and phase 16's "
+                                "zamba2-7b (its in_proj, T = 14576, 1 per "
+                                "Mamba2 layer per token step: generate, "
+                                "scored)",
            "colwise_nm_matmul_tiled": "ms etc.: sum over the 960->2560 and "
                                       "2560->960 layers at 256 rows (T = "
                                       "d_out); launches: the served "
@@ -4577,9 +5088,12 @@ def main() -> int:
                                       "13 (7 per layer per step), phase "
                                       "13's guarded linear, phase 14's "
                                       "zoo (served and scored models, the "
-                                      "tuner, serve_pruned) and phase 15's "
+                                      "tuner, serve_pruned), phase 15's "
                                       "MoE models (4 per layer per step: "
-                                      "served paged, generate, scored)",
+                                      "served paged, generate, scored) and "
+                                      "phase 16's recurrent models (111 "
+                                      "(xlstm-350m) and 31 (zamba2-7b) per "
+                                      "token step: generate, scored)",
            "paged_attention": "ms etc.: B 4, Sq 1, f32, H 15, KV 5, D 64, "
                               "page size 16 (the decode step's shape), "
                               "called directly (the split kernel's "
@@ -4602,9 +5116,11 @@ def main() -> int:
            "flash_attention_tiled": "ms etc.: B 4, S 2048, H 15, KV 5, D "
                                     "64, causal, f32 (the scoring forward's "
                                     "shape); launches: the scored "
-                                    "smollm-360m run and phases 14's and "
-                                    "15's scored models (1 per layer per "
-                                    "forward)",
+                                    "smollm-360m run, phases 14's and 15's "
+                                    "scored models (1 per layer per "
+                                    "forward) and phase 16's scored "
+                                    "zamba2-7b (1 per shared-block "
+                                    "application, D 112)",
            "colwise_nm_matmul_strips": "ms etc.: sum over the 5 pruned convs "
                                        "of one batch-256 forward, called "
                                        "directly (the tiled kernel's bitwise "

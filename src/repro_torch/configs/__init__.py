@@ -1,6 +1,6 @@
 """Config registry (twin of ``repro/configs/__init__.py``): the LM configs
-the port serves and scores, their reduced smoke variants, and the vision
-configs."""
+the port serves, scores and trains, their reduced smoke variants, and the
+vision configs."""
 from __future__ import annotations
 
 import importlib
@@ -15,6 +15,8 @@ _MODULES = {
     "nemotron-4-15b": "repro_torch.configs.nemotron_4_15b",
     "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
     "moonshot-v1-16b-a3b": "repro_torch.configs.moonshot_v1_16b_a3b",
+    "xlstm-350m": "repro_torch.configs.xlstm_350m",
+    "zamba2-7b": "repro_torch.configs.zamba2_7b",
 }
 
 _VISION_MODULES = {
@@ -44,22 +46,31 @@ def get_vision_config(name: str) -> VisionConfig:
 
 
 def smoke_config(name: str) -> ModelConfig:
-    """Reduced same-family config for CPU tests: small widths, two layers, a
+    """Reduced same-family config for CPU tests: small widths, few layers, a
     tiny vocab that is not a multiple of 128 (so the padding is exercised);
-    the JAX package's ``smoke_config`` for the attention family, with its
-    MoE override (4 experts, top 2)."""
+    the JAX package's ``smoke_config`` with its MoE override (4 experts,
+    top 2) and its two recurrent ones (xLSTM: 4 layers, an sLSTM every 2nd;
+    Zamba2: 5 layers, the shared block after every 2nd, so a tail of 1)."""
     cfg = get_config(name)
-    over = dict(n_experts=4, top_k=2) if cfg.is_moe else {}
-    return cfg.with_(
+    kv = max(1, min(cfg.n_kv_heads, 2))
+    over = dict(
         n_layers=2,
         d_model=64,
         n_heads=4,
-        n_kv_heads=max(1, min(cfg.n_kv_heads, 2)),
+        n_kv_heads=kv,
         d_ff=96 if cfg.d_ff else 0,
         vocab_size=503,
         head_dim=16,
         max_seq_len=64,
         dtype="float32",
         param_dtype="float32",
-        **over,
     )
+    if cfg.is_moe:
+        over.update(n_experts=4, top_k=2)
+    if cfg.block_pattern == "xlstm":
+        over.update(n_layers=4, slstm_every=2, n_heads=2, n_kv_heads=2,
+                    ssm_chunk=8, expand=2)
+    if cfg.block_pattern == "mamba_shared_attn":
+        over.update(n_layers=5, shared_attn_every=2, ssm_head_dim=16,
+                    ssm_state=8, ssm_chunk=8, n_heads=4, n_kv_heads=kv)
+    return cfg.with_(**over)

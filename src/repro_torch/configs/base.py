@@ -1,5 +1,5 @@
 """Architecture configs (twin of ``repro/configs/base.py``): ``ModelConfig``
-with the fields the attention family reads, and ``VisionConfig``."""
+with the fields the decoder-only families read, and ``VisionConfig``."""
 from __future__ import annotations
 
 import dataclasses
@@ -14,11 +14,11 @@ def pad_to_multiple(x: int, m: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """A decoder-only attention LM: the JAX ``ModelConfig``'s fields that
-    its dense and MoE attention families read, with the same defaults.  The
-    recurrent, encoder-decoder and the other sharding fields wait for the
-    slices that port those families; ``block_pattern`` and ``mrope`` are
-    carried so the model can refuse them by name."""
+    """A decoder-only LM: the JAX ``ModelConfig``'s fields that its dense,
+    MoE and recurrent (xLSTM, Zamba2) families read, with the same
+    defaults.  The encoder-decoder, VLM and sharding fields wait for the
+    slices that port them; ``mrope`` is carried so the model can refuse it
+    by name."""
 
     name: str = "model"
     family: str = "dense"
@@ -28,7 +28,6 @@ class ModelConfig:
     n_kv_heads: int = 2
     d_ff: int = 256
     vocab_size: int = 256
-    block_pattern: str = "attn"            # the port runs "attn" only
     head_dim: Optional[int] = None
     qkv_bias: bool = False
     attn_impl: str = "naive"               # naive | chunked | pallas (flash kernel)
@@ -43,6 +42,15 @@ class ModelConfig:
     n_experts: int = 0
     top_k: int = 0
     capacity_factor: float = 1.25
+    # --- SSM / recurrent ---
+    block_pattern: str = "attn"            # attn | xlstm | mamba_shared_attn
+    ssm_state: int = 0
+    d_conv: int = 4
+    expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_chunk: int = 128
+    slstm_every: int = 8                   # xlstm: every k-th block is sLSTM
+    shared_attn_every: int = 6             # zamba2: shared attn after every k mamba blocks
     sparsity: SparsityConfig = DENSE       # the paper's technique
     dtype: str = "float32"                 # activation/compute dtype
     param_dtype: str = "float32"

@@ -1,7 +1,8 @@
-"""The transformer block of the scoring forward and the serving steps, and
-the stacked-layers layout (twin of ``repro/models/blocks.py``'s attention
-block, under ``cfg.norm`` and ``cfg.mlp_act``, with an MLP or, where
-``cfg.is_moe``, a mixture of experts).
+"""The transformer block of the scoring forward and the serving steps,
+Zamba2's shared attention block, and the stacked-layers layout (twin of
+``repro/models/blocks.py``: the attention block under ``cfg.norm`` and
+``cfg.mlp_act``, with an MLP or, where ``cfg.is_moe``, a mixture of
+experts).
 
 Every leaf of ``params["layers"]`` carries a leading ``[L, ...]`` axis, as
 the JAX package stacks its layers for ``scan``: the two trees compare leaf
@@ -14,6 +15,7 @@ from typing import Any, Dict, List
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.sparse_linear import linear_apply, linear_init
 from repro_torch.models import attention as attn
 from repro_torch.models.common import norm_apply, norm_init
 from repro_torch.models.mlp import mlp_apply, mlp_init
@@ -80,6 +82,36 @@ def block_decode(params, cfg: ModelConfig, h, layer_cache, *, pos):
     h = h + a
     x = norm_apply(params["ln2"], h, cfg.norm)
     return h + ffn_apply(params, cfg, x)[0], new_kv
+
+
+# ---------------------------------------------------------------------------
+# Zamba2 shared attention block (one set of weights reused across the stack)
+# ---------------------------------------------------------------------------
+
+
+def shared_block_init(generator: torch.Generator, cfg: ModelConfig,
+                      device=None):
+    """``{"fuse", "block"}``: Zamba concatenates the current hidden with the
+    original embedding, and ``fuse`` (2d -> d) maps it back before the
+    ordinary block."""
+    fuse = linear_init(generator, 2 * cfg.d_model, cfg.d_model, cfg.sparsity,
+                       dtype=getattr(torch, cfg.param_dtype), device=device)
+    return {"fuse": fuse, "block": block_init(generator, cfg, device)}
+
+
+def shared_block_apply(params, cfg: ModelConfig, h, h0, *, positions):
+    """The shared block over h [B, S, d] beside the embedding output h0."""
+    x = linear_apply(params["fuse"], torch.cat([h, h0], dim=-1))
+    out, _ = block_apply(params["block"], cfg, x, positions=positions)
+    return h + out
+
+
+def shared_block_decode(params, cfg: ModelConfig, h, h0, layer_cache, *, pos):
+    """One-token decode through the shared block against this
+    application's own contiguous cache.  Returns (h, (k_new, v_new))."""
+    x = linear_apply(params["fuse"], torch.cat([h, h0], dim=-1))
+    out, new_kv = block_decode(params["block"], cfg, x, layer_cache, pos=pos)
+    return h + out, new_kv
 
 
 def block_prefill_chunk(params, cfg: ModelConfig, h, layer_cache, *, start):

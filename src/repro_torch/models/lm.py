@@ -1,9 +1,21 @@
-"""The decoder-only LM (twin of the attention-pattern half of
-``repro/models/lm.py``, dense or mixture-of-experts): init; the scoring
-forward (``lm_forward``) and its next-token loss (``loss_fn``); and the
-serving steps: prefill, chunked prefill and one decode step against a
-contiguous KV cache, and packed prefill and one decode step against a
-paged one.
+"""The decoder-only LMs (twin of ``repro/models/lm.py``), one init/apply
+pair for every block pattern:
+
+  - ``"attn"``: dense or mixture-of-experts transformers, a loop over the
+    stacked blocks;
+  - ``"xlstm"``: superblocks of ``slstm_every - 1`` mLSTM blocks followed
+    by one sLSTM block;
+  - ``"mamba_shared_attn"`` (Zamba2): superblocks of ``shared_attn_every``
+    Mamba2 blocks, each followed by one application of the *shared*
+    attention block (one set of weights, one KV cache per application),
+    and a tail of Mamba2 blocks where the superblocks do not divide the
+    layers.
+
+Init; the scoring forward (``lm_forward``) and its next-token loss
+(``loss_fn``); and the serving steps: prefill and one decode step against
+a contiguous cache (every pattern), and, for the attention pattern only as
+in the JAX package, chunked prefill, packed prefill and one decode step
+against a paged cache.
 
 No step moves a tensor to the host: the caller reads only the logits it
 samples from.
@@ -18,6 +30,8 @@ from repro_torch._compat import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.sparse_linear import linear_apply
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.blocks import (
     block_apply,
     block_decode,
@@ -27,29 +41,56 @@ from repro_torch.models.blocks import (
     block_prefill_packed,
     ffn_apply,
     layer_params,
+    shared_block_apply,
+    shared_block_decode,
+    shared_block_init,
     stack_layers,
 )
 from repro_torch.models.common import embed_init, embed_lookup, norm_apply, norm_init
 
+PATTERNS = ("attn", "xlstm", "mamba_shared_attn")
+
 
 def _check_supported(cfg: ModelConfig) -> None:
-    """Refuse what the port does not have yet: the recurrent patterns and
-    M-RoPE (ROADMAP queue 1 item 10)."""
-    if cfg.block_pattern != "attn":
-        raise NotImplementedError(
-            f"{cfg.name}: block_pattern={cfg.block_pattern!r} waits for the "
-            "recurrent families (ROADMAP queue 1 item 10)")
+    """Refuse what the port does not have yet, M-RoPE (ROADMAP queue 1
+    item 10), and a block pattern no family has."""
+    if cfg.block_pattern not in PATTERNS:
+        raise ValueError(f"unknown block_pattern {cfg.block_pattern!r}")
     if cfg.mrope:
         raise NotImplementedError(
             f"{cfg.name}: M-RoPE waits for ROADMAP queue 1 item 10")
 
 
+def _n_super(cfg: ModelConfig):
+    """(superblocks, blocks a superblock, tail blocks) of a recurrent
+    pattern."""
+    every = (cfg.slstm_every if cfg.block_pattern == "xlstm"
+             else cfg.shared_attn_every)
+    n_super = cfg.n_layers // every
+    return n_super, every, cfg.n_layers - n_super * every
+
+
+def n_shared_applications(cfg: ModelConfig) -> int:
+    return cfg.n_layers // cfg.shared_attn_every
+
+
+def _stacked(make, n: int, m=None):
+    """``make()``'s trees stacked [n, ...], or [n, m, ...]."""
+    if m is None:
+        return stack_layers([make() for _ in range(n)])
+    return stack_layers([stack_layers([make() for _ in range(m)])
+                         for _ in range(n)])
+
+
 def lm_init(cfg: ModelConfig, seed: int, device=None) -> Dict[str, Any]:
     """Random params from ``seed`` on ``device`` (``None``: the CUDA card),
     drawn from a CPU generator so they do not depend on the device.  The
-    tree is the JAX package's: ``{"embed", "final_norm", "layers"}``, and
-    ``"unembed"`` [d_model, padded_vocab] where the embeddings are untied,
-    with every layer leaf stacked on a leading [L] axis."""
+    tree is the JAX package's: ``{"embed", "final_norm"}``, ``"unembed"``
+    [d_model, padded_vocab] where the embeddings are untied, and the
+    pattern's blocks: ``"layers"`` stacked [L, ...]; ``"mlstm"`` [n_super,
+    every - 1, ...] and ``"slstm"`` [n_super, ...]; or ``"mamba"``
+    [n_super, every, ...], ``"mamba_tail"`` [rem, ...] where the
+    superblocks leave ``rem`` layers, and one ``"shared"`` block."""
     _check_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
@@ -62,8 +103,26 @@ def lm_init(cfg: ModelConfig, seed: int, device=None) -> Dict[str, Any]:
         u = torch.randn((cfg.d_model, cfg.padded_vocab), generator=gen,
                         dtype=torch.float32) * 0.02
         p["unembed"] = u.to(dev, dtype)
-    p["layers"] = stack_layers([block_init(gen, cfg, dev)
-                                for _ in range(cfg.n_layers)])
+    pat = cfg.block_pattern
+    if pat == "attn":
+        p["layers"] = _stacked(lambda: block_init(gen, cfg, dev), cfg.n_layers)
+    elif pat == "xlstm":
+        n_super, every, rem = _n_super(cfg)
+        if rem:
+            raise ValueError(f"{cfg.name}: xlstm needs n_layers % "
+                             f"slstm_every == 0, got {cfg.n_layers} % {every}")
+        p["mlstm"] = _stacked(lambda: xlstm_mod.mlstm_init(gen, cfg, dev),
+                              n_super, every - 1)
+        p["slstm"] = _stacked(lambda: xlstm_mod.slstm_init(gen, cfg, dev),
+                              n_super)
+    else:
+        n_super, every, rem = _n_super(cfg)
+        p["mamba"] = _stacked(lambda: ssm_mod.mamba_init(gen, cfg, dev),
+                              n_super, every)
+        if rem:
+            p["mamba_tail"] = _stacked(
+                lambda: ssm_mod.mamba_init(gen, cfg, dev), rem)
+        p["shared"] = shared_block_init(gen, cfg, dev)
     return p
 
 
@@ -83,20 +142,45 @@ def _unembed(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
 def lm_forward(params, cfg: ModelConfig, batch) -> Tuple[torch.Tensor, torch.Tensor]:
     """The scoring forward: ``batch["tokens"]`` [B, S] (a tensor or a numpy
     array, moved to the params' device) -> (logits [B, S, padded_vocab],
-    aux), with causal full self-attention in every layer as
+    aux), with causal full self-attention in every attention block as
     ``cfg.attn_impl`` picks it.  aux is the mean of the blocks' auxiliary
-    losses (zero for a dense model)."""
+    losses (zero for a dense or recurrent model)."""
+    _check_supported(cfg)
     tokens = torch.as_tensor(batch["tokens"], device=params["embed"].device)
     h = _embed_tokens(params, cfg, tokens)
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
-    auxs = []
-    for l in range(cfg.n_layers):
-        h, a = block_apply(layer_params(params["layers"], l), cfg, h,
-                           positions=positions)
-        auxs.append(a)
+    pat = cfg.block_pattern
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if pat == "attn":
+        auxs = []
+        for l in range(cfg.n_layers):
+            h, a = block_apply(layer_params(params["layers"], l), cfg, h,
+                               positions=positions)
+            auxs.append(a)
+        aux = torch.stack(auxs).mean()
+    elif pat == "xlstm":
+        n_super, every, _ = _n_super(cfg)
+        for i in range(n_super):
+            mp = layer_params(params["mlstm"], i)
+            for j in range(every - 1):
+                h = h + xlstm_mod.mlstm_apply(layer_params(mp, j), cfg, h)
+            h = h + xlstm_mod.slstm_apply(layer_params(params["slstm"], i),
+                                          cfg, h)
+    else:
+        h0 = h
+        n_super, every, rem = _n_super(cfg)
+        for i in range(n_super):
+            mp = layer_params(params["mamba"], i)
+            for j in range(every):
+                h = h + ssm_mod.mamba_apply(layer_params(mp, j), cfg, h)
+            h = shared_block_apply(params["shared"], cfg, h, h0,
+                                   positions=positions)
+        for j in range(rem):
+            h = h + ssm_mod.mamba_apply(layer_params(params["mamba_tail"], j),
+                                        cfg, h)
     h = norm_apply(params["final_norm"], h, cfg.norm)
-    return _unembed(params, cfg, h), torch.stack(auxs).mean()
+    return _unembed(params, cfg, h), aux
 
 
 def loss_fn(params, cfg: ModelConfig, batch, aux_weight: float = 0.01):
@@ -118,33 +202,120 @@ def loss_fn(params, cfg: ModelConfig, batch, aux_weight: float = 0.01):
 
 
 def _check_attn(cfg: ModelConfig, what: str) -> None:
+    """Refuse a recurrent pattern where only the attention families'
+    random-access KV rows will do, as the JAX package does."""
     if cfg.block_pattern != "attn":
         raise NotImplementedError(
-            f"{what} of block_pattern={cfg.block_pattern!r} ({cfg.name}) "
-            "waits for the recurrent families (ROADMAP queue 1 item 10); "
-            "the port serves attention families only")
+            f"{what} supports attention families only, not "
+            f"block_pattern={cfg.block_pattern!r}")
 
 
 def cache_init(cfg: ModelConfig, batch: int, max_len: int, device=None):
-    """Contiguous decode cache ``{"k", "v"}`` of [L, B, max_len, KV, D] on
-    ``device`` (``None``: the CUDA card)."""
-    _check_attn(cfg, "the decode cache")
-    return attn_mod.cache_init(cfg, batch, max_len, cfg.n_layers,
-                               getattr(torch, cfg.dtype), device)
+    """The pattern's decode cache on ``device`` (``None``: the CUDA card):
+    ``{"k", "v"}`` of [L, B, max_len, KV, D]; ``{"mlstm": {"C", "n", "m"},
+    "slstm": {"c", "n", "h", "m"}}`` stacked [n_super, every - 1, B, ...]
+    and [n_super, B, ...]; or ``{"mamba": {"ssm", "conv"}, "shared_kv":
+    {"k", "v"}, "mamba_tail"?}`` stacked [n_super, every, B, ...], one KV
+    cache [n_super, B, max_len, KV, D] for each application of the shared
+    block, and [rem, B, ...]."""
+    dtype = getattr(torch, cfg.dtype)
+    dev = resolve_device(device)
+    pat = cfg.block_pattern
+    if pat == "attn":
+        return attn_mod.cache_init(cfg, batch, max_len, cfg.n_layers, dtype,
+                                   dev)
+    if pat not in PATTERNS:
+        raise ValueError(f"unknown block_pattern {pat!r}")
+    n_super, every, rem = _n_super(cfg)
+    if pat == "xlstm":
+        return {
+            "mlstm": _stacked(lambda: xlstm_mod.mlstm_cache_init(cfg, batch, dev),
+                              n_super, every - 1),
+            "slstm": _stacked(lambda: xlstm_mod.slstm_cache_init(cfg, batch, dev),
+                              n_super),
+        }
+    out = {
+        "mamba": _stacked(lambda: ssm_mod.mamba_cache_init(cfg, batch, dtype,
+                                                           dev),
+                          n_super, every),
+        "shared_kv": attn_mod.cache_init(cfg, batch, max_len, n_super, dtype,
+                                         dev),
+    }
+    if rem:
+        out["mamba_tail"] = _stacked(
+            lambda: ssm_mod.mamba_cache_init(cfg, batch, dtype, dev), rem)
+    return out
+
+
+def _write(stacked, new) -> None:
+    """Copy a layer's new state tree into its slot of the stacked cache."""
+    for k, v in new.items():
+        stacked[k].copy_(v)
+
+
+def _recurrent_decode(params, cfg: ModelConfig, cache, h, pos_b):
+    """The recurrent patterns' layers of one decode step: each block's new
+    state is written into its slot of ``cache`` in place, the shared
+    block's new K/V after the loop."""
+    n_super, every, rem = _n_super(cfg)
+    if cfg.block_pattern == "xlstm":
+        for i in range(n_super):
+            mp, mc = layer_params(params["mlstm"], i), layer_params(
+                cache["mlstm"], i)
+            for j in range(every - 1):
+                dh, new = xlstm_mod.mlstm_decode(layer_params(mp, j), cfg, h,
+                                                 layer_params(mc, j))
+                _write(layer_params(mc, j), new)
+                h = h + dh
+            sc = layer_params(cache["slstm"], i)
+            dh, new = xlstm_mod.slstm_decode(layer_params(params["slstm"], i),
+                                             cfg, h, sc)
+            _write(sc, new)
+            h = h + dh
+        return h
+    h0 = h
+    kv = cache["shared_kv"]
+    k_news, v_news = [], []
+    for i in range(n_super):
+        mp, mc = layer_params(params["mamba"], i), layer_params(cache["mamba"], i)
+        for j in range(every):
+            dh, new = ssm_mod.mamba_decode(layer_params(mp, j), cfg, h,
+                                           layer_params(mc, j))
+            _write(layer_params(mc, j), new)
+            h = h + dh
+        h, (kn, vn) = shared_block_decode(params["shared"], cfg, h, h0,
+                                          (kv["k"][i], kv["v"][i]), pos=pos_b)
+        k_news.append(kn)
+        v_news.append(vn)
+    attn_mod.cache_write(kv["k"], kv["v"], torch.stack(k_news),
+                         torch.stack(v_news), pos_b)
+    for j in range(rem):
+        tc = layer_params(cache["mamba_tail"], j)
+        dh, new = ssm_mod.mamba_decode(layer_params(params["mamba_tail"], j),
+                                       cfg, h, tc)
+        _write(tc, new)
+        h = h + dh
+    return h
 
 
 def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor, pos):
-    """One decode step against a contiguous cache.
+    """One decode step against the pattern's contiguous cache.
 
     tokens [B, 1]; pos a scalar (the current length) or a per-sequence [B]
-    vector (slots at mixed lengths decode in one step).  The layers only
-    read the cache; one :func:`attention.cache_write` after the loop
-    commits every layer's new K/V in place.  Returns (logits [B, 1, V],
-    cache).
+    vector (slots at mixed lengths decode in one step); the recurrent
+    blocks read no position, the shared attention block does.  The
+    attention layers only read the cache, and one
+    :func:`attention.cache_write` after the loop commits their new K/V in
+    place; each recurrent block writes its new state into its slot in
+    place.  Returns (logits [B, 1, V], cache).
     """
-    _check_attn(cfg, "decode_step")
+    _check_supported(cfg)
     h = _embed_tokens(params, cfg, tokens)
     pos_b = attn_mod._pos_vector(pos, tokens.shape[0], tokens.device)
+    if cfg.block_pattern != "attn":
+        h = _recurrent_decode(params, cfg, cache, h, pos_b)
+        h = norm_apply(params["final_norm"], h, cfg.norm)
+        return _unembed(params, cfg, h), cache
     k_news, v_news = [], []
     for l in range(cfg.n_layers):
         h, (kn, vn) = block_decode(layer_params(params["layers"], l), cfg, h,
@@ -164,8 +335,15 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor):
     Attention is :func:`attention.sdpa_gqa`, or the online-softmax
     :func:`attention.sdpa_gqa_chunked` under ``attn_impl="chunked"`` when S
     exceeds ``attn_chunk``; never the flash kernel, as in the JAX package.
+    A recurrent pattern returns (the last position's logits of
+    :func:`lm_forward`, ``None``), as the JAX package does: its state cache
+    is filled by running the prompt through :func:`decode_step`
+    (``Engine.prefill_step``).
     """
-    _check_attn(cfg, "prefill")
+    _check_supported(cfg)
+    if cfg.block_pattern != "attn":
+        logits, _ = lm_forward(params, cfg, {"tokens": tokens})
+        return logits[:, -1:], None
     b, s = tokens.shape
     h = _embed_tokens(params, cfg, tokens)
     positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
@@ -195,7 +373,9 @@ def prefill_chunk(params, cfg: ModelConfig, cache, tokens: torch.Tensor,
     start hold the sequence's earlier chunks.  The cache may be a view of
     one slot's rows of a pool: the chunk's K/V are written through it in
     place.  Returns (logits [B, C, V], cache); ``with_logits=False`` skips
-    the final norm and unembedding and returns (None, cache).
+    the final norm and unembedding and returns (None, cache).  Attention
+    families only: a recurrent state has no random-access rows to chunk
+    into.
     """
     _check_attn(cfg, "prefill_chunk")
     h = _embed_tokens(params, cfg, tokens)
@@ -222,8 +402,10 @@ def paged_decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor,
     ``cache`` leaves [L, P, page_size, KV, D] (P includes the trash page).
     Returns (logits [B, 1, V], cache).  The layers only read the cache; one
     scatter through the tables commits every layer's new K/V after the
-    loop (inactive slots' rows land on the trash page).
+    loop (inactive slots' rows land on the trash page).  Attention families
+    only.
     """
+    _check_attn(cfg, "paged_decode_step")
     h = _embed_tokens(params, cfg, tokens)
     b = tokens.shape[0]
     pos = pos.to(torch.int32)
@@ -255,8 +437,9 @@ def prefill_packed(params, cfg: ModelConfig, cache, tokens: torch.Tensor,
     last_idx [n_new] stream index of each prompt's last token.  Attention is
     block-diagonal causal over the stream, and only the ``n_new`` last rows
     pay the unembedding.  Returns (logits [n_new, 1, V], cache with every
-    prompt's K/V written through its page table).
+    prompt's K/V written through its page table).  Attention families only.
     """
+    _check_attn(cfg, "prefill_packed")
     h = _embed_tokens(params, cfg, tokens[None, :])
     k_news, v_news = [], []
     for l in range(cfg.n_layers):

@@ -1,6 +1,7 @@
-"""Model facade (twin of ``repro/models/registry.py`` for the attention
-family): params, the scoring forward and loss, and the serving step
-functions the engine calls, for the contiguous and the paged cache."""
+"""Model facade (twin of ``repro/models/registry.py`` for the decoder-only
+families): params, the scoring forward and loss, and the serving step
+functions the engine calls, for the contiguous cache (every block pattern)
+and the paged one (attention families only, as in the JAX package)."""
 from __future__ import annotations
 
 import torch
@@ -28,41 +29,55 @@ def forward_fn(cfg: ModelConfig):
 
 def prefill_fn(cfg: ModelConfig):
     """(params, batch) -> (last-token logits [B, 1, V], cache of the
-    prompt's [L, B, S, KV, D] rows)."""
+    prompt's [L, B, S, KV, D] rows); a recurrent pattern's cache is
+    ``None`` (the engine runs the prompt through the decode step)."""
     return lambda params, batch: lm_mod.prefill(params, cfg, batch["tokens"])
 
 
 def decode_fn(cfg: ModelConfig):
-    """Decode step against a contiguous cache: tokens [B, 1], pos a scalar
-    or [B]."""
+    """Decode step against the pattern's contiguous cache: tokens [B, 1],
+    pos a scalar or [B]."""
     return lambda params, cache, tokens, pos: lm_mod.decode_step(
         params, cfg, cache, tokens, pos)
 
 
+def _require_attn_family(cfg: ModelConfig, what: str) -> None:
+    """The JAX registry's refusal of a recurrent pattern where the step
+    needs slot-addressable KV rows."""
+    if cfg.block_pattern != "attn":
+        raise NotImplementedError(
+            f"{what} requires a decoder-only attention family; "
+            f"{cfg.name} has block_pattern={cfg.block_pattern!r}")
+
+
 def prefill_chunk_fn(cfg: ModelConfig):
     """Chunked prefill (continuous batching): tokens [B, C] at positions
-    [start, start + C) into a preallocated contiguous cache."""
-    lm_mod._check_attn(cfg, "chunked prefill")
+    [start, start + C) into a preallocated contiguous cache.  Attention
+    families only."""
+    _require_attn_family(cfg, "chunked prefill")
     return lambda params, cache, tokens, start, with_logits=True: (
         lm_mod.prefill_chunk(params, cfg, cache, tokens, start, with_logits))
 
 
 def cache_init_fn(cfg: ModelConfig, batch: int, max_len: int, device=None):
-    """Contiguous decode cache, [L, batch, max_len, KV, D] per leaf, on
+    """The pattern's contiguous decode cache (``lm.cache_init``) on
     ``device``."""
     return lambda: lm_mod.cache_init(cfg, batch, max_len, device)
 
 
 def paged_decode_fn(cfg: ModelConfig, page_size: int):
     """Decode step against a paged KV cache: tokens [B, 1], pos [B],
-    tables [B, n_max]."""
+    tables [B, n_max].  Attention families only."""
+    _require_attn_family(cfg, "paged decode")
     return lambda params, cache, tokens, pos, tables: lm_mod.paged_decode_step(
         params, cfg, cache, tokens, pos, tables, page_size)
 
 
 def prefill_packed_fn(cfg: ModelConfig, page_size: int):
     """Packed padding-free prefill into a paged cache: one concatenated
-    [T]-token stream with per-token slot ids and positions."""
+    [T]-token stream with per-token slot ids and positions.  Attention
+    families only."""
+    _require_attn_family(cfg, "packed prefill")
     return lambda params, cache, tokens, slot_ids, positions, tables, last_idx: (
         lm_mod.prefill_packed(params, cfg, cache, tokens, slot_ids, positions,
                               tables, last_idx, page_size))
@@ -71,7 +86,8 @@ def prefill_packed_fn(cfg: ModelConfig, page_size: int):
 def paged_cache_init_fn(cfg: ModelConfig, n_pages: int, page_size: int,
                         device=None):
     """Physical paged cache, [L, n_pages + 1, page_size, KV, D] per leaf
-    (the +1 is the trash page), on ``device``."""
+    (the +1 is the trash page), on ``device``.  Attention families only."""
+    _require_attn_family(cfg, "paged cache")
     return lambda: attn_mod.paged_cache_init(
         cfg, n_pages, page_size, cfg.n_layers, getattr(torch, cfg.dtype),
         device)

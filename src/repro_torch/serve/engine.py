@@ -111,11 +111,25 @@ class Engine:
 
     def prefill_step(self, prompts, max_len: int):
         """Run prompts [B, S] through the model.  Returns (last-token
-        logits [B, 1, V], decode-ready cache of ``max_len`` rows).  The
-        recurrent families' prefill (a recurrence over the prompt) raises
-        in ``lm.prefill``, naming ROADMAP queue 1 item 10."""
+        logits [B, 1, V], decode-ready cache of ``max_len`` rows).
+
+        A recurrent pattern has no KV rows to prefill: its state cache is
+        built empty and the prompt runs through the decode step at
+        positions 0 .. S-1, in the ``"decode"`` dispatch phase, as the JAX
+        engine does.  The JAX engine first runs the parallel forward and
+        throws its logits away; the port skips that forward, since the
+        last decode step's logits are the ones sampled.
+        """
         tokens = self._ints(prompts)
         b, s = tokens.shape
+        if self.cfg.block_pattern != "attn":
+            cache = reg.cache_init_fn(self.cfg, b, max_len, self.device)()
+            step = reg.decode_fn(self.cfg)
+            with dispatch.phase_scope("decode"):
+                for t in range(s):
+                    logits, cache = step(self.params, cache,
+                                         tokens[:, t:t + 1], t)
+            return logits, cache
         with dispatch.phase_scope("prefill"):
             logits, cache = reg.prefill_fn(self.cfg)(self.params,
                                                      {"tokens": tokens})
@@ -142,8 +156,9 @@ class Engine:
                                            self._ints(tokens), self._ints(pos))
 
     def _grow_cache(self, cache, b: int, max_len: int, cur_len: int):
-        """The prompt's cache of ``cur_len`` rows in a cache of ``max_len``."""
-        if cache["k"].shape[2] >= max_len:
+        """The prompt's cache of ``cur_len`` rows in a cache of ``max_len``
+        (``None``, a recurrent pattern's prefill, stays ``None``)."""
+        if cache is None or cache["k"].shape[2] >= max_len:
             return cache
         full = reg.cache_init_fn(self.cfg, b, max_len, self.device)()
         for key in ("k", "v"):

@@ -205,8 +205,8 @@ class Scheduler:
         cfg = engine.cfg
         if cfg.block_pattern != "attn":
             raise ValueError(
-                f"continuous batching requires an attention family "
-                f"(slot-addressable KV rows); {cfg.name} has "
+                f"continuous batching requires a decoder-only attention "
+                f"family (slot-addressable KV rows); {cfg.name} has "
                 f"block_pattern={cfg.block_pattern!r}. Use Engine.generate.")
         if n_slots < 1:
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")

@@ -44,7 +44,10 @@ and ``im2col_pack_cuda`` routes by its shape rule.  The training tier: the
 ``SparseTrainer`` killed at step 3 and restarted ends with the bits of the
 uninterrupted run, card tensors (bf16 among them) round-trip through a
 checkpoint, AdamW agrees with the CPU, and the smoke LM ``Trainer``
-launches the tiled linear and no flash kernel.
+launches the tiled linear and no flash kernel.  The smoke recurrent models
+(xlstm-350m, zamba2-7b) give the CPU's tokens through ``generate`` and its
+logits through the scoring forward, with one launch a sparse linear a
+token step.
 """
 import numpy as np
 import pytest
@@ -2389,6 +2392,78 @@ def test_moe_served_requests_launch_the_kernels(dev, tmp_path, monkeypatch):
                                          for a in (tok, pos, tables)))
         want = logits["cpu"]
         err = float((logits["cuda"].cpu() - want).abs().max())
+        assert err <= 1e-4 * float(want.abs().max()), err
+    finally:
+        dispatch.set_db(None)
+
+
+def _linear_launches(params, n_shared):
+    """Each sparse linear kernel's launches in one pass over a recurrent
+    model's params: one a stacked layer, the shared block's ``n_shared``
+    times; the tiled kernel where T is a multiple of 64."""
+    counts = {}
+
+    def walk(tree, mult):
+        if "values" in tree:
+            v = tree["values"]
+            k = ("colwise_nm_matmul_tiled" if v.shape[-1] % 64 == 0
+                 else "colwise_nm_matmul")
+            counts[k] = counts.get(k, 0) + mult * int(np.prod(v.shape[:-3]))
+            return
+        for key, sub in tree.items():
+            if isinstance(sub, dict):
+                walk(sub, mult * (n_shared if key == "shared" else 1))
+
+    walk(params, 1)
+    return counts
+
+
+@pytest.mark.parametrize("arch", ["xlstm-350m", "zamba2-7b"])
+def test_recurrent_generate_and_score_match_cpu(dev, tmp_path, arch):
+    """The smoke recurrent models on the card: ``generate`` (the prefill
+    by decode steps) gives the CPU run's tokens with one launch a sparse
+    linear a token step (zamba2-7b's in_proj, T = 280, on
+    ``colwise_nm_linear.cu``, the rest on the tiled kernel), and a scoring
+    forward under attn_impl="pallas" the CPU's logits within 1e-4 of
+    max|logit|, with one tiled flash a shared-block application."""
+    from repro_torch.models import registry as reg
+    from repro_torch.models.lm import lm_init, n_shared_applications
+    from repro_torch.serve import Engine, ServeConfig
+
+    cfg = _zoo_smoke(arch)
+    n_shared = (n_shared_applications(cfg)
+                if cfg.block_pattern == "mamba_shared_attn" else 0)
+    prompts = np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (3, 7)).astype(np.int32)
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (2, 24)).astype(np.int32))
+    dispatch.set_db(dispatch.ProfileDB(path=tmp_path / "profile.json"))
+    try:
+        params = lm_init(cfg, 0, device="cpu")
+        per_step = _linear_launches(params, n_shared)
+        if arch == "zamba2-7b":
+            assert set(per_step) == {"colwise_nm_matmul",
+                                     "colwise_nm_matmul_tiled"}
+        runs = {}
+        for where in ("cpu", "cuda"):
+            reset_launch_counts()
+            runs[where] = Engine(cfg, _to(params, torch.device(where)),
+                                 ServeConfig(max_new_tokens=5)).generate(prompts)
+            torch.cuda.synchronize()
+        counts = {k.name: k.launches for k in KERNELS if k.launches}
+        assert counts == {k: n * (7 + 4) for k, n in per_step.items()}, counts
+        assert np.array_equal(runs["cpu"]["tokens"], runs["cuda"]["tokens"])
+        scfg = cfg.with_(attn_impl="pallas")
+        with torch.no_grad():
+            want = reg.forward_fn(scfg)(params, {"tokens": tokens})
+            reset_launch_counts()
+            got = reg.forward_fn(scfg)(_to(params, dev),
+                                       {"tokens": tokens.to(dev)})
+            torch.cuda.synchronize()
+        counts = {k.name: k.launches for k in KERNELS if k.launches}
+        flash = {"flash_attention_tiled": n_shared} if n_shared else {}
+        assert counts == dict(per_step, **flash), counts
+        err = float((got.cpu() - want).abs().max())
         assert err <= 1e-4 * float(want.abs().max()), err
     finally:
         dispatch.set_db(None)

@@ -24,12 +24,14 @@ from repro.core.pruning import SparsityConfig as JSparsityConfig
 from repro.models import attention as jattn
 from repro.models import registry as jreg
 from repro.serve import Engine as JEngine
+from repro.serve import Scheduler as JScheduler
 from repro.serve import ServeConfig as JServeConfig
 from repro_torch import dispatch
 from repro_torch.configs import smoke_config
 from repro_torch.convert import params_from_jax
 from repro_torch.core.pruning import SparsityConfig
 from repro_torch.models import attention as tattn
+from repro_torch.models import lm as tlm
 from repro_torch.models import registry as treg
 from repro_torch.serve import Engine, Scheduler, ServeConfig
 
@@ -238,17 +240,45 @@ def test_cache_write_clamps_like_jax(pos):
 
 
 def test_recurrent_patterns_raise_naming_item_10():
-    tcfg = _tcfg(block_pattern="xlstm")
+    """The recurrent families are ported (item 10c), but not for what the
+    JAX package refuses them too: the chunked prefill, the paged steps and
+    the ``Scheduler`` refuse ``xlstm`` and ``mamba_shared_attn`` with JAX's
+    messages."""
+    for pattern in ("xlstm", "mamba_shared_attn"):
+        _refuses_like_jax(pattern)
+
+
+def _refuses_like_jax(pattern):
+    tcfg = _tcfg(block_pattern=pattern)
+    jcfg = _jcfg(block_pattern=pattern)
     tp = _tparams()
-    for call in (lambda: treg.cache_init_fn(tcfg, 1, 8, "cpu")(),
-                 lambda: treg.prefill_fn(tcfg)(tp, {"tokens": _ints([[1, 2]])}),
-                 lambda: treg.decode_fn(tcfg)(tp, {}, _ints([[1]]), 0),
-                 lambda: treg.prefill_chunk_fn(tcfg),
-                 lambda: Engine(tcfg, tp).prefill_step(np.ones((1, 2)), 4)):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            call()
-    with pytest.raises(ValueError, match="attention family"):
+    for mine, theirs in (
+            (lambda: treg.prefill_chunk_fn(tcfg),
+             lambda: jreg.prefill_chunk_fn(jcfg)),
+            (lambda: treg.paged_decode_fn(tcfg, 4),
+             lambda: jreg.paged_decode_fn(jcfg, 4)),
+            (lambda: treg.prefill_packed_fn(tcfg, 4),
+             lambda: jreg.prefill_packed_fn(jcfg, 4)),
+            (lambda: treg.paged_cache_init_fn(tcfg, 8, 4, "cpu"),
+             lambda: jreg.paged_cache_init_fn(jcfg, 8, 4))):
+        with pytest.raises(NotImplementedError) as want:
+            theirs()
+        with pytest.raises(NotImplementedError) as got:
+            mine()
+        assert str(got.value) == str(want.value)
+        assert "requires a decoder-only attention family" in str(got.value)
+    for step, args in ((tlm.prefill_chunk, (None, _ints([[1]]), 0)),
+                       (tlm.paged_decode_step, (None, _ints([[1]]), None,
+                                                None, 4)),
+                       (tlm.prefill_packed, (None,) * 6 + (4,))):
+        with pytest.raises(NotImplementedError,
+                           match="supports attention families only"):
+            step(tp, tcfg, *args)
+    with pytest.raises(ValueError, match="continuous batching requires") as got:
         Scheduler(Engine(tcfg, tp))
+    with pytest.raises(ValueError) as want:
+        JScheduler(JEngine(jcfg, _params(), JServeConfig()))
+    assert str(got.value) == str(want.value)
 
 
 @pytest.mark.parametrize("kw", [dict(block_pattern="xlstm"),
@@ -256,14 +286,23 @@ def test_recurrent_patterns_raise_naming_item_10():
                                 dict(n_experts=4), dict(mrope=True)],
                          ids=["xlstm", "zamba", "moe", "mrope"])
 def test_unported_families_raise_naming_item_10(kw):
-    """What is left of item 10: the recurrent patterns and M-RoPE raise at
-    init and in every step that reaches the unembedding.  MoE is ported:
-    its case runs init, the forward, the loss and a decode step."""
+    """What is left of item 10, M-RoPE, raises at init and in every step
+    that reaches the unembedding.  MoE and the recurrent patterns are
+    ported: their cases run init, the forward, the loss and a decode
+    step, the recurrent ones on their own smoke configs."""
     tcfg = _tcfg(**kw)
-    if tcfg.is_moe:
-        tcfg = tcfg.with_(top_k=2)
+    if "block_pattern" in kw:
+        arch = {"xlstm": "xlstm-350m",
+                "mamba_shared_attn": "zamba2-7b"}[kw["block_pattern"]]
+        tcfg = _tcfg(arch)
+    if not tcfg.mrope:
+        if tcfg.is_moe:
+            tcfg = tcfg.with_(top_k=2)
         tp = treg.init_params(tcfg, 0, device="cpu")
-        assert tuple(tp["layers"]["moe"]["router"].shape) == (2, 64, 4)
+        if tcfg.is_moe:
+            assert tuple(tp["layers"]["moe"]["router"].shape) == (2, 64, 4)
+        else:
+            assert "layers" not in tp
         toks = {"tokens": _ints([[1, 2, 3]])}
         logits = treg.forward_fn(tcfg)(tp, toks)
         loss, parts = treg.loss_fn(tcfg)(tp, toks)
@@ -271,7 +310,8 @@ def test_unported_families_raise_naming_item_10(kw):
         step, _ = treg.decode_fn(tcfg)(tp, cache, _ints([[1]]), 0)
         assert tuple(logits.shape) == (1, 3, tcfg.padded_vocab)
         assert tuple(step.shape) == (1, 1, tcfg.padded_vocab)
-        assert float(parts["aux"]) > 0 and torch.isfinite(loss)
+        assert (float(parts["aux"]) > 0) == tcfg.is_moe
+        assert torch.isfinite(loss)
         assert bool(torch.isfinite(logits).all() & torch.isfinite(step).all())
         return
     tp = _tparams()
@@ -281,10 +321,9 @@ def test_unported_families_raise_naming_item_10(kw):
                  lambda: treg.loss_fn(tcfg)(tp, {"tokens": _ints([[1, 2]])})):
         with pytest.raises(NotImplementedError, match="item 10"):
             call()
-    if "block_pattern" not in kw:
-        cache = treg.cache_init_fn(tcfg, 1, 8, "cpu")()
-        with pytest.raises(NotImplementedError, match="item 10"):
-            treg.decode_fn(tcfg)(tp, cache, _ints([[1]]), 0)
+    cache = treg.cache_init_fn(tcfg, 1, 8, "cpu")()
+    with pytest.raises(NotImplementedError, match="item 10"):
+        treg.decode_fn(tcfg)(tp, cache, _ints([[1]]), 0)
 
 
 # ---------------------------------------------------------------------------

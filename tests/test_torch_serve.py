@@ -105,7 +105,7 @@ def _logits_close(got, want):
 
 
 def test_configs_match_jax():
-    for name in ("smollm-360m", "qwen2-0.5b"):
+    for name in ("smollm-360m", "qwen2-0.5b", "zamba2-7b", "xlstm-350m"):
         for mine, theirs in ((get_config(name), j_get_config(name)),
                              (smoke_config(name), j_smoke_config(name))):
             for f in dataclasses.fields(mine):
@@ -116,7 +116,7 @@ def test_configs_match_jax():
                 assert getattr(mine, prop) == getattr(theirs, prop), prop
     assert get_config("smollm-360m").padded_heads == 15
     with pytest.raises(KeyError, match="unknown arch"):
-        get_config("zamba2-7b")
+        get_config("whisper-small")
 
 
 @pytest.mark.parametrize("sparse", [True, False])
