@@ -206,7 +206,30 @@ Phases:
               share, the shares of its device kernel time taken by #1a, #1b
               and the blocks' plain scan code (torch.profiler), and the peak
               device memory
- 17. report : one ``{"kernels": [...]}`` line (launches in the main runs and
+ 17. encdec/vlm: the encoder-decoder and VLM families: the tiled flash
+              kernel (#7b) non-causal at whisper-small's encoder attention
+              (B 2, S 1500, 12 heads of 64, f32) against its plain version
+              and bit for bit against flash_attention.cu, timed beside SDPA
+              (is_causal=False) and its bound; pruned whisper-small whole
+              (12 encoder and 12 decoder layers) and qwen2-vl-72b at its
+              published widths cut to 2 layers (sparsity 0.5, T = d_out, the
+              full padded vocab), random weights from the seed: whisper
+              served by ``Engine.generate`` (4 prompts of 8 tokens, 32 new,
+              greedy, 1500 frames in ``extras``; 192 #1b a prefill, 96 a
+              decode step) and scored once on 2 x 448 tokens under
+              attn_impl="pallas" (192 #1b and 24 #7b a forward, the
+              encoder's 12 non-causal); qwen2-vl-72b served through
+              ``Scheduler(paged=True)`` and ``Engine.generate`` on the same 4
+              prompts of 64 tokens, 8 new (14 #1b a step, 2 #8b a paged
+              decode step; tokens equal across the two or a near-tie), and
+              scored on 2 x 512 tokens with 256 vision patches at Qwen2-VL
+              3-D positions (2 #7b a forward); every generate's linear
+              launch held against its plain version on its own input
+              (LinearCheck), a teacher-forced replay of every step through
+              the plain versions, the NLL against the plain replay; init s,
+              a decode step's host and device ms, idle share and the peak
+              device memory
+ 18. report : one ``{"kernels": [...]}`` line (launches in the main runs and
               ``train_launches`` in phases 10, 11, 13 and 14), then the
               ``{"ok": true, ...}`` line last
 
@@ -3786,14 +3809,16 @@ def zoo_prompts(cfg, seed) -> np.ndarray:
         0, cfg.vocab_size, (ZOO_REQUESTS, ZOO_PROMPT)).astype(np.int32)
 
 
-def zoo_serve(dev, cfg, params, linears, routes=None) -> dict:
+def zoo_serve(dev, cfg, params, linears, routes=None, keep=False) -> dict:
     """ZOO_REQUESTS requests of ZOO_PROMPT tokens and ZOO_NEW new ones,
     greedy, through ``Scheduler(paged=True)``: exact launch counts, a
     teacher-forced replay of every step through the plain versions, host
     ms a decode step and the device ms of one.  With ``routes`` (an MoE
     model): the run's routing recorded, the replay held under the near-tie
     rule, the assignments each step dropped, and the decode step's
-    experts' and attention linears' shares of its device time."""
+    experts' and attention linears' shares of its device time.  With
+    ``keep``, the completions by uid (``"comps"``) and the recorder
+    (``"rec"``) come back too, for ``hold_tokens``."""
     from repro_torch import dispatch
     from repro_torch.kernels import KERNELS, reset_launch_counts
     from repro_torch.models import lm
@@ -3836,6 +3861,8 @@ def zoo_serve(dev, cfg, params, linears, routes=None) -> dict:
           + ("; the experts none)" if routes else ")"), flush=True)
     check(counts == want, f"{cfg.name} serving launches {counts}, want {want}")
     out = {"launches": counts, "host_s": wall}
+    if keep:
+        out.update(comps={c.uid: c for c in comps}, rec=rec)
     if routes:
         out["drops"] = moe_drops(routes, label, rec, cfg)
     out["replay_max_rel_err"] = replay_steps(rec, cfg, dev, label, routes)
@@ -3882,9 +3909,12 @@ def zoo_serve(dev, cfg, params, linears, routes=None) -> dict:
     return out
 
 
-def zoo_score(dev, cfg, params, linears, routes=None, want=None) -> dict:
-    """One ``loss_fn`` and one ``forward_fn`` on ZOO_SCORE_BATCH x
-    ZOO_SCORE_SEQ uniform tokens under attn_impl="pallas": exact launch
+def zoo_score(dev, cfg, params, linears, routes=None, want=None,
+              seq=ZOO_SCORE_SEQ, extras=None) -> dict:
+    """One ``loss_fn`` and one ``forward_fn`` on ZOO_SCORE_BATCH x ``seq``
+    uniform tokens (and the batch's ``extras``: an encoder-decoder's
+    frames, a VLM's vision inputs and 3-D positions, on the card) under
+    attn_impl="pallas": exact launch
     counts (``want``, the two forwards' launches, else one tiled flash and
     one tiled linear of ``linears`` a layer a forward), logits and NLL (and
     an MoE model's aux) against the plain replay; with ``routes`` (an MoE
@@ -3898,9 +3928,10 @@ def zoo_score(dev, cfg, params, linears, routes=None, want=None) -> dict:
     cfg = cfg.with_(attn_impl="pallas")
     label = f"{cfg.name} score"
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
-                                  batch=ZOO_SCORE_BATCH, seq_len=ZOO_SCORE_SEQ,
+                                  batch=ZOO_SCORE_BATCH, seq_len=seq,
                                   kind="uniform", seed=SEED))
-    batch = {"tokens": torch.from_numpy(data.batch_at(0)["tokens"]).to(dev)}
+    batch = {"tokens": torch.from_numpy(data.batch_at(0)["tokens"]).to(dev),
+             **(extras or {})}
     forward, loss = reg.forward_fn(cfg), reg.loss_fn(cfg)
     with torch.no_grad():
         forward(params, batch)  # warm-up: the dispatch memos at these rows
@@ -3918,8 +3949,7 @@ def zoo_score(dev, cfg, params, linears, routes=None, want=None) -> dict:
                     "colwise_nm_matmul_tiled": 2 * len(linears) * cfg.n_layers}
         check(counts == want, f"{cfg.name} scoring launches {counts}, want "
               f"{want}")
-        check(tuple(logits.shape) == (ZOO_SCORE_BATCH, ZOO_SCORE_SEQ,
-                                      cfg.padded_vocab)
+        check(tuple(logits.shape) == (ZOO_SCORE_BATCH, seq, cfg.padded_vocab)
               and bool(torch.isfinite(logits).all()),
               f"{cfg.name} logits {tuple(logits.shape)}")
         nll, aux_k = float(aux["nll"]), float(aux["aux"])
@@ -3959,7 +3989,8 @@ def zoo_score(dev, cfg, params, linears, routes=None, want=None) -> dict:
               f"(<= {SCORE_NLL_RTOL})")
         del logits, logits_p
         dev_ms = time_ms(lambda: forward(params, batch), iters=1)
-    print(f"  {cfg.name} scored {ZOO_SCORE_BATCH} x {ZOO_SCORE_SEQ} tokens: "
+    print(f"  {cfg.name} scored {ZOO_SCORE_BATCH} x {seq} tokens"
+          + (f" with {sorted(extras)}" if extras else "") + ": "
           f"launches {counts} (want {want}); NLL {nll} against the plain "
           f"replay's {nll_p} (rel err {e_nll:.3e} <= {SCORE_NLL_RTOL}; "
           f"ln(vocab) {np.log(cfg.vocab_size):.4f}), "
@@ -4578,7 +4609,7 @@ class LinearCheck:
     The plain call launches no kernel, so the launch counts stay the
     run's."""
 
-    MODULES = ("attention", "blocks", "mlp", "ssm", "xlstm")
+    MODULES = ("attention", "blocks", "encdec", "lm", "mlp", "ssm", "xlstm")
 
     def __enter__(self):
         import importlib
@@ -4892,6 +4923,357 @@ def run_recurrent(dev) -> dict:
     return {"launches": launches}
 
 
+# phase 17: the encoder-decoder and VLM families.  #7b alone at whisper's
+# encoder attention (non-causal: B 2, S 1500 frames, 12 heads of 64); pruned
+# whisper-small whole (12 encoder and 12 decoder layers), served by
+# generate with its frames in ``extras`` and scored on Whisper's text
+# context of 448 tokens (arXiv:2212.04356); pruned qwen2-vl-72b at its
+# published widths cut to VLM_LAYERS layers, served paged and by generate
+# and scored with VLM_GRID vision patches at Qwen2-VL 3-D positions
+NONCAUSAL_SHAPE = (2, 1500, 12, 12, 64)  # B, S, H, KV, D
+ENCDEC_ARCH = "whisper-small"
+ENCDEC_PROMPT, ENCDEC_NEW, ENCDEC_SCORE_SEQ = 8, 32, 448
+# #1b launches of whisper-small: a prefill or scored pass (the encoder's 6
+# linears a layer, the decoder's 10: self q/k/v/o, cross q/k/v/o, up, down)
+# and a decode step (the decoder's 8: the cross k/v come from the cache)
+ENCDEC_PASS, ENCDEC_STEP = 12 * 6 + 12 * 10, 12 * 8
+VLM_ARCH, VLM_LAYERS = "qwen2-vl-72b", 2
+VLM_GRID = (16, 16)  # the config's 256 vision patches as one image
+
+
+def check_noncausal_flash(dev) -> dict:
+    """Phase 17: #7b (flash_attention_tiled.cu) at whisper-small's encoder
+    attention, non-causal, f32, against its plain version within
+    FLASH_TOL and bit for bit against flash_attention.cu, timed beside its
+    plain version, SDPA (is_causal=False) and its operations bound.  These
+    launches are not counted."""
+    from repro_torch.kernels.flash_attn import (flash_attention_gqa_ref,
+                                                flash_attention_scalar_cuda,
+                                                flash_attention_tiled_cuda,
+                                                flash_tiled_config,
+                                                flash_tiled_takes)
+
+    b, s, h, kv, d = NONCAUSAL_SHAPE
+    rng = np.random.default_rng(SEED + 170)
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        shape, dtype=np.float32)).to(dev) for shape in (
+            (b, s, h, d), (b, s, kv, d), (b, s, kv, d)))
+    tag = f"B={b} S={s} H={h} KV={kv} D={d} non-causal f32"
+    check(flash_tiled_takes(q, k, v), f"the tiled flash rule refuses {tag}")
+    want = flash_attention_gqa_ref(q, k, v, causal=False)
+    y = flash_attention_tiled_cuda(q, k, v, causal=False)
+    err = max_err(y, want, f"flash_attention_tiled {tag}",
+                  FLASH_TOL[torch.float32])
+    check(torch.equal(y, flash_attention_scalar_cuda(q, k, v, causal=False)),
+          f"flash_attention_tiled {tag}: not bit-identical to "
+          "flash_attention.cu")
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    max_err(F.scaled_dot_product_attention(qh, kh, vh, is_causal=False)
+            .transpose(1, 2), want, f"SDPA {tag}", FLASH_TOL[torch.float32])
+    r = measure(lambda: flash_attention_tiled_cuda(q, k, v, causal=False),
+                lambda: flash_attention_gqa_ref(q, k, v, causal=False),
+                lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                       is_causal=False))
+    r["bound_ms"], by = flash_bound(b, s, s, h, kv, d, False, torch.float32)
+    gflop = 4 * b * h * d * s * s / 1e9
+    rows, rpt = flash_tiled_config(d, torch.float32)
+    print(f"  flash_attention_tiled (#7b) at whisper-small's encoder {tag} "
+          f"({rows}x{rpt}): max|err| {err:.3e} (<= "
+          f"{FLASH_TOL[torch.float32]} of max|y|), bit-identical to "
+          f"flash_attention.cu; ms={r['ms']:.5f} (eager {r['eager_ms']:.5f}) "
+          f"plain_ms={r['plain_ms']:.5f} SDPA ms={r['library_ms']:.5f} "
+          f"bound_ms={r['bound_ms']:.6f} ({by}); {gflop / r['ms']:.2f} "
+          f"TFLOP/s, SDPA {gflop / r['library_ms']:.2f}; tiled / SDPA = "
+          f"{r['ms'] / r['library_ms']:.3f}", flush=True)
+    return dict(r, bound_by=by, max_abs_err=err, shape=list(NONCAUSAL_SHAPE),
+                gflop=gflop)
+
+
+def encdec_model(dev):
+    """whisper-small whole, every linear pruned to 50% with T = d_out,
+    random weights from ``SEED`` on the card.  Returns (cfg, params, init
+    s)."""
+    from repro_torch._tree import leaves_with_path
+    from repro_torch.configs import get_config
+    from repro_torch.core.pruning import SparsityConfig
+    from repro_torch.kernels.colwise_nm import TILED_BN
+    from repro_torch.models import registry as reg
+
+    cfg = get_config(ENCDEC_ARCH).with_(sparsity=SparsityConfig(
+        sparsity=0.5, m=None, tile=None, format="compressed_pallas"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = reg.init_params(cfg, SEED, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    got = linear_launches(params, 0)
+    check(got == {"colwise_nm_matmul_tiled": ENCDEC_PASS},
+          f"{cfg.name}: sparse linears a pass {got}, want {ENCDEC_PASS} #1b")
+    widths = sorted({int(t.shape[-1]) for path, t in leaves_with_path(params)
+                     if path[-1] == "values"})
+    check(all(w % TILED_BN == 0 for w in widths), f"T = d_out {widths}")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    print(f"  {cfg.name}: {cfg.encoder_layers} encoder + {cfg.n_layers} "
+          f"decoder layers (published), d_model {cfg.d_model}, heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size} (padded {cfg.padded_vocab}, tied), {cfg.norm}, "
+          f"{cfg.mlp_act}, sinusoidal positions, f32; sparsity 0.5, T = d_out "
+          f"{widths}; {ENCDEC_PASS} #1b a prefill or scored pass, "
+          f"{ENCDEC_STEP} a decode step; {n_params} stored values and "
+          f"indices from seed {SEED}, built in {init_s:.1f} s", flush=True)
+    return cfg, params, init_s
+
+
+def family_generate(cfg, prompts, engine, per_prefill, per_decode,
+                    extras=None) -> dict:
+    """``engine.generate`` on ``prompts`` (and ``extras``), greedy: exact
+    #1b launches (``per_prefill`` + ``per_decode`` a decode step, nothing
+    else), every linear launch held against its plain version on its own
+    input (``LinearCheck``), a teacher-forced replay of every step through
+    the plain versions held to REPLAY_RTOL with the tokens equal to the
+    replay's or a near-tie, and the run again with the recorder off for
+    the host times.  Returns the numbers, the tokens and the recorder."""
+    from repro_torch.kernels import KERNELS, reset_launch_counts
+
+    label = f"{cfg.name} generate"
+    new = engine.scfg.max_new_tokens
+    rec = StepRecorder(engine, static=True)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with LinearCheck() as lin:
+        res = engine.generate(prompts, extras=extras)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k.name: k.launches for k in KERNELS if k.launches}
+    rec.restore()
+    n_dec = sum(n == "decode_step" for n, *_ in rec.steps)
+    check(n_dec == new - 1 and len(rec.steps) == new,
+          f"{label}: steps {[n for n, *_ in rec.steps]}")
+    want = {"colwise_nm_matmul_tiled": per_prefill + n_dec * per_decode}
+    check(counts == want, f"{label} launches {counts}, want {want}")
+    toks = res["tokens"]
+    check(toks.shape == (len(prompts), new)
+          and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          f"{label} tokens {toks.shape}")
+    check(lin.calls == sum(want.values()), f"{label}: {lin.calls} linear "
+          f"calls held, {sum(want.values())} launched")
+    print(f"  {label}: {len(prompts)} prompts of {prompts.shape[1]} tokens"
+          + (f" with {sorted(extras)}" if extras else "")
+          + f", 1 prefill + {n_dec} decode steps in {wall:.3f} s (each "
+          f"linear held as it ran); launches {counts} (want {want}: "
+          f"{per_prefill} a prefill, {per_decode} a decode step); every one "
+          f"of the {lin.calls} linear launches within {lin.worst:.3e} <= "
+          f"{F32_RTOL} of max|y| of the plain version on its own input",
+          flush=True)
+    plain = recurrent_replay(rec.orig, rec.steps, cfg, label, toks, True)
+    worst = max(plain["errs"])
+    print(f"  {label} replay of all {len(rec.steps)} steps through the "
+          f"plain versions: max rel err of the logits {worst:.3e} <= "
+          f"{REPLAY_RTOL} of max|logit|, tokens equal (near-ties "
+          f"{plain['ties']})", flush=True)
+    quiet = engine.generate(prompts, extras=extras)
+    check(np.array_equal(quiet["tokens"], toks),
+          f"{label}: the recorder-off run's tokens differ")
+    host_ms = quiet["decode_s"] / (new - 1) * 1e3
+    print(f"  {label} with the recorder off: tokens equal again, prefill "
+          f"{quiet['prefill_s'] * 1e3:.3f} ms, host {host_ms:.3f} ms a decode "
+          "step (sampling included)", flush=True)
+    return {"launches": counts, "host_s": wall, "linear_calls": lin.calls,
+            "linear_max_rel_err": lin.worst, "replay_max_rel_err": worst,
+            "near_ties": plain["ties"], "prefill_ms": quiet["prefill_s"] * 1e3,
+            "decode_host_ms": host_ms, "tokens": toks, "rec": rec}
+
+
+def encdec_decode_step(dev, cfg, params, host_ms) -> dict:
+    """One whisper-small decode step of ZOO_REQUESTS sequences at position
+    ENCDEC_PROMPT against the cross K/V of ``cfg.encoder_seq`` frames:
+    device ms by graph replay and the idle share against ``host_ms``
+    (generate's decode step)."""
+    from repro_torch import dispatch
+    from repro_torch.models import registry as reg
+
+    cache = reg.cache_init_fn(cfg, ZOO_REQUESTS, ENCDEC_PROMPT + ENCDEC_NEW,
+                              dev)()
+    tok = torch.ones((ZOO_REQUESTS, 1), dtype=torch.int32, device=dev)
+    pos = torch.tensor(ENCDEC_PROMPT, dtype=torch.int32, device=dev)
+    step = reg.decode_fn(cfg)
+    with dispatch.phase_scope("decode"):
+        step_ms = time_ms(lambda: step(params, cache, tok, pos), iters=2)
+    idle = max(0.0, 1 - step_ms / host_ms)
+    print(f"  {cfg.name} decode step: host {host_ms:.3f} ms (generate, "
+          f"recorder off), device {step_ms:.4f} ms (graph replay), idle share "
+          f"{idle:.3f}", flush=True)
+    return {"decode_device_ms": step_ms, "decode_host_ms": host_ms,
+            "idle": idle}
+
+
+@contextmanager
+def flash_causal_tally():
+    """Counts the model's flash calls by their ``causal`` flag while
+    entered."""
+    from repro_torch.kernels import flash_attn
+
+    orig = flash_attn.flash_attention
+    tally = {True: 0, False: 0}
+
+    def counted(q, k, v, *, causal=True, **kw):
+        tally[causal] += 1
+        return orig(q, k, v, causal=causal, **kw)
+
+    flash_attn.flash_attention = counted
+    try:
+        yield tally
+    finally:
+        flash_attn.flash_attention = orig
+
+
+def encdec_frames(cfg, b, seed, dev) -> torch.Tensor:
+    """``b`` sequences of ``cfg.encoder_seq`` stub frame embeddings from
+    ``seed``, on ``dev``."""
+    return torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (b, cfg.encoder_seq, cfg.d_model), dtype=np.float32)).to(dev)
+
+
+def run_encdec(dev) -> dict:
+    """whisper-small whole: generate, a decode step's times, the scoring
+    forward's flash flags and the scored pass."""
+    from repro_torch.models import registry as reg
+    from repro_torch.serve import Engine, ServeConfig
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    cfg, params, init_s = encdec_model(dev)
+    prompts = np.random.default_rng(SEED + 171).integers(
+        0, cfg.vocab_size, (ZOO_REQUESTS, ENCDEC_PROMPT)).astype(np.int32)
+    frames = encdec_frames(cfg, ZOO_REQUESTS, SEED + 172, dev)
+    engine = Engine(cfg, params, ServeConfig(max_new_tokens=ENCDEC_NEW))
+    gen = family_generate(cfg, prompts, engine, ENCDEC_PASS, ENCDEC_STEP,
+                          extras={"enc_embeds": frames})
+    del gen["rec"], engine
+    step = encdec_decode_step(dev, cfg, params, gen["decode_host_ms"])
+    extras = {"enc_embeds": encdec_frames(cfg, ZOO_SCORE_BATCH, SEED + 173,
+                                          dev)}
+    scfg = cfg.with_(attn_impl="pallas")
+    tokens = torch.zeros((ZOO_SCORE_BATCH, ENCDEC_SCORE_SEQ),
+                         dtype=torch.int32, device=dev)
+    with torch.no_grad(), flash_causal_tally() as tally:
+        reg.forward_fn(scfg)(params, dict(extras, tokens=tokens))
+    want_flags = {False: cfg.encoder_layers, True: cfg.n_layers}
+    check(tally == want_flags, f"{cfg.name} scoring flash calls by causal "
+          f"flag {tally}, want {want_flags}")
+    print(f"  {cfg.name} scoring forward: flash calls by causal flag {tally} "
+          "(the encoder's non-causal, the decoder's causal; cross-attention "
+          "plain SDPA)", flush=True)
+    scored = zoo_score(dev, cfg, params, None, seq=ENCDEC_SCORE_SEQ,
+                       extras=extras, want={
+                           "colwise_nm_matmul_tiled": 2 * ENCDEC_PASS,
+                           "flash_attention_tiled":
+                               2 * (cfg.encoder_layers + cfg.n_layers)})
+    peak = torch.cuda.max_memory_allocated()
+    del params
+    torch.cuda.empty_cache()
+    print(f"  {cfg.name}: init {init_s:.1f} s, peak device memory {peak} "
+          f"bytes (torch.cuda.max_memory_allocated; {held} held before its "
+          "init)", flush=True)
+    gen["tokens"] = gen["tokens"].tolist()
+    return {"layers": [cfg.encoder_layers, cfg.n_layers], "init_s": init_s,
+            "peak_bytes": peak, "held_bytes": held, "generate": gen,
+            "decode_step": step, "score": scored,
+            "flash_by_causal": {str(k): n for k, n in tally.items()}}
+
+
+def vlm_extras(cfg, dev) -> dict:
+    """ZOO_SCORE_BATCH x ZOO_SCORE_SEQ tokens' vision inputs: one image of
+    VLM_GRID patches after 1 + row text tokens in batch row ``row``, its
+    embeddings from the seed, and Qwen2-VL's 3-D positions (the image's
+    patches share a temporal index and take their row and column; the text
+    after it continues from the largest of the three plus one)."""
+    b, s = ZOO_SCORE_BATCH, ZOO_SCORE_SEQ
+    gh, gw = VLM_GRID
+    n = gh * gw
+    check(n == cfg.vision_patches, f"{VLM_GRID} is not {cfg.vision_patches} "
+          "patches")
+    pos = np.zeros((b, 3, s), np.int32)
+    vpos = np.zeros((b, n), np.int32)
+    ii, jj = np.divmod(np.arange(n), gw)
+    for r in range(b):
+        off = 1 + r
+        pos[r, :, :off] = np.arange(off)
+        pos[r, 0, off:off + n] = off
+        pos[r, 1, off:off + n] = off + ii
+        pos[r, 2, off:off + n] = off + jj
+        nxt = pos[r, :, :off + n].max() + 1
+        pos[r, :, off + n:] = nxt + np.arange(s - off - n)
+        vpos[r] = off + np.arange(n)
+    ve = np.random.default_rng(SEED + 174).standard_normal(
+        (b, n, cfg.d_model), dtype=np.float32)
+    return {k: torch.from_numpy(a).to(dev) for k, a in (
+        ("mrope_positions", pos), ("vision_embeds", ve), ("vision_pos", vpos))}
+
+
+def run_vlm(dev) -> dict:
+    """qwen2-vl-72b at its published widths, VLM_LAYERS deep: the paged
+    scheduler and generate on the same prompts (tokens equal, or a
+    near-tie), and the scored pass with vision inputs."""
+    from repro_torch.serve import Engine, ServeConfig
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    cfg, params, linears, init_s = zoo_model(dev, VLM_ARCH, VLM_LAYERS)
+    check(cfg.mrope and cfg.mrope_sections == (16, 24, 24) and len(linears) == 7,
+          f"{cfg.name}: M-RoPE {cfg.mrope_sections}, linears {linears}")
+    served = zoo_serve(dev, cfg, params, linears, keep=True)
+    per = len(linears) * cfg.n_layers
+    engine = Engine(cfg, params, ServeConfig(max_new_tokens=ZOO_NEW))
+    gen = family_generate(cfg, zoo_prompts(cfg, SEED + 14), engine, per, per)
+    del engine
+    ties = hold_tokens({"tokens": gen.pop("tokens"), "rec": gen.pop("rec")},
+                       {"paged": (served.pop("comps"), served.pop("rec"))},
+                       cfg)
+    print(f"  {cfg.name}: the paged run's tokens equal generate's "
+          f"(near-ties {ties})", flush=True)
+    scored = zoo_score(dev, cfg, params, linears, extras=vlm_extras(cfg, dev))
+    peak = torch.cuda.max_memory_allocated()
+    del params
+    torch.cuda.empty_cache()
+    print(f"  {cfg.name}: init {init_s:.1f} s, peak device memory {peak} "
+          f"bytes (torch.cuda.max_memory_allocated; {held} held before its "
+          "init)", flush=True)
+    return {"layers": cfg.n_layers, "init_s": init_s, "peak_bytes": peak,
+            "held_bytes": held, "serve": served, "generate": gen,
+            "near_ties": [list(t) for t in ties], "score": scored}
+
+
+def run_encdec_vlm(dev) -> dict:
+    """Phase 17.  Returns each kernel's launches."""
+    from repro_torch import dispatch
+
+    t0 = time.perf_counter()
+    noncausal = check_noncausal_flash(dev)
+    db_path = PROFILE_DB.with_suffix(".encdec.json")
+    db_path.unlink(missing_ok=True)
+    dispatch.set_db(dispatch.ProfileDB(path=db_path))
+    launches, rows = {}, {}
+    try:
+        rows[ENCDEC_ARCH] = run_encdec(dev)
+        rows[VLM_ARCH] = run_vlm(dev)
+    finally:
+        dispatch.set_db(None)
+        db_path.unlink(missing_ok=True)
+    for row in rows.values():
+        for part in ("serve", "generate", "score"):
+            for k, n in row.get(part, {"launches": {}})["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+    print(f"  phase 17 took {time.perf_counter() - t0:.1f} s", flush=True)
+    print("ENCDEC_VLM " + json.dumps({"noncausal_flash": noncausal,
+                                      "models": rows, "launches": launches}),
+          flush=True)
+    return {"launches": launches}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5034,7 +5416,13 @@ def main() -> int:
           "layers), served by generate and scored", flush=True)
     recurrent = run_recurrent(dev)
 
-    print("== 17. report", flush=True)
+    print("== 17. the encoder-decoder and VLM families: #7b non-causal at "
+          "whisper-small's encoder, pruned whisper-small whole and "
+          "qwen2-vl-72b at its published widths (2 layers), served and "
+          "scored", flush=True)
+    encdec_vlm = run_encdec_vlm(dev)
+
+    print("== 18. report", flush=True)
     launches = {
         "conv2d_fused": fused_route["conv2d_fused"],
         "conv2d_fused_tiled": counts["default"]["conv2d_fused_tiled"],
@@ -5064,7 +5452,8 @@ def main() -> int:
     for name, n in (list(chaos["launches"].items())
                     + list(zoo["launches"].items())
                     + list(moe["launches"].items())
-                    + list(recurrent["launches"].items())):
+                    + list(recurrent["launches"].items())
+                    + list(encdec_vlm["launches"].items())):
         launches[name] += n
     print(f"  the linear phase (5) launched {linear_launches}; the served runs "
           f"(phases 7 and 12) colwise_nm_matmul_tiled "
@@ -5093,7 +5482,12 @@ def main() -> int:
                                       "served paged, generate, scored) and "
                                       "phase 16's recurrent models (111 "
                                       "(xlstm-350m) and 31 (zamba2-7b) per "
-                                      "token step: generate, scored)",
+                                      "token step: generate, scored) and "
+                                      "phase 17's whisper-small (192 a "
+                                      "prefill or scored pass, 96 a decode "
+                                      "step: generate, scored) and "
+                                      "qwen2-vl-72b (14 a step: served "
+                                      "paged, generate, scored)",
            "paged_attention": "ms etc.: B 4, Sq 1, f32, H 15, KV 5, D 64, "
                               "page size 16 (the decode step's shape), "
                               "called directly (the split kernel's "
@@ -5105,8 +5499,8 @@ def main() -> int:
                                     "shape); launches: the served "
                                     "smollm-360m runs of phases 7 and 12's "
                                     "and 13's grow schedulers and phases "
-                                    "14's and 15's served models (1 per "
-                                    "layer per paged decode step)",
+                                    "14's, 15's and 17's served models (1 "
+                                    "per layer per paged decode step)",
            "flash_attention": "ms etc.: B 4, S 2048, H 15, KV 5, D 64, "
                               "causal, f32 (the scoring forward's shape, "
                               "where it is the tiled kernel's bitwise "
@@ -5118,9 +5512,13 @@ def main() -> int:
                                     "shape); launches: the scored "
                                     "smollm-360m run, phases 14's and 15's "
                                     "scored models (1 per layer per "
-                                    "forward) and phase 16's scored "
+                                    "forward), phase 16's scored "
                                     "zamba2-7b (1 per shared-block "
-                                    "application, D 112)",
+                                    "application, D 112) and phase 17's "
+                                    "scored whisper-small (12 non-causal "
+                                    "encoder and 12 causal decoder "
+                                    "launches a forward, S 1500 and 448) "
+                                    "and qwen2-vl-72b (D 128)",
            "colwise_nm_matmul_strips": "ms etc.: sum over the 5 pruned convs "
                                        "of one batch-256 forward, called "
                                        "directly (the tiled kernel's bitwise "

@@ -17,6 +17,8 @@ _MODULES = {
     "moonshot-v1-16b-a3b": "repro_torch.configs.moonshot_v1_16b_a3b",
     "xlstm-350m": "repro_torch.configs.xlstm_350m",
     "zamba2-7b": "repro_torch.configs.zamba2_7b",
+    "qwen2-vl-72b": "repro_torch.configs.qwen2_vl_72b",
+    "whisper-small": "repro_torch.configs.whisper_small",
 }
 
 _VISION_MODULES = {
@@ -48,9 +50,11 @@ def get_vision_config(name: str) -> VisionConfig:
 def smoke_config(name: str) -> ModelConfig:
     """Reduced same-family config for CPU tests: small widths, few layers, a
     tiny vocab that is not a multiple of 128 (so the padding is exercised);
-    the JAX package's ``smoke_config`` with its MoE override (4 experts,
-    top 2) and its two recurrent ones (xLSTM: 4 layers, an sLSTM every 2nd;
-    Zamba2: 5 layers, the shared block after every 2nd, so a tail of 1)."""
+    the JAX package's ``smoke_config`` with its M-RoPE override (sections
+    (2, 3, 3), 4 vision patches), its MoE one (4 experts, top 2), its two
+    recurrent ones (xLSTM: 4 layers, an sLSTM every 2nd; Zamba2: 5 layers,
+    the shared block after every 2nd, so a tail of 1) and its
+    encoder-decoder one (2 encoder layers over 24 frames)."""
     cfg = get_config(name)
     kv = max(1, min(cfg.n_kv_heads, 2))
     over = dict(
@@ -65,6 +69,9 @@ def smoke_config(name: str) -> ModelConfig:
         dtype="float32",
         param_dtype="float32",
     )
+    if cfg.mrope:
+        over["mrope_sections"] = (2, 3, 3)  # sums to head_dim/2 = 8
+        over["vision_patches"] = 4
     if cfg.is_moe:
         over.update(n_experts=4, top_k=2)
     if cfg.block_pattern == "xlstm":
@@ -73,4 +80,6 @@ def smoke_config(name: str) -> ModelConfig:
     if cfg.block_pattern == "mamba_shared_attn":
         over.update(n_layers=5, shared_attn_every=2, ssm_head_dim=16,
                     ssm_state=8, ssm_chunk=8, n_heads=4, n_kv_heads=kv)
+    if cfg.is_encoder_decoder:
+        over.update(encoder_layers=2, encoder_seq=24)
     return cfg.with_(**over)

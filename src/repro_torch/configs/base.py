@@ -1,5 +1,5 @@
 """Architecture configs (twin of ``repro/configs/base.py``): ``ModelConfig``
-with the fields the decoder-only families read, and ``VisionConfig``."""
+with the fields the LM families read, and ``VisionConfig``."""
 from __future__ import annotations
 
 import dataclasses
@@ -14,14 +14,14 @@ def pad_to_multiple(x: int, m: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """A decoder-only LM: the JAX ``ModelConfig``'s fields that its dense,
-    MoE and recurrent (xLSTM, Zamba2) families read, with the same
-    defaults.  The encoder-decoder, VLM and sharding fields wait for the
-    slices that port them; ``mrope`` is carried so the model can refuse it
-    by name."""
+    """An LM: the JAX ``ModelConfig``'s fields that its dense, MoE, VLM
+    (M-RoPE and vision embeddings), recurrent (xLSTM, Zamba2) and
+    encoder-decoder (Whisper) families read, with the same defaults.  The
+    sharding fields (``moe_impl``) and the JAX-only ``remat`` knobs are
+    left out."""
 
     name: str = "model"
-    family: str = "dense"
+    family: str = "dense"                  # dense | moe | ssm | vlm | audio | hybrid
     n_layers: int = 2
     d_model: int = 128
     n_heads: int = 2
@@ -32,9 +32,10 @@ class ModelConfig:
     qkv_bias: bool = False
     attn_impl: str = "naive"               # naive | chunked | pallas (flash kernel)
     attn_chunk: int = 512
-    use_rope: bool = True
+    use_rope: bool = True                  # whisper uses absolute sinusoidal positions
     rope_theta: float = 1e4
-    mrope: bool = False                    # Qwen2-VL M-RoPE: not ported yet
+    mrope: bool = False                    # Qwen2-VL M-RoPE
+    mrope_sections: Tuple[int, ...] = (16, 24, 24)
     mlp_act: str = "swiglu"                # swiglu | sq_relu | gelu
     norm: str = "rmsnorm"                  # rmsnorm | layernorm
     tie_embeddings: bool = False
@@ -51,6 +52,12 @@ class ModelConfig:
     ssm_chunk: int = 128
     slstm_every: int = 8                   # xlstm: every k-th block is sLSTM
     shared_attn_every: int = 6             # zamba2: shared attn after every k mamba blocks
+    # --- encoder-decoder (whisper) ---
+    is_encoder_decoder: bool = False
+    encoder_layers: int = 0
+    encoder_seq: int = 1500                # frames after the (stubbed) conv frontend
+    # --- VLM stub ---
+    vision_patches: int = 256              # patch embeddings the caller supplies
     sparsity: SparsityConfig = DENSE       # the paper's technique
     dtype: str = "float32"                 # activation/compute dtype
     param_dtype: str = "float32"

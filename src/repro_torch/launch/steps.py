@@ -30,30 +30,33 @@ def check_trainable(cfg: ModelConfig) -> None:
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, microbatches: int = 1):
     """(params, opt_state, batch) -> (params, opt_state, metrics).
 
-    Gradient accumulation over ``microbatches`` along the batch dim, in
-    float32 (a loop where JAX scans): it cuts activation memory for the big
-    train cells.  The step is functional: it returns new trees and leaves
-    its inputs as they were.
+    The loss sees the whole batch (``"tokens"`` and whatever else the
+    family reads: ``"enc_embeds"``, ``"vision_embeds"``, ``"vision_pos"``,
+    ``"mrope_positions"``).  Gradient accumulation over ``microbatches``
+    splits every leaf along the batch dim and sums in float32 (a loop where
+    JAX scans): it cuts activation memory for the big train cells.  The
+    step is functional: it returns new trees and leaves its inputs as they
+    were.
     """
     check_trainable(cfg)
     lfn = reg.loss_fn(cfg)
 
     def step(params, opt_state, batch):
-        tokens = torch.as_tensor(batch["tokens"])
+        batch = {k: torch.as_tensor(v) for k, v in batch.items()}
         if microbatches == 1:
             (loss, metrics), grads = value_and_grad(
-                lambda p: lfn(p, {"tokens": tokens}), params)
+                lambda p: lfn(p, batch), params)
         else:
-            b = tokens.shape[0]
-            mb = tokens.reshape(microbatches, b // microbatches,
-                                *tokens.shape[1:])
+            mb = {k: v.reshape(microbatches, v.shape[0] // microbatches,
+                               *v.shape[1:]) for k, v in batch.items()}
             grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                                    device=p.device)
                              if p.is_floating_point() else None, params)
             loss = 0.0
-            for chunk in mb:
+            for i in range(microbatches):
+                chunk = {k: v[i] for k, v in mb.items()}
                 (l, _m), g = value_and_grad(
-                    lambda p: lfn(p, {"tokens": chunk}), params)
+                    lambda p: lfn(p, chunk), params)
                 grads = tree_map(lambda a, g2: a + g2.to(a.dtype), grads, g)
                 loss = loss + l
             grads = tree_map(lambda g: g / microbatches, grads)

@@ -1,11 +1,12 @@
-"""GQA attention (twin of ``repro/models/attention.py``'s attention
-family): the QKV/O projections with RoPE; full self-attention for the
+"""GQA attention (twin of ``repro/models/attention.py``): the QKV/O
+projections with RoPE or Qwen2-VL's M-RoPE; full self-attention for the
 scoring forward (``attn_apply``: naive, chunked online-softmax, or the flash
 kernel under ``attn_impl="pallas"``); chunked prefill and one-token decode
 against a contiguous KV cache (plain PyTorch, as the JAX package leaves
 them to XLA); packed multi-prompt prefill over one padding-free token
-stream; and one-token decode against a paged KV cache through the
-paged-attention kernel.
+stream; one-token decode against a paged KV cache through the
+paged-attention kernel; and Whisper's cross-attention over K/V made once
+from the encoder output.
 
 GQA runs grouped (q reshaped [B, S, KV, G, D]) so the KV tensors are never
 expanded to H heads; only H % KV != 0 takes the head-mapped expansion.
@@ -19,7 +20,7 @@ so nothing else holds the old value.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -27,7 +28,7 @@ import torch.nn.functional as F
 from repro_torch._compat import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.sparse_linear import linear_apply, linear_init
-from repro_torch.models.common import apply_rope, rope_cos_sin
+from repro_torch.models.common import apply_rope, mrope_cos_sin, rope_cos_sin
 
 NEG = -1e30
 
@@ -55,7 +56,11 @@ def attn_init(generator: torch.Generator, cfg: ModelConfig, device=None):
     return p
 
 
-def _qkv(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
+def _qkv(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
+         mrope_positions: Optional[torch.Tensor] = None):
+    """q [B, S, H, D], k/v [B, S, KV, D] of x [B, S, d], rotated by 1-D RoPE
+    at ``positions`` [B, S], or by M-RoPE at ``mrope_positions`` [B, 3, S]
+    where the config has M-RoPE and the caller passes them."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     h, kv = cfg.padded_heads, cfg.n_kv_heads
@@ -63,7 +68,11 @@ def _qkv(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
     k = linear_apply(params["k"], x).reshape(b, s, kv, hd)
     v = linear_apply(params["v"], x).reshape(b, s, kv, hd)
     if cfg.use_rope:
-        cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
+        if cfg.mrope and mrope_positions is not None:
+            cos, sin = mrope_cos_sin(mrope_positions, hd, cfg.rope_theta,
+                                     cfg.mrope_sections)
+        else:
+            cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
     return q, k, v
@@ -159,8 +168,10 @@ def sdpa_gqa_chunked(q, k, v, *, causal: bool, q_offset=0, kv_len=None,
 
 
 def attn_apply(params, cfg: ModelConfig, x: torch.Tensor, *,
-               positions: torch.Tensor, causal: bool = True) -> torch.Tensor:
-    """Full self-attention over x [B, S, d] (the scoring forward).
+               positions: torch.Tensor, causal: bool = True,
+               mrope_positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full self-attention over x [B, S, d] (the scoring forward, and
+    Whisper's non-causal encoder).
 
     ``cfg.attn_impl`` picks the attention as the JAX package does: "pallas"
     runs the flash kernel (its plain version for a CPU tensor), "chunked"
@@ -168,7 +179,7 @@ def attn_apply(params, cfg: ModelConfig, x: torch.Tensor, *,
     and anything else :func:`sdpa_gqa`.  Returns [B, S, d].
     """
     b, s, _ = x.shape
-    q, k, v = _qkv(params, cfg, x, positions)
+    q, k, v = _qkv(params, cfg, x, positions, mrope_positions)
     if cfg.attn_impl == "pallas":
         from repro_torch.kernels.flash_attn import flash_attention
 
@@ -178,6 +189,34 @@ def attn_apply(params, cfg: ModelConfig, x: torch.Tensor, *,
     else:
         o = sdpa_gqa(q, k, v, causal=causal)
     return linear_apply(params["o"], o.reshape(b, s, -1))
+
+
+# ---------------------------------------------------------------------------
+# Cross attention (the Whisper decoder)
+# ---------------------------------------------------------------------------
+
+
+def cross_attn_apply(params, cfg: ModelConfig, x: torch.Tensor,
+                     enc_kv) -> torch.Tensor:
+    """x [B, Sq, d] against enc_kv = (k, v) [B, S_enc, KV, D] made by
+    :func:`cross_kv` (no RoPE): plain non-causal :func:`sdpa_gqa` under
+    every ``attn_impl``, as in the JAX package.  Returns [B, Sq, d]."""
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = linear_apply(params["q"], x).reshape(b, s, cfg.padded_heads, hd)
+    k, v = enc_kv
+    o = sdpa_gqa(q, k, v, causal=False).reshape(b, s, -1)
+    return linear_apply(params["o"], o)
+
+
+def cross_kv(params, cfg: ModelConfig, enc_out: torch.Tensor):
+    """The cross-attention's (k, v) [B, S_enc, KV, D] of the encoder output
+    [B, S_enc, d]."""
+    b, s, _ = enc_out.shape
+    hd = cfg.resolved_head_dim
+    k = linear_apply(params["k"], enc_out).reshape(b, s, cfg.n_kv_heads, hd)
+    v = linear_apply(params["v"], enc_out).reshape(b, s, cfg.n_kv_heads, hd)
+    return k, v
 
 
 def _cached_attention(q, k_new, v_new, kc, vc, *, limit: torch.Tensor,
@@ -248,18 +287,20 @@ def _pos_vector(pos, b: int, device) -> torch.Tensor:
 
 
 def attn_decode(params, cfg: ModelConfig, x: torch.Tensor,
-                layer_cache: Tuple[torch.Tensor, torch.Tensor], *, pos):
+                layer_cache: Tuple[torch.Tensor, torch.Tensor], *, pos,
+                mrope_positions: Optional[torch.Tensor] = None):
     """One-token decode against a contiguous cache it only reads.
 
     x [B, 1, d]; layer_cache (k, v) [B, S_max, KV, D]; pos a scalar or a
-    per-sequence [B] vector (each slot at its own length).  Attention is
-    the softmax over (cache rows < pos) ++ the new token.  Returns (out,
-    (k_new [B, 1, KV, D], v_new)): the caller writes the new K/V with one
-    :func:`cache_write` after the layer loop.
+    per-sequence [B] vector (each slot at its own length); an M-RoPE
+    model's ``mrope_positions`` [B, 3, 1].  Attention is the softmax over
+    (cache rows < pos) ++ the new token.  Returns (out, (k_new [B, 1, KV,
+    D], v_new)): the caller writes the new K/V with one :func:`cache_write`
+    after the layer loop.
     """
     b = x.shape[0]
     pos_b = _pos_vector(pos, b, x.device)
-    q, k_new, v_new = _qkv(params, cfg, x, pos_b[:, None])
+    q, k_new, v_new = _qkv(params, cfg, x, pos_b[:, None], mrope_positions)
     kc, vc = layer_cache
     o = _cached_attention(q, k_new, v_new, kc, vc, limit=pos_b, causal=False)
     return linear_apply(params["o"], o.reshape(b, 1, -1)), (k_new, v_new)
@@ -267,20 +308,21 @@ def attn_decode(params, cfg: ModelConfig, x: torch.Tensor,
 
 def attn_prefill_chunk(params, cfg: ModelConfig, x: torch.Tensor,
                        layer_cache: Tuple[torch.Tensor, torch.Tensor], *,
-                       start):
+                       start, mrope_positions: Optional[torch.Tensor] = None):
     """Chunked prefill through one layer against a contiguous cache.
 
     x [B, C, d] holds the tokens at positions [start, start + C); the
-    cache's rows < start hold the sequence's earlier chunks.  Attention is
-    the softmax over (cache rows < start) ++ the chunk, causal within it.
-    Returns (out, (k_chunk [B, C, KV, D], v_chunk)); the caller writes them
-    with one :func:`cache_write` after the layer loop.
+    cache's rows < start hold the sequence's earlier chunks; an M-RoPE
+    model's ``mrope_positions`` are [B, 3, C].  Attention is the softmax
+    over (cache rows < start) ++ the chunk, causal within it.  Returns
+    (out, (k_chunk [B, C, KV, D], v_chunk)); the caller writes them with
+    one :func:`cache_write` after the layer loop.
     """
     b, c_len = x.shape[:2]
     start_b = _pos_vector(start, b, x.device)
     positions = start_b[:, None] + torch.arange(
         c_len, dtype=torch.int32, device=x.device)[None, :]
-    q, k_new, v_new = _qkv(params, cfg, x, positions)
+    q, k_new, v_new = _qkv(params, cfg, x, positions, mrope_positions)
     kc, vc = layer_cache
     o = _cached_attention(q, k_new, v_new, kc, vc, limit=start_b, causal=True)
     return linear_apply(params["o"], o.reshape(b, c_len, -1)), (k_new, v_new)

@@ -59,26 +59,30 @@ def ffn_apply(params, cfg: ModelConfig, x):
     return mlp_apply(params["mlp"], cfg, x), None
 
 
-def block_apply(params, cfg: ModelConfig, h, *, positions, causal=True):
-    """Full self-attention block over h [B, S, d] (the scoring forward).
-    Returns (h, aux): the layer's auxiliary loss, zero for an MLP block."""
+def block_apply(params, cfg: ModelConfig, h, *, positions,
+                mrope_positions=None, causal=True):
+    """Full self-attention block over h [B, S, d] (the scoring forward, and
+    Whisper's encoder with ``causal=False``).  Returns (h, aux): the layer's
+    auxiliary loss, zero for an MLP block."""
     x = norm_apply(params["ln1"], h, cfg.norm)
     h = h + attn.attn_apply(params["attn"], cfg, x, positions=positions,
-                            causal=causal)
+                            causal=causal, mrope_positions=mrope_positions)
     y, aux = ffn_apply(params, cfg, norm_apply(params["ln2"], h, cfg.norm))
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return h + y, aux
 
 
-def block_decode(params, cfg: ModelConfig, h, layer_cache, *, pos):
+def block_decode(params, cfg: ModelConfig, h, layer_cache, *, pos,
+                 mrope_positions=None):
     """One-token decode through a block against a contiguous cache.
 
     layer_cache (k, v) [B, S_max, KV, D]; pos a scalar or [B].  Returns
     (h, (k_new, v_new)); the caller writes the new K/V after the layer loop.
     """
     x = norm_apply(params["ln1"], h, cfg.norm)
-    a, new_kv = attn.attn_decode(params["attn"], cfg, x, layer_cache, pos=pos)
+    a, new_kv = attn.attn_decode(params["attn"], cfg, x, layer_cache, pos=pos,
+                                 mrope_positions=mrope_positions)
     h = h + a
     x = norm_apply(params["ln2"], h, cfg.norm)
     return h + ffn_apply(params, cfg, x)[0], new_kv
@@ -114,13 +118,15 @@ def shared_block_decode(params, cfg: ModelConfig, h, h0, layer_cache, *, pos):
     return h + out, new_kv
 
 
-def block_prefill_chunk(params, cfg: ModelConfig, h, layer_cache, *, start):
+def block_prefill_chunk(params, cfg: ModelConfig, h, layer_cache, *, start,
+                        mrope_positions=None):
     """Chunked prefill through a block: h [B, C, d] at positions [start,
     start + C) against a contiguous layer cache.  Returns (h, (k_chunk,
     v_chunk))."""
     x = norm_apply(params["ln1"], h, cfg.norm)
     a, kv_new = attn.attn_prefill_chunk(params["attn"], cfg, x, layer_cache,
-                                        start=start)
+                                        start=start,
+                                        mrope_positions=mrope_positions)
     h = h + a
     x = norm_apply(params["ln2"], h, cfg.norm)
     return h + ffn_apply(params, cfg, x)[0], kv_new

@@ -1,8 +1,11 @@
 """Shared LM components (twin of ``repro/models/common.py``): RMSNorm and
-LayerNorm, RoPE and the token embedding."""
+LayerNorm, RoPE and Qwen2-VL's M-RoPE, Whisper's sinusoidal positions and
+the token embedding."""
 from __future__ import annotations
 
 import functools
+import math
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -53,6 +56,51 @@ def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float):
     ang = positions.float()[..., None] * _freqs_on(head_dim, theta,
                                                    positions.device)
     return torch.cos(ang), torch.sin(ang)
+
+
+@functools.lru_cache(maxsize=None)
+def _section_ids(sections: Tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """The position component [D/2] each frequency slot reads, on
+    ``device``."""
+    return torch.from_numpy(np.repeat(np.arange(len(sections)), sections)).to(
+        device)
+
+
+def mrope_cos_sin(positions_3: torch.Tensor, head_dim: int, theta: float,
+                  sections: Tuple[int, ...]):
+    """Qwen2-VL multimodal RoPE.  positions_3 [B, 3, S] (temporal, h, w) ->
+    cos/sin [B, S, head_dim//2] (float32).
+
+    The head_dim/2 frequency slots are split into ``sections`` (summing to
+    head_dim/2), and each slot takes its angle from its section's position
+    component.  The JAX package picks the component by a one-hot einsum; a
+    gather by section id gives the same bits for finite angles.  Text
+    tokens carry three equal components, which is 1-D RoPE exactly.
+    """
+    if sum(sections) != head_dim // 2:
+        raise ValueError(f"mrope sections {sections} must sum to head_dim/2 "
+                         f"= {head_dim // 2}")
+    pos = positions_3[:, _section_ids(tuple(sections), positions_3.device)]
+    pos = pos.transpose(1, 2)  # [B, S, D/2]
+    ang = pos.float() * _freqs_on(head_dim, theta, positions_3.device)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def sinusoidal_positions(n: int, d: int) -> np.ndarray:
+    """Whisper-style fixed sinusoidal embeddings [n, d] (numpy float32,
+    computed in float64 as the JAX package computes them)."""
+    pos = np.arange(n)[:, None]
+    dim = np.arange(d // 2)[None, :]
+    inv = np.exp(-math.log(10000.0) * dim / max(d // 2 - 1, 1))
+    ang = pos * inv
+    return np.concatenate([np.sin(ang), np.cos(ang)], axis=1).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=8)
+def sinusoidal_on(n: int, d: int, device: torch.device) -> torch.Tensor:
+    """:func:`sinusoidal_positions` copied to ``device`` once per (n, d), so
+    a decode step copies nothing from the host."""
+    return torch.from_numpy(sinusoidal_positions(n, d)).to(device)
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor,

@@ -1,8 +1,10 @@
 """The decoder-only LMs (twin of ``repro/models/lm.py``), one init/apply
 pair for every block pattern:
 
-  - ``"attn"``: dense or mixture-of-experts transformers, a loop over the
-    stacked blocks;
+  - ``"attn"``: dense, mixture-of-experts and VLM transformers, a loop over
+    the stacked blocks (a VLM scatters the caller's vision embeddings over
+    the token embeddings and rotates by M-RoPE where the batch carries its
+    3-D positions);
   - ``"xlstm"``: superblocks of ``slstm_every - 1`` mLSTM blocks followed
     by one sLSTM block;
   - ``"mamba_shared_attn"`` (Zamba2): superblocks of ``shared_attn_every``
@@ -15,7 +17,11 @@ Init; the scoring forward (``lm_forward``) and its next-token loss
 (``loss_fn``); and the serving steps: prefill and one decode step against
 a contiguous cache (every pattern), and, for the attention pattern only as
 in the JAX package, chunked prefill, packed prefill and one decode step
-against a paged cache.
+against a paged cache.  The serving steps of an M-RoPE model rotate text
+positions: its three components equal the 1-D position (the contiguous
+steps, as in the JAX package) or are not passed at all (the paged ones,
+which run 1-D RoPE: the same bits).  The encoder-decoder family lives in
+``encdec.py``.
 
 No step moves a tensor to the host: the caller reads only the logits it
 samples from.
@@ -52,13 +58,9 @@ PATTERNS = ("attn", "xlstm", "mamba_shared_attn")
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    """Refuse what the port does not have yet, M-RoPE (ROADMAP queue 1
-    item 10), and a block pattern no family has."""
+    """Refuse a block pattern no family has."""
     if cfg.block_pattern not in PATTERNS:
         raise ValueError(f"unknown block_pattern {cfg.block_pattern!r}")
-    if cfg.mrope:
-        raise NotImplementedError(
-            f"{cfg.name}: M-RoPE waits for ROADMAP queue 1 item 10")
 
 
 def _n_super(cfg: ModelConfig):
@@ -126,8 +128,22 @@ def lm_init(cfg: ModelConfig, seed: int, device=None) -> Dict[str, Any]:
     return p
 
 
-def _embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+def _embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     return embed_lookup(params["embed"], tokens).to(getattr(torch, cfg.dtype))
+
+
+def _embed_tokens(params, cfg: ModelConfig, batch) -> torch.Tensor:
+    """The batch's token embeddings [B, S, d]; a VLM's batch may carry
+    ``vision_embeds`` [B, P, d], written (in the activation dtype, not
+    added) over the embeddings at ``vision_pos`` [B, P]."""
+    h = _embed(params, cfg, batch["tokens"])
+    if cfg.family == "vlm" and "vision_embeds" in batch:
+        dev = h.device
+        ve = torch.as_tensor(batch["vision_embeds"], device=dev).to(h.dtype)
+        cols = torch.as_tensor(batch["vision_pos"], device=dev).long()
+        rows = torch.arange(h.shape[0], device=dev)[:, None].expand_as(cols)
+        h = h.index_put((rows, cols), ve)
+    return h
 
 
 def _unembed(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
@@ -144,19 +160,26 @@ def lm_forward(params, cfg: ModelConfig, batch) -> Tuple[torch.Tensor, torch.Ten
     array, moved to the params' device) -> (logits [B, S, padded_vocab],
     aux), with causal full self-attention in every attention block as
     ``cfg.attn_impl`` picks it.  aux is the mean of the blocks' auxiliary
-    losses (zero for a dense or recurrent model)."""
+    losses (zero for a dense or recurrent model).  An M-RoPE model reads
+    ``batch["mrope_positions"]`` [B, 3, S] where the batch has them (else
+    1-D RoPE), and a VLM its vision embeddings (:func:`_embed_tokens`)."""
     _check_supported(cfg)
-    tokens = torch.as_tensor(batch["tokens"], device=params["embed"].device)
-    h = _embed_tokens(params, cfg, tokens)
+    dev = params["embed"].device
+    tokens = torch.as_tensor(batch["tokens"], device=dev)
+    h = _embed_tokens(params, cfg, dict(batch, tokens=tokens))
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
+    mrope_positions = batch.get("mrope_positions") if cfg.mrope else None
+    if mrope_positions is not None:
+        mrope_positions = torch.as_tensor(mrope_positions, device=dev)
     pat = cfg.block_pattern
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if pat == "attn":
         auxs = []
         for l in range(cfg.n_layers):
             h, a = block_apply(layer_params(params["layers"], l), cfg, h,
-                               positions=positions)
+                               positions=positions,
+                               mrope_positions=mrope_positions)
             auxs.append(a)
         aux = torch.stack(auxs).mean()
     elif pat == "xlstm":
@@ -183,21 +206,26 @@ def lm_forward(params, cfg: ModelConfig, batch) -> Tuple[torch.Tensor, torch.Ten
     return _unembed(params, cfg, h), aux
 
 
-def loss_fn(params, cfg: ModelConfig, batch, aux_weight: float = 0.01):
-    """Next-token cross-entropy of the scoring forward.  The padded vocab
-    ids can never be labels, so their logits are set to -1e30 in f32
-    before the logsumexp.  Returns (nll + aux_weight * aux, {"nll",
-    "aux"})."""
-    logits, aux = lm_forward(params, cfg, batch)
+def next_token_nll(cfg: ModelConfig, logits: torch.Tensor, tokens) -> torch.Tensor:
+    """Mean next-token cross-entropy of logits [B, S, padded_vocab] against
+    ``tokens`` [B, S].  The padded vocab ids can never be labels, so their
+    logits are set to -1e30 in f32 before the logsumexp."""
     logits = logits[:, :-1].float()
-    tokens = torch.as_tensor(batch["tokens"], device=logits.device)
-    labels = tokens[:, 1:].long()
+    labels = torch.as_tensor(tokens, device=logits.device)[:, 1:].long()
     if cfg.padded_vocab != cfg.vocab_size:
         pad = torch.arange(cfg.padded_vocab, device=logits.device) >= cfg.vocab_size
         logits = logits.masked_fill(pad, attn_mod.NEG)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None])[..., 0]
-    nll = (logz - gold).mean()
+    return (logz - gold).mean()
+
+
+def loss_fn(params, cfg: ModelConfig, batch, aux_weight: float = 0.01):
+    """Next-token cross-entropy of the scoring forward
+    (:func:`next_token_nll`).  Returns (nll + aux_weight * aux, {"nll",
+    "aux"})."""
+    logits, aux = lm_forward(params, cfg, batch)
+    nll = next_token_nll(cfg, logits, batch["tokens"])
     return nll + aux_weight * aux, {"nll": nll, "aux": aux}
 
 
@@ -303,23 +331,28 @@ def decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor, pos):
 
     tokens [B, 1]; pos a scalar (the current length) or a per-sequence [B]
     vector (slots at mixed lengths decode in one step); the recurrent
-    blocks read no position, the shared attention block does.  The
+    blocks read no position, the shared attention block does, and an
+    M-RoPE model rotates by three components equal to it.  The
     attention layers only read the cache, and one
     :func:`attention.cache_write` after the loop commits their new K/V in
     place; each recurrent block writes its new state into its slot in
     place.  Returns (logits [B, 1, V], cache).
     """
     _check_supported(cfg)
-    h = _embed_tokens(params, cfg, tokens)
-    pos_b = attn_mod._pos_vector(pos, tokens.shape[0], tokens.device)
+    h = _embed(params, cfg, tokens)
+    b = tokens.shape[0]
+    pos_b = attn_mod._pos_vector(pos, b, tokens.device)
     if cfg.block_pattern != "attn":
         h = _recurrent_decode(params, cfg, cache, h, pos_b)
         h = norm_apply(params["final_norm"], h, cfg.norm)
         return _unembed(params, cfg, h), cache
+    mrope_positions = (pos_b.reshape(b, 1, 1).expand(b, 3, 1) if cfg.mrope
+                       else None)
     k_news, v_news = [], []
     for l in range(cfg.n_layers):
         h, (kn, vn) = block_decode(layer_params(params["layers"], l), cfg, h,
-                                   (cache["k"][l], cache["v"][l]), pos=pos_b)
+                                   (cache["k"][l], cache["v"][l]), pos=pos_b,
+                                   mrope_positions=mrope_positions)
         k_news.append(kn)
         v_news.append(vn)
     attn_mod.cache_write(cache["k"], cache["v"], torch.stack(k_news),
@@ -338,20 +371,27 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor):
     A recurrent pattern returns (the last position's logits of
     :func:`lm_forward`, ``None``), as the JAX package does: its state cache
     is filled by running the prompt through :func:`decode_step`
-    (``Engine.prefill_step``).
+    (``Engine.prefill_step``).  An M-RoPE model rotates the prompt by
+    three components equal to ``arange(S)``, and a VLM reads no vision
+    input here, as in the JAX package.
     """
     _check_supported(cfg)
-    if cfg.block_pattern != "attn":
-        logits, _ = lm_forward(params, cfg, {"tokens": tokens})
-        return logits[:, -1:], None
     b, s = tokens.shape
-    h = _embed_tokens(params, cfg, tokens)
+    batch = {"tokens": tokens}
+    if cfg.mrope:
+        batch["mrope_positions"] = torch.arange(
+            s, device=tokens.device)[None, None, :].expand(b, 3, s)
+    if cfg.block_pattern != "attn":
+        logits, _ = lm_forward(params, cfg, batch)
+        return logits[:, -1:], None
+    h = _embed_tokens(params, cfg, batch)
     positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
     ks, vs = [], []
     for l in range(cfg.n_layers):
         lp = layer_params(params["layers"], l)
         x = norm_apply(lp["ln1"], h, cfg.norm)
-        q, k, v = attn_mod._qkv(lp["attn"], cfg, x, positions)
+        q, k, v = attn_mod._qkv(lp["attn"], cfg, x, positions,
+                                batch.get("mrope_positions"))
         if cfg.attn_impl == "chunked" and s > cfg.attn_chunk:
             o = attn_mod.sdpa_gqa_chunked(q, k, v, causal=True,
                                           chunk=cfg.attn_chunk)
@@ -373,17 +413,25 @@ def prefill_chunk(params, cfg: ModelConfig, cache, tokens: torch.Tensor,
     start hold the sequence's earlier chunks.  The cache may be a view of
     one slot's rows of a pool: the chunk's K/V are written through it in
     place.  Returns (logits [B, C, V], cache); ``with_logits=False`` skips
-    the final norm and unembedding and returns (None, cache).  Attention
-    families only: a recurrent state has no random-access rows to chunk
-    into.
+    the final norm and unembedding and returns (None, cache).  An M-RoPE
+    model rotates by three components equal to the 1-D positions.
+    Attention families only: a recurrent state has no random-access rows
+    to chunk into.
     """
     _check_attn(cfg, "prefill_chunk")
-    h = _embed_tokens(params, cfg, tokens)
+    b, c_len = tokens.shape
+    h = _embed(params, cfg, tokens)
+    mrope_positions = None
+    if cfg.mrope:
+        pos1 = attn_mod._pos_vector(start, b, tokens.device)[:, None] + \
+            torch.arange(c_len, dtype=torch.int32, device=tokens.device)
+        mrope_positions = pos1[:, None, :].expand(b, 3, c_len)
     k_news, v_news = [], []
     for l in range(cfg.n_layers):
         h, (kn, vn) = block_prefill_chunk(
             layer_params(params["layers"], l), cfg, h,
-            (cache["k"][l], cache["v"][l]), start=start)
+            (cache["k"][l], cache["v"][l]), start=start,
+            mrope_positions=mrope_positions)
         k_news.append(kn)
         v_news.append(vn)
     attn_mod.cache_write(cache["k"], cache["v"], torch.stack(k_news),
@@ -406,7 +454,7 @@ def paged_decode_step(params, cfg: ModelConfig, cache, tokens: torch.Tensor,
     only.
     """
     _check_attn(cfg, "paged_decode_step")
-    h = _embed_tokens(params, cfg, tokens)
+    h = _embed(params, cfg, tokens)
     b = tokens.shape[0]
     pos = pos.to(torch.int32)
     k_news, v_news = [], []
@@ -440,7 +488,7 @@ def prefill_packed(params, cfg: ModelConfig, cache, tokens: torch.Tensor,
     prompt's K/V written through its page table).  Attention families only.
     """
     _check_attn(cfg, "prefill_packed")
-    h = _embed_tokens(params, cfg, tokens[None, :])
+    h = _embed(params, cfg, tokens[None, :])
     k_news, v_news = [], []
     for l in range(cfg.n_layers):
         h, (kn, vn) = block_prefill_packed(

@@ -1,53 +1,74 @@
-"""Model facade (twin of ``repro/models/registry.py`` for the decoder-only
-families): params, the scoring forward and loss, and the serving step
-functions the engine calls, for the contiguous cache (every block pattern)
-and the paged one (attention families only, as in the JAX package)."""
+"""Model facade (twin of ``repro/models/registry.py``): params, the scoring
+forward and loss, and the serving step functions the engine calls, for the
+decoder-only families (``lm.py``) and the encoder-decoder one
+(``encdec.py``); the contiguous cache serves every family, the paged one
+the decoder-only attention families only, as in the JAX package."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import lm as lm_mod
 
 
 def init_params(cfg: ModelConfig, seed: int, device=None):
     """Random params from ``seed`` (the JAX package's tree layout)."""
+    if cfg.is_encoder_decoder:
+        return encdec_mod.encdec_init(cfg, seed, device)
     return lm_mod.lm_init(cfg, seed, device)
 
 
 def loss_fn(cfg: ModelConfig):
     """(params, batch) -> (loss, {"nll", "aux"}): next-token cross-entropy
-    of the scoring forward."""
+    of the scoring forward.  An encoder-decoder batch carries
+    ``"enc_embeds"`` beside ``"tokens"``."""
+    if cfg.is_encoder_decoder:
+        return lambda params, batch: encdec_mod.encdec_loss(params, cfg, batch)
     return lambda params, batch: lm_mod.loss_fn(params, cfg, batch)
 
 
 def forward_fn(cfg: ModelConfig):
     """(params, batch) -> logits [B, S, padded_vocab]."""
+    if cfg.is_encoder_decoder:
+        def f(params, batch):
+            enc = encdec_mod.encode(params, cfg, batch["enc_embeds"])
+            return encdec_mod.decode_forward(params, cfg, batch["tokens"], enc)
+        return f
     return lambda params, batch: lm_mod.lm_forward(params, cfg, batch)[0]
 
 
 def prefill_fn(cfg: ModelConfig):
     """(params, batch) -> (last-token logits [B, 1, V], cache of the
-    prompt's [L, B, S, KV, D] rows); a recurrent pattern's cache is
-    ``None`` (the engine runs the prompt through the decode step)."""
+    prompt's [L, B, S, KV, D] rows, and an encoder-decoder's cross K/V of
+    ``batch["enc_embeds"]``); a recurrent pattern's cache is ``None`` (the
+    engine runs the prompt through the decode step).  A decoder-only model
+    reads only ``batch["tokens"]``."""
+    if cfg.is_encoder_decoder:
+        return lambda params, batch: encdec_mod.encdec_prefill(
+            params, cfg, batch["enc_embeds"], batch["tokens"])
     return lambda params, batch: lm_mod.prefill(params, cfg, batch["tokens"])
 
 
 def decode_fn(cfg: ModelConfig):
-    """Decode step against the pattern's contiguous cache: tokens [B, 1],
-    pos a scalar or [B]."""
+    """Decode step against the family's contiguous cache: tokens [B, 1],
+    pos a scalar or [B] (an encoder-decoder: a scalar)."""
+    if cfg.is_encoder_decoder:
+        return lambda params, cache, tokens, pos: encdec_mod.encdec_decode_step(
+            params, cfg, cache, tokens, pos)
     return lambda params, cache, tokens, pos: lm_mod.decode_step(
         params, cfg, cache, tokens, pos)
 
 
 def _require_attn_family(cfg: ModelConfig, what: str) -> None:
-    """The JAX registry's refusal of a recurrent pattern where the step
-    needs slot-addressable KV rows."""
-    if cfg.block_pattern != "attn":
+    """The JAX registry's refusal of an encoder-decoder model or a
+    recurrent pattern where the step needs slot-addressable KV rows."""
+    if cfg.is_encoder_decoder or cfg.block_pattern != "attn":
         raise NotImplementedError(
             f"{what} requires a decoder-only attention family; "
-            f"{cfg.name} has block_pattern={cfg.block_pattern!r}")
+            f"{cfg.name} has block_pattern={cfg.block_pattern!r}"
+            + (" (encoder-decoder)" if cfg.is_encoder_decoder else ""))
 
 
 def prefill_chunk_fn(cfg: ModelConfig):
@@ -60,8 +81,11 @@ def prefill_chunk_fn(cfg: ModelConfig):
 
 
 def cache_init_fn(cfg: ModelConfig, batch: int, max_len: int, device=None):
-    """The pattern's contiguous decode cache (``lm.cache_init``) on
-    ``device``."""
+    """The family's contiguous decode cache on ``device``: ``lm.cache_init``,
+    or an encoder-decoder's with cross K/V of ``cfg.encoder_seq`` rows."""
+    if cfg.is_encoder_decoder:
+        return lambda: encdec_mod.encdec_cache_init(cfg, batch, max_len,
+                                                    cfg.encoder_seq, device)
     return lambda: lm_mod.cache_init(cfg, batch, max_len, device)
 
 

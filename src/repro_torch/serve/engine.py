@@ -60,7 +60,8 @@ class Engine:
         # None => a fresh config per engine (a shared default instance would
         # be mutable state common to every Engine)
         self.scfg = serve_cfg if serve_cfg is not None else ServeConfig()
-        self.device = params["embed"].device
+        self.device = params["dec_embed" if cfg.is_encoder_decoder
+                             else "embed"].device
         self.generator = torch.Generator(device=self.device)
         self.reseed()
         # Build-time dispatch: resolve (and optionally profile) every
@@ -109,9 +110,15 @@ class Engine:
     # Contiguous-cache steps (generate() and the contiguous Scheduler)
     # ------------------------------------------------------------------
 
-    def prefill_step(self, prompts, max_len: int):
+    def prefill_step(self, prompts, max_len: int,
+                     extras: Optional[Dict] = None):
         """Run prompts [B, S] through the model.  Returns (last-token
         logits [B, 1, V], decode-ready cache of ``max_len`` rows).
+
+        ``extras`` (arrays or tensors) join the prefill's batch beside the
+        tokens, as in the JAX engine: an encoder-decoder reads its
+        ``"enc_embeds"`` [B, S_enc, d] there; a decoder-only model's
+        prefill reads the tokens alone.
 
         A recurrent pattern has no KV rows to prefill: its state cache is
         built empty and the prompt runs through the decode step at
@@ -130,9 +137,11 @@ class Engine:
                     logits, cache = step(self.params, cache,
                                          tokens[:, t:t + 1], t)
             return logits, cache
+        batch = {"tokens": tokens}
+        for k, v in (extras or {}).items():
+            batch[k] = torch.as_tensor(v, device=self.device)
         with dispatch.phase_scope("prefill"):
-            logits, cache = reg.prefill_fn(self.cfg)(self.params,
-                                                     {"tokens": tokens})
+            logits, cache = reg.prefill_fn(self.cfg)(self.params, batch)
         return logits, self._grow_cache(cache, b, max_len, s)
 
     def prefill_chunk_step(self, cache, tokens, start: int,
@@ -157,12 +166,17 @@ class Engine:
 
     def _grow_cache(self, cache, b: int, max_len: int, cur_len: int):
         """The prompt's cache of ``cur_len`` rows in a cache of ``max_len``
-        (``None``, a recurrent pattern's prefill, stays ``None``)."""
+        (``None``, a recurrent pattern's prefill, stays ``None``).  An
+        encoder-decoder's cross K/V are carried over whole: the prefill
+        sized them by the encoder input, not by ``cfg.encoder_seq``."""
         if cache is None or cache["k"].shape[2] >= max_len:
             return cache
         full = reg.cache_init_fn(self.cfg, b, max_len, self.device)()
         for key in ("k", "v"):
             full[key][:, :, :cur_len] = cache[key]
+        for key in ("xk", "xv"):
+            if key in cache:
+                full[key] = cache[key]
         return full
 
     # ------------------------------------------------------------------
@@ -197,9 +211,11 @@ class Engine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def generate(self, prompts: np.ndarray) -> Dict:
-        """prompts [B, S_prompt] int32.  Returns the generated tokens
-        [B, n] and the timings.
+    def generate(self, prompts: np.ndarray,
+                 extras: Optional[Dict] = None) -> Dict:
+        """prompts [B, S_prompt] int32; ``extras`` join the prefill's batch
+        (:meth:`prefill_step`).  Returns the generated tokens [B, n] and the
+        timings.
 
         With ``eos_id`` set, the positions after a sequence's EOS are set to
         ``eos_id`` (never the live tokens the batch keeps sampling for the
@@ -215,7 +231,7 @@ class Engine:
         self._sync()
         t0 = time.perf_counter()
         with _ot.span("engine.prefill", batch=b, seq=s):
-            logits, cache = self.prefill_step(prompts, max_len)
+            logits, cache = self.prefill_step(prompts, max_len, extras)
         self._sync()
         t_prefill = time.perf_counter() - t0
 

@@ -203,7 +203,7 @@ class Scheduler:
                  kv_budget_rows: Optional[int] = None,
                  alloc: str = "reserve", max_restores: int = 8):
         cfg = engine.cfg
-        if cfg.block_pattern != "attn":
+        if cfg.is_encoder_decoder or cfg.block_pattern != "attn":
             raise ValueError(
                 f"continuous batching requires a decoder-only attention "
                 f"family (slot-addressable KV rows); {cfg.name} has "

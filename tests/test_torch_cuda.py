@@ -2505,3 +2505,116 @@ def test_conv_pipeline_twin_on_card(dev, tmp_path):
     assert sum(counts.values()) == len(conv_pipeline.LAYERS)
     for layer in out["layers"]:
         assert layer["max_err"] <= conv_pipeline.RTOL * layer["max_ref"]
+
+
+# ---------------------------------------------------------------------------
+# The encoder-decoder (whisper-small) and VLM (qwen2-vl-72b) families
+# ---------------------------------------------------------------------------
+
+
+def test_encdec_generate_and_score_match_cpu(dev, tmp_path):
+    """Whisper's smoke model on the card: ``generate`` with the frames in
+    ``extras`` gives the CPU run's tokens, with 6 tiled linears an encoder
+    layer and 10 a decoder layer a prefill and 8 a decoder layer a decode
+    step; a scoring forward under attn_impl="pallas" gives the CPU's logits
+    within 1e-4 of max|logit|, with one tiled flash a layer of each stack
+    (the encoder's non-causal)."""
+    from repro_torch.models import registry as reg
+    from repro_torch.serve import Engine, ServeConfig
+
+    cfg = _zoo_smoke("whisper-small")
+    rng = np.random.default_rng(5)
+    prompts = rng.integers(0, cfg.vocab_size, (3, 6)).astype(np.int32)
+    frames = rng.standard_normal((3, 20, cfg.d_model)).astype(np.float32)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (2, 12)).astype(np.int32)),
+        "enc_embeds": torch.from_numpy(rng.standard_normal(
+            (2, 24, cfg.d_model)).astype(np.float32))}
+    dispatch.set_db(dispatch.ProfileDB(path=tmp_path / "profile.json"))
+    try:
+        params = reg.init_params(cfg, 0, device="cpu")
+        runs = {}
+        for where in ("cpu", "cuda"):
+            reset_launch_counts()
+            runs[where] = Engine(cfg, _to(params, torch.device(where)),
+                                 ServeConfig(max_new_tokens=5)).generate(
+                prompts, extras={"enc_embeds": frames})
+            torch.cuda.synchronize()
+        counts = {k.name: k.launches for k in KERNELS if k.launches}
+        prefill = 6 * cfg.encoder_layers + 10 * cfg.n_layers
+        assert counts == {"colwise_nm_matmul_tiled":
+                          prefill + 4 * 8 * cfg.n_layers}, counts
+        assert np.array_equal(runs["cpu"]["tokens"], runs["cuda"]["tokens"])
+        scfg = cfg.with_(attn_impl="pallas")
+        with torch.no_grad():
+            want = reg.forward_fn(scfg)(params, batch)
+            reset_launch_counts()
+            got = reg.forward_fn(scfg)(_to(params, dev), _to(batch, dev))
+            torch.cuda.synchronize()
+        counts = {k.name: k.launches for k in KERNELS if k.launches}
+        assert counts == {"colwise_nm_matmul_tiled": prefill,
+                          "flash_attention_tiled":
+                              cfg.encoder_layers + cfg.n_layers}, counts
+        err = float((got.cpu() - want).abs().max())
+        assert err <= 1e-4 * float(want.abs().max()), err
+    finally:
+        dispatch.set_db(None)
+
+
+def test_vlm_served_and_scored_match_cpu(dev, tmp_path):
+    """Qwen2-VL's smoke model on the card: the paged scheduler gives the
+    CPU run's tokens (one split paged attention a layer a decode step, 7
+    tiled linears a layer a step), and a scoring forward with vision
+    embeddings and 3-D positions under attn_impl="pallas" the CPU's logits
+    within 1e-4 of max|logit| (one tiled flash a layer)."""
+    from repro_torch.models import registry as reg
+    from repro_torch.serve import Engine, Scheduler, synthetic_trace
+
+    cfg = _zoo_smoke("qwen2-vl-72b")
+    rng = np.random.default_rng(6)
+    s, p = 12, cfg.vision_patches
+    pos = np.broadcast_to(np.arange(s, dtype=np.int32), (2, 3, s)).copy()
+    pos[:, 0, 1:1 + p] = 1  # a 2 x 2 image after one text token
+    pos[:, 1, 1:1 + p] = 1 + np.arange(p) // 2
+    pos[:, 2, 1:1 + p] = 1 + np.arange(p) % 2
+    pos[:, :, 1 + p:] = 3 + np.arange(s - 1 - p)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, s)).astype(np.int32),
+             "mrope_positions": pos,
+             "vision_embeds": rng.standard_normal(
+                 (2, p, cfg.d_model)).astype(np.float32),
+             "vision_pos": np.broadcast_to(np.arange(1, 1 + p, dtype=np.int32),
+                                           (2, p)).copy()}
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    dispatch.set_db(dispatch.ProfileDB(path=tmp_path / "profile.json"))
+    try:
+        params = reg.init_params(cfg, 0, device="cpu")
+        runs = {}
+        for where in ("cpu", "cuda"):
+            reset_launch_counts()
+            sched = Scheduler(Engine(cfg, _to(params, torch.device(where))),
+                              n_slots=3, paged=True, page_size=8)
+            runs[where] = {c.uid: c.tokens for c in sched.run(synthetic_trace(
+                5, seed=1, vocab=cfg.vocab_size, prompt_lens=(3, 20),
+                new_tokens=(2, 9)))}
+            torch.cuda.synchronize()
+            counts = {k.name: k.launches for k in KERNELS if k.launches}
+        st = sched.stats
+        assert counts == {
+            "paged_attention_split": cfg.n_layers * st["decode_steps"],
+            "colwise_nm_matmul_tiled": 7 * cfg.n_layers * (
+                st["decode_steps"] + sched.prefill_calls)}
+        for uid, toks in runs["cpu"].items():
+            assert np.array_equal(toks, runs["cuda"][uid]), uid
+        scfg = cfg.with_(attn_impl="pallas")
+        with torch.no_grad():
+            want = reg.forward_fn(scfg)(params, batch)
+            reset_launch_counts()
+            got = reg.forward_fn(scfg)(_to(params, dev), _to(batch, dev))
+            torch.cuda.synchronize()
+        counts = {k.name: k.launches for k in KERNELS if k.launches}
+        assert counts == {"flash_attention_tiled": cfg.n_layers,
+                          "colwise_nm_matmul_tiled": 7 * cfg.n_layers}
+        err = float((got.cpu() - want).abs().max())
+        assert err <= 1e-4 * float(want.abs().max()), err
+    finally:
+        dispatch.set_db(None)

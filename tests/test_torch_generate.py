@@ -286,44 +286,38 @@ def _refuses_like_jax(pattern):
                                 dict(n_experts=4), dict(mrope=True)],
                          ids=["xlstm", "zamba", "moe", "mrope"])
 def test_unported_families_raise_naming_item_10(kw):
-    """What is left of item 10, M-RoPE, raises at init and in every step
-    that reaches the unembedding.  MoE and the recurrent patterns are
-    ported: their cases run init, the forward, the loss and a decode
-    step, the recurrent ones on their own smoke configs."""
+    """Item 10's families are all ported: no case raises any more.  Each
+    runs init, the forward, the loss and a decode step (the recurrent ones
+    and M-RoPE on their own smoke configs, M-RoPE with 3-D positions whose
+    components differ)."""
     tcfg = _tcfg(**kw)
     if "block_pattern" in kw:
         arch = {"xlstm": "xlstm-350m",
                 "mamba_shared_attn": "zamba2-7b"}[kw["block_pattern"]]
         tcfg = _tcfg(arch)
-    if not tcfg.mrope:
-        if tcfg.is_moe:
-            tcfg = tcfg.with_(top_k=2)
-        tp = treg.init_params(tcfg, 0, device="cpu")
-        if tcfg.is_moe:
-            assert tuple(tp["layers"]["moe"]["router"].shape) == (2, 64, 4)
-        else:
-            assert "layers" not in tp
-        toks = {"tokens": _ints([[1, 2, 3]])}
-        logits = treg.forward_fn(tcfg)(tp, toks)
-        loss, parts = treg.loss_fn(tcfg)(tp, toks)
-        cache = treg.cache_init_fn(tcfg, 1, 8, "cpu")()
-        step, _ = treg.decode_fn(tcfg)(tp, cache, _ints([[1]]), 0)
-        assert tuple(logits.shape) == (1, 3, tcfg.padded_vocab)
-        assert tuple(step.shape) == (1, 1, tcfg.padded_vocab)
-        assert (float(parts["aux"]) > 0) == tcfg.is_moe
-        assert torch.isfinite(loss)
-        assert bool(torch.isfinite(logits).all() & torch.isfinite(step).all())
-        return
-    tp = _tparams()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        treg.init_params(tcfg, 0, device="cpu")
-    for call in (lambda: treg.forward_fn(tcfg)(tp, {"tokens": _ints([[1, 2]])}),
-                 lambda: treg.loss_fn(tcfg)(tp, {"tokens": _ints([[1, 2]])})):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            call()
+    if kw.get("mrope"):
+        tcfg = _tcfg("qwen2-vl-72b")
+    if tcfg.is_moe:
+        tcfg = tcfg.with_(top_k=2)
+    tp = treg.init_params(tcfg, 0, device="cpu")
+    if tcfg.is_moe:
+        assert tuple(tp["layers"]["moe"]["router"].shape) == (2, 64, 4)
+    elif tcfg.mrope:
+        assert tcfg.mrope_sections == (2, 3, 3) and "unembed" in tp
+    else:
+        assert "layers" not in tp
+    toks = {"tokens": _ints([[1, 2, 3]])}
+    if tcfg.mrope:
+        toks["mrope_positions"] = _ints([[[0, 1, 1], [0, 1, 2], [0, 2, 1]]])
+    logits = treg.forward_fn(tcfg)(tp, toks)
+    loss, parts = treg.loss_fn(tcfg)(tp, toks)
     cache = treg.cache_init_fn(tcfg, 1, 8, "cpu")()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        treg.decode_fn(tcfg)(tp, cache, _ints([[1]]), 0)
+    step, _ = treg.decode_fn(tcfg)(tp, cache, _ints([[1]]), 0)
+    assert tuple(logits.shape) == (1, 3, tcfg.padded_vocab)
+    assert tuple(step.shape) == (1, 1, tcfg.padded_vocab)
+    assert (float(parts["aux"]) > 0) == tcfg.is_moe
+    assert torch.isfinite(loss)
+    assert bool(torch.isfinite(logits).all() & torch.isfinite(step).all())
 
 
 # ---------------------------------------------------------------------------

@@ -105,7 +105,8 @@ def _logits_close(got, want):
 
 
 def test_configs_match_jax():
-    for name in ("smollm-360m", "qwen2-0.5b", "zamba2-7b", "xlstm-350m"):
+    for name in ("smollm-360m", "qwen2-0.5b", "zamba2-7b", "xlstm-350m",
+                 "whisper-small", "qwen2-vl-72b"):
         for mine, theirs in ((get_config(name), j_get_config(name)),
                              (smoke_config(name), j_smoke_config(name))):
             for f in dataclasses.fields(mine):
@@ -115,8 +116,9 @@ def test_configs_match_jax():
             for prop in ("resolved_head_dim", "padded_heads", "padded_vocab"):
                 assert getattr(mine, prop) == getattr(theirs, prop), prop
     assert get_config("smollm-360m").padded_heads == 15
-    with pytest.raises(KeyError, match="unknown arch"):
-        get_config("whisper-small")
+    for get in (get_config, j_get_config):
+        with pytest.raises(KeyError, match="unknown arch"):
+            get("no-such-arch")
 
 
 @pytest.mark.parametrize("sparse", [True, False])
