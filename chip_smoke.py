@@ -199,7 +199,16 @@ Phases:
               versions (zamba2-7b: tokens equal, logits within 1e-3 of
               max|logit|; xlstm-350m, whose random weights amplify
               rounding through its depth: measured beside the same replay
-              on the CPU, not held), and scored once on 2 x 512 tokens
+              on the CPU; then cuts of the same tree served
+              again by ``generate``: its first 16 layers, 74 #1b a token
+              step, tokens held and logits measured beside the CPU's plain
+              versions (two float orders of the plain version part there
+              by a few 1e-3) and beside controls, the plain replay under
+              Gaussian noise of the kernel's rms error a launch (three
+              fresh draws and one drawn once a linear and repeated) and of
+              the CPU order's, and held within 2x the farthest
+              kernel-sized one, and its first 8, 37 #1b a token step, held:
+              logits within 1e-3 of max|logit|, tokens equal), and scored once on 2 x 512 tokens
               under attn_impl="pallas" (the same linears a forward, and
               zamba2-7b 2 tiled flash; NLL within 1e-4 of the plain
               replay).  Init s, a decode step's host and device ms, idle
@@ -229,8 +238,32 @@ Phases:
               the plain versions, the NLL against the plain replay; init s,
               a decode step's host and device ms, idle share and the peak
               device memory
- 18. report : one ``{"kernels": [...]}`` line (launches in the main runs and
-              ``train_launches`` in phases 10, 11, 13 and 14), then the
+ 18. moe train: (a) ``make_train_step`` on olmoe-1b-7b at its published
+              widths, pruned 50% (T = d_out), cut to 8 of its 16 layers
+              (phase 15's tree, its layer stacks sliced on the card: nothing
+              drawn again), 3 AdamW steps on 2 x 256 uniform tokens: step 1
+              against the same step through the plain versions on the card
+              (loss, aux and grad norm within 1e-4 relative, params within
+              1e-4; the plain step launches nothing), aux > 0 and a finite
+              grad norm (so every gradient is finite), two runs of step 1
+              equal (a digest of every leaf's bits), exactly 32 #1b each
+              step and each run of step 1 (q, k, v, o of 8 layers; the
+              experts and the backward launch none) and no flash; host and
+              device ms a step, idle share, peak device memory; (b) the LM
+              ``Trainer`` on a 2-layer cut of the same tree: 4 steps, a run
+              to step 2 with its checkpoint, and a Trainer restored from it
+              repeats steps 3 and 4 bit for bit; (c) on a world-1 NCCL group
+              (``make_host_mesh("cuda")``), (b)'s step under the
+              ``ShardingCtx`` with ``moe_impl="shard_map"`` equal bit for
+              bit to the step without, and the train launcher with ``--smoke
+              --mesh host``; (d) pruned smollm-360m whole with
+              ``shard_local_reduce``: its o and down projections in the
+              REDUCE format (plain gather + einsum), scored on 2 x 512
+              tokens, 160 #1b a forward (5 of the 7 linears of 32 layers),
+              the NLL within 1e-4 of the plain replay, which launches
+              nothing.  The train launches reported are those counted
+ 19. report : one ``{"kernels": [...]}`` line (launches in the main runs and
+              ``train_launches`` in phases 10, 11, 13, 14 and 18), then the
               ``{"ok": true, ...}`` line last
 
 Run from the repository root:  python3 chip_smoke.py
@@ -4409,7 +4442,7 @@ def run_moe(dev) -> dict:
     db_path.unlink(missing_ok=True)
     dispatch.set_db(dispatch.ProfileDB(path=db_path))
     routes = RouteLog()
-    launches, rows = {}, {}
+    launches, rows, kept = {}, {}, None
     try:
         for arch, n_layers in MOE_MODELS:
             torch.cuda.empty_cache()
@@ -4423,6 +4456,9 @@ def run_moe(dev) -> dict:
             gen = moe_generate(dev, cfg, params, linears, routes)
             scored = zoo_score(dev, cfg, params, linears, routes)
             peak = torch.cuda.max_memory_allocated()
+            if arch == MOE_TRAIN_ARCH:  # phase 18 trains its first layers
+                kept = (cfg.with_(n_layers=MOE_TRAIN_LAYERS),
+                        cut_layers(params, MOE_TRAIN_LAYERS, clone=True))
             del params
             routes.runs.clear()
             torch.cuda.empty_cache()
@@ -4446,7 +4482,18 @@ def run_moe(dev) -> dict:
           f"phase 15 took {time.perf_counter() - t0:.1f} s", flush=True)
     print("MOE " + json.dumps({"models": rows, "launches": launches,
                                "near_ties": routes.ties}), flush=True)
-    return {"launches": launches}
+    return {"launches": launches, "train_tree": kept}
+
+
+def cut_layers(params, n: int, clone: bool = False):
+    """The tree's first ``n`` stacked layers (views, or copies on the card
+    with ``clone``, so the rest can be freed); the other leaves as they
+    are."""
+    from repro_torch._tree import tree_map
+
+    cut = tree_map(lambda t: t[:n].clone() if clone else t[:n],
+                   params["layers"])
+    return dict(params, layers=cut)
 
 
 # phase 16: the recurrent families.  xlstm-350m whole, and zamba2-7b at its
@@ -4607,9 +4654,17 @@ class LinearCheck:
     the model modules bound it) against the plain version on the same
     input while it is entered: each output within F32_RTOL of its max|y|.
     The plain call launches no kernel, so the launch counts stay the
-    run's."""
+    run's.  Each call's kernel-vs-plain rms error over max|y| goes to
+    ``rms`` and the cosine of that error with y to ``cos``; with
+    ``orders``, also, at every ORDER_STRIDE-th call, the plain version's on
+    the CPU against the card's, on the same input (max and rms over max|y|,
+    cosine), to ``order_max``, ``order_rms`` and ``order_cos``: the
+    rounding of another float order beside the kernel's."""
 
     MODULES = ("attention", "blocks", "encdec", "lm", "mlp", "ssm", "xlstm")
+
+    def __init__(self, orders: bool = False):
+        self.orders = orders
 
     def __enter__(self):
         import importlib
@@ -4620,17 +4675,41 @@ class LinearCheck:
                      for m in self.MODULES]
         orig = self.orig = self.mods[0].linear_apply
         self.calls, self.worst = 0, 0.0
+        self.rms, self.cos, on_cpu = [], [], {}
+        self.order_max, self.order_rms, self.order_cos = [], [], []
+
+        def rms(a, b):
+            return float((a - b).pow(2).mean().sqrt()) / max(
+                float(b.abs().max()), 1e-30)
+
+        def cos(a, b):
+            e, y = (a - b).reshape(-1).double(), b.reshape(-1).double()
+            return float(e @ y) / max(float(e.norm() * y.norm()), 1e-300)
 
         def held(params, x, **kw):
             y = orig(params, x, **kw)
             if "values" in params:
                 with dispatch.force_scope(linear="compressed_xla"):
                     want = orig(params, x, **kw)
+                    if self.orders and self.calls % ORDER_STRIDE == 0:
+                        # the layer's storage: a model slices its stacks
+                        # into new views at every call
+                        key = tuple((t.data_ptr(), tuple(t.shape)) for t in
+                                    params.values())
+                        if key not in on_cpu:
+                            on_cpu[key] = {k: t.cpu() for k, t in
+                                           params.items()}
+                        cpu = orig(on_cpu[key], x.cpu(), **kw)
+                        self.order_max.append(rel_err(want.cpu(), cpu))
+                        self.order_rms.append(rms(want.cpu(), cpu))
+                        self.order_cos.append(cos(want.cpu(), cpu))
                 err = rel_err(y, want)
                 check(err <= F32_RTOL, f"a linear {tuple(x.shape)} -> "
                       f"{tuple(y.shape)}: kernel vs plain on its input {err}")
                 self.calls += 1
                 self.worst = max(self.worst, err)
+                self.rms.append(rms(y, want))
+                self.cos.append(cos(y, want))
             return y
 
         for m in self.mods:
@@ -4643,19 +4722,69 @@ class LinearCheck:
         return False
 
 
-def recurrent_replay(run_steps, steps, cfg, label, tokens, held) -> dict:
+ORDER_STRIDE = 8  # LinearCheck(orders=True) takes every 8th call to the CPU
+
+
+class NoisyLinears:
+    """While entered, every sparse linear call of the models adds seeded
+    Gaussian noise of ``sigma`` times its max|y| to its output: a control
+    that gives the plain version rounding errors of a chosen size.  With
+    ``repeat``, a linear's noise is drawn once for each output shape and
+    added again at every call, as a rounding that a kernel makes alike on
+    alike inputs would be."""
+
+    def __init__(self, sigma: float, device, seed: int = SEED,
+                 repeat: bool = False):
+        self.sigma, self.repeat, self.drawn = sigma, repeat, {}
+        self.gen = torch.Generator(device=device).manual_seed(seed)
+
+    def draw(self, params, y):
+        key = (tuple((t.data_ptr(), tuple(t.shape)) for t in params.values()),
+               tuple(y.shape))
+        if not self.repeat or key not in self.drawn:
+            self.drawn[key] = torch.randn(y.shape, generator=self.gen,
+                                          device=y.device, dtype=y.dtype)
+        return self.drawn[key]
+
+    def __enter__(self):
+        import importlib
+
+        self.mods = [importlib.import_module(f"repro_torch.models.{m}")
+                     for m in LinearCheck.MODULES]
+        orig = self.orig = self.mods[0].linear_apply
+
+        def noisy(params, x, **kw):
+            y = orig(params, x, **kw)
+            if "values" not in params:
+                return y
+            return y + self.sigma * y.abs().max() * self.draw(params, y)
+
+        for m in self.mods:
+            m.linear_apply = noisy
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.mods:
+            m.linear_apply = self.orig
+        return False
+
+
+def recurrent_replay(run_steps, steps, cfg, label, tokens, held,
+                     tokens_held=None) -> dict:
     """Teacher-forced replay of a ``generate`` run's recorded ``steps`` (the
     prefill by decode steps, then each decode step) through ``run_steps``
     (the recorded engine's or another's step methods) with the plain
     versions, on a fresh cache.  With ``held``, each step's logits within
-    REPLAY_RTOL of max|logit| of the recorded ones, and each greedy token
-    equal to the replay's unless the replay puts the run's token within
-    twice the step's error of its maximum (a near-tie).  Returns each
+    REPLAY_RTOL of max|logit| of the recorded ones; with ``tokens_held``
+    (by default ``held``), each greedy token equal to the replay's unless
+    the replay puts the run's token within twice the step's error of its
+    maximum (a near-tie).  Returns each
     step's error against the recorded logits, the replay's logits, the
     near-ties and the tokens apart from the replay's greedy ones."""
     from repro_torch import dispatch
     from repro_torch.kernels import KERNELS, reset_launch_counts
 
+    tokens_held = held if tokens_held is None else tokens_held
     errs, logits, ties, apart_n, cache = [], [], 0, 0, None
     reset_launch_counts()
     with dispatch.force_scope(linear="compressed_xla"):
@@ -4676,7 +4805,7 @@ def recurrent_replay(run_steps, steps, cfg, label, tokens, held) -> dict:
             if held:
                 check(e <= REPLAY_RTOL, f"{label} {name} {j}: kernel vs "
                       f"plain logits {e}")
-            if held and bool(apart.any()):
+            if tokens_held and bool(apart.any()):
                 gap = float((top - lp.gather(1, tok[:, None])[:, 0])[apart]
                             .max())
                 slack = 2 * e * float(logits_p.abs().max())
@@ -4688,26 +4817,33 @@ def recurrent_replay(run_steps, steps, cfg, label, tokens, held) -> dict:
     return {"errs": errs, "logits": logits, "ties": ties, "apart": apart_n}
 
 
-def recurrent_generate(dev, cfg, params, per_step, held) -> dict:
+def recurrent_generate(dev, cfg, params, per_step, held,
+                       tokens_held=None, controls=False) -> dict:
     """``Engine.generate`` on ZOO_REQUESTS prompts of ZOO_PROMPT tokens,
     ZOO_NEW new, greedy: the prefill is ZOO_PROMPT decode steps into an empty
     state cache, then ZOO_NEW - 1 decode steps.  Exact launch counts, every
     linear launch held against its plain version on its input
     (``LinearCheck``), the plain replay (held to REPLAY_RTOL where
-    ``held``, else measured beside the plain version's replay on the CPU),
-    and the run again with the recorder off for the host times."""
+    ``held``, else measured beside the plain version's replay on the CPU,
+    and with ``controls`` beside the plain replay under noise of the
+    kernel's rms error a launch (``NoisyLinears``: XLSTM_NOISE_SEEDS
+    draws, and one drawn once a linear and repeated) and of the CPU order's,
+    and held to XLSTM_CONTROL_FACTOR times the farthest of the kernel-sized
+    ones; its tokens held where ``tokens_held``, by default where
+    ``held``), and the run again with the recorder off for the host
+    times."""
     from repro_torch._tree import tree_map
     from repro_torch.kernels import KERNELS, reset_launch_counts
     from repro_torch.serve import Engine, ServeConfig
 
-    label = f"{cfg.name} generate"
+    label = f"{cfg.name} ({cfg.n_layers} layers) generate"
     prompts = zoo_prompts(cfg, SEED + 16)
     engine = Engine(cfg, params, ServeConfig(max_new_tokens=ZOO_NEW))
     rec = StepRecorder(engine, static=True)
     torch.cuda.synchronize()
     reset_launch_counts()
     t0 = time.perf_counter()
-    with LinearCheck() as lin:
+    with LinearCheck(orders=controls) as lin:
         res = engine.generate(prompts)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -4733,7 +4869,8 @@ def recurrent_generate(dev, cfg, params, per_step, held) -> dict:
           "of the plain version on its own input", flush=True)
     out = {"launches": counts, "host_s": wall, "linear_calls": lin.calls,
            "linear_max_rel_err": lin.worst}
-    plain = recurrent_replay(rec.orig, rec.steps, cfg, label, toks, held)
+    plain = recurrent_replay(rec.orig, rec.steps, cfg, label, toks, held,
+                             tokens_held)
     worst = max(plain["errs"])
     out.update(replay_max_rel_err=worst, near_ties=plain["ties"],
                tokens_apart=plain["apart"])
@@ -4753,8 +4890,7 @@ def recurrent_generate(dev, cfg, params, per_step, held) -> dict:
         on_cpu = recurrent_replay({n: getattr(cpu, n) for n in rec.orig},
                                   card_plain, cfg, label + " cpu", toks, False)
         del cpu
-        out.update(cpu_vs_card_errs=on_cpu["errs"],
-                   kernel_errs=plain["errs"])
+        out.update(cpu_vs_card_errs=on_cpu["errs"], kernel_errs=plain["errs"])
         print(f"  {label} replay of all {len(rec.steps)} steps through the "
               f"plain versions ({steps} token steps), not held: the logits' "
               f"rel err per step {[f'{e:.2e}' for e in plain['errs']]} (max "
@@ -4762,6 +4898,9 @@ def recurrent_generate(dev, cfg, params, per_step, held) -> dict:
               f"from the replay's greedy ones; the plain versions on the CPU "
               f"against the card's: {[f'{e:.2e}' for e in on_cpu['errs']]} "
               f"(max {max(on_cpu['errs']):.3e})", flush=True)
+        if controls:
+            out.update(noise_controls(dev, cfg, label, rec, card_plain, toks,
+                                      lin, worst))
     quiet = engine.generate(prompts)
     check(np.array_equal(quiet["tokens"], toks),
           f"{label}: the recorder-off run's tokens differ")
@@ -4772,6 +4911,50 @@ def recurrent_generate(dev, cfg, params, per_step, held) -> dict:
           "decode step (sampling included)", flush=True)
     out.update(prefill_host_ms_a_step=prefill_ms, decode_host_ms=host_ms)
     return out
+
+
+def noise_controls(dev, cfg, label, rec, card_plain, toks, lin,
+                   worst) -> dict:
+    """The plain replay of ``rec``'s steps again on the card under
+    ``NoisyLinears``, each against the plain replay (``card_plain``):
+    noise of the kernel's mean rms error a launch (``lin``), drawn anew
+    at every call from XLSTM_NOISE_SEEDS seeds and drawn once a linear and
+    repeated, then of the CPU order's.  Holds the kernel's replay
+    (``worst``) within XLSTM_CONTROL_FACTOR of the farthest kernel-sized
+    one.  Returns the row."""
+    k_rms, o_rms = float(np.mean(lin.rms)), float(np.mean(lin.order_rms))
+    runs = [(f"kernel-sized, seed {s}", k_rms, s, False)
+            for s in XLSTM_NOISE_SEEDS]
+    runs += [("kernel-sized, repeated", k_rms, SEED, True),
+             ("order-sized", o_rms, SEED, False)]
+    noise = {}
+    for name, sigma, seed, repeat in runs:
+        t0 = time.perf_counter()
+        with NoisyLinears(sigma, dev, seed, repeat):
+            errs = recurrent_replay(rec.orig, card_plain, cfg,
+                                    f"{label} {name} noise", toks,
+                                    False)["errs"]
+        noise[name] = errs
+        print(f"  {label} plain replay under {name} noise "
+              f"(sigma {sigma:.3e} of max|y| a launch): parts by "
+              f"{[f'{e:.2e}' for e in errs]} ({time.perf_counter() - t0:.1f}"
+              " s)", flush=True)
+    control = max(max(e) for n, e in noise.items() if n.startswith("kernel"))
+    ratio = worst / max(control, 1e-30)
+    check(ratio <= XLSTM_CONTROL_FACTOR, f"{label}: the kernel's replay "
+          f"parts by {worst}, {ratio}x the farthest plain replay under noise "
+          f"of the kernel's size a launch ({control})")
+    print(f"  {label} a launch, over max|y|: kernel vs plain rms {k_rms:.3e} "
+          f"(max {lin.worst:.3e}, mean cosine with y "
+          f"{float(np.mean(lin.cos)):.3e}); the plain version on the CPU vs "
+          f"the card's rms {o_rms:.3e} (max {max(lin.order_max):.3e}, mean "
+          f"cosine {float(np.mean(lin.order_cos)):.3e}); the kernel's replay "
+          f"{worst:.3e}, {ratio:.2f}x the farthest kernel-sized control "
+          f"{control:.3e} (<= {XLSTM_CONTROL_FACTOR})", flush=True)
+    return {"kernel_rms": k_rms, "kernel_cos": float(np.mean(lin.cos)),
+            "order_rms": o_rms, "order_max": max(lin.order_max),
+            "order_cos": float(np.mean(lin.order_cos)), "noise": noise,
+            "control_ratio": ratio}
 
 
 def recurrent_step_shares(fn, graph_ms) -> dict:
@@ -4876,6 +5059,51 @@ def recurrent_decode_step(dev, cfg, params, host_ms) -> dict:
     return dict(shares, decode_device_ms=step_ms, idle=idle)
 
 
+# xlstm-350m cut to its first superblocks, sliced from the whole tree: each
+# superblock amplifies rounding, so the whole model (3) is measured, not
+# held.  At 2 (16 layers) two float orders of the plain version already
+# part by 1.5e-3 to 5.7e-3 of max|logit| (the card's against the CPU's,
+# on phase 16's prompts), so its tokens are held and its logits measured
+# beside the controls of ``recurrent_generate``; at 1 (8 layers) the replay
+# is held to REPLAY_RTOL with the tokens equal.
+# (layers, sparse linears a token step: 7 mLSTM x 5 + 1 sLSTM x 2 a
+# superblock, logits held)
+XLSTM_CUTS = ((16, 74, False), (8, 37, True))
+# the unheld cut's replay may part from the plain one by at most this many
+# times as far as the plain replay parts under noise of the kernel's rms
+# error a launch (the farthest of these draws): rounding of the kernel's
+# size, amplified by the model, with a margin for the draws' spread (the
+# kernel's replay read 0.45x on an H100)
+XLSTM_CONTROL_FACTOR = 2.0
+XLSTM_NOISE_SEEDS = (SEED, SEED + 1, SEED + 2)
+
+
+def xlstm_cuts(dev, cfg, params) -> dict:
+    """Each XLSTM_CUTS cut of the whole model's tree (views: nothing drawn
+    again) served by ``generate`` on phase 16's prompts, its replay's
+    tokens held (no near-tie admitted where the logits are held too).
+    Returns {layers: generate's row}."""
+    from repro_torch._tree import tree_map
+
+    rows = {}
+    for n_layers, per, held in XLSTM_CUTS:
+        n_super = n_layers // cfg.slstm_every
+        cut = dict(params,
+                   mlstm=tree_map(lambda t: t[:n_super], params["mlstm"]),
+                   slstm=tree_map(lambda t: t[:n_super], params["slstm"]))
+        per_step = {"colwise_nm_matmul_tiled": per}
+        got = linear_launches(cut, 0)
+        check(got == per_step, f"{cfg.name} cut to {n_layers} layers: sparse "
+              f"linears a token step {got}, want {per_step}")
+        gen = recurrent_generate(dev, cfg.with_(n_layers=n_layers), cut,
+                                 per_step, held, tokens_held=True,
+                                 controls=not held)
+        check(not held or gen["near_ties"] == 0, f"{cfg.name} cut to "
+              f"{n_layers} layers: {gen['near_ties']} tokens apart")
+        rows[n_layers] = gen
+    return rows
+
+
 def run_recurrent(dev) -> dict:
     """Phase 16.  Returns each kernel's launches."""
     from repro_torch import dispatch
@@ -4902,6 +5130,12 @@ def run_recurrent(dev) -> dict:
                 want["flash_attention_tiled"] = 2 * flash
             scored = zoo_score(dev, cfg, params, None, want=want)
             peak = torch.cuda.max_memory_allocated()
+            if cfg.block_pattern == "xlstm":
+                cuts = xlstm_cuts(dev, cfg, params)
+                for cut in cuts.values():
+                    gen["launches"] = {k: n + cut["launches"].get(k, 0)
+                                       for k, n in gen["launches"].items()}
+                rows[f"{arch} cuts"] = cuts
             del params
             torch.cuda.empty_cache()
             for c in (gen["launches"], scored["launches"]):
@@ -5274,6 +5508,332 @@ def run_encdec_vlm(dev) -> dict:
     return {"launches": launches}
 
 
+# phase 18: MoE training.  (a) olmoe-1b-7b at its published widths cut to
+# MOE_TRAIN_LAYERS of 16 (phase 15's tree, its stacks sliced: the
+# functional AdamW step holds the old and new params and optimizer state at
+# once, about 7x the float32 parameter bytes at the peak, so all 16 layers
+# (14.3 GB) do not fit 80 GB and 8 (7.5 GB) do); (b) the LM Trainer on a
+# 2-layer cut; (c) a world-1 NCCL group under the ShardingCtx; (d) the
+# REDUCE format on smollm-360m whole
+MOE_TRAIN_ARCH = "olmoe-1b-7b"
+MOE_TRAIN_LAYERS = 8
+MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 2, 256
+MOE_TRAIN_STEPS = 3
+MOE_TRAIN_LR = 3e-4
+MOE_TRAIN_RTOL = 1e-4   # step 1's loss, aux, grad norm against the plain step
+MOE_TRAIN_ATOL = 1e-4   # step 1's params against the plain step's
+MOE_TRAIN_TIMED_STEPS = 3
+MOE_TRAINER_LAYERS = 2
+MOE_TRAINER_STEPS = 4
+REDUCE_ARCH = "smollm-360m"
+REDUCE_BATCH, REDUCE_SEQ = 2, 512
+
+
+def bits_digest(tree) -> list:
+    """Each leaf's bits reduced on the card to three int64 sums (of the
+    32- or 16-bit words, of the words times an odd constant with wrap, and
+    of the words xor-shifted): equal steps give equal digests, and a step
+    whose float sums ran in another order moves at least one."""
+    out = []
+    for t in tree_leaves(tree):
+        if t.is_floating_point():
+            t = bits_of(t)
+        w = t.reshape(-1).to(torch.int32) if t.element_size() < 4 else (
+            t.reshape(-1).view(torch.int32) if t.element_size() == 4
+            else t.reshape(-1))
+        out.append(torch.stack([w.sum(dtype=torch.int64),
+                                (w * 1000003).sum(dtype=torch.int64),
+                                (w ^ (w >> 13)).sum(dtype=torch.int64)]))
+    return torch.stack(out).cpu().tolist()
+
+
+def moe_train_step(dev, cfg, params) -> dict:
+    """(a).  Returns the report row."""
+    from repro_torch import dispatch
+    from repro_torch.kernels import KERNELS, reset_launch_counts
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    tokens = np.random.default_rng(SEED + 18).integers(
+        0, cfg.vocab_size, (MOE_TRAIN_BATCH, MOE_TRAIN_SEQ)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(tokens).to(dev)}
+    step = make_train_step(cfg, AdamWConfig(lr=MOE_TRAIN_LR))
+    opt0 = adamw_init(params)
+    want = {"colwise_nm_matmul_tiled": 4 * cfg.n_layers}
+    measured = {}
+
+    def counted(label):
+        """This step's launches, held to ``want`` and added to ``measured``."""
+        torch.cuda.synchronize()
+        counts = {k.name: k.launches for k in KERNELS if k.launches}
+        check(counts == want, f"moe train {label} launches {counts}, want "
+              f"{want}")
+        for k, n in counts.items():
+            measured[k] = measured.get(k, 0) + n
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    with dispatch.force_scope(linear="compressed_xla"):
+        p_plain, o_plain, m_plain = step(params, opt0, batch)
+    torch.cuda.synchronize()
+    check(all(k.launches == 0 for k in KERNELS), "the plain moe train step "
+          f"launched {[(k.name, k.launches) for k in KERNELS if k.launches]}")
+    plain_host = [t.cpu() for t in tree_leaves(p_plain)]
+    m_plain = {k: float(v) for k, v in m_plain.items()}
+    del p_plain, o_plain
+    reset_launch_counts()
+    p1, o1, m1 = step(params, opt0, batch)
+    counted("step 1")
+    m1f = {k: float(v) for k, v in m1.items()}
+    for k in ("loss", "aux", "grad_norm"):
+        e = abs(m1f[k] - m_plain[k]) / abs(m_plain[k])
+        check(e <= MOE_TRAIN_RTOL, f"moe train step 1 {k} {m1f[k]!r} against "
+              f"the plain step's {m_plain[k]!r}: {e}")
+    check(m1f["aux"] > 0 and np.isfinite(m1f["grad_norm"])
+          and np.isfinite(m1f["loss"]),
+          f"moe train step 1: aux {m1f['aux']}, grad norm {m1f['grad_norm']}")
+    param_err = max(float((t - h.to(dev)).abs().max()) for t, h in zip(
+        tree_leaves(p1), plain_host) if t.is_floating_point())
+    check(param_err <= MOE_TRAIN_ATOL, f"moe train step 1 params against "
+          f"the plain step's: {param_err}")
+    del plain_host
+    digest = bits_digest((p1, o1, m1))
+    del p1, o1, m1
+    reset_launch_counts()
+    p1, o1, m1 = step(params, opt0, batch)
+    counted("step 1 again")
+    repeat = bits_digest((p1, o1, m1)) == digest
+    check(repeat, "two runs of moe train step 1 differ")
+    del opt0
+    peak = torch.cuda.max_memory_allocated()
+    losses, gnorms = [m1f["loss"]], [m1f["grad_norm"]]
+    p, o = p1, o1
+    del p1, o1, m1
+    for i in range(1, MOE_TRAIN_STEPS):
+        reset_launch_counts()
+        p, o, m = step(p, o, batch)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        counted(f"step {i + 1}")
+    check(all(np.isfinite(losses)), f"moe train losses {losses}")
+
+    def one():
+        return step(p, o, batch)
+
+    host = host_ms_per_step(one, MOE_TRAIN_TIMED_STEPS)
+    dev_ms, port_ms = profiled_ms(one, MOE_TRAIN_TIMED_STEPS)
+    del p, o
+    print(f"  (a) {cfg.name} at its published widths, {cfg.n_layers} of 16 "
+          f"layers ({cfg.n_experts} experts of d_ff {cfg.d_ff}, top "
+          f"{cfg.top_k}), {MOE_TRAIN_STEPS} AdamW steps (lr {MOE_TRAIN_LR}) "
+          f"on {MOE_TRAIN_BATCH} x {MOE_TRAIN_SEQ} uniform tokens: launches "
+          f"{want} a step; losses {losses}, grad norms {gnorms}, step 1 aux "
+          f"{m1f['aux']!r}; step 1 vs the plain step: loss {m1f['loss']!r} / "
+          f"{m_plain['loss']!r}, aux {m1f['aux']!r} / {m_plain['aux']!r}, "
+          f"grad norm {m1f['grad_norm']!r} / {m_plain['grad_norm']!r}, params "
+          f"within {param_err:.3e}; step 1 twice: equal digests {repeat}",
+          flush=True)
+    print(f"  (a) a step: {host:.3f} host ms, {dev_ms:.3f} device ms "
+          f"(torch.profiler), idle share {max(0.0, 1 - dev_ms / host):.3f}; "
+          f"#1b {port_ms:.3f} ms (share {port_ms / dev_ms:.4f}); peak device "
+          f"memory {peak} bytes (torch.cuda.max_memory_allocated)", flush=True)
+    return {"launches_a_step": want, "launches": measured,
+            "steps": MOE_TRAIN_STEPS,
+            "losses": losses, "grad_norms": gnorms, "aux_step1": m1f["aux"],
+            "plain_step1": m_plain, "param_err": param_err,
+            "digest_repeat": repeat, "host_ms": host, "device_ms": dev_ms,
+            "idle_share": max(0.0, 1 - dev_ms / host), "tiled_linear_ms": port_ms,
+            "peak_bytes": peak}
+
+
+def moe_trainer(dev, cfg, params, work) -> dict:
+    """(b): 4 steps; a run to step 2 with its checkpoint; a Trainer restored
+    from it repeats steps 3 and 4 bit for bit.  Returns the report row."""
+    from repro_torch.data import DataConfig
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig, Trainer
+
+    data = DataConfig(vocab_size=cfg.vocab_size, batch=MOE_TRAIN_BATCH,
+                      seq_len=MOE_TRAIN_SEQ, seed=0, kind="uniform")
+    opt = AdamWConfig(lr=MOE_TRAIN_LR)
+
+    def trainer(steps, ckpt):
+        return Trainer(cfg, data, opt, TrainConfig(
+            steps=steps, ckpt_dir=ckpt, ckpt_every=10 ** 6, log_every=1),
+            params=params)
+
+    from repro_torch.kernels import KERNELS, reset_launch_counts
+
+    ta = trainer(MOE_TRAINER_STEPS, None)
+    reset_launch_counts()
+    out_a = ta.run()
+    counts = {k.name: k.launches for k in KERNELS if k.launches}
+    want = {"colwise_nm_matmul_tiled": 4 * cfg.n_layers * MOE_TRAINER_STEPS}
+    check(counts == want, f"the MoE Trainer launched {counts}, want {want}")
+    t0 = time.perf_counter()
+    trainer(2, str(work / "b")).run()
+    write_s = time.perf_counter() - t0
+    tc = trainer(MOE_TRAINER_STEPS, str(work / "b"))
+    t0 = time.perf_counter()
+    out_c = tc.run()
+    resume_s = time.perf_counter() - t0
+    check(out_c["start_step"] == 2 and out_c["final_step"] == MOE_TRAINER_STEPS,
+          f"the restored Trainer ran {out_c['start_step']}..{out_c['final_step']}")
+    la = [h["loss"] for h in out_a["history"]]
+    lc = [h["loss"] for h in out_c["history"]]
+    check(la[2:] == lc, f"restored losses {lc} against {la}")
+    check(same_bits(ta.params, tc.params)
+          and same_bits(ta.opt_state, tc.opt_state),
+          "the restored run's params or opt state differ from the straight run")
+    check(all(h["aux"] > 0 for h in out_a["history"]), "aux not positive")
+    man = json.loads((tc.ckpt.dir / f"step_{MOE_TRAINER_STEPS:08d}"
+                      / "manifest.json").read_text())
+    print(f"  (b) the LM Trainer, {cfg.n_layers} layers of the same tree: "
+          f"losses {la}; a run to step 2 with its checkpoint in {write_s:.1f} "
+          f"s, then a Trainer restored from it ran steps 3-4 in "
+          f"{resume_s:.1f} s (restore, steps, a {man['arrays_bytes']}-byte "
+          f"checkpoint): losses {lc}, params and opt state bit for bit",
+          flush=True)
+    shutil.rmtree(work / "b", ignore_errors=True)
+    return {"losses": la, "resumed_losses": lc, "ckpt_bytes":
+            man["arrays_bytes"], "write_s": write_s, "resume_s": resume_s,
+            "launches": counts}
+
+
+def moe_world1(dev, cfg, params) -> dict:
+    """(c): the 2-layer step on a world-1 NCCL group, plain and under the
+    ShardingCtx with moe_impl="shard_map"; then the launcher."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.sharding import ShardingCtx, use_ctx
+
+    tokens = np.random.default_rng(SEED + 19).integers(
+        0, cfg.vocab_size, (MOE_TRAIN_BATCH, MOE_TRAIN_SEQ)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(tokens).to(dev)}
+    started = not dist.is_initialized()
+    mesh = make_host_mesh(dev)
+    try:
+        plain = make_train_step(cfg, AdamWConfig(lr=MOE_TRAIN_LR))(
+            params, adamw_init(params), batch)
+        with use_ctx(ShardingCtx(mesh=mesh)):
+            shard = make_train_step(cfg.with_(moe_impl="shard_map"),
+                                    AdamWConfig(lr=MOE_TRAIN_LR))(
+                params, adamw_init(params), batch)
+        same = same_bits(plain[:2], shard[:2]) and all(
+            torch.equal(plain[2][k], shard[2][k]) for k in plain[2])
+        check(same, "the step under the world-1 ShardingCtx differs")
+        backend = dist.get_backend()
+        del plain, shard
+        t0 = time.perf_counter()
+        launch_train.main(["--arch", MOE_TRAIN_ARCH, "--smoke", "--mesh",
+                           "host", "--steps", "2"])
+        launcher_s = time.perf_counter() - t0
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
+    print(f"  (c) a world-1 {backend} group, mesh {tuple(mesh.shape)} "
+          f"{mesh.mesh_dim_names}: the step under the ShardingCtx with "
+          f"moe_impl='shard_map' equal bit for bit to the step without; the "
+          f"launcher --arch {MOE_TRAIN_ARCH} --smoke --mesh host --steps 2 "
+          f"returned in {launcher_s:.1f} s", flush=True)
+    return {"backend": backend, "bitwise": same, "launcher_s": launcher_s}
+
+
+def reduce_scoring(dev) -> dict:
+    """(d): smollm-360m whole under shard_local_reduce, scored once."""
+    from repro_torch import dispatch
+    from repro_torch.configs import get_config
+    from repro_torch.core.pruning import SparsityConfig
+    from repro_torch.kernels import KERNELS, reset_launch_counts
+    from repro_torch.models import lm
+    from repro_torch.models import registry as reg
+
+    cfg = get_config(REDUCE_ARCH).with_(sparsity=SparsityConfig(
+        sparsity=0.5, m=None, tile=None, format="compressed_pallas",
+        shard_local_reduce=True))
+    t0 = time.perf_counter()
+    params = lm.lm_init(cfg, SEED, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    layers = params["layers"]
+    check("values_r" in layers["attn"]["o"] and "values_r" in
+          layers["mlp"]["down"] and all("values" in layers[a][n] for a, n in
+                                         LINEARS if n not in ("o", "down")),
+          "the REDUCE format on o and down, the tiled format on the rest")
+    shapes = {n: tuple(layers[a][n]["values_r"].shape)
+              for a, n in (("attn", "o"), ("mlp", "down"))}
+    tokens = np.random.default_rng(SEED + 20).integers(
+        0, cfg.vocab_size, (REDUCE_BATCH, REDUCE_SEQ)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(tokens).to(dev)}
+    loss = reg.loss_fn(cfg)
+    with torch.no_grad():
+        reset_launch_counts()
+        with dispatch.force_scope(linear="compressed_xla"):
+            want_nll = float(loss(params, batch)[1]["nll"])
+        torch.cuda.synchronize()
+        check(all(k.launches == 0 for k in KERNELS), "the plain REDUCE replay "
+              f"launched {[(k.name, k.launches) for k in KERNELS if k.launches]}")
+        reset_launch_counts()
+        nll = float(loss(params, batch)[1]["nll"])
+        counts = {k.name: k.launches for k in KERNELS if k.launches}
+        want = {"colwise_nm_matmul_tiled": 5 * cfg.n_layers}
+        check(counts == want, f"REDUCE scoring launches {counts}, want {want}")
+        err = abs(nll - want_nll) / abs(want_nll)
+        check(err <= SCORE_NLL_RTOL, f"REDUCE scoring NLL {nll!r} against the "
+              f"plain replay's {want_nll!r}")
+        host = eager_ms(lambda: loss(params, batch), 3)
+    print(f"  (d) {cfg.name} whole ({cfg.n_layers} layers), sparsity 0.5 with "
+          f"shard_local_reduce: o and down in the REDUCE format "
+          f"(values_r {shapes}), built in {init_s:.1f} s; scored on "
+          f"{REDUCE_BATCH} x {REDUCE_SEQ} tokens: launches {counts} a "
+          f"forward; NLL {nll!r} against the plain replay's {want_nll!r} "
+          f"(rel {err:.2e}); {host:.3f} host ms a forward", flush=True)
+    return {"launches": counts, "nll": nll, "plain_nll": want_nll,
+            "host_ms": host, "values_r": shapes}
+
+
+def run_moe_train(dev, tree) -> dict:
+    """Phase 18 on phase 15's kept tree.  Returns each kernel's launches."""
+    from repro_torch import dispatch
+
+    t0 = time.perf_counter()
+    cfg, params = tree
+    db_path = PROFILE_DB.with_suffix(".moe_train.json")
+    db_path.unlink(missing_ok=True)
+    dispatch.set_db(dispatch.ProfileDB(path=db_path))
+    work = Path(tempfile.mkdtemp(prefix="moe-train-", dir=ROOT / "build"))
+    try:
+        small_cfg = cfg.with_(n_layers=MOE_TRAINER_LAYERS)
+        small = cut_layers(params, MOE_TRAINER_LAYERS)
+        trainer = moe_trainer(dev, small_cfg, small, work)
+        world1 = moe_world1(dev, small_cfg, small)
+        del small
+        torch.cuda.empty_cache()
+        step = moe_train_step(dev, cfg, params)
+        del params, tree
+        torch.cuda.empty_cache()
+        reduce = reduce_scoring(dev)
+    finally:
+        dispatch.set_db(None)
+        db_path.unlink(missing_ok=True)
+        shutil.rmtree(work, ignore_errors=True)
+    # the train launches as counted: (a)'s step 1, its repeat and steps
+    # 2-3, and (b)'s straight run; the scoring launches: (d)'s forward
+    train = dict(step["launches"])
+    for k, n in trainer["launches"].items():
+        train[k] = train.get(k, 0) + n
+    print(f"  phase 18 took {time.perf_counter() - t0:.1f} s", flush=True)
+    print("MOE_TRAIN " + json.dumps({"step": step, "trainer": trainer,
+                                     "world1": world1, "reduce": reduce}),
+          flush=True)
+    return {"launches": reduce["launches"], "train_launches": train}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5422,7 +5982,15 @@ def main() -> int:
           "scored", flush=True)
     encdec_vlm = run_encdec_vlm(dev)
 
-    print("== 18. report", flush=True)
+    print(f"== 18. moe train: {MOE_TRAIN_ARCH} at its published widths, "
+          f"{MOE_TRAIN_LAYERS} of 16 layers, trained by make_train_step; the "
+          f"LM Trainer's resume; a world-1 NCCL ShardingCtx; {REDUCE_ARCH} "
+          "scored with the REDUCE format", flush=True)
+    moe_train = run_moe_train(dev, moe.pop("train_tree"))
+    for name, n in moe_train["train_launches"].items():
+        train_launches[name] += n
+
+    print("== 19. report", flush=True)
     launches = {
         "conv2d_fused": fused_route["conv2d_fused"],
         "conv2d_fused_tiled": counts["default"]["conv2d_fused_tiled"],
@@ -5453,7 +6021,8 @@ def main() -> int:
                     + list(zoo["launches"].items())
                     + list(moe["launches"].items())
                     + list(recurrent["launches"].items())
-                    + list(encdec_vlm["launches"].items())):
+                    + list(encdec_vlm["launches"].items())
+                    + list(moe_train["launches"].items())):
         launches[name] += n
     print(f"  the linear phase (5) launched {linear_launches}; the served runs "
           f"(phases 7 and 12) colwise_nm_matmul_tiled "
@@ -5482,12 +6051,19 @@ def main() -> int:
                                       "served paged, generate, scored) and "
                                       "phase 16's recurrent models (111 "
                                       "(xlstm-350m) and 31 (zamba2-7b) per "
-                                      "token step: generate, scored) and "
+                                      "token step: generate, scored; 74 "
+                                      "and 37 (xlstm-350m's 16- and "
+                                      "8-layer cuts): generate) and "
                                       "phase 17's whisper-small (192 a "
                                       "prefill or scored pass, 96 a decode "
                                       "step: generate, scored) and "
                                       "qwen2-vl-72b (14 a step: served "
-                                      "paged, generate, scored)",
+                                      "paged, generate, scored) and phase "
+                                      "18's smollm-360m scored with the "
+                                      "REDUCE format (160 a forward); "
+                                      "train_launches also phase 18's "
+                                      "olmoe-1b-7b train steps (32 a step) "
+                                      "and its 2-layer Trainer (8 a step)",
            "paged_attention": "ms etc.: B 4, Sq 1, f32, H 15, KV 5, D 64, "
                               "page size 16 (the decode step's shape), "
                               "called directly (the split kernel's "

@@ -17,8 +17,7 @@ class ModelConfig:
     """An LM: the JAX ``ModelConfig``'s fields that its dense, MoE, VLM
     (M-RoPE and vision embeddings), recurrent (xLSTM, Zamba2) and
     encoder-decoder (Whisper) families read, with the same defaults.  The
-    sharding fields (``moe_impl``) and the JAX-only ``remat`` knobs are
-    left out."""
+    JAX-only ``remat`` knobs are left out."""
 
     name: str = "model"
     family: str = "dense"                  # dense | moe | ssm | vlm | audio | hybrid
@@ -43,6 +42,7 @@ class ModelConfig:
     n_experts: int = 0
     top_k: int = 0
     capacity_factor: float = 1.25
+    moe_impl: str = "auto"                 # auto | shard_map (manual EP)
     # --- SSM / recurrent ---
     block_pattern: str = "attn"            # attn | xlstm | mamba_shared_attn
     ssm_state: int = 0

@@ -5,6 +5,13 @@ Per linear layer ``[d_in, d_out]`` with tile T and k_kept kept rows:
 
   values : [n_tiles, k_kept, T]   float, tile-major
   idx    : [n_tiles, k_kept]      int32, ascending absolute d_in index
+
+and, for a layer whose reduction dim a tensor-parallel mesh shards, the
+group-local REDUCE format: the prune unit spans the whole output dim (T =
+d_out) and d_in splits into G groups, one a shard, of ``n`` kept rows each:
+
+  values_r : [G, n, d_out]   float
+  idx_r    : [G, n]          int32, ascending index *within* the group
 """
 from __future__ import annotations
 
@@ -104,4 +111,54 @@ def init_compressed(generator: torch.Generator, d_in: int, d_out: int,
     base = torch.arange(d_in // meta.m, dtype=torch.int32) * meta.m
     idx1 = (base[:, None] + within[None, :]).reshape(-1)
     idx = idx1[None, :].expand(meta.n_tiles, meta.k_kept).contiguous()
+    return values.to(dev), idx.to(dev)
+
+
+def pack_reduce(w: torch.Tensor, mask: torch.Tensor,
+                groups: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Compress a dense [d_in, d_out] weight under a column-wise mask of
+    tile d_out into the REDUCE format: (values [G, n, d_out], idx_within
+    [G, n] int32, group-local in [0, d_in / G)).  Every group must keep the
+    same count (N:M with M = d_in / G does)."""
+    d_in, d_out = w.shape
+    if d_in % groups:
+        raise ValueError(f"d_in {d_in} does not split into {groups} groups")
+    m = d_in // groups
+    keep_g = mask[:, 0].reshape(groups, m)  # tile d_out: one row of flags
+    counts = keep_g.sum(dim=1)
+    if not bool((counts == counts[0]).all()):
+        raise ValueError(f"groups keep unequal counts {counts.tolist()}")
+    n_per = int(counts[0])
+    iota = torch.arange(m, dtype=torch.int32, device=w.device)
+    key = torch.where(keep_g, iota[None, :], m + iota[None, :])
+    idx = torch.sort(key, dim=-1).values[:, :n_per].to(torch.int32)
+    rows = torch.arange(groups, device=w.device)[:, None]
+    return w.reshape(groups, m, d_out)[rows, idx.long()], idx.contiguous()
+
+
+def unpack_reduce(values: torch.Tensor, idx: torch.Tensor,
+                  d_in: int) -> torch.Tensor:
+    """The REDUCE format back to the dense (masked) [d_in, d_out] weight."""
+    g, _, d_out = values.shape
+    w = values.new_zeros((g, d_in // g, d_out))
+    w[torch.arange(g, device=values.device)[:, None], idx.long()] = values
+    return w.reshape(d_in, d_out)
+
+
+def init_compressed_reduce(generator: torch.Generator, d_in: int, d_out: int,
+                           groups: int, n_per: int, dtype=torch.float32,
+                           scale: Optional[float] = None, device=None):
+    """Initialize a born-sparse REDUCE-format layer: random ``values`` [G,
+    n_per, d_out] from ``generator`` (a CPU generator) and, in every group,
+    the kept rows evenly strided, as in JAX."""
+    dev = resolve_device(device)
+    m = d_in // groups
+    if scale is None:
+        scale = 1.0 / np.sqrt(max(groups * n_per, 1))
+    values = torch.randn((groups, n_per, d_out), generator=generator,
+                         dtype=torch.float32)
+    values = (values * scale).to(dtype)
+    stride = max(m // n_per, 1)
+    within = (torch.arange(n_per, dtype=torch.int32) * stride) % m
+    idx = within[None, :].expand(groups, n_per).contiguous()
     return values.to(dev), idx.to(dev)

@@ -32,6 +32,12 @@ class SparsityConfig:
         ``values``/``idx`` format).
       min_dim: layers with ``min(d_in, d_out) < min_dim`` stay dense.
       scheme: ``colwise`` (the paper's technique) or ``rowwise`` (tile 1).
+      shard_local_reduce: give the layers whose reduction dim a
+        tensor-parallel mesh shards (``linear_init(mode="reduce")``: the o
+        and down projections) the group-local REDUCE format, whose N:M
+        groups along d_in align with the shards.
+      reduce_groups: that format's groups G along d_in, the largest
+        divisor of d_in up to it (0: up to 4, as in JAX).
     """
 
     sparsity: float = 0.0
@@ -40,6 +46,8 @@ class SparsityConfig:
     format: str = "dense"
     min_dim: int = 128
     scheme: str = "colwise"
+    shard_local_reduce: bool = False
+    reduce_groups: int = 0
 
     @property
     def enabled(self) -> bool:

@@ -2,18 +2,84 @@
 ``repro/core/sparse_linear.py``).
 
 Params are plain dicts of tensors: ``{"w"}`` (dense), ``{"w", "mask"}``
-(masked), ``{"values", "idx"}`` (compressed), each with an optional ``"b"``.
+(masked), ``{"values", "idx"}`` (compressed) or ``{"values_r", "idx_r"}``
+(the group-local REDUCE format of a layer whose reduction dim a
+tensor-parallel mesh shards, under ``SparsityConfig.shard_local_reduce``),
+each with an optional ``"b"``.
+
+Every leaf is made through :func:`box` with its logical dim names, the names
+of the JAX package's ``Boxed`` leaves.  Outside :func:`boxing` ``box``
+returns the tensor, so the init functions give plain trees; inside it they
+give :class:`Boxed` leaves, which :func:`unbox_tree` splits into the values
+and the logical spec tree (``models.registry.param_specs``).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import contextlib
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch._compat import resolve_device
 from repro_torch.core import formats
-from repro_torch.core.pruning import SparsityConfig, colwise_nm_mask, rowwise_nm_mask
+from repro_torch.core.pruning import (SparsityConfig, choose_group,
+                                      colwise_nm_mask, kept_per_group,
+                                      rowwise_nm_mask)
+
+
+class Boxed:
+    """A parameter leaf with its logical dim names (``spec``, one a dim)."""
+
+    __slots__ = ("value", "spec")
+
+    def __init__(self, value, spec: Tuple[Optional[str], ...]):
+        self.value = value
+        self.spec = tuple(spec)
+
+    def __repr__(self):
+        return f"Boxed(shape={tuple(self.value.shape)}, spec={self.spec})"
+
+
+_BOXING = False
+
+
+@contextlib.contextmanager
+def boxing():
+    """Within this scope the init functions give :class:`Boxed` leaves."""
+    global _BOXING
+    prev, _BOXING = _BOXING, True
+    try:
+        yield
+    finally:
+        _BOXING = prev
+
+
+def box(value, spec: Tuple[Optional[str], ...]):
+    """``value`` named by ``spec``: a :class:`Boxed` leaf within
+    :func:`boxing`, else ``value`` itself."""
+    if not _BOXING:
+        return value
+    if len(spec) != value.ndim:
+        raise ValueError(f"spec {spec} does not name {value.ndim} dims")
+    return Boxed(value, spec)
+
+
+def unbox(leaf):
+    """A leaf's value, boxed or not."""
+    return leaf.value if isinstance(leaf, Boxed) else leaf
+
+
+def box_map(fn, tree):
+    """``fn`` over the :class:`Boxed` leaves of a dict tree."""
+    if isinstance(tree, dict):
+        return {k: box_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def unbox_tree(tree):
+    """Split a tree of :class:`Boxed` leaves into (values, logical specs)."""
+    return (box_map(lambda b: b.value, tree), box_map(lambda b: b.spec, tree))
 
 
 def _dense_init(generator, d_in, d_out, dtype, scale):
@@ -25,38 +91,51 @@ def _dense_init(generator, d_in, d_out, dtype, scale):
 
 def linear_init(generator: torch.Generator, d_in: int, d_out: int,
                 cfg: SparsityConfig, *, dtype=torch.float32,
-                use_bias: bool = False, scale: Optional[float] = None,
+                use_bias: bool = False, in_ax: Optional[str] = "embed",
+                out_ax: Optional[str] = "ffn", scale: Optional[float] = None,
                 mode: str = "concat", device=None) -> Dict[str, Any]:
     """Create a (possibly pruned) linear layer's params on ``device``
     (``None``: the CUDA card).  ``generator`` is a CPU generator, so the
-    weights do not depend on the device.
+    weights do not depend on the device.  ``in_ax``/``out_ax`` are the
+    logical names of d_in and d_out (:func:`box`).
 
     ``mode="reduce"`` marks a layer whose reduction dim a tensor-parallel
-    mesh would shard (the o and down projections).  The JAX package gives
-    such a layer its group-local format only under
-    ``SparsityConfig.shard_local_reduce``, which the port, on one card, does
-    not have: in either mode the layer takes the ordinary format.
+    mesh shards (the o and down projections): under
+    ``cfg.shard_local_reduce`` a pruned compressed one takes the REDUCE
+    format, ``values_r`` [G, n, d_out] and group-local ``idx_r`` [G, n];
+    otherwise the ordinary format.
     """
     if mode not in ("concat", "reduce"):
         raise ValueError(f"mode must be 'concat' or 'reduce', got {mode!r}")
     dev = resolve_device(device)
     prune = cfg.applies_to(d_in, d_out)
     params: Dict[str, Any] = {}
-    if prune and cfg.compressed:
-        params["values"], params["idx"] = formats.init_compressed(
+    if prune and cfg.compressed and mode == "reduce" and cfg.shard_local_reduce:
+        g = choose_group(d_in, cfg.reduce_groups or 4)
+        values, idx = formats.init_compressed_reduce(
+            generator, d_in, d_out, g, kept_per_group(d_in // g, cfg.sparsity),
+            dtype, scale, device=dev)
+        params["values_r"] = box(values, ("reduce_group", None, out_ax))
+        params["idx_r"] = box(idx, ("reduce_group", None))
+    elif prune and cfg.compressed:
+        values, idx = formats.init_compressed(
             generator, d_in, d_out, cfg, dtype, scale, device=dev)
+        params["values"] = box(values, ("tile", "kept", None))
+        params["idx"] = box(idx, ("tile", None))
     elif prune and cfg.format == "masked":
         w = _dense_init(generator, d_in, d_out, dtype, scale)
         if cfg.scheme == "rowwise":
             mask = rowwise_nm_mask(w, cfg.sparsity, m=cfg.m)
         else:
             mask = colwise_nm_mask(w, cfg.sparsity, m=cfg.m, tile=cfg.tile)
-        params["w"] = (w * mask.to(dtype)).to(dev)
-        params["mask"] = mask.to(dev)
+        params["w"] = box((w * mask.to(dtype)).to(dev), (in_ax, out_ax))
+        params["mask"] = box(mask.to(dev), (in_ax, out_ax))
     else:
-        params["w"] = _dense_init(generator, d_in, d_out, dtype, scale).to(dev)
+        params["w"] = box(_dense_init(generator, d_in, d_out, dtype,
+                                      scale).to(dev), (in_ax, out_ax))
     if use_bias:
-        params["b"] = torch.zeros((d_out,), dtype=dtype, device=dev)
+        params["b"] = box(torch.zeros((d_out,), dtype=dtype, device=dev),
+                          (out_ax,))
     return params
 
 
@@ -68,6 +147,22 @@ def forward_compressed_xla(x: torch.Tensor, values: torch.Tensor,
     xg = x[..., idx.long()]  # [..., n_tiles, k]
     y = torch.einsum("...tk,tkf->...tf", xg, values)
     return y.reshape(*x.shape[:-1], n_tiles * tile)
+
+
+def forward_compressed_reduce(x: torch.Tensor, values: torch.Tensor,
+                              idx: torch.Tensor) -> torch.Tensor:
+    """The REDUCE format's product: x [..., d_in] split into [..., G, M],
+    each group's kept rows gathered by its local ``idx`` [G, n], and one
+    einsum ``"...gn,gnf->...f"`` with ``values`` [G, n, d_out].  The group
+    dim stays a batch dim of the gather, so a mesh that shards it gathers
+    locally and sums only the [..., d_out] output.  Plain PyTorch on the CPU
+    and the card alike: the JAX package computes it in XLA, with no
+    kernel."""
+    g, n, _ = values.shape
+    lead = x.shape[:-1]
+    xg = x.reshape(*lead, g, x.shape[-1] // g)
+    sel = torch.gather(xg, -1, idx.long().expand(*lead, g, n))
+    return torch.einsum("...gn,gnf->...f", sel, values)
 
 
 def forward_masked(x: torch.Tensor, w: torch.Tensor,
@@ -84,9 +179,12 @@ def linear_apply(params, x: torch.Tensor, *,
     the sparse linear kernel on the card, the gather-einsum on the CPU), or
     the one ``impl`` (else an ambient ``dispatch.force_scope``) names,
     through ``dispatch.run_guarded``: a candidate that refuses to run is
-    quarantined and the next one runs; raises when none is left.
+    quarantined and the next one runs; raises when none is left.  A
+    REDUCE-format layer runs :func:`forward_compressed_reduce`.
     """
-    if "values" in params:
+    if "values_r" in params:
+        y = forward_compressed_reduce(x, params["values_r"], params["idx_r"])
+    elif "values" in params:
         from repro_torch import dispatch
 
         phase = dispatch.current_phase()

@@ -1,30 +1,97 @@
-"""The train step builder (twin of the train half of
-``repro/launch/steps.py``).
+"""Step builders (train / prefill / decode) and their shardings (twin of
+``repro/launch/steps.py``), shared by the LM ``Trainer``, the serving
+engine and the launchers.
 
-``make_train_step`` is the step the LM ``Trainer`` runs.  The JAX package
-jits it with sharding specs (``train_shardings``) and also builds the
-serving steps here; those come with the port's sharding and serving
-launchers.
+A sharding here is a :class:`repro_torch.sharding.NamedSharding`, the
+resolved PartitionSpec entries and their DTensor placements on a mesh.  The
+port runs its collectives explicitly: under a ``ShardingCtx`` whose mesh
+has data-parallel ranks, the train step takes the global batch, computes
+on this rank's rows and averages the gradients and the loss over the
+ranks, and the MoE layers (``moe_impl="shard_map"``) sum over the model
+group themselves.  The params stay plain tensors, whole on every rank,
+since the hand-written kernels take plain tensors: ``train_shardings``
+says how JAX lays them out, and ``distribute_tree`` can lay a tree out so.
 """
 from __future__ import annotations
+
+from typing import Dict
 
 import torch
 
 from repro_torch._tree import tree_map, value_and_grad
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import registry as reg
-from repro_torch.optim import AdamWConfig, adamw_update
+from repro_torch.optim import AdamWConfig, adamw_update, opt_state_specs
+from repro_torch.sharding.api import (NamedSharding, axis_sizes, get_ctx,
+                                      named, spec_map, specs_to_shardings)
 
 
-def check_trainable(cfg: ModelConfig) -> None:
-    """Refuse a mixture-of-experts config: its auxiliary loss's gradient
-    through the LM ``Trainer`` waits for MoE training (ROADMAP queue 1 item
-    10d)."""
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE training ({cfg.n_experts} experts) waits for "
-            "ROADMAP queue 1 item 10d, MoE training; the port serves and "
-            "scores MoE models")
+def distribute_tree(tree, shardings):
+    """``tree``'s tensors laid out by ``shardings`` as DTensors; at world
+    size 1 the tree comes back as it is."""
+    from torch.distributed.tensor import distribute_tensor
+
+    def one(s: NamedSharding, t):
+        if s.mesh.size() == 1:
+            return t
+        return distribute_tensor(t, s.mesh, s.placements)
+
+    return spec_map(one, shardings, tree)
+
+
+# ---------------------------------------------------------------------------
+# Train step
+# ---------------------------------------------------------------------------
+
+
+def _data_axes():
+    """(the installed mesh's data-parallel axes of more than one rank,
+    their sizes) over the ``"pod"`` and ``"data"`` groups, major first."""
+    ctx = get_ctx()
+    sizes = axis_sizes(ctx.mesh) if ctx is not None else {}
+    return [ax for ax in ("pod", "data") if sizes.get(ax, 1) > 1], sizes
+
+
+def _data_shard(batch):
+    """This rank's rows of every batch leaf: the batch dim split over the
+    data-parallel ranks, ``"pod"`` major (JAX's ``act_batch`` layout);
+    without such ranks, the batch as it is."""
+    axes, sizes = _data_axes()
+    if not axes:
+        return batch
+    mesh = get_ctx().mesh
+    n, index = 1, 0
+    for ax in axes:
+        n *= sizes[ax]
+        index = index * sizes[ax] + mesh.get_local_rank(ax)
+    rows = {k: v.shape[0] for k, v in batch.items()}
+    if any(r % n for r in rows.values()):
+        raise ValueError(f"batch rows {rows} do not split over {n} "
+                         f"data-parallel ranks")
+    return {k: v[index * (v.shape[0] // n):(index + 1) * (v.shape[0] // n)]
+            for k, v in batch.items()}
+
+
+def _data_mean(tree):
+    """Average every float leaf over the installed mesh's data-parallel
+    ranks; without such ranks, the tree as it is."""
+    axes, sizes = _data_axes()
+    if not axes:
+        return tree
+    import torch.distributed as dist
+
+    ctx = get_ctx()
+
+    def mean(t):
+        if t is None or not t.is_floating_point():
+            return t
+        t = t.clone()
+        for ax in axes:
+            dist.all_reduce(t, group=ctx.mesh.get_group(ax))
+            t /= sizes[ax]
+        return t
+
+    return tree_map(mean, tree)
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, microbatches: int = 1):
@@ -32,17 +99,21 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, microbatches: int = 
 
     The loss sees the whole batch (``"tokens"`` and whatever else the
     family reads: ``"enc_embeds"``, ``"vision_embeds"``, ``"vision_pos"``,
-    ``"mrope_positions"``).  Gradient accumulation over ``microbatches``
-    splits every leaf along the batch dim and sums in float32 (a loop where
-    JAX scans): it cuts activation memory for the big train cells.  The
-    step is functional: it returns new trees and leaves its inputs as they
-    were.
+    ``"mrope_positions"``).  A mixture of experts trains too: its auxiliary
+    loss reaches the router and the experts through the loss's ``aux_weight
+    * aux``.  Gradient accumulation over ``microbatches`` splits every leaf
+    along the batch dim and sums in float32 (a loop where JAX scans): it
+    cuts activation memory for the big train cells; its metrics carry
+    ``"aux": 0``, as JAX's.  Under a ``ShardingCtx`` with data-parallel
+    ranks the step takes the global batch, as JAX's does, each rank
+    computes on its rows (``_data_shard``), and the gradients and metrics
+    are averaged over the ranks before the update.  The step is
+    functional: it returns new trees and leaves its inputs as they were.
     """
-    check_trainable(cfg)
     lfn = reg.loss_fn(cfg)
 
     def step(params, opt_state, batch):
-        batch = {k: torch.as_tensor(v) for k, v in batch.items()}
+        batch = _data_shard({k: torch.as_tensor(v) for k, v in batch.items()})
         if microbatches == 1:
             (loss, metrics), grads = value_and_grad(
                 lambda p: lfn(p, batch), params)
@@ -62,8 +133,62 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, microbatches: int = 
             grads = tree_map(lambda g: g / microbatches, grads)
             loss = loss / microbatches
             metrics = {"nll": loss, "aux": torch.zeros((), device=loss.device)}
+        grads = _data_mean(grads)
+        loss, metrics = _data_mean((loss, metrics))
         new_params, new_opt, gnorm = adamw_update(params, grads, opt_state, opt_cfg)
         metrics = dict(metrics, loss=loss, grad_norm=gnorm)
         return new_params, new_opt, metrics
 
     return step
+
+
+def train_shardings(cfg: ModelConfig, mesh, param_shapes, param_specs, batch):
+    """((params, opt state, batch), (params, opt state, metrics)) shardings
+    of the train step: the optimizer state shards as the params do, and the
+    metrics (scalars) are left to the caller (``None``)."""
+    from repro_torch.optim import adamw_init
+
+    p_sh = specs_to_shardings(param_specs, param_shapes, mesh)
+    opt_shapes = adamw_init(tree_map(
+        lambda a: torch.empty(a.shape, dtype=a.dtype, device="meta"),
+        param_shapes))
+    o_specs_full = opt_state_specs(param_specs)
+    o_sh = specs_to_shardings({k: o_specs_full[k] for k in opt_shapes},
+                              opt_shapes, mesh)
+    b_sh = specs_to_shardings(reg.batch_specs(cfg, batch), batch, mesh)
+    return (p_sh, o_sh, b_sh), (p_sh, o_sh, None)
+
+
+# ---------------------------------------------------------------------------
+# Serve steps
+# ---------------------------------------------------------------------------
+
+
+def make_prefill_step(cfg: ModelConfig):
+    """(params, batch) -> (last-token logits, cache)."""
+    return reg.prefill_fn(cfg)
+
+
+def make_decode_step(cfg: ModelConfig):
+    """(params, cache, tokens, pos) -> the decode step's output."""
+    return reg.decode_fn(cfg)
+
+
+def serve_shardings(cfg: ModelConfig, mesh, param_shapes, param_specs,
+                    spec: Dict, cache_auto: bool = True):
+    """Shardings of a serving step.  ``spec["kind"] == "prefill"``: (params,
+    batch).  Decode: ((params, cache, tokens, pos), cache); the cache's
+    entries are ``None`` under ``cache_auto`` (the layout is left to the
+    step, as JAX leaves it to GSPMD), else its logical specs resolved."""
+    p_sh = specs_to_shardings(param_specs, param_shapes, mesh)
+    if spec["kind"] == "prefill":
+        return (p_sh, specs_to_shardings(reg.batch_specs(cfg, spec["batch"]),
+                                         spec["batch"], mesh))
+    if cache_auto:
+        c_sh = spec_map(lambda _t: None, spec["cache"])
+    else:
+        c_sh = specs_to_shardings(reg.cache_specs(cfg, spec["cache"]),
+                                  spec["cache"], mesh)
+    tok_sh = named(mesh, ("act_batch", None), spec["tokens"].shape)
+    pos_sh = named(mesh, (), ())
+    return (p_sh, c_sh, tok_sh, pos_sh), c_sh

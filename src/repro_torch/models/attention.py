@@ -27,7 +27,7 @@ import torch.nn.functional as F
 
 from repro_torch._compat import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.sparse_linear import linear_apply, linear_init
+from repro_torch.core.sparse_linear import linear_apply, linear_init, unbox
 from repro_torch.models.common import apply_rope, mrope_cos_sin, rope_cos_sin
 
 NEG = -1e30
@@ -43,15 +43,16 @@ def attn_init(generator: torch.Generator, cfg: ModelConfig, device=None):
     opts = dict(dtype=getattr(torch, cfg.param_dtype), device=device)
     p = {
         "q": linear_init(generator, d, h * hd, scfg, use_bias=cfg.qkv_bias,
-                         **opts),
+                         in_ax="embed", out_ax="heads_flat", **opts),
         "k": linear_init(generator, d, kv * hd, scfg, use_bias=cfg.qkv_bias,
-                         **opts),
+                         in_ax="embed", out_ax="kv_flat", **opts),
         "v": linear_init(generator, d, kv * hd, scfg, use_bias=cfg.qkv_bias,
-                         **opts),
-        "o": linear_init(generator, h * hd, d, scfg, mode="reduce", **opts),
+                         in_ax="embed", out_ax="kv_flat", **opts),
+        "o": linear_init(generator, h * hd, d, scfg, in_ax="heads_flat",
+                         out_ax="embed", mode="reduce", **opts),
     }
     if cfg.n_heads != cfg.padded_heads and "w" in p["o"]:
-        w = p["o"]["w"].reshape(h, hd, d)
+        w = unbox(p["o"]["w"]).reshape(h, hd, d)
         w[cfg.n_heads:] = 0.0
     return p
 

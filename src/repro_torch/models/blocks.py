@@ -15,18 +15,23 @@ from typing import Any, Dict, List
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.sparse_linear import linear_apply, linear_init
+from repro_torch.core.sparse_linear import Boxed, linear_apply, linear_init
 from repro_torch.models import attention as attn
 from repro_torch.models.common import norm_apply, norm_init
 from repro_torch.models.mlp import mlp_apply, mlp_init
-from repro_torch.models.moe import moe_apply, moe_init
+from repro_torch.models.moe import moe_apply, moe_apply_shard_map, moe_init
 
 
 def stack_layers(layers: List[Dict[str, Any]]) -> Dict[str, Any]:
-    """Stack per-layer trees of one structure along a leading layers axis."""
+    """Stack per-layer trees of one structure along a leading layers axis
+    (a :class:`Boxed` leaf's spec gains ``"layers"`` in front, as JAX's
+    ``stack_init`` names it)."""
     first = layers[0]
     if isinstance(first, dict):
         return {k: stack_layers([t[k] for t in layers]) for k in first}
+    if isinstance(first, Boxed):
+        return Boxed(torch.stack([b.value for b in layers]),
+                     ("layers",) + first.spec)
     return torch.stack(layers)
 
 
@@ -53,9 +58,12 @@ def block_init(generator: torch.Generator, cfg: ModelConfig, device=None):
 
 def ffn_apply(params, cfg: ModelConfig, x):
     """The block's feed-forward half over the normed x: (y, aux).  A mixture
-    of experts with its auxiliary loss, else the MLP and ``None``."""
+    of experts with its auxiliary loss (``moe_apply_shard_map`` under
+    ``cfg.moe_impl="shard_map"``, as JAX's five block functions read it),
+    else the MLP and ``None``."""
     if cfg.is_moe:
-        return moe_apply(params["moe"], cfg, x)
+        fn = moe_apply_shard_map if cfg.moe_impl == "shard_map" else moe_apply
+        return fn(params["moe"], cfg, x)
     return mlp_apply(params["mlp"], cfg, x), None
 
 
@@ -99,7 +107,8 @@ def shared_block_init(generator: torch.Generator, cfg: ModelConfig,
     original embedding, and ``fuse`` (2d -> d) maps it back before the
     ordinary block."""
     fuse = linear_init(generator, 2 * cfg.d_model, cfg.d_model, cfg.sparsity,
-                       dtype=getattr(torch, cfg.param_dtype), device=device)
+                       dtype=getattr(torch, cfg.param_dtype), in_ax="embed",
+                       out_ax="embed2", device=device)
     return {"fuse": fuse, "block": block_init(generator, cfg, device)}
 
 

@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from repro_torch._compat import resolve_device
+from repro_torch.core.sparse_linear import box
 
 
 def norm_init(d: int, kind: str = "rmsnorm", dtype=torch.float32,
@@ -18,9 +19,9 @@ def norm_init(d: int, kind: str = "rmsnorm", dtype=torch.float32,
     """``{"scale"}`` of ones, and for ``kind="layernorm"`` a ``"bias"`` of
     zeros, on ``device`` (``None``: the CUDA card)."""
     dev = resolve_device(device)
-    p = {"scale": torch.ones((d,), dtype=dtype, device=dev)}
+    p = {"scale": box(torch.ones((d,), dtype=dtype, device=dev), (None,))}
     if kind == "layernorm":
-        p["bias"] = torch.zeros((d,), dtype=dtype, device=dev)
+        p["bias"] = box(torch.zeros((d,), dtype=dtype, device=dev), (None,))
     return p
 
 
@@ -119,7 +120,7 @@ def embed_init(generator: torch.Generator, vocab: int, d: int,
                dtype=torch.float32, device=None) -> torch.Tensor:
     """[vocab, d] N(0, 0.02^2) table; ``generator`` is a CPU generator."""
     e = torch.randn((vocab, d), generator=generator, dtype=torch.float32) * 0.02
-    return e.to(resolve_device(device), dtype)
+    return box(e.to(resolve_device(device), dtype), ("vocab", "embed"))
 
 
 def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:

@@ -34,7 +34,7 @@ import torch
 
 from repro_torch._compat import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.sparse_linear import linear_apply
+from repro_torch.core.sparse_linear import box, linear_apply
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
@@ -104,7 +104,7 @@ def lm_init(cfg: ModelConfig, seed: int, device=None) -> Dict[str, Any]:
     if not cfg.tie_embeddings:
         u = torch.randn((cfg.d_model, cfg.padded_vocab), generator=gen,
                         dtype=torch.float32) * 0.02
-        p["unembed"] = u.to(dev, dtype)
+        p["unembed"] = box(u.to(dev, dtype), ("embed", "vocab"))
     pat = cfg.block_pattern
     if pat == "attn":
         p["layers"] = _stacked(lambda: block_init(gen, cfg, dev), cfg.n_layers)

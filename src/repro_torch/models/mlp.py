@@ -22,10 +22,12 @@ def mlp_init(generator: torch.Generator, cfg: ModelConfig, device=None,
     opts = dict(dtype=getattr(torch, cfg.param_dtype), device=device)
     p = {}
     if cfg.mlp_act == "swiglu":
-        p["gate"] = linear_init(generator, d, f, cfg.sparsity, **opts)
-    p["up"] = linear_init(generator, d, f, cfg.sparsity, **opts)
-    p["down"] = linear_init(generator, f, d, cfg.sparsity, mode="reduce",
-                            **opts)
+        p["gate"] = linear_init(generator, d, f, cfg.sparsity, in_ax="embed",
+                                out_ax="ffn", **opts)
+    p["up"] = linear_init(generator, d, f, cfg.sparsity, in_ax="embed",
+                          out_ax="ffn", **opts)
+    p["down"] = linear_init(generator, f, d, cfg.sparsity, in_ax="ffn",
+                            out_ax="embed", mode="reduce", **opts)
     return p
 
 

@@ -1,20 +1,21 @@
 """Mixture-of-Experts layer (twin of ``repro/models/moe.py``): top-k routing,
 the capacity-clipped scatter dispatch into an ``[E, capacity, d]`` buffer per
 group, the expert FFN over per-expert column-wise N:M pruned linears, and the
-weighted combine.
+weighted combine; and ``moe_apply_shard_map``, the manual expert parallelism
+over a mesh's ``"model"`` axis.
 
 Every shape is static and no step reads a tensor on the host: each (token,
 slot) assignment takes its position in its expert from a cumsum over one-hot
 expert ids, kept assignments land on unique ``(expert, position)`` pairs of
 the buffer in one plain scatter, and dropped ones go to a trash slot that is
-sliced off.
+sliced off.  The layer trains: the router takes the gradient of the combine
+weights and of the auxiliary loss, the experts and ``x`` that of their
+assignments; the integer routing takes none.
 
 The experts run as the twin of the JAX package's XLA path
 (``jax.vmap(forward_compressed_xla)`` over the experts): a batched gather of
 each expert's kept rows and one einsum, on the CPU and on the card alike.  No
-Pallas kernel computes them there, so none does here.  ``moe_apply_shard_map``
-(manual expert parallelism over a mesh) is not ported: the port has no mesh,
-and without one the JAX package runs ``moe_apply`` for it as well.
+Pallas kernel computes them there, so none does here.
 """
 from __future__ import annotations
 
@@ -26,19 +27,31 @@ import torch.nn.functional as F
 
 from repro_torch._compat import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.sparse_linear import forward_masked, linear_init
+from repro_torch.core.sparse_linear import (Boxed, box, forward_masked,
+                                            linear_init, unbox)
 
 
 def _stacked_linear_init(generator: torch.Generator, e: int, d_in: int,
                          d_out: int, cfg: ModelConfig, device=None):
     """``e`` experts' linears under ``cfg.sparsity``, every leaf stacked on a
-    leading [E] axis: a compressed expert stack is values [E, n_tiles, k, T]
-    and idx [E, n_tiles, k].  Drawn and stacked on the host, then moved."""
+    leading [E] axis (logical name ``"expert"``): a compressed expert stack
+    is values [E, n_tiles, k, T] and idx [E, n_tiles, k].  Drawn and stacked
+    on the host, then moved; on the ``meta`` device nothing is drawn."""
     dtype = getattr(torch, cfg.param_dtype)
+    meta = torch.device(device).type == "meta"
     experts = [linear_init(generator, d_in, d_out, cfg.sparsity, dtype=dtype,
-                           device="cpu") for _ in range(e)]
-    return {k: torch.stack([p[k] for p in experts]).to(device)
-            for k in experts[0]}
+                           in_ax="embed", out_ax="ffn",
+                           device="meta" if meta else "cpu")
+               for _ in range(1 if meta else e)]
+
+    def stack(leaves):
+        v = [unbox(t) for t in leaves]
+        v = (v[0].expand(e, *v[0].shape) if meta else torch.stack(v)).to(device)
+        if isinstance(leaves[0], Boxed):
+            return Boxed(v, ("expert",) + leaves[0].spec)
+        return v
+
+    return {k: stack([p[k] for p in experts]) for k in experts[0]}
 
 
 def _stacked_linear_apply(params, x: torch.Tensor) -> torch.Tensor:
@@ -64,7 +77,8 @@ def moe_init(generator: torch.Generator, cfg: ModelConfig,
     d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
     dev = resolve_device(device)
     router = torch.randn((d, e), generator=generator, dtype=torch.float32)
-    p = {"router": (router * (1.0 / math.sqrt(d))).to(dev)}
+    p = {"router": box((router * (1.0 / math.sqrt(d))).to(dev),
+                       ("embed", "expert"))}
     if cfg.mlp_act == "swiglu":
         p["gate"] = _stacked_linear_init(generator, e, d, f, cfg, dev)
     p["up"] = _stacked_linear_init(generator, e, d, f, cfg, dev)
@@ -126,6 +140,28 @@ def _expert_ffn(params, cfg: ModelConfig, buf: torch.Tensor) -> torch.Tensor:
     return _stacked_linear_apply(params["down"], h)
 
 
+def _combine(out_buf, e_flat, pos, keep, top_p, cap: int, k: int):
+    """Each token's kept assignments gathered back from the experts' output
+    [G, E, C, d] and summed, weighted by ``top_p`` [G, Tg, K]: y [G, Tg, d].
+    A dropped assignment reads a clamped slot and is zeroed."""
+    g, tg, d = top_p.shape[0], top_p.shape[1], out_buf.shape[-1]
+    rows = torch.arange(g, device=out_buf.device)[:, None].expand_as(e_flat)
+    gathered = out_buf[rows, e_flat, torch.clamp(pos, max=cap - 1).long()]
+    gathered = gathered * keep[..., None].to(gathered.dtype)
+    w = top_p.reshape(g, -1)[..., None].to(gathered.dtype)
+    return (gathered * w).reshape(g, tg, k, d).sum(dim=2)
+
+
+def _balance(probs, top_i, e: int) -> torch.Tensor:
+    """Each group's sum of mean router probability times routed share over
+    the experts, [G]: the Switch load-balancing loss over ``e``."""
+    g, tg, k = top_i.shape
+    me = probs.mean(dim=1)  # [G, E]
+    ce = (top_i.reshape(g, -1, 1) == torch.arange(e, device=probs.device)).sum(
+        dim=1).to(torch.float32) / (tg * k)
+    return (me * ce).sum(dim=-1)
+
+
 def moe_apply(params, cfg: ModelConfig,
               x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [B, S, d] -> (y [B, S, d], aux): grouped dispatch over ``cfg.dp``
@@ -141,18 +177,118 @@ def moe_apply(params, cfg: ModelConfig,
     xg = x.reshape(g, tg, d)
 
     probs, top_p, top_i = _route(params, cfg, xg)
-    me = probs.mean(dim=1)  # [G, E]
-    ce = (top_i.reshape(g, -1, 1) == torch.arange(e, device=x.device)).sum(
-        dim=1).to(torch.float32) / (tg * k)
-    aux = e * (me * ce).sum(dim=-1).mean()
-
+    aux = e * _balance(probs, top_i, e).mean()
     cap = moe_capacity(tg, cfg)
     buf, e_flat, pos, keep = _dispatch_group(xg, top_i, e, cap, k)
     out_buf = _expert_ffn(params, cfg, buf)  # [G, E, C, d]
-
-    rows = torch.arange(g, device=x.device)[:, None].expand_as(e_flat)
-    gathered = out_buf[rows, e_flat, torch.clamp(pos, max=cap - 1).long()]
-    gathered = gathered * keep[..., None].to(gathered.dtype)
-    w = top_p.reshape(g, -1)[..., None].to(gathered.dtype)
-    y = (gathered * w).reshape(g, tg, k, d).sum(dim=2)
+    y = _combine(out_buf, e_flat, pos, keep, top_p, cap, k)
     return y.reshape(b, s, d), aux
+
+
+# ---------------------------------------------------------------------------
+# Expert parallelism over the mesh's "model" axis
+# ---------------------------------------------------------------------------
+
+
+class _CopyToGroup(torch.autograd.Function):
+    """Identity forward; the backward sums the gradient over ``group``.  It
+    marks where a value replicated over the model group feeds work split
+    over it (this rank's experts), so each rank's part of the gradient
+    joins the others'."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        import torch.distributed as dist
+
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _SumOverGroup(torch.autograd.Function):
+    """Sum over ``group`` forward; identity backward: every rank of the group
+    goes on with the same sum, and so hands back the whole gradient."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        import torch.distributed as dist
+
+        out = t.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def moe_apply_shard_map(params, cfg: ModelConfig,
+                        x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Manual expert parallelism over the installed mesh's ``"model"``
+    axis, the JAX package's ``shard_map`` body with explicit collectives.
+
+    ``x`` [b, S, d] is this rank's data shard, replicated over its model
+    group, and every tensor is a plain local one.  Each rank routes all its
+    tokens, keeps only the assignments to its ``E / tp`` experts (capacity
+    ``moe_capacity(b * S)``), computes those, and the group sums ``y``; aux
+    is averaged over the ``"pod"``/``"data"`` groups.  The expert leaves
+    hold all E experts (this rank takes its slice) or this rank's E / tp.
+
+    The gradient is the unsharded one: the sum of ``y`` hands every rank
+    the whole cotangent, and the inputs of the split work (the dispatched
+    tokens, the combine weights, all-E expert stacks) sum their gradient
+    over the model group, while the routing and aux, computed alike on
+    every rank, are not summed.  With no context, a model axis of 1, or
+    ``E % tp != 0``, this is :func:`moe_apply`, as in JAX.
+    """
+    from repro_torch.sharding.api import axis_sizes, get_ctx
+
+    ctx = get_ctx()
+    sizes = axis_sizes(ctx.mesh) if ctx is not None else {}
+    tp = sizes.get("model", 1)
+    e, k = cfg.n_experts, cfg.top_k
+    if tp == 1 or e % tp:
+        return moe_apply(params, cfg, x)
+    from torch.distributed.nn.functional import all_reduce
+
+    mesh = ctx.mesh
+    model = mesh.get_group("model")
+    e_loc = e // tp
+    e0 = mesh.get_local_rank("model") * e_loc
+    b, s, d = x.shape
+    t = b * s
+    xt = x.reshape(1, t, d)
+
+    probs, top_p, top_i = _route(params, cfg, xt)
+    aux = e * _balance(probs, top_i, e)[0]
+    for ax in ("pod", "data"):
+        if sizes.get(ax, 1) > 1:
+            aux = all_reduce(aux, group=mesh.get_group(ax)) / sizes[ax]
+
+    # this rank's assignments; the others go to a phantom expert e_loc whose
+    # rows are sliced off, so the positions count only this rank's
+    mine = (top_i >= e0) & (top_i < e0 + e_loc)
+    el = torch.where(mine, top_i - e0, e_loc)
+    cap = moe_capacity(t, cfg)
+    buf, e_flat, pos, keep = _dispatch_group(
+        _CopyToGroup.apply(xt, model), el, e_loc + 1, cap, k)
+    keep = keep & mine.reshape(1, -1)
+
+    def local(leaf):
+        if leaf.shape[0] != e:
+            return leaf
+        if leaf.is_floating_point():
+            leaf = _CopyToGroup.apply(leaf, model)
+        return leaf[e0:e0 + e_loc]
+
+    ew = {n: {kk: local(v) for kk, v in params[n].items()}
+          for n in params if n != "router"}
+    out_buf = _expert_ffn(ew, cfg, buf[:, :e_loc])
+    y = _combine(out_buf, torch.clamp(e_flat, max=e_loc - 1), pos, keep,
+                 _CopyToGroup.apply(top_p, model), cap, k)
+    return _SumOverGroup.apply(y, model).reshape(b, s, d), aux

@@ -2,12 +2,17 @@
 forward and loss, and the serving step functions the engine calls, for the
 decoder-only families (``lm.py``) and the encoder-decoder one
 (``encdec.py``); the contiguous cache serves every family, the paged one
-the decoder-only attention families only, as in the JAX package."""
+the decoder-only attention families only, as in the JAX package.  And the
+logical specs of the params, batches and caches, which the sharding layer
+resolves on a mesh."""
 from __future__ import annotations
+
+from typing import Any, Dict
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.sparse_linear import boxing, unbox_tree
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import lm as lm_mod
@@ -18,6 +23,20 @@ def init_params(cfg: ModelConfig, seed: int, device=None):
     if cfg.is_encoder_decoder:
         return encdec_mod.encdec_init(cfg, seed, device)
     return lm_mod.lm_init(cfg, seed, device)
+
+
+def abstract_params(cfg: ModelConfig):
+    """(params, logical specs) with no allocation and no draw on the host:
+    the params' leaves are ``meta`` tensors of their shapes and dtypes (the
+    twin of ``jax.eval_shape``), the specs tuples of logical dim names, one
+    a dim, as JAX's ``Boxed`` leaves carry them."""
+    with torch.device("meta"), boxing():
+        return unbox_tree(init_params(cfg, 0, device="meta"))
+
+
+def param_specs(cfg: ModelConfig):
+    """The params' logical spec tree (:func:`abstract_params`'s second)."""
+    return abstract_params(cfg)[1]
 
 
 def loss_fn(cfg: ModelConfig):
@@ -115,3 +134,63 @@ def paged_cache_init_fn(cfg: ModelConfig, n_pages: int, page_size: int,
     return lambda: attn_mod.paged_cache_init(
         cfg, n_pages, page_size, cfg.n_layers, getattr(torch, cfg.dtype),
         device)
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, max_len: int):
+    """The contiguous decode cache as ``meta`` tensors: no allocation."""
+    with torch.device("meta"):
+        return cache_init_fn(cfg, batch, max_len, device="meta")()
+
+
+# ---------------------------------------------------------------------------
+# Logical specs for batches and caches
+# ---------------------------------------------------------------------------
+
+
+BATCH_NAMES = {
+    "tokens": ("act_batch", None),
+    "mrope_positions": ("act_batch", None, None),
+    "vision_embeds": ("act_batch", None, None),
+    "vision_pos": ("act_batch", None),
+    "enc_embeds": ("act_batch", None, None),
+}
+
+
+def batch_specs(cfg: ModelConfig, batch: Dict[str, Any]):
+    """Logical dim names of each batch entry."""
+    return {k: BATCH_NAMES[k] for k in batch}
+
+
+def cache_specs(cfg: ModelConfig, cache) -> Any:
+    """The logical dim-name tree of the family's contiguous cache."""
+    kv = (None, "act_batch", "act_kv_seq", "act_kv_heads", None)
+    if cfg.is_encoder_decoder:
+        return {k: kv for k in ("k", "v", "xk", "xv")}
+    pat = cfg.block_pattern
+    if pat == "attn":
+        return {"k": kv, "v": kv}
+    if pat == "xlstm":
+        return {
+            "mlstm": {
+                "C": (None, None, "act_batch", "act_heads", None, None),
+                "n": (None, None, "act_batch", "act_heads", None),
+                "m": (None, None, "act_batch", "act_heads"),
+            },
+            "slstm": {k: (None, "act_batch", "act_heads", None)
+                      for k in ("c", "n", "h", "m")},
+        }
+    if pat == "mamba_shared_attn":
+        spec = {
+            "mamba": {
+                "ssm": (None, None, "act_batch", "act_heads", None, None),
+                "conv": (None, None, "act_batch", None, "act_ffn"),
+            },
+            "shared_kv": {"k": kv, "v": kv},
+        }
+        if isinstance(cache, dict) and "mamba_tail" in cache:
+            spec["mamba_tail"] = {
+                "ssm": (None, "act_batch", "act_heads", None, None),
+                "conv": (None, "act_batch", None, "act_ffn"),
+            }
+        return spec
+    raise ValueError(pat)

@@ -23,7 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch._compat import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.sparse_linear import linear_apply, linear_init
+from repro_torch.core.sparse_linear import box, linear_apply, linear_init
 from repro_torch.models.common import norm_apply, norm_init
 
 NEG = -1e30
@@ -46,19 +46,23 @@ def mamba_init(generator: torch.Generator, cfg: ModelConfig, device=None):
     dtype = getattr(torch, cfg.param_dtype)
     opts = dict(dtype=dtype, device=dev)
     d_in_proj = 2 * di + 2 * ns + nh  # z, x, B, C, dt
-    in_proj = linear_init(generator, d, d_in_proj, cfg.sparsity, **opts)
-    out_proj = linear_init(generator, di, d, cfg.sparsity, mode="reduce",
-                           **opts)
+    in_proj = linear_init(generator, d, d_in_proj, cfg.sparsity,
+                          in_ax="embed", out_ax="ffn", **opts)
+    out_proj = linear_init(generator, di, d, cfg.sparsity, in_ax="ffn",
+                           out_ax="embed", mode="reduce", **opts)
     conv_w = torch.randn((cfg.d_conv, conv_ch), generator=generator,
                          dtype=torch.float32) * 0.1
     return {
         "in_proj": in_proj,
         "out_proj": out_proj,
-        "conv_w": conv_w.to(dev, dtype),
-        "conv_b": torch.zeros((conv_ch,), dtype=dtype, device=dev),
-        "A_log": torch.log(torch.linspace(1.0, 16.0, nh)).to(dev),
-        "D": torch.ones((nh,), dtype=torch.float32, device=dev),
-        "dt_bias": torch.zeros((nh,), dtype=torch.float32, device=dev),
+        "conv_w": box(conv_w.to(dev, dtype), (None, "ffn")),
+        "conv_b": box(torch.zeros((conv_ch,), dtype=dtype, device=dev),
+                      ("ffn",)),
+        "A_log": box(torch.log(torch.linspace(1.0, 16.0, nh)).to(dev),
+                     (None,)),
+        "D": box(torch.ones((nh,), dtype=torch.float32, device=dev), (None,)),
+        "dt_bias": box(torch.zeros((nh,), dtype=torch.float32, device=dev),
+                       (None,)),
         "norm": norm_init(di, "rmsnorm", dtype, dev),
     }
 

@@ -27,7 +27,7 @@ import torch.nn.functional as F
 
 from repro_torch._compat import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.sparse_linear import linear_apply, linear_init
+from repro_torch.core.sparse_linear import box, linear_apply, linear_init
 from repro_torch.models.common import norm_apply, norm_init
 from repro_torch.models.ssm import _chunk_len
 
@@ -67,16 +67,22 @@ def mlstm_init(generator: torch.Generator, cfg: ModelConfig, device=None):
     scfg = cfg.sparsity
     opts = dict(dtype=dtype, device=dev)
     p = {
-        "up": linear_init(generator, d, 2 * di, scfg, **opts),
-        "q": linear_init(generator, di, di, scfg, **opts),
-        "k": linear_init(generator, di, di, scfg, **opts),
-        "v": linear_init(generator, di, di, scfg, **opts),
-        "gates": _randn(generator, (di, 2 * nh), 0.01, dtype, dev),
-        "gates_b": torch.cat([torch.full((nh,), 3.0), torch.zeros((nh,))]
-                             ).to(dev),
+        "up": linear_init(generator, d, 2 * di, scfg, in_ax="embed",
+                          out_ax="ffn", **opts),
+        "q": linear_init(generator, di, di, scfg, in_ax="ffn",
+                         out_ax="heads_flat", **opts),
+        "k": linear_init(generator, di, di, scfg, in_ax="ffn",
+                         out_ax="heads_flat", **opts),
+        "v": linear_init(generator, di, di, scfg, in_ax="ffn",
+                         out_ax="heads_flat", **opts),
+        "gates": box(_randn(generator, (di, 2 * nh), 0.01, dtype, dev),
+                     ("ffn", None)),
+        "gates_b": box(torch.cat([torch.full((nh,), 3.0),
+                                  torch.zeros((nh,))]).to(dev), (None,)),
         "norm": norm_init(di, "rmsnorm", dtype, dev),
     }
-    p["down"] = linear_init(generator, di, d, scfg, mode="reduce", **opts)
+    p["down"] = linear_init(generator, di, d, scfg, in_ax="ffn",
+                            out_ax="embed", mode="reduce", **opts)
     return p
 
 
@@ -201,14 +207,16 @@ def slstm_init(generator: torch.Generator, cfg: ModelConfig, device=None):
     dtype = getattr(torch, cfg.param_dtype)
     scfg = cfg.sparsity
     opts = dict(dtype=dtype, device=dev)
-    w = linear_init(generator, d, 4 * di, scfg, **opts)
+    w = linear_init(generator, d, 4 * di, scfg, in_ax="embed", out_ax="ffn",
+                    **opts)
     r = _randn(generator, (nh, p, 4 * p), 0.05, dtype, dev)
-    down = linear_init(generator, di, d, scfg, mode="reduce", **opts)
+    down = linear_init(generator, di, d, scfg, in_ax="ffn", out_ax="embed",
+                       mode="reduce", **opts)
     return {
         "w": w,
-        "r": r,
-        "b": torch.cat([torch.zeros((di,)), torch.full((di,), 3.0),
-                        torch.zeros((2 * di,))]).to(dev),
+        "r": box(r, ("heads", None, None)),
+        "b": box(torch.cat([torch.zeros((di,)), torch.full((di,), 3.0),
+                            torch.zeros((2 * di,))]).to(dev), (None,)),
         "norm": norm_init(di, "rmsnorm", dtype, dev),
         "down": down,
     }

@@ -6,4 +6,5 @@ from repro_torch.optim.adamw import (  # noqa: F401
     adamw_update,
     clip_by_global_norm,
     global_norm,
+    opt_state_specs,
 )

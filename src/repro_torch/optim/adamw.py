@@ -113,3 +113,10 @@ def adamw_update(params, grads, state, cfg: AdamWConfig, lr_scale=1.0):
     if has_master:
         new_state["master"] = part(3)
     return part(0), new_state, gnorm
+
+
+def opt_state_specs(param_specs):
+    """Logical specs of the optimizer state: ``m``, ``v`` and ``master``
+    shard as the params do, ``step`` is a scalar."""
+    return {"m": param_specs, "v": param_specs, "step": (),
+            "master": param_specs}

@@ -1,0 +1,14 @@
+"""Logical-axis sharding (twin of ``repro/sharding``)."""
+from repro_torch.sharding.api import (  # noqa: F401
+    RULES,
+    NamedSharding,
+    ShardingCtx,
+    get_ctx,
+    logical_constraint,
+    placements,
+    resolve_spec,
+    set_ctx,
+    shd,
+    specs_to_shardings,
+    use_ctx,
+)

@@ -7,6 +7,11 @@ On the card the compressed linears run the sparse linear kernel forward
 and their autograd twin's backward.  The flash-attention kernel has no
 gradient (nor has JAX's), so train under ``attn_impl="naive"`` or
 ``"chunked"``.
+
+Under a ``ShardingCtx`` over more than one rank every rank runs the loop
+on the same global batches (the step computes on its own rows), every rank
+restores, only global rank 0 writes checkpoints, and ``run`` returns on
+every rank after its final checkpoint is written.
 """
 from __future__ import annotations
 
@@ -19,11 +24,23 @@ from repro_torch._compat import resolve_device
 from repro_torch._tree import tree_leaves
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
-from repro_torch.launch.steps import check_trainable, make_train_step
+from repro_torch.launch.steps import make_train_step
 from repro_torch.models import registry as reg
 from repro_torch.optim import AdamWConfig, adamw_init
+from repro_torch.sharding import get_ctx
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.fault import PreemptionGuard, StepWatchdog, StragglerMonitor
+
+
+def _ranks():
+    """(this process's global rank, whether the installed ``ShardingCtx``
+    spans more than one rank)."""
+    ctx = get_ctx()
+    if ctx is None or ctx.mesh is None or ctx.mesh.size() == 1:
+        return 0, False
+    import torch.distributed as dist
+
+    return dist.get_rank(), True
 
 
 @dataclasses.dataclass
@@ -50,7 +67,6 @@ class Trainer:
         params=None,
         device=None,
     ):
-        check_trainable(cfg)
         self.cfg = cfg
         self.train_cfg = train_cfg
         self.data = SyntheticLM(data_cfg)
@@ -82,7 +98,7 @@ class Trainer:
         return self.start_step
 
     def save(self, step: int, blocking: bool = True):
-        if self.ckpt is None:
+        if self.ckpt is None or _ranks()[0] != 0:
             return
         self.ckpt.save(
             step,
@@ -132,6 +148,10 @@ class Trainer:
             # crash mid-loop propagates WITHOUT this save: exactly a kill.
             if self.ckpt:
                 self.save(step, blocking=True)
+            if _ranks()[1]:
+                import torch.distributed as dist
+
+                dist.barrier()
         finally:
             self.watchdog.stop()
             self.preempt.uninstall()

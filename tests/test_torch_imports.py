@@ -39,7 +39,9 @@ def test_importing_every_module_loads_no_jax_or_repro():
               "repro_torch.examples", "repro_torch.examples.conv_pipeline",
               "repro_torch.examples.quickstart",
               "repro_torch.examples.prune_and_finetune",
-              "repro_torch.examples.serve_pruned"):
+              "repro_torch.examples.serve_pruned",
+              "repro_torch.sharding", "repro_torch.sharding.api",
+              "repro_torch.launch.mesh"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"

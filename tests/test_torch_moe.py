@@ -362,12 +362,17 @@ def test_moe_apply_drops_like_jax(margins):
 
 
 def test_shard_map_impl_without_a_mesh_is_moe_apply():
-    """JAX's ``moe_apply_shard_map`` with no mesh equals the port's
-    ``moe_apply``: the port has no mesh, so it carries no ``moe_impl``."""
+    """JAX's ``moe_apply_shard_map`` with no mesh equals the port's, which
+    with no context is ``moe_apply`` too (the port's expert parallelism
+    over a mesh: ``tests/test_torch_moe_train.py``)."""
     jp = _moe_params("compressed", "swiglu")
     x = _x((2, 6, 64), 15)
-    y, _ = tmoe.moe_apply(params_from_jax(jp, device="cpu"),
-                          _tcfg("olmoe-1b-7b"), torch.from_numpy(x))
+    tcfg = _tcfg("olmoe-1b-7b", moe_impl="shard_map")
+    y, aux = tmoe.moe_apply_shard_map(params_from_jax(jp, device="cpu"),
+                                      tcfg, torch.from_numpy(x))
+    y0, aux0 = tmoe.moe_apply(params_from_jax(jp, device="cpu"), tcfg,
+                              torch.from_numpy(x))
+    assert torch.equal(y, y0) and torch.equal(aux, aux0)
     jcfg = _jcfg("olmoe-1b-7b", moe_impl="shard_map")
     jy, _ = jmoe.moe_apply_shard_map(jp, jcfg, jnp.asarray(x))
     jy = np.asarray(jy)
@@ -557,22 +562,48 @@ def test_paged_scheduler_tokens_equal_jax(arch, margins):
 
 
 # ---------------------------------------------------------------------------
-# Training waits for its own slice
+# Training: the LM Trainer resumes an MoE model bit for bit
 # ---------------------------------------------------------------------------
 
 
-def test_trainer_refuses_moe_naming_the_item():
+def test_trainer_refuses_moe_naming_the_item(tmp_path):
+    """MoE training (ROADMAP item 10d; the name is kept from when the port
+    refused it): the LM ``Trainer`` on the smoke olmoe-1b-7b (JAX's
+    converted params, compressed experts), 4 steps with a checkpoint at
+    step 2, and a run restored from it repeats steps 3 and 4 bit for bit
+    (losses, params and optimizer state), with one intra-op thread as
+    ``tests/test_torch_train.py`` resumes.  Each step's aux is positive.
+    (The step against JAX's: ``tests/test_torch_moe_train.py``.)"""
     from repro_torch.data import DataConfig
-    from repro_torch.launch.steps import make_train_step
     from repro_torch.optim import AdamWConfig
-    from repro_torch.train import Trainer
+    from repro_torch.train import TrainConfig, Trainer
 
     cfg = _tcfg("olmoe-1b-7b")
-    with pytest.raises(NotImplementedError, match="MoE training"):
-        Trainer(cfg, DataConfig(vocab_size=cfg.vocab_size, batch=2,
-                                seq_len=8), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10d"):
-        make_train_step(cfg, AdamWConfig())
+    data = DataConfig(vocab_size=cfg.vocab_size, batch=2, seq_len=8)
+
+    def trainer(d, steps):
+        return Trainer(cfg, data, AdamWConfig(),
+                       TrainConfig(steps=steps, ckpt_dir=str(tmp_path / d),
+                                   ckpt_every=2, log_every=1),
+                       params=_tparams("olmoe-1b-7b"), device="cpu")
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        ta = trainer("a", 4)
+        out_a = ta.run()
+        trainer("b", 2).run()
+        tc = trainer("b", 4)
+        out_c = tc.run()
+    finally:
+        torch.set_num_threads(n)
+    assert out_c["start_step"] == 2 and out_c["final_step"] == 4
+    assert all(h["aux"] > 0 for h in out_a["history"])
+    assert [h["loss"] for h in out_a["history"][2:]] == [
+        h["loss"] for h in out_c["history"]]
+    for a, c in zip(leaves_with_path((ta.params, ta.opt_state)),
+                    leaves_with_path((tc.params, tc.opt_state)), strict=True):
+        assert a[0] == c[0] and torch.equal(a[1], c[1]), keystr(a[0])
 
 
 @pytest.mark.parametrize("extra", [[], ["--continuous", "--paged"]],
