@@ -41,7 +41,11 @@ Phases:
               launch, per conv, the kernel the shape rule picks); launch
               counts, logits held against a dense
               reference, the masked -> compressed tree check, forward times,
-              and the host cost of the dispatch lookup per conv call
+              the profiled forward counted by the op counter
+              (``roofline.count``) through the kernels and through the plain
+              versions (FLOPs, bytes and each kernel family's work equal;
+              the counted t_bound beside the device ms), and the host cost
+              of the dispatch lookup per conv call
   5. linear : compressed linear layers (serving's sparsity config, tile 8
               and tile 12) through ``linear_apply``'s dispatch, by the
               heuristic (the tiled kernel for T = d_out, the other for tiles
@@ -64,8 +68,9 @@ Phases:
               linear and paged kernels and flash launched 0 times), a
               teacher-forced replay of every step through the plain
               versions, host times per step and the device time of one
-              decode step, with both linear and both paged kernels timed at
-              its shapes
+              decode step, that step counted through the kernels and through
+              the plain versions as in phase 4 (t_bound beside it), with
+              both linear and both paged kernels timed at its shapes
   8. flash  : both flash-attention kernels against their plain version over
               the JAX flash tests' sweep, the (5, 2) GQA map with the
               top-left mask, D 128, a ragged Sq = Sk = 130, a D 18 head
@@ -249,7 +254,9 @@ Phases:
               equal (a digest of every leaf's bits), exactly 32 #1b each
               step and each run of step 1 (q, k, v, o of 8 layers; the
               experts and the backward launch none) and no flash; host and
-              device ms a step, idle share, peak device memory; (b) the LM
+              device ms a step, idle share, peak device memory; step 1 again
+              with remat=True (loss within 1e-6, grad norm within 1e-5 of
+              step 1, the recompute through the autograd twins); (b) the LM
               ``Trainer`` on a 2-layer cut of the same tree: 4 steps, a run
               to step 2 with its checkpoint, and a Trainer restored from it
               repeats steps 3 and 4 bit for bit; (c) on a world-1 NCCL group
@@ -289,8 +296,10 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # non-tensor f32; bf16
+from repro_torch.roofline.kernels import (  # noqa: E402
+    bound_ms, conv_work, flash_work, linear_work, pack_work, paged_work,
+    strips_work)
+
 BATCH = 256
 N_BATCHES = 3
 HB = 2  # strips per band / per block: the banded and pipelined default geometry
@@ -420,32 +429,6 @@ def eager_ms(fn, iters: int = 20) -> float:
     return _events_ms(run, iters)
 
 
-def touched_elems(shape, kh, kw, stride, pad, rows, device) -> int:
-    """Distinct map elements that output positions read through im2col
-    rows ``rows`` ((kh, kw, c)-flattened): what the work needs from x."""
-    from repro_torch.kernels.im2col_pack import out_size, tap_coords
-
-    c, b, h, w = shape
-    ho, wo = out_size(h, kh, stride, pad), out_size(w, kw, stride, pad)
-    p = torch.arange(b * ho * wo, device=device)
-    mark = torch.zeros(c * b * h * w, dtype=torch.bool, device=device)
-    rows = rows.long()
-    for tap in torch.unique(rows // c).tolist():
-        chans = torch.unique(rows[rows // c == tap] % c)
-        valid, bc, ihc, iwc = tap_coords(
-            p, ikh=tap // kw, ikw=tap % kw, stride=stride, pad=pad, b=b, h=h,
-            w=w, ho=ho, wo=wo)
-        pos = ((bc * h + ihc) * w + iwc)[valid]
-        mark[(chans[:, None] * (b * h * w) + pos[None, :]).reshape(-1)] = True
-    return int(mark.sum())
-
-
-def bound_ms(n_bytes: int, flops: int, dtype) -> tuple:
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def main_path_convs(params, cfg):
     """(name, layer params, C, H, W, kh, kw, stride, pad) of every
     compressed conv in forward order, with the map shape it sees."""
@@ -497,7 +480,6 @@ def check_kernels(params, cfg, dev):
         n_tiles, k_kept, tile = values.shape
         o, k_rows = n_tiles * tile, kh * kw * c
         ho, wo = out_size(h, kh, stride, pad), out_size(w, kw, stride, pad)
-        n_pos = BATCH * ho * wo
         isz = x.element_size()
         geo = dict(kh=kh, kw=kw, stride=stride, pad=pad)
         rtol = F32_RTOL if dtype == torch.float32 else BF16_RTOL
@@ -507,12 +489,8 @@ def check_kernels(params, cfg, dev):
             k_rows, o, tile, k_rows, k_kept)).T.contiguous()  # [O, K]
         w_oihw = w_dense.reshape(o, kh, kw, c).permute(0, 3, 1, 2).contiguous()
         x_nchw = x.permute(1, 0, 2, 3).contiguous()
-        idx_bytes = idx.numel() * idx.element_size()
-        w_bytes = values.numel() * isz + idx_bytes
-        flops = 2 * o * k_kept * n_pos
-        kept_rows = torch.unique(idx)
-        conv_bytes = (touched_elems(x.shape, kh, kw, stride, pad, kept_rows, dev)
-                      * isz + w_bytes + o * n_pos * isz)
+        work = conv_work(x, values, idx, **geo)
+        flops = work.flops
         library_conv = lambda: F.conv2d(x_nchw, w_oihw, stride=stride,  # noqa: E731
                                         padding=pad)
 
@@ -525,7 +503,7 @@ def check_kernels(params, cfg, dev):
         r_old = measure(lambda: conv2d_fused_scalar_cuda(x, values, idx, **geo),
                         lambda: conv2d_fused_ref(x, values, idx, **geo),
                         library_conv)
-        r_old["bound_ms"], by = bound_ms(conv_bytes, flops, dtype)
+        r_old["bound_ms"], by = bound_ms(work, dtype)
         report(tot, "conv2d_fused", tag, r_old, by, err, dtype)
 
         check(fused_tiled_takes(x, values, **geo),
@@ -538,7 +516,7 @@ def check_kernels(params, cfg, dev):
         r = measure(lambda: conv2d_fused_tiled_cuda(x, values, idx, **geo),
                     lambda: conv2d_fused_tiled_ref(x, values, idx, **geo),
                     library_conv)
-        r["bound_ms"], by = bound_ms(conv_bytes, flops, dtype)
+        r["bound_ms"], by = bound_ms(work, dtype)
         report(tot, "conv2d_fused_tiled", tag, r, by, err, dtype)
         gf = flops / 1e6  # GFLOP/s = flops / 1e9 / (ms / 1e3)
         fg = fused_tiled_geometry(c, BATCH, h, w, kh, kw, stride, pad, 128,
@@ -564,7 +542,7 @@ def check_kernels(params, cfg, dev):
             lambda: conv2d_fused_banded_scalar_cuda(x, values, idx, hb=HB, **geo),
             lambda: conv2d_fused_banded_ref(x, values, idx, hb=HB, **geo),
             library_conv)
-        r_old["bound_ms"], by = bound_ms(conv_bytes, flops, dtype)
+        r_old["bound_ms"], by = bound_ms(work, dtype)
         report(tot, "conv2d_fused_banded", tag, r_old, by, err, dtype)
 
         check(banded_tiled_takes(x, values, hb=HB, **geo),
@@ -585,7 +563,7 @@ def check_kernels(params, cfg, dev):
             lambda: conv2d_fused_banded_tiled_cuda(x, values, idx, hb=HB, **geo),
             lambda: conv2d_fused_banded_tiled_ref(x, values, idx, hb=HB, **geo),
             library_conv)
-        r["bound_ms"], by = bound_ms(conv_bytes, flops, dtype)
+        r["bound_ms"], by = bound_ms(work, dtype)
         report(tot, "conv2d_fused_banded_tiled", tag, r, by, err, dtype)
         print(f"  banded {tag}: tiled {r['ms']:.5f} ms ({gf / r['ms']:.1f} "
               f"GFLOP/s), conv2d_fused_banded {r_old['ms']:.5f} ms "
@@ -714,7 +692,7 @@ def check_pack(x, geo, tag, tot):
     from repro_torch.kernels.im2col_pack import (
         im2col_pack_ref, im2col_pack_scalar_cuda, im2col_pack_tiled_cuda,
         im2col_pack_tiled_ref, im2col_tiled_geometry, im2col_tiled_takes)
-    from repro_torch.kernels.im2col_pack.tune import cold_us, pack_bytes
+    from repro_torch.kernels.im2col_pack.tune import cold_us
 
     c, b, h, w = x.shape
     args = (x, geo["kh"], geo["kw"], geo["stride"], geo["pad"], 128)
@@ -735,16 +713,15 @@ def check_pack(x, geo, tag, tot):
               f"im2col_pack(_tiled) {tag}{label}: the two kernels and the "
               "plain versions are not bit for bit the same")
     strips = tiled()
-    n_bytes = pack_bytes(c, b, h, w, geo["kh"], geo["stride"], geo["pad"], 128,
-                         x.element_size())
+    work = pack_work(x, geo["kh"], geo["kw"], geo["stride"], geo["pad"], 128)
     unfold = lambda: F.unfold(  # noqa: E731
         x.permute(1, 0, 2, 3).contiguous(), (geo["kh"], geo["kw"]),
         padding=geo["pad"], stride=geo["stride"])
     r_old = measure(scalar, plain, unfold)
-    r_old["bound_ms"], by = bound_ms(n_bytes, 0, x.dtype)
+    r_old["bound_ms"], by = bound_ms(work, x.dtype)
     report(tot, "im2col_pack", tag, r_old, by, 0.0, x.dtype)
     r = measure(tiled, tiled_plain, unfold)
-    r["bound_ms"], by = bound_ms(n_bytes, 0, x.dtype)
+    r["bound_ms"], by = bound_ms(work, x.dtype)
     report(tot, "im2col_pack_tiled", tag, r, by, 0.0, x.dtype)
     dev = x.device
     cold, cold_old = cold_us(tiled, dev) / 1e3, cold_us(scalar, dev) / 1e3
@@ -802,7 +779,7 @@ def check_pack_resnet18(rng, dev) -> None:
     from repro_torch.kernels.im2col_pack import (im2col_pack_scalar_cuda,
                                                  im2col_pack_tiled_cuda,
                                                  im2col_tiled_geometry)
-    from repro_torch.kernels.im2col_pack.tune import cold_us, pack_bytes
+    from repro_torch.kernels.im2col_pack.tune import cold_us
 
     for name, c, hw in RESNET18_CONVS:
         for dtype in (torch.float32, torch.bfloat16):
@@ -822,8 +799,7 @@ def check_pack_resnet18(rng, dev) -> None:
             old = time_ms(lambda: im2col_pack_scalar_cuda(*args))
             lib = time_ms(lambda: F.unfold(x_nchw, (3, 3), padding=1))
             cold = cold_us(lambda: im2col_pack_tiled_cuda(*args), dev) / 1e3
-            bound = pack_bytes(c, 8, hw, hw, 3, 1, 1, 128, x.element_size()
-                               ) / HBM_BYTES_PER_S * 1e3
+            bound = bound_ms(pack_work(x, 3, 3, 1, 1, 128), dtype)[0]
             print(f"  pack resnet18/{name} {str(dtype)[6:]} C={c} {hw}x{hw} "
                   f"batch 8 v128: tiled (cb={ig['cb']} tg={ig['tg']} "
                   f"U={ig['unroll']}) {ms:.5f} ms ({cold:.5f} with L2 "
@@ -934,22 +910,17 @@ def check_strip_kernels(params, cfg, dev, tot):
             n_tiles, k_kept, tile = values.shape
             o, k_rows = n_tiles * tile, kh * kw * c
             ho, wo = out_size(h, kh, stride, pad), out_size(w, kw, stride, pad)
-            isz = x.element_size()
             rtol = F32_RTOL if dtype == torch.float32 else BF16_RTOL
             tag = (f"{name} {str(dtype).replace('torch.', '')} C={c} {h}x{w} "
                    f"k{kh} s{stride} p{pad} k_kept={k_kept}")
             strips = im2col_pack_cuda(x, kh, kw, stride, pad, 128)
-            n_strips = strips.shape[0]
             check(strips_tiled_takes(strips, values)
                   and strips_tiled_takes(strips, values, hb=HB),
                   f"{tag}: the tiled strip GEMM refuses a main-path conv")
             w_dense = unpack_colwise(values, idx, ColwiseMeta(
                 k_rows, o, tile, k_rows, k_kept)).T.contiguous()  # [O, K]
-            kept_rows = torch.unique(idx)
-            strip_bytes = (n_strips * kept_rows.numel() * 128 * isz
-                           + values.numel() * isz + idx.numel() * 4
-                           + o * n_strips * 128 * isz)
-            flops = 2 * o * k_kept * BATCH * ho * wo
+            work = strips_work(strips, values, idx, n_pos=BATCH * ho * wo)
+            flops = work.flops
             library_gemm = lambda: torch.matmul(w_dense, strips)  # noqa: E731
             runs = (
                 ("colwise_nm_matmul_strips",
@@ -977,7 +948,7 @@ def check_strip_kernels(params, cfg, dev, tot):
                 check(torch.equal(got, bits), f"{kernel} {tag}: not "
                       "bit-identical to colwise_nm_matmul_strips")
                 r = measure(kernel_fn, plain_fn, library_gemm)
-                r["bound_ms"], by = bound_ms(strip_bytes, flops, dtype)
+                r["bound_ms"], by = bound_ms(work, dtype)
                 report(tot, kernel, tag, r, by, err, dtype)
                 ms[kernel] = r["ms"]
             gf = flops / 1e6  # GFLOP/s = flops / 1e9 / (ms / 1e3)
@@ -1035,17 +1006,6 @@ def check_strip_kernels(params, cfg, dev, tot):
     return route
 
 
-def linear_bound(rows, values, idx, dtype) -> tuple:
-    """(ms, "bytes" | "operations") of one sparse linear call: the kept
-    columns of x, values, idx and the output moved once; 2 FLOPs per kept
-    row per output."""
-    n_tiles, k_kept, tile = values.shape
-    isz = values.element_size()
-    nb = (rows * torch.unique(idx).numel() * isz + values.numel() * isz
-          + idx.numel() * idx.element_size() + rows * n_tiles * tile * isz)
-    return bound_ms(nb, 2 * rows * k_kept * n_tiles * tile, dtype)
-
-
 def check_linear_kernel(dev, tot):
     """Phase 3, the sparse linear kernels at smollm-360m's MLP widths with
     serving's sparsity config (whole-d_out tiles), and at tile 8: the tiled
@@ -1078,7 +1038,8 @@ def check_linear_kernel(dev, tot):
         library = lambda: torch.matmul(x, w_dense)  # noqa: E731
         r = measure(lambda: colwise_nm_matmul_cuda(x, values, idx),
                     lambda: colwise_nm_matmul_ref(x, values, idx), library)
-        r["bound_ms"], by = linear_bound(LINEAR_ROWS, values, idx, dtype)
+        r["bound_ms"], by = bound_ms(
+            linear_work(LINEAR_ROWS, values, idx, d_in), dtype)
         # the kernel list sums the two serving widths; tile 8 and bf16 are
         # checked and printed
         report(tot, "colwise_nm_matmul", tag, r, by, err, dtype,
@@ -1091,7 +1052,8 @@ def check_linear_kernel(dev, tot):
               "bit-identical to colwise_nm_matmul")
         r = measure(lambda: colwise_nm_matmul_tiled_cuda(x, values, idx),
                     lambda: colwise_nm_matmul_ref(x, values, idx), library)
-        r["bound_ms"], by = linear_bound(LINEAR_ROWS, values, idx, dtype)
+        r["bound_ms"], by = bound_ms(
+            linear_work(LINEAR_ROWS, values, idx, d_in), dtype)
         report(tot, "colwise_nm_matmul_tiled", tag, r, by, err, dtype,
                count=tile is None)
     return tot
@@ -1132,7 +1094,8 @@ def sweep_linear_kernels(dev) -> None:
                   f"{d_out} rows={rows}: not bit-identical")
             tiled = lambda: colwise_nm_matmul_tiled_cuda(x, values, idx)  # noqa: E731
             old = lambda: colwise_nm_matmul_cuda(x, values, idx)  # noqa: E731
-            bound, by = linear_bound(rows, values, idx, torch.float32)
+            bound, by = bound_ms(linear_work(rows, values, idx, d_in),
+                                 torch.float32)
             rec = {"d_in": d_in, "d_out": d_out, "rows": rows,
                    "k_kept": k_kept, "tiled_ms": time_ms(tiled),
                    "tiled_eager_ms": eager_ms(tiled), "old_ms": time_ms(old),
@@ -1357,6 +1320,36 @@ def main_path_keys(params, cfg):
     return out
 
 
+def counted_twice(fn, plain, label: str, device_ms: float) -> dict:
+    """Phases 4 and 7: ``fn`` counted by the op counter
+    (``roofline/counter.py``) through the kernels and again inside
+    ``plain`` (a ``force_scope`` of the plain versions).  The two counts'
+    FLOPs, bytes and per-family work must be equal: each kernel family's
+    call counts its ``roofline/kernels.py`` work whichever implementation
+    ran.  Prints the counted ``t_bound`` (f32 peak, one card, no
+    collectives) beside the device ms the phase measured."""
+    from repro_torch.roofline import Roofline, count
+
+    t0 = time.perf_counter()
+    kern = count(fn)
+    with plain:
+        ref = count(fn)
+    for key in ("flops", "bytes", "by_kernel"):
+        check(kern[key] == ref[key], f"{label}: counted {key} through the "
+              f"kernels {kern[key]} != through the plain versions {ref[key]}")
+    rl = Roofline(flops=kern["flops"], hlo_bytes=kern["bytes"],
+                  collective_bytes=0, model_flops=0.0, chips=1,
+                  dtype="float32")
+    print(f"  {label}, counted (roofline.count; the same through the plain "
+          f"versions): {kern['flops']} FLOPs, {kern['bytes']} bytes, by "
+          f"kernel family {kern['by_kernel']}; t_bound {rl.t_bound * 1e3:.6f} "
+          f"ms ({rl.bottleneck}) beside {device_ms:.4f} device ms; both "
+          f"counts took {time.perf_counter() - t0:.2f} s", flush=True)
+    return {"flops": kern["flops"], "bytes": kern["bytes"],
+            "by_kernel": kern["by_kernel"], "t_bound_ms": rl.t_bound * 1e3,
+            "device_ms": device_ms}
+
+
 def run_main_path(params, cfg, dev):
     """Phase 4: pruned resnet-tiny inference through ``vision_apply``: the
     default plan with an empty profile DB, the profiled plan, and every
@@ -1501,17 +1494,24 @@ def run_main_path(params, cfg, dev):
         ms = (time.perf_counter() - t0) * 1e3 / (10 * N_BATCHES)
         timing[label] = min(ms, timing.get(label, float("inf")))
     x = batches[0][0]
+    dev_times = {}
     for label, ms in timing.items():
         impl = runs[label]["impl"]
         dispatch.set_db(runs[label]["db"])
-        dev_ms = time_ms(lambda: vision_apply(params, cfg, x, impl=impl),
-                         iters=10)
+        dev_ms = dev_times[label] = time_ms(
+            lambda: vision_apply(params, cfg, x, impl=impl), iters=10)
         print(f"  forward, plan {label}: {ms:.4f} ms per batch of {BATCH} "
               f"({BATCH / ms * 1e3:.1f} images/s; host clock with "
               f"synchronize, best of 2 runs of {10 * N_BATCHES}); device time "
               f"{dev_ms:.4f} ms (CUDA graph replay), device idle share of the "
               f"eager forward {max(0.0, 1 - dev_ms / ms):.3f}", flush=True)
     dispatch.set_db(db)
+    with torch.no_grad():
+        counted_twice(
+            lambda: vision_apply(params, cfg, x),
+            dispatch.force_scope(conv="im2col_sparse_xla",
+                                 linear="compressed_xla"),
+            "resnet-tiny's profiled forward", dev_times["profiled"])
     check(not empty.path.exists(), "the default plan's timing wrote a profile")
     ref_ms = time_ms(lambda: vision_apply(ref_params, cfg, x), iters=10)
     print(f"  forward of the dense reference (cuDNN F.conv2d on the unpacked "
@@ -1656,22 +1656,6 @@ def paged_problem(b, sq, lengths, dtype, dev, seed):
                    d=PAGED_D, ps=PAGED_PS, n_max=PAGED_NMAX)
 
 
-def paged_bound(args, dtype) -> tuple:
-    """(ms, "bytes" | "operations") of one paged-attention call: the valid
-    cache rows of K and V, q, the new K/V and the output read or written
-    once, the tables and lengths; QK and PV over the valid rows."""
-    q, kn, vn, _, _, tables, lengths = args
-    b, sq, h, d = q.shape
-    kv = kn.shape[2]
-    cap = tables.shape[1] * PAGED_PS
-    rows = [min(int(n), cap) for n in lengths.tolist()]
-    isz = q.element_size()
-    nb = ((2 * sum(rows) * kv * d + 2 * q.numel() + kn.numel() + vn.numel())
-          * isz + 4 * (tables.numel() + lengths.numel()))
-    flops = sum(4 * h * d * (n + sq) * sq for n in rows)
-    return bound_ms(nb, flops, dtype)
-
-
 def check_paged_kernel(dev, tot) -> dict:
     """Phase 6: both paged-attention kernels against their plain version at
     smollm-360m's serving shapes, with an SDPA yardstick; then the routing
@@ -1701,7 +1685,9 @@ def check_paged_kernel(dev, tot) -> dict:
                             rtol)
         library = paged_sdpa(args)
         max_err(library().transpose(1, 2), y_p, f"SDPA yardstick {tag}", rtol)
-        bound, by = paged_bound(args, dtype)
+        q, kn, vn, _, _, tables, lengths = args
+        bound, by = bound_ms(paged_work(q, kn, vn, tables, lengths, PAGED_PS),
+                             dtype)
         for name, fn, e in (
                 ("paged_attention",
                  lambda: paged_attention_scalar_cuda(*args, page_size=PAGED_PS),
@@ -1918,6 +1904,12 @@ def run_serving(dev, cfg, params) -> dict:
     with dispatch.phase_scope("decode"):
         step_ms = time_ms(lambda: lm.paged_decode_step(
             params, cfg, cache, tok_d, pos_d, tab_d, PAGED_PS), iters=3)
+        counted_step = counted_twice(
+            lambda: lm.paged_decode_step(params, cfg, cache, tok_d, pos_d,
+                                         tab_d, PAGED_PS),
+            dispatch.force_scope(linear="compressed_xla",
+                                 paged_attn="paged_attn_ref"),
+            "one full-batch paged decode step", step_ms)
     layer0 = layer_params(layers, 0)
     rng = np.random.default_rng(SEED + 9)
     lin_ms, old_ms = 0.0, 0.0
@@ -1958,6 +1950,7 @@ def run_serving(dev, cfg, params) -> dict:
         "decode_host_ms": host_step_ms,
         "decode_tokens_per_s": decode_tokens / st["decode_s"],
         "decode_step_device_ms": step_ms, "idle_share": idle,
+        "counted_decode_step": counted_step,
         "linear_ms_per_layer": lin_ms, "old_linear_ms_per_layer": old_ms,
         "paged_ms_per_layer": att_ms, "old_paged_ms_per_layer": old_att_ms,
         "unembed_ms": unembed_ms, "replay_max_rel_err": worst,
@@ -2417,16 +2410,6 @@ def run_serving_rest(dev, cfg, params) -> dict:
     return total
 
 
-def flash_bound(b, sq, sk, h, kv, d, causal, dtype) -> tuple:
-    """(ms, "bytes" | "operations") of one flash call: QK and PV over the
-    (causal) pairs, 4 * B*H * D per pair; Q, K, V (at KV heads) and O read
-    or written once."""
-    pairs = (sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk)
-    isz = torch.empty((), dtype=dtype).element_size()
-    nb = (2 * b * sq * h * d + 2 * b * sk * kv * d) * isz
-    return bound_ms(nb, 4 * b * h * d * pairs, dtype)
-
-
 def check_flash_kernel(dev, tot):
     """Phase 8: both flash kernels against their plain version, f32 and
     bf16, with their bounds and an SDPA yardstick; the tiled kernel equal
@@ -2468,7 +2451,8 @@ def check_flash_kernel(dev, tot):
                     qh, kh, vh, is_causal=causal)
                 max_err(library().transpose(1, 2), want,
                         f"SDPA yardstick {tag}", FLASH_TOL[dtype])
-            bound, by = flash_bound(b, sq, sk, h, kv, d, causal, dtype)
+            bound, by = bound_ms(flash_work(b, sq, sk, h, kv, d, causal,
+                                            dtype.itemsize), dtype)
             scoring = (b, sq, h) == (SCORE_BATCH, SCORE_SEQ, 15)
             plain = lambda: flash_attention_gqa_ref(q, k, v, causal=causal)  # noqa: E731
             r_old = measure(
@@ -4581,7 +4565,8 @@ def check_in_proj_kernel(dev) -> list:
                       colwise_nm_matmul_ref(x, values, idx),
                       f"colwise_nm_matmul in_proj rows={rows}", F32_RTOL)
         kernel = lambda: colwise_nm_matmul_cuda(x, values, idx)  # noqa: E731
-        bound, by = linear_bound(rows, values, idx, torch.float32)
+        bound, by = bound_ms(linear_work(rows, values, idx, d_in),
+                             torch.float32)
         rec = {"d_in": d_in, "d_out": d_out, "rows": rows, "k_kept": k_kept,
                "max_abs_err": err, "ms": time_ms(kernel),
                "eager_ms": eager_ms(kernel),
@@ -5208,7 +5193,8 @@ def check_noncausal_flash(dev) -> dict:
                 lambda: flash_attention_gqa_ref(q, k, v, causal=False),
                 lambda: F.scaled_dot_product_attention(qh, kh, vh,
                                                        is_causal=False))
-    r["bound_ms"], by = flash_bound(b, s, s, h, kv, d, False, torch.float32)
+    r["bound_ms"], by = bound_ms(flash_work(b, s, s, h, kv, d, False, 4),
+                                 torch.float32)
     gflop = 4 * b * h * d * s * s / 1e9
     rows, rpt = flash_tiled_config(d, torch.float32)
     print(f"  flash_attention_tiled (#7b) at whisper-small's encoder {tag} "
@@ -5624,6 +5610,24 @@ def moe_train_step(dev, cfg, params) -> dict:
     host = host_ms_per_step(one, MOE_TRAIN_TIMED_STEPS)
     dev_ms, port_ms = profiled_ms(one, MOE_TRAIN_TIMED_STEPS)
     del p, o
+
+    # step 1 again with remat: each block recomputed in the backward, its
+    # sparse linears' autograd twins (and so the kernels) run again there
+    reset_launch_counts()
+    t_remat = time.perf_counter()
+    _p, _o, m_r = make_train_step(cfg.with_(remat=True), AdamWConfig(
+        lr=MOE_TRAIN_LR))(params, adamw_init(params), batch)
+    m_r = {k: float(v) for k, v in m_r.items()}
+    del _p, _o
+    torch.cuda.synchronize()
+    t_remat = time.perf_counter() - t_remat
+    remat_launches = {k.name: k.launches for k in KERNELS if k.launches}
+    remat_err = {k: abs(m_r[k] - m1f[k]) / abs(m1f[k])
+                 for k in ("loss", "grad_norm")}
+    check(remat_err["loss"] <= 1e-6 and remat_err["grad_norm"] <= 1e-5,
+          f"moe train step 1 with remat: loss {m_r['loss']!r}, grad norm "
+          f"{m_r['grad_norm']!r} against {m1f['loss']!r}, "
+          f"{m1f['grad_norm']!r} without: {remat_err}")
     print(f"  (a) {cfg.name} at its published widths, {cfg.n_layers} of 16 "
           f"layers ({cfg.n_experts} experts of d_ff {cfg.d_ff}, top "
           f"{cfg.top_k}), {MOE_TRAIN_STEPS} AdamW steps (lr {MOE_TRAIN_LR}) "
@@ -5632,8 +5636,11 @@ def moe_train_step(dev, cfg, params) -> dict:
           f"{m1f['aux']!r}; step 1 vs the plain step: loss {m1f['loss']!r} / "
           f"{m_plain['loss']!r}, aux {m1f['aux']!r} / {m_plain['aux']!r}, "
           f"grad norm {m1f['grad_norm']!r} / {m_plain['grad_norm']!r}, params "
-          f"within {param_err:.3e}; step 1 twice: equal digests {repeat}",
-          flush=True)
+          f"within {param_err:.3e}; step 1 twice: equal digests {repeat}; "
+          f"step 1 with remat=True: loss {m_r['loss']!r}, grad norm "
+          f"{m_r['grad_norm']!r} (rel err {remat_err}), launches "
+          f"{remat_launches} (the forward's and the recompute's), "
+          f"{t_remat:.2f} s", flush=True)
     print(f"  (a) a step: {host:.3f} host ms, {dev_ms:.3f} device ms "
           f"(torch.profiler), idle share {max(0.0, 1 - dev_ms / host):.3f}; "
           f"#1b {port_ms:.3f} ms (share {port_ms / dev_ms:.4f}); peak device "
@@ -5642,7 +5649,9 @@ def moe_train_step(dev, cfg, params) -> dict:
             "steps": MOE_TRAIN_STEPS,
             "losses": losses, "grad_norms": gnorms, "aux_step1": m1f["aux"],
             "plain_step1": m_plain, "param_err": param_err,
-            "digest_repeat": repeat, "host_ms": host, "device_ms": dev_ms,
+            "digest_repeat": repeat, "remat_step1": m_r,
+            "remat_rel_err": remat_err, "remat_launches": remat_launches,
+            "host_ms": host, "device_ms": dev_ms,
             "idle_share": max(0.0, 1 - dev_ms / host), "tiled_linear_ms": port_ms,
             "peak_bytes": peak}
 

@@ -6,7 +6,13 @@ from __future__ import annotations
 import importlib
 from typing import List
 
-from repro_torch.configs.base import ModelConfig, VisionConfig  # noqa: F401
+from repro_torch.configs.base import (  # noqa: F401
+    LONG_CONTEXT_ARCHS,
+    SHAPES,
+    ModelConfig,
+    ShapeCell,
+    VisionConfig,
+)
 
 _MODULES = {
     "smollm-360m": "repro_torch.configs.smollm_360m",
@@ -68,6 +74,7 @@ def smoke_config(name: str) -> ModelConfig:
         max_seq_len=64,
         dtype="float32",
         param_dtype="float32",
+        remat=False,
     )
     if cfg.mrope:
         over["mrope_sections"] = (2, 3, 3)  # sums to head_dim/2 = 8

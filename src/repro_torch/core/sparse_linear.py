@@ -26,6 +26,8 @@ from repro_torch.core import formats
 from repro_torch.core.pruning import (SparsityConfig, choose_group,
                                       colwise_nm_mask, kept_per_group,
                                       rowwise_nm_mask)
+from repro_torch.roofline.counter import counted
+from repro_torch.roofline.kernels import linear_work
 
 
 class Boxed:
@@ -139,10 +141,14 @@ def linear_init(generator: torch.Generator, d_in: int, d_out: int,
     return params
 
 
+@counted("linear", lambda x, values, idx: linear_work(
+    x.numel() // x.shape[-1], values, idx, x.shape[-1]))
 def forward_compressed_xla(x: torch.Tensor, values: torch.Tensor,
                            idx: torch.Tensor) -> torch.Tensor:
     """Tiled gather + dense einsum, the twin of the JAX package's XLA path:
-    ``y[..., t*T:(t+1)*T] = x[..., idx[t]] @ values[t]``."""
+    ``y[..., t*T:(t+1)*T] = x[..., idx[t]] @ values[t]``.  The sparse linear
+    kernels' plain version in dispatch (``compressed_xla``), so the op
+    counter counts it as theirs."""
     n_tiles, _, tile = values.shape
     xg = x[..., idx.long()]  # [..., n_tiles, k]
     y = torch.einsum("...tk,tkf->...tf", xg, values)

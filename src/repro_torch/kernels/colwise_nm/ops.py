@@ -25,6 +25,14 @@ from repro_torch.kernels.colwise_nm.ref import (
     colwise_nm_matmul_strips_pipelined_ref,
     colwise_nm_matmul_strips_ref,
 )
+from repro_torch.roofline import kernels as work
+from repro_torch.roofline.counter import counted
+
+# the op counter's count of a call (roofline/kernels.py)
+_LINEAR = counted("linear", lambda x, values, idx, **_: work.linear_work(
+    x.numel() // x.shape[-1], values, idx, x.shape[-1]))
+_STRIPS = counted("strips", lambda strips, values, idx, **_: work.strips_work(
+    strips, values, idx))
 
 
 # ---------------------------------------------------------------------------
@@ -120,6 +128,7 @@ def _sparse_linear(x: torch.Tensor, values: torch.Tensor, idx: torch.Tensor,
     return y.reshape(*lead, n_tiles * tile)
 
 
+@_LINEAR
 def colwise_nm_matmul(x: torch.Tensor, values: torch.Tensor, idx: torch.Tensor,
                       *, block_b: int = 128, block_k: int = 128) -> torch.Tensor:
     """Sparse linear ``y[..., t*T:(t+1)*T] = x[..., idx[t]] @ values[t]``,
@@ -134,6 +143,7 @@ def colwise_nm_matmul(x: torch.Tensor, values: torch.Tensor, idx: torch.Tensor,
     return _sparse_linear(x, values, idx, fwd)
 
 
+@_LINEAR
 def colwise_nm_matmul_tiled(x: torch.Tensor, values: torch.Tensor,
                             idx: torch.Tensor) -> torch.Tensor:
     """The sparse linear of :func:`colwise_nm_matmul` through the tiled
@@ -148,6 +158,7 @@ def colwise_nm_matmul_tiled(x: torch.Tensor, values: torch.Tensor,
     return _sparse_linear(x, values, idx, fwd)
 
 
+@_STRIPS
 def colwise_nm_matmul_strips(strips: torch.Tensor, values: torch.Tensor,
                              idx: torch.Tensor, *,
                              block_k: int = 128) -> torch.Tensor:
@@ -161,6 +172,7 @@ def colwise_nm_matmul_strips(strips: torch.Tensor, values: torch.Tensor,
     return colwise_nm_matmul_strips_cuda(strips, values, idx, block_k=block_k)
 
 
+@_STRIPS
 def colwise_nm_matmul_strips_pipelined(strips: torch.Tensor,
                                        values: torch.Tensor, idx: torch.Tensor,
                                        *, block_k: int = 128,

@@ -41,7 +41,6 @@ from repro_torch.kernels.conv_gemm.kernel import (
     conv2d_fused_banded_cuda,
     conv2d_fused_cuda,
 )
-from repro_torch.kernels.conv_gemm.plan import band_plan
 from repro_torch.kernels.conv_gemm.ref import (
     conv2d_fused_banded_ref,
     conv2d_fused_ref,
@@ -49,6 +48,14 @@ from repro_torch.kernels.conv_gemm.ref import (
 from repro_torch.kernels.im2col_pack.kernel import tap_coords
 from repro_torch.kernels.im2col_pack.ops import im2col_pack
 from repro_torch.kernels.im2col_pack.ref import out_size
+from repro_torch.roofline import kernels as work
+from repro_torch.roofline.counter import counted
+
+# the op counter's count of a call, whichever plan computes the conv
+# (roofline/kernels.py)
+_CONV = counted("conv", lambda x, values, idx, *, kh, kw, stride=1, pad=0, **_:
+                work.conv_work(x, values, idx, kh=kh, kw=kw, stride=stride,
+                               pad=pad))
 
 
 def compress_conv_weights(w_ohwi: torch.Tensor, cfg: SparsityConfig):
@@ -72,6 +79,7 @@ def _out_hw(x: torch.Tensor, kh: int, kw: int, stride: int, pad: int):
     return b, out_size(h, kh, stride, pad), out_size(w, kw, stride, pad)
 
 
+@_CONV
 def conv2d_fused(x_cnhw: torch.Tensor, values: torch.Tensor, idx: torch.Tensor,
                  *, kh: int, kw: int, stride: int = 1, pad: int = 0,
                  v: int = 128, block_k: int = 128) -> torch.Tensor:
@@ -86,6 +94,7 @@ def conv2d_fused(x_cnhw: torch.Tensor, values: torch.Tensor, idx: torch.Tensor,
     return _to_cnhw(y, *_out_hw(x_cnhw, kh, kw, stride, pad))
 
 
+@_CONV
 def conv2d_fused_banded(x_cnhw: torch.Tensor, values: torch.Tensor,
                         idx: torch.Tensor, *, kh: int, kw: int,
                         stride: int = 1, pad: int = 0, v: int = 128,
@@ -103,6 +112,7 @@ def conv2d_fused_banded(x_cnhw: torch.Tensor, values: torch.Tensor,
     return _to_cnhw(y, *_out_hw(x_cnhw, kh, kw, stride, pad))
 
 
+@_CONV
 def conv2d_two_kernel(x_cnhw: torch.Tensor, values: torch.Tensor,
                       idx: torch.Tensor, *, kh: int, kw: int, stride: int = 1,
                       pad: int = 0, v: int = 128,
@@ -114,6 +124,7 @@ def conv2d_two_kernel(x_cnhw: torch.Tensor, values: torch.Tensor,
     return _to_cnhw(y, *_out_hw(x_cnhw, kh, kw, stride, pad))
 
 
+@_CONV
 def conv2d_two_kernel_pipelined(x_cnhw: torch.Tensor, values: torch.Tensor,
                                 idx: torch.Tensor, *, kh: int, kw: int,
                                 stride: int = 1, pad: int = 0, v: int = 128,
@@ -128,18 +139,7 @@ def conv2d_two_kernel_pipelined(x_cnhw: torch.Tensor, values: torch.Tensor,
     return _to_cnhw(y, *_out_hw(x_cnhw, kh, kw, stride, pad))
 
 
-def banded_bytes_moved(c: int, b: int, h: int, w: int, kh: int, stride: int,
-                       pad: int, ho: int, wo: int, v: int, hb: int,
-                       o: int, itemsize: int) -> int:
-    """Device-memory traffic of the banded conv at band depth ``hb``: every
-    band copies its ``band_rows``-row window once (halo rows are read again
-    by the next band), and the [O, P] output is written once."""
-    n_bands, band_rows = band_plan(b=b, h=h, kh=kh, stride=stride, pad=pad,
-                                   ho=ho, wo=wo, v=v, hb=hb)
-    n_strips = -(-b * ho * wo // v)
-    return (n_bands * c * band_rows * w + o * n_strips * v) * itemsize
-
-
+@_CONV
 def conv2d_xla_ref(x_cnhw: torch.Tensor, values: torch.Tensor,
                    idx: torch.Tensor, *, kh: int, kw: int, stride: int = 1,
                    pad: int = 0, v: int = 128) -> torch.Tensor:

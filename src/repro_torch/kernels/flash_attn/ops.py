@@ -8,8 +8,17 @@ import torch
 from repro_torch.kernels._build import NO_VJP, check_no_grad
 from repro_torch.kernels.flash_attn.kernel import flash_attention_cuda
 from repro_torch.kernels.flash_attn.ref import flash_attention_gqa_ref
+from repro_torch.roofline.counter import counted
+from repro_torch.roofline.kernels import flash_work
 
 
+def _work(q, k, v, *, causal=True, **_):
+    b, sq, h, d = q.shape
+    return flash_work(b, sq, k.shape[1], h, k.shape[2], d, causal,
+                      q.element_size())
+
+
+@counted("flash", _work)
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, block_q: int = 128,
                     block_k: int = 128) -> torch.Tensor:

@@ -33,6 +33,8 @@ from repro_torch.kernels._build import (
     check_same_device,
 )
 from repro_torch.kernels.flash_attn.ref import paged_attention_ref
+from repro_torch.roofline.counter import counted
+from repro_torch.roofline.kernels import paged_work
 
 PAGED_ATTENTION = CudaKernel(
     "paged_attention", "repro_paged_attention",
@@ -324,6 +326,9 @@ def paged_attention_cuda(q: torch.Tensor, k_new: torch.Tensor,
                                        block_q=block_q)
 
 
+@counted("paged", lambda q, k_new, v_new, k_pages, v_pages, tables, lengths,
+         *, page_size, **_: paged_work(q, k_new, v_new, tables, lengths,
+                                       page_size))
 def paged_attention(q, k_new, v_new, k_pages, v_pages, tables, lengths, *,
                     page_size: int, impl: Optional[str] = None) -> torch.Tensor:
     """Dispatch-resolved paged attention (the serving decode entry point).

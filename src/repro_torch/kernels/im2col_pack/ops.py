@@ -5,8 +5,12 @@ import torch
 
 from repro_torch.kernels.im2col_pack.kernel import im2col_pack_cuda
 from repro_torch.kernels.im2col_pack.ref import im2col_pack_ref
+from repro_torch.roofline.counter import counted
+from repro_torch.roofline.kernels import pack_work
 
 
+@counted("pack", lambda x, *, kh, kw, stride=1, pad=0, v=128:
+         pack_work(x, kh, kw, stride, pad, v))
 def im2col_pack(x: torch.Tensor, *, kh: int, kw: int, stride: int = 1,
                 pad: int = 0, v: int = 128) -> torch.Tensor:
     """Fused single-pass im2col + packing: CNHW -> [n_strips, Kh*Kw*C, V].

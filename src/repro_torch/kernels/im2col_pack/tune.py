@@ -40,7 +40,7 @@ from repro_torch.kernels.im2col_pack.kernel import (IM2COL_TILED_CBS,
                                                     im2col_pack_tiled_cuda,
                                                     im2col_tiled_config,
                                                     im2col_tiled_geometry)
-from repro_torch.kernels.im2col_pack.ref import out_size
+from repro_torch.roofline.kernels import pack_bytes
 
 # (name, C, B, H, W, k, stride, pad): resnet-tiny's pruned convs at batch 256
 # (configs/resnet_tiny.py), then ResNet-18's layer1-4 3x3 convs at batch 8
@@ -76,20 +76,6 @@ def tiled_registers(log: Path) -> list:
                                   .group(1)), spill))
             inst = None
     return out
-
-
-def pack_bytes(c, b, h, w, k, stride, pad, v, itemsize) -> int:
-    """Bytes one pack must move: each map element some tap reads, once, and
-    every element of the strips (the ragged tail's zeros too), once."""
-    ho, wo = out_size(h, k, stride, pad), out_size(w, k, stride, pad)
-    hit = np.zeros((h, w), dtype=bool)
-    for ikh in range(k):
-        ih = np.arange(ho) * stride - pad + ikh
-        for ikw in range(k):
-            iw = np.arange(wo) * stride - pad + ikw
-            hit[np.ix_(ih[(ih >= 0) & (ih < h)], iw[(iw >= 0) & (iw < w)])] = True
-    n_strips = -(-b * ho * wo // v)
-    return (int(hit.sum()) * c * b + n_strips * k * k * c * v) * itemsize
 
 
 def cold_us(fn, dev, iters: int = 10) -> float:

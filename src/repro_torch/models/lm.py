@@ -28,9 +28,11 @@ samples from.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch._compat import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -155,6 +157,43 @@ def _unembed(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     return torch.matmul(h, params["unembed"].to(h.dtype))
 
 
+# The outputs "dots" keeps: those of the matrix products.  JAX's
+# ``dots_with_no_batch_dims_saveable`` keeps only dots without batch dims, so
+# it recomputes attention's batched QK and PV products, which this policy
+# saves (``bmm``, SDPA); both keep the projections' ``mm``/``addmm``.
+_DOTS = (torch.ops.aten.mm, torch.ops.aten.bmm, torch.ops.aten.addmm,
+         torch.ops.aten._scaled_dot_product_flash_attention,
+         torch.ops.aten._scaled_dot_product_efficient_attention,
+         torch.ops.aten._scaled_dot_product_cudnn_attention,
+         torch.ops.aten._scaled_dot_product_flash_attention_for_cpu)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op.overloadpacket in _DOTS:
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(fn, cfg: ModelConfig):
+    """``fn`` recomputed in the backward under ``cfg.remat`` (JAX's
+    ``jax.checkpoint``), keeping nothing (``"nothing"``) or the matrix
+    products' outputs (``"dots"``); else ``fn``.  The recompute runs the
+    sparse layers' autograd twins as the first pass does, so their kernels
+    run with autograd off there too."""
+    if not cfg.remat:
+        return fn
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            _ckpt.create_selective_checkpoint_contexts, _dots_policy)
+    elif cfg.remat_policy != "nothing":
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+    # the blocks draw no random numbers, so no RNG state is kept for the
+    # recompute
+    return lambda *a: _ckpt.checkpoint(fn, *a, use_reentrant=False,
+                                       preserve_rng_state=False, **kw)
+
+
 def lm_forward(params, cfg: ModelConfig, batch) -> Tuple[torch.Tensor, torch.Tensor]:
     """The scoring forward: ``batch["tokens"]`` [B, S] (a tensor or a numpy
     array, moved to the params' device) -> (logits [B, S, padded_vocab],
@@ -175,33 +214,47 @@ def lm_forward(params, cfg: ModelConfig, batch) -> Tuple[torch.Tensor, torch.Ten
     pat = cfg.block_pattern
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if pat == "attn":
+        def body(lp, hh):
+            return block_apply(lp, cfg, hh, positions=positions,
+                               mrope_positions=mrope_positions)
+
+        body = _maybe_remat(body, cfg)
         auxs = []
         for l in range(cfg.n_layers):
-            h, a = block_apply(layer_params(params["layers"], l), cfg, h,
-                               positions=positions,
-                               mrope_positions=mrope_positions)
+            h, a = body(layer_params(params["layers"], l), h)
             auxs.append(a)
         aux = torch.stack(auxs).mean()
     elif pat == "xlstm":
         n_super, every, _ = _n_super(cfg)
-        for i in range(n_super):
-            mp = layer_params(params["mlstm"], i)
+
+        def super_body(mp, sp, hh):
             for j in range(every - 1):
-                h = h + xlstm_mod.mlstm_apply(layer_params(mp, j), cfg, h)
-            h = h + xlstm_mod.slstm_apply(layer_params(params["slstm"], i),
-                                          cfg, h)
+                hh = hh + xlstm_mod.mlstm_apply(layer_params(mp, j), cfg, hh)
+            return hh + xlstm_mod.slstm_apply(sp, cfg, hh)
+
+        super_body = _maybe_remat(super_body, cfg)
+        for i in range(n_super):
+            h = super_body(layer_params(params["mlstm"], i),
+                           layer_params(params["slstm"], i), h)
     else:
         h0 = h
         n_super, every, rem = _n_super(cfg)
-        for i in range(n_super):
-            mp = layer_params(params["mamba"], i)
+
+        def super_body(mp, hh):
             for j in range(every):
-                h = h + ssm_mod.mamba_apply(layer_params(mp, j), cfg, h)
-            h = shared_block_apply(params["shared"], cfg, h, h0,
-                                   positions=positions)
+                hh = hh + ssm_mod.mamba_apply(layer_params(mp, j), cfg, hh)
+            return shared_block_apply(params["shared"], cfg, hh, h0,
+                                      positions=positions)
+
+        def tail(lp, hh):
+            return hh + ssm_mod.mamba_apply(lp, cfg, hh)
+
+        super_body, tail = (_maybe_remat(super_body, cfg),
+                            _maybe_remat(tail, cfg))
+        for i in range(n_super):
+            h = super_body(layer_params(params["mamba"], i), h)
         for j in range(rem):
-            h = h + ssm_mod.mamba_apply(layer_params(params["mamba_tail"], j),
-                                        cfg, h)
+            h = tail(layer_params(params["mamba_tail"], j), h)
     h = norm_apply(params["final_norm"], h, cfg.norm)
     return _unembed(params, cfg, h), aux
 
@@ -386,10 +439,9 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor):
         return logits[:, -1:], None
     h = _embed_tokens(params, cfg, batch)
     positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
-    ks, vs = [], []
-    for l in range(cfg.n_layers):
-        lp = layer_params(params["layers"], l)
-        x = norm_apply(lp["ln1"], h, cfg.norm)
+
+    def body(lp, hh):
+        x = norm_apply(lp["ln1"], hh, cfg.norm)
         q, k, v = attn_mod._qkv(lp["attn"], cfg, x, positions,
                                 batch.get("mrope_positions"))
         if cfg.attn_impl == "chunked" and s > cfg.attn_chunk:
@@ -397,8 +449,14 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor):
                                           chunk=cfg.attn_chunk)
         else:
             o = attn_mod.sdpa_gqa(q, k, v, causal=True)
-        h = h + linear_apply(lp["attn"]["o"], o.reshape(b, s, -1))
-        h = h + ffn_apply(lp, cfg, norm_apply(lp["ln2"], h, cfg.norm))[0]
+        hh = hh + linear_apply(lp["attn"]["o"], o.reshape(b, s, -1))
+        hh = hh + ffn_apply(lp, cfg, norm_apply(lp["ln2"], hh, cfg.norm))[0]
+        return hh, k, v
+
+    body = _maybe_remat(body, cfg)
+    ks, vs = [], []
+    for l in range(cfg.n_layers):
+        h, k, v = body(layer_params(params["layers"], l), h)
         ks.append(k)
         vs.append(v)
     h = norm_apply(params["final_norm"], h[:, -1:], cfg.norm)

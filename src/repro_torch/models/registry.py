@@ -4,14 +4,15 @@ decoder-only families (``lm.py``) and the encoder-decoder one
 (``encdec.py``); the contiguous cache serves every family, the paged one
 the decoder-only attention families only, as in the JAX package.  And the
 logical specs of the params, batches and caches, which the sharding layer
-resolves on a mesh."""
+resolves on a mesh; and ``input_specs``, the ``meta`` inputs of one cell of
+the dry-run grid."""
 from __future__ import annotations
 
 from typing import Any, Dict
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeCell
 from repro_torch.core.sparse_linear import boxing, unbox_tree
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import encdec as encdec_mod
@@ -194,3 +195,46 @@ def cache_specs(cfg: ModelConfig, cache) -> Any:
             }
         return spec
     raise ValueError(pat)
+
+
+# ---------------------------------------------------------------------------
+# input_specs: meta stand-ins per (arch x shape)
+# ---------------------------------------------------------------------------
+
+
+def input_specs(cfg: ModelConfig, cell: ShapeCell) -> Dict[str, Any]:
+    """The step inputs of one cell as ``meta`` tensors (JAX's
+    ``ShapeDtypeStruct``s): ``{"kind": "train" | "prefill", "batch"}`` or
+    ``{"kind": "decode", "cache", "tokens" [B, 1], "pos" (0-d int32)}``.
+    A VLM's train batch carries its M-RoPE positions and vision embeddings,
+    its prefill batch the positions; an encoder-decoder's carries
+    ``enc_embeds``, and its prefill puts the cell's length on the frame
+    axis beside a 128-token decoder prompt."""
+    b, s = cell.global_batch, cell.seq_len
+    dt = getattr(torch, cfg.dtype)
+    i32 = torch.int32
+
+    def sds(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    if cell.kind == "train":
+        batch = {"tokens": sds((b, s), i32)}
+        if cfg.family == "vlm":
+            batch["mrope_positions"] = sds((b, 3, s), i32)
+            batch["vision_embeds"] = sds((b, cfg.vision_patches, cfg.d_model),
+                                         dt)
+            batch["vision_pos"] = sds((b, cfg.vision_patches), i32)
+        if cfg.is_encoder_decoder:
+            batch["enc_embeds"] = sds((b, s, cfg.d_model), dt)
+        return {"kind": "train", "batch": batch}
+    if cell.kind == "prefill":
+        if cfg.is_encoder_decoder:
+            return {"kind": "prefill",
+                    "batch": {"enc_embeds": sds((b, s, cfg.d_model), dt),
+                              "tokens": sds((b, 128), i32)}}
+        batch = {"tokens": sds((b, s), i32)}
+        if cfg.family == "vlm":
+            batch["mrope_positions"] = sds((b, 3, s), i32)
+        return {"kind": "prefill", "batch": batch}
+    return {"kind": "decode", "cache": abstract_cache(cfg, b, s),
+            "tokens": sds((b, 1), i32), "pos": sds((), i32)}

@@ -41,7 +41,9 @@ def test_importing_every_module_loads_no_jax_or_repro():
               "repro_torch.examples.prune_and_finetune",
               "repro_torch.examples.serve_pruned",
               "repro_torch.sharding", "repro_torch.sharding.api",
-              "repro_torch.launch.mesh"):
+              "repro_torch.launch.mesh", "repro_torch.launch.dryrun",
+              "repro_torch.roofline", "repro_torch.roofline.analysis",
+              "repro_torch.roofline.kernels", "repro_torch.roofline.counter"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"
