@@ -269,9 +269,30 @@ Phases:
               tokens, 160 #1b a forward (5 of the 7 linears of 32 layers),
               the NLL within 1e-4 of the plain replay, which launches
               nothing.  The train launches reported are those counted
- 19. report : one ``{"kernels": [...]}`` line (launches in the main runs and
-              ``train_launches`` in phases 10, 11, 13, 14 and 18), then the
-              ``{"ok": true, ...}`` line last
+ 19. contracts: (a) the port's checker (``repro_torch.analysis``) in
+              process over ``src/repro_torch`` and its ``csrc/``, with the
+              committed (empty) baseline: zero findings, its seconds; (b)
+              the on-card half of DP301/DP302: for every CUDA candidate of
+              the dispatch registry and every small probe key its
+              ``feasible`` admits, one call of the key's shapes through
+              dispatch, forced to the candidate (``force_scope``; a paged
+              key at Sq 1 and at Sq = min(bq, its rows)), held against its
+              plain version (1e-4 / 2e-2 of max|y|, f32 / bf16), launching
+              exactly the kernel the checker names, its
+              ``last_smem_bytes`` equal to the checker's count and at most
+              the registry's ``smem_bytes(key)`` (kernels that size their
+              own shared memory keep no ``last_smem_bytes``; their count is
+              checked on the CPU only), and every over-budget probe key
+              refused by ``feasible`` with no launch; the launches of each
+              kernel; (c) ``ring_allgather_matmul`` (x [256, 1024] by w
+              [1024, 512]) and ``crosspod_psum_compressed`` on CUDA tensors
+              over a world-1 NCCL group (``make_host_mesh``): y equal to x
+              @ w, the reduction equal to the rank's own dequantized part.
+              At world size 1 nothing crosses a link: (c) shows only that
+              the code runs on the card with NCCL, no traffic between cards
+ 20. report : one ``{"kernels": [...]}`` line (launches in the main runs and
+              phase 19, ``train_launches`` in phases 10, 11, 13, 14 and 18),
+              then the ``{"ok": true, ...}`` line last
 
 Run from the repository root:  python3 chip_smoke.py
 Any failed check raises, so the script exits non-zero and prints no ok line.
@@ -5843,6 +5864,257 @@ def run_moe_train(dev, tree) -> dict:
     return {"launches": reduce["launches"], "train_launches": train}
 
 
+# phase 19: the port's contracts.  (a) the checker; (b) the on-card half of
+# DP301/DP302 over the registry's CUDA candidates at the checker's small
+# probe keys; (c) the ring collective matmul and the compressed cross-pod
+# reduction on a world-1 NCCL group
+RING_SHAPE = (256, 1024, 512)  # rows, d_in, d_out
+CROSSPOD_SHAPE = (4096, 1024)
+
+
+def run_checker() -> dict:
+    """(a): the checker over the tree, in process; raises on any finding."""
+    from repro_torch.analysis import engine
+
+    port = ROOT / "src" / "repro_torch"
+    t0 = time.perf_counter()
+    report = engine.run([port], baseline=engine.load_baseline(
+        port / "analysis" / "baseline.json"))
+    secs = time.perf_counter() - t0
+    check(not report.findings and not report.unused_waivers and
+          not report.waived, "the checker reports:\n" +
+          engine.render_text(report))
+    rules = [r.id for r in engine.all_rules()]
+    print(f"  (a) repro_torch.analysis over {report.files} files "
+          f"(src/repro_torch, csrc/ included), rules {rules}: 0 findings, "
+          f"0 waived, in {secs:.2f} s", flush=True)
+    return {"files": report.files, "findings": 0, "s": secs}
+
+
+def probe_call(spec, key, launch, dev):
+    """The operands of ``launch.call`` for ``key`` on ``dev`` (seeded),
+    the forced call through dispatch and its plain version: (y, plain)."""
+    from repro_torch import dispatch
+    from repro_torch.core.sparse_linear import forward_compressed_xla, linear_apply
+    from repro_torch.kernels.conv_gemm.ops import _to_cnhw, conv2d_sparse
+    from repro_torch.kernels.conv_gemm.ref import conv2d_fused_ref
+    from repro_torch.kernels.flash_attn import paged_attention
+    from repro_torch.kernels.flash_attn.ref import paged_attention_ref
+
+    dtype = torch.float32 if key.dtype == "f32" else torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def compressed(d_in):
+        n_tiles = key.d_out // key.tile
+        values = rand(n_tiles, key.k_kept, key.tile) / key.k_kept ** 0.5
+        idx = torch.argsort(torch.rand((n_tiles, d_in), generator=gen,
+                                       device=dev), dim=1)[:, :key.k_kept]
+        return values, torch.sort(idx, dim=1).values.to(torch.int32)
+
+    if key.op == "linear":
+        rows, d_in = launch.call
+        x = rand(rows, d_in)
+        values, idx = compressed(d_in)
+        with dispatch.force_scope(linear=spec.name):
+            y = linear_apply({"values": values, "idx": idx}, x)
+        return y, forward_compressed_xla(x, values, idx)
+    if key.op == "conv":
+        c, b, h, w = launch.call
+        kh, kw, s, p, v = (key.get(n) for n in ("kh", "kw", "s", "p", "v"))
+        x = rand(c, b, h, w)
+        values, idx = compressed(kh * kw * c)
+        with dispatch.force_scope(conv=spec.name):
+            y = conv2d_sparse(x, values, idx, kh=kh, kw=kw, stride=s, pad=p,
+                              v=v)
+        plain = conv2d_fused_ref(x, values, idx, kh=kh, kw=kw, stride=s,
+                                 pad=p, v=v)
+        return y, _to_cnhw(plain, b, y.shape[2], y.shape[3])
+    b, sq, n_max = launch.call
+    ps = spec.geom("ps")
+    hd, kv = key.get("hd"), key.k_kept
+    h = key.d_out // hd
+    q, k_new, v_new = rand(b, sq, h, hd), rand(b, sq, kv, hd), rand(b, sq, kv, hd)
+    k_pages = rand(b * n_max + 1, ps, kv, hd)
+    v_pages = rand(b * n_max + 1, ps, kv, hd)
+    tables = torch.arange(b * n_max, dtype=torch.int32,
+                          device=dev).reshape(b, n_max)
+    lengths = torch.randint(0, n_max * ps + 1, (b,), generator=gen,
+                            device=dev, dtype=torch.int32)
+    args = (q, k_new, v_new, k_pages, v_pages, tables, lengths)
+    with dispatch.force_scope(paged_attn=spec.name):
+        y = paged_attention(*args, page_size=ps)
+    return y, paged_attention_ref(*args)
+
+
+def card_calls(spec, launches):
+    """The calls of a key phase 19 makes on the card: the one call of a
+    linear or conv key; a paged key's at Sq 1 (decode) and at Sq =
+    min(bq, its rows)."""
+    if spec.op != "paged_attn":
+        return launches
+    top = min(spec.geom("bq"), max(la.call[1] for la in launches))
+    return [la for la in launches if la.call[1] in (1, top)]
+
+
+def run_smem_audit(dev) -> dict:
+    """(b): every CUDA candidate at the small probe keys it admits, then the
+    over-budget keys.  Returns each kernel's launches."""
+    from repro_torch import dispatch
+    from repro_torch.analysis import rules_dispatch as D
+    from repro_torch.dispatch import registry as R
+    from repro_torch.kernels import KERNELS, reset_launch_counts
+
+    by_name = {k.name: k for k in KERNELS}
+    packs = ("im2col_pack", "im2col_pack_tiled")
+    totals = {k.name: 0 for k in KERNELS}
+    calls, sized, impls, refused = 0, 0, set(), []
+    db_path = PROFILE_DB.with_suffix(".contracts.json")
+    db_path.unlink(missing_ok=True)
+    dispatch.set_db(dispatch.ProfileDB(path=db_path))
+    over = D.over_budget(R)
+    try:
+        for spec, key, launches in D.audit(R):
+            if key in over or not (D.small(key) and spec.feasible(key)[0]):
+                continue
+            check(launches, f"{spec.name} admits {key.token} but its wrapper "
+                  "refuses every call of its shapes")
+            declared = spec.smem_bytes(key)
+            for la in card_calls(spec, launches):
+                reset_launch_counts()
+                with torch.no_grad():
+                    y, plain = probe_call(spec, key, la, dev)
+                torch.cuda.synchronize()
+                got = {k.name: k.launches for k in KERNELS if k.launches}
+                for n, c in got.items():
+                    totals[n] += c
+                # the two-kernel plans pack first (the pack kernel sizes no
+                # shared memory)
+                two_kernel = spec.name.startswith(("im2col_sparse_pallas",
+                                                   "two_kernel_pipelined"))
+                n_packs = sum(got.pop(n, 0) for n in packs)
+                check(got == {la.kernel: 1} and n_packs == int(two_kernel),
+                      f"{spec.name} at {key.token}, call {la.call}: launched "
+                      f"{got} and {n_packs} packs, want {la.kernel} once")
+                kernel = by_name[la.kernel]
+                if la.sized:
+                    check(kernel.last_smem_bytes == la.smem <= declared,
+                          f"{spec.name} at {key.token}, call {la.call}: "
+                          f"{la.kernel} requested {kernel.last_smem_bytes} "
+                          f"bytes; the checker counts {la.smem}, the "
+                          f"registry {declared}")
+                    sized += 1
+                rtol = F32_RTOL if key.dtype == "f32" else BF16_RTOL
+                err = rel_err(y.float(), plain.float())
+                check(torch.isfinite(y).all() and err <= rtol,
+                      f"{spec.name} at {key.token}, call {la.call}: rel err "
+                      f"{err:.3e} > {rtol}")
+                calls += 1
+                impls.add(spec.name)
+        for key in over:
+            for spec in R.REGISTRY.candidates(key.op):
+                if spec.backend != "cuda":
+                    continue
+                most = max((la.smem for la in D.probe_launches(spec, key)),
+                           default=0)
+                if most <= R.SMEM_BYTES:
+                    continue
+                reset_launch_counts()
+                ok, why = spec.feasible(key)
+                check(not ok and not any(k.launches for k in KERNELS),
+                      f"{spec.name} admits over-budget {key.token} "
+                      f"({most} bytes)")
+                refused.append({"impl": spec.name, "key": key.token,
+                                "smem": most, "why": why})
+    finally:
+        dispatch.set_db(None)
+        db_path.unlink(missing_ok=True)
+    reset_launch_counts()
+    launched = {n: c for n, c in totals.items() if c}
+    print(f"  (b) {calls} forced calls of {len(impls)} CUDA candidates at "
+          f"the small probe keys, each within 1e-4 / 2e-2 of max|y| of its "
+          f"plain version and launching the kernel the checker names; "
+          f"last_smem_bytes equal to the checker's count and within the "
+          f"registry's in {sized} (the rest: conv2d_fused.cu and "
+          f"colwise_nm_strips.cu size their own); launches {launched}",
+          flush=True)
+    print(f"  (b) {len(refused)} over-budget (candidate, key) pairs refused "
+          f"by feasible with no launch: "
+          f"{[(r['impl'], r['key'], r['smem']) for r in refused]}", flush=True)
+    return {"calls": calls, "sized": sized, "refused": refused,
+            "launches": launched}
+
+
+def run_collectives(dev) -> dict:
+    """(c): the ring and the cross-pod reduction on a world-1 NCCL group."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim.grad_compress import (compress_with_feedback,
+                                                 crosspod_psum_compressed,
+                                                 dequantize_int8)
+    from repro_torch.sharding import (ShardingCtx, ring_allgather_matmul,
+                                      ring_allgather_matmul_local, use_ctx)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 39)
+    rows, d_in, d_out = RING_SHAPE
+    x = torch.randn((rows, d_in), generator=gen, device=dev)
+    w = torch.randn((d_in, d_out), generator=gen, device=dev)
+    g = torch.randn(CROSSPOD_SHAPE, generator=gen, device=dev)
+    e = 0.01 * torch.randn(CROSSPOD_SHAPE, generator=gen, device=dev)
+    started = not dist.is_initialized()
+    mesh = make_host_mesh(dev)
+    try:
+        backend = dist.get_backend()
+        with torch.no_grad():
+            y = ring_allgather_matmul(x, w, mesh, axis="model")
+            y_group = ring_allgather_matmul_local(
+                x, w, group=mesh.get_group("model"))
+            want = x @ w
+        check(y.device.type == dev.type and torch.equal(y, want)
+              and torch.equal(y_group, want),
+              "the ring at world size 1 differs from x @ w")
+        q, scale, err = compress_with_feedback(g, e)
+        with use_ctx(ShardingCtx(mesh=mesh)):
+            reduced, new_error = crosspod_psum_compressed(g, e, axis="pod")
+            reduced_m, _ = crosspod_psum_compressed(g, e, axis="model")
+        own = dequantize_int8(q, scale)
+        check(reduced.device.type == dev.type and torch.equal(reduced, own)
+              and torch.equal(reduced_m, own) and torch.equal(new_error, err),
+              "the cross-pod reduction at world size 1 is not the rank's own "
+              "dequantized part")
+        torch.cuda.synchronize()
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
+    print(f"  (c) a world-1 {backend} group, mesh {tuple(mesh.shape)} "
+          f"{mesh.mesh_dim_names}: ring_allgather_matmul x {list(x.shape)} @ "
+          f"w {list(w.shape)} (through the mesh and through the model "
+          f"group) equal to x @ w; crosspod_psum_compressed of "
+          f"{list(g.shape)} (axis 'pod', absent, and 'model', of 1 rank) "
+          "equal to the rank's dequantized part, its error bit for bit. "
+          "World size 1: nothing crosses a link, so this shows only that "
+          "the code runs on the card with NCCL; no traffic between cards is "
+          "measured", flush=True)
+    return {"backend": backend, "ring_equal": True, "crosspod_equal": True}
+
+
+def run_contracts(dev) -> dict:
+    """Phase 19.  Returns each kernel's launches."""
+    t0 = time.perf_counter()
+    checker = run_checker()
+    audit = run_smem_audit(dev)
+    collectives = run_collectives(dev)
+    secs = time.perf_counter() - t0
+    print(f"  phase 19 took {secs:.1f} s", flush=True)
+    print("CONTRACTS " + json.dumps({"checker": checker, "audit": audit,
+                                     "collectives": collectives, "s": secs}),
+          flush=True)
+    return {"launches": audit["launches"]}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5999,7 +6271,14 @@ def main() -> int:
     for name, n in moe_train["train_launches"].items():
         train_launches[name] += n
 
-    print("== 19. report", flush=True)
+    print("== 19. contracts: the port's checker over src/repro_torch and "
+          "csrc/, every CUDA candidate of the registry at the checker's "
+          "small probe keys (DP301/DP302 on the card), the ring collective "
+          "matmul and the compressed cross-pod reduction on a world-1 NCCL "
+          "group", flush=True)
+    contracts = run_contracts(dev)
+
+    print("== 20. report", flush=True)
     launches = {
         "conv2d_fused": fused_route["conv2d_fused"],
         "conv2d_fused_tiled": counts["default"]["conv2d_fused_tiled"],
@@ -6031,7 +6310,8 @@ def main() -> int:
                     + list(moe["launches"].items())
                     + list(recurrent["launches"].items())
                     + list(encdec_vlm["launches"].items())
-                    + list(moe_train["launches"].items())):
+                    + list(moe_train["launches"].items())
+                    + list(contracts["launches"].items())):
         launches[name] += n
     print(f"  the linear phase (5) launched {linear_launches}; the served runs "
           f"(phases 7 and 12) colwise_nm_matmul_tiled "
@@ -6173,7 +6453,10 @@ def main() -> int:
             "library_ms": t["library_ms"], "library_call": LIBRARY_CALLS[k.name],
             "eager_ms": t["eager_ms"],
             "per": per.get(k.name, "sum over the 5 pruned convs of one "
-                                   "batch-256 forward"),
+                                   "batch-256 forward")
+            + (f"; and phase 19's {contracts['launches'][k.name]} forced "
+               "calls through dispatch"
+               if k.name in contracts["launches"] else ""),
         })
     print(f"  chip_smoke took {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)

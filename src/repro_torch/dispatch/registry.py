@@ -44,6 +44,7 @@ from repro_torch.kernels.conv_gemm.kernel import (banded_smem_bytes,
 from repro_torch.kernels.conv_gemm.plan import band_plan
 from repro_torch.kernels.conv_gemm.ref import conv2d_cnhw_ref
 from repro_torch.kernels.flash_attn.paged import (
+    PAGED_SPLIT_ROWS,
     paged_attention_cuda,
     paged_attention_ref,
     paged_launch_smem_bytes,
@@ -716,16 +717,22 @@ def paged_attn_key(q_rows: int, n_heads: int, kv_heads: int, head_dim: int,
 
 
 def _paged_smem_for(geom_ps: int, geom_bq: int):
-    # the launch for geom_bq query rows a sequence and a table as wide as
-    # the key's (bucketed) cache capacity: the split kernel's where its
-    # shape rule takes it, else paged_attention.cu's
+    # the largest launch of a call of the key, with a table as wide as the
+    # key's (bucketed) cache capacity: the key's q_rows say nothing of the
+    # rows a sequence, so each Sq from 1 to the most either kernel takes a
+    # block (geom_bq for paged_attention.cu, PAGED_SPLIT_ROWS[-1] for the
+    # split kernel, whose launch at a decode step's Sq of 1 can be far the
+    # larger), each the split kernel's where its shape rule takes it, else
+    # paged_attention.cu's
     def smem(key: OpKey) -> int:
         hd, kv = key.get("hd", key.d_in), max(key.k_kept, 1)
         h = key.d_out // max(hd, 1)
         n_max = -(-key.get("kvcap", 128) // geom_ps)
-        return paged_launch_smem_bytes(
-            geom_ps, hd, h, kv, geom_bq, n_max,
-            _TAG_DTYPES.get(key.dtype, torch.float32), geom_bq)
+        dtype = _TAG_DTYPES.get(key.dtype, torch.float32)
+        top = min(key.batch, max(geom_bq, PAGED_SPLIT_ROWS[-1]))
+        return max(paged_launch_smem_bytes(geom_ps, hd, h, kv, sq, n_max,
+                                           dtype, geom_bq)
+                   for sq in range(1, top + 1))
 
     return smem
 

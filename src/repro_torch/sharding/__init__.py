@@ -12,3 +12,7 @@ from repro_torch.sharding.api import (  # noqa: F401
     specs_to_shardings,
     use_ctx,
 )
+from repro_torch.sharding.collective_matmul import (  # noqa: F401
+    ring_allgather_matmul,
+    ring_allgather_matmul_local,
+)

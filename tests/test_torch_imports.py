@@ -43,7 +43,13 @@ def test_importing_every_module_loads_no_jax_or_repro():
               "repro_torch.sharding", "repro_torch.sharding.api",
               "repro_torch.launch.mesh", "repro_torch.launch.dryrun",
               "repro_torch.roofline", "repro_torch.roofline.analysis",
-              "repro_torch.roofline.kernels", "repro_torch.roofline.counter"):
+              "repro_torch.roofline.kernels", "repro_torch.roofline.counter",
+              "repro_torch.sharding.collective_matmul",
+              "repro_torch.analysis", "repro_torch.analysis.__main__",
+              "repro_torch.analysis.engine",
+              "repro_torch.analysis.rules_registry",
+              "repro_torch.analysis.rules_dispatch",
+              "repro_torch.analysis.rules_kernels"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"

@@ -222,16 +222,36 @@ def test_split_smem_and_the_registry_footprint():
     # 8 queries of 3 heads a KV head: paged_attention.cu, 8 rows a block
     assert paged_launch_smem_bytes(16, 64, 15, 5, 8, 10, torch.float32, 8) == \
         paged_smem_bytes(16, 64, 24)
-    # the registry sizes a geometry at bq query rows a sequence and a table
-    # as wide as the key's bucketed capacity
+    # the registry sizes a geometry at the largest launch of a call of the
+    # key: each Sq from 1 to the most either kernel takes a block, no more
+    # than the key's (bucketed) query rows, and a table as wide as its
+    # bucketed capacity
     for name in ("paged_attn_pallas", "paged_attn_pallas@ps8_bq8"):
         spec = dispatch.REGISTRY.get("paged_attn", name)
         ps, bq = spec.geom("ps"), spec.geom("bq")
         for h, kv, d in ((15, 5, 64), (4, 2, 16), (2, 2, 16)):
             key = dispatch.paged_attn_key(4, h, kv, d, 160, page_size=ps)
-            assert spec.smem_bytes(key) == paged_launch_smem_bytes(
-                ps, d, h, kv, bq, 256 // ps, torch.float32, bq)
+            assert spec.smem_bytes(key) == max(
+                paged_launch_smem_bytes(ps, d, h, kv, sq, 256 // ps,
+                                        torch.float32, bq)
+                for sq in range(1, 9))
             assert spec.feasible(key)[0]
+
+
+def test_registry_counts_the_decode_launch():
+    """A key's calls at bq query rows a sequence go to paged_attention.cu
+    (4 x 8 rows a KV head), its decode calls (Sq 1) to the split kernel,
+    whose launch is far the larger (136192 bytes against 27072): the
+    registry's count covers the decode launch."""
+    spec = dispatch.REGISTRY.get("paged_attn", "paged_attn_pallas")
+    key = dispatch.paged_attn_key(8, 8, 2, 64, 256, page_size=16)
+    warps = paged_split_config(16, 64, 4, 17, torch.float32)[0]
+    decode = paged_launch_smem_bytes(16, 64, 8, 2, 1, 16, torch.float32, 8)
+    assert decode == paged_split_smem_bytes(16, 64, 4, 4, warps, 17) == 136192
+    assert paged_launch_smem_bytes(16, 64, 8, 2, 8, 16, torch.float32, 8) \
+        == paged_smem_bytes(16, 64, 32) == 27072
+    assert decode <= spec.smem_bytes(key) <= _build.SMEM_BYTES
+    assert spec.feasible(key)[0]
 
 
 def test_feasible_sets_still_match_jax():
