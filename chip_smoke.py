@@ -290,9 +290,30 @@ Phases:
               @ w, the reduction equal to the rank's own dequantized part.
               At world size 1 nothing crosses a link: (c) shows only that
               the code runs on the card with NCCL, no traffic between cards
- 20. report : one ``{"kernels": [...]}`` line (launches in the main runs and
-              phase 19, ``train_launches`` in phases 10, 11, 13, 14 and 18),
-              then the ``{"ok": true, ...}`` line last
+ 20. layout : pruned smollm-360m whole at its published widths with
+              cfg.tp 2 (16 q heads, one zero-padded), its params laid out
+              (``launch.steps.distribute_tree``) on worlds of 2 ranks
+              (model 2) and 4 (data 2 x model 2), child processes on the
+              one card joined by gloo: (a) scored on 2 x 512 tokens under
+              attn_impl="pallas", prefilled on 4 x 128 and 8 greedy decode
+              steps on each rank's shards, each rank's global logits within
+              1e-5 of max|logit| of the same calls on whole params in this
+              process, the NLL within 1e-6, the tokens equal, the launches
+              exact (#1b for q, gate, up, o, down, #1a for k and v on 160
+              columns, #7b on the rank's heads); (b) the same with
+              shard_local_reduce, one REDUCE group a model rank, within
+              1e-5 too (at model 2 the all-reduce adds the two groups'
+              partial products, the whole run's einsum sums both in one
+              product); (c) #1b on a rank's 512 q columns,
+              #1a on its 160 k columns and #7b on its heads, each
+              torch.equal to the same part of the whole launch; (d) each
+              rank's local param bytes against the whole model's and (a)'s
+              device ms for a prefill and a decode step (CUDA events; gloo
+              stages every collective through the host, so these are a
+              layout check, not tensor-parallel speed)
+ 21. report : one ``{"kernels": [...]}`` line (launches in the main runs and
+              phases 19 and 20, ``train_launches`` in phases 10, 11, 13, 14
+              and 18), then the ``{"ok": true, ...}`` line last
 
 Run from the repository root:  python3 chip_smoke.py
 Any failed check raises, so the script exits non-zero and prints no ok line.
@@ -6115,6 +6136,384 @@ def run_contracts(dev) -> dict:
     return {"launches": audit["launches"]}
 
 
+# phase 20: the layout.  smollm-360m whole at its published widths, pruned
+# as pruned_smollm prunes it with cfg.tp = 2 (16 q heads, one zero-padded),
+# laid out on worlds of 2 ranks (model 2) and 4 (data 2 x model 2), spawned
+# on the one card and joined by gloo: the scoring loss and forward under
+# attn_impl="pallas", a prefill and greedy decode steps on each rank's
+# shards, held against the same calls on whole params in this process
+LAYOUT_WORLDS = ((1, 2), (2, 2))  # (data, model)
+LAYOUT_VARIANTS = ("compressed", "reduce")
+LAYOUT_SCORE = (2, 512)   # B, S of the scoring forward
+LAYOUT_PROMPT = (4, 128)  # B, S of the prefill
+LAYOUT_NEW = 8            # greedy decode steps
+LAYOUT_TOL = 1e-5         # of max|logit|, against whole params (REDUCE too)
+LAYOUT_NLL_RTOL = 1e-6
+LAYOUT_TIMEOUT_S = 300
+LAYOUT_LABEL = "gloo, staged through the host: a layout check, not " \
+               "tensor-parallel speed"
+LAYOUT_CHILD = ("import sys; sys.path.insert(0, sys.argv[1]); "
+                "import chip_smoke; chip_smoke.layout_rank(*sys.argv[2:])")
+
+
+def layout_cfg(variant: str, tp: int):
+    """smollm-360m pruned as ``pruned_smollm`` prunes it, ``cfg.tp`` the
+    model axis, scored under ``attn_impl="pallas"``; the "reduce" variant
+    with ``shard_local_reduce`` and one REDUCE group a model rank."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.pruning import SparsityConfig
+
+    reduce = variant == "reduce"
+    return get_config("smollm-360m").with_(
+        tp=tp, attn_impl="pallas", sparsity=SparsityConfig(
+            sparsity=0.5, m=None, tile=None, format="compressed_pallas",
+            shard_local_reduce=reduce, reduce_groups=tp if reduce else 0))
+
+
+def layout_run(cfg, params, dev, mesh=None) -> dict:
+    """The phase's main path through the registry on ``params``, whole or
+    laid out on ``mesh``: the scoring loss and forward on LAYOUT_SCORE
+    uniform tokens, a prefill of LAYOUT_PROMPT tokens and LAYOUT_NEW greedy
+    decode steps.  Returns the global outputs (``sharding.full``)."""
+    from repro_torch.models import registry as reg
+    from repro_torch.sharding.api import full, local
+
+    rng = np.random.default_rng(SEED + 60)
+    score = torch.from_numpy(rng.integers(0, cfg.vocab_size, LAYOUT_SCORE,
+                                          dtype=np.int32)).to(dev)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, LAYOUT_PROMPT,
+                                           dtype=np.int32)).to(dev)
+    out = {}
+    with torch.no_grad():
+        _, metrics = reg.loss_fn(cfg)(params, {"tokens": score})
+        out["nll"] = float(metrics["nll"])
+        out["score_logits"] = full(reg.forward_fn(cfg)(params,
+                                                       {"tokens": score}))
+        logits, pre = reg.prefill_fn(cfg)(params, {"tokens": prompt})
+        b, p = prompt.shape
+        cache = reg.cache_init_fn(cfg, b, p + LAYOUT_NEW, device=dev,
+                                  mesh=mesh)()
+        for k, v in cache.items():
+            local(v)[:, :, :p] = local(pre[k])
+        steps, toks = [full(logits)], []
+        for i in range(LAYOUT_NEW):
+            tok = steps[-1][:, -1, :cfg.vocab_size].argmax(-1).to(
+                torch.int32)[:, None]
+            toks.append(tok)
+            logits, cache = reg.decode_fn(cfg)(params, cache, tok, p + i)
+            steps.append(full(logits))
+        out["steps"] = torch.stack(steps)
+        out["tokens"] = torch.cat(toks, dim=1)
+    return out
+
+
+def layout_bits(dev) -> dict:
+    """(c): the q projection's #1 launch on each model rank's 512 columns
+    (#1b), the k projection's on its 160 (not a multiple of 64: #1a), and
+    #7b on each rank's 8 q heads with their KV heads by JAX's map, each
+    ``torch.equal`` to the same part of the whole launch."""
+    from repro_torch.core.sparse_linear import linear_init
+    from repro_torch.kernels.colwise_nm import (colwise_nm_matmul_cuda,
+                                                colwise_nm_matmul_tiled_cuda)
+    from repro_torch.kernels.flash_attn import flash_attention_tiled_cuda
+    from repro_torch.models.attention import _rank_kv_map
+
+    cfg = layout_cfg("compressed", 2)
+    tp, hd = cfg.tp, cfg.resolved_head_dim
+    h, kv = cfg.padded_heads, cfg.n_kv_heads
+    gen = torch.Generator().manual_seed(SEED + 61)
+    b, s = LAYOUT_SCORE
+    x = torch.randn((b * s, cfg.d_model), generator=gen).to(dev)
+    out = {}
+    for name, width in (("q", h * hd), ("k", kv * hd)):
+        layer = linear_init(gen, cfg.d_model, width, cfg.sparsity, device=dev)
+        values, idx = layer["values"], layer["idx"]
+        whole = colwise_nm_matmul_tiled_cuda(x, values, idx)
+        for r in range(tp):
+            lo, hi = r * width // tp, (r + 1) * width // tp
+            part = values[..., lo:hi].contiguous()
+            fn = (colwise_nm_matmul_tiled_cuda if (hi - lo) % 64 == 0
+                  else colwise_nm_matmul_cuda)
+            y = fn(x, part, idx)
+            check(torch.equal(y, whole[:, lo:hi]),
+                  f"(c) {name} columns {lo}:{hi} through {fn.__name__} "
+                  "differ from the whole launch's")
+            out[f"{name}{r}"] = f"{fn.__name__} [{lo}:{hi}]"
+    q = torch.randn((b, s, h, hd), generator=gen).to(dev)
+    k = torch.randn((b, s, kv, hd), generator=gen).to(dev)
+    v = torch.randn((b, s, kv, hd), generator=gen).to(dev)
+    whole = flash_attention_tiled_cuda(q, k, v, causal=True)
+    for r in range(tp):
+        hl = h // tp
+        m = _rank_kv_map(h, kv, tp, r, q.device)
+        y = flash_attention_tiled_cuda(
+            q[:, :, r * hl:(r + 1) * hl].contiguous(), k[:, :, m].contiguous(),
+            v[:, :, m].contiguous(), causal=True)
+        check(torch.equal(y, whole[:, :, r * hl:(r + 1) * hl]),
+              f"(c) flash on rank {r}'s heads differs from the whole launch's")
+        out[f"flash{r}"] = (f"heads {r * hl}:{(r + 1) * hl}, KV heads "
+                            f"{m.tolist()}")
+    torch.cuda.synchronize()
+    return out
+
+
+def layout_expected(cfg) -> dict:
+    """A rank's launches over one ``layout_run``: 2 scoring forwards (one
+    #7b a layer each), a prefill and LAYOUT_NEW decode steps; q, gate, up
+    (and o, down outside the REDUCE format) through #1b, k and v on their
+    160 columns through #1a."""
+    passes = 2 + 1 + LAYOUT_NEW
+    tiled = 3 if cfg.sparsity.shard_local_reduce else 5
+    return {"colwise_nm_matmul_tiled": passes * cfg.n_layers * tiled,
+            "colwise_nm_matmul": passes * cfg.n_layers * 2,
+            "flash_attention_tiled": 2 * cfg.n_layers}
+
+
+def _event_ms(fn) -> float:
+    """One warm call of ``fn`` between CUDA events (the host's waits on
+    gloo included)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def layout_rank(rank, world, dp, tp, work, device_type) -> None:
+    """One rank of a phase-20 world (``LAYOUT_CHILD``): gloo through a file
+    store in ``work``; every variant drawn whole from SEED, laid out by its
+    shardings, run (``layout_run``) with the launch counts reset just
+    before, held against this process's copy of the parent's whole-params
+    outputs; then (the first variant) a prefill and a decode step timed.
+    Writes ``rank<r>.json``."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import dispatch
+    from repro_torch.kernels import KERNELS, reset_launch_counts
+    from repro_torch.launch.steps import distribute_tree
+    from repro_torch.models import lm
+    from repro_torch.models import registry as reg
+    from repro_torch.sharding.api import local, specs_to_shardings
+
+    rank, world, dp, tp, work = int(rank), int(world), int(dp), int(tp), \
+        Path(work)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device_type)
+    # the world's ranks share the host's cores: no rank oversubscribes them
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    dispatch.set_db(dispatch.ProfileDB(path=work / f"profile{rank}.json"))
+    dist.init_process_group("gloo",
+                            init_method=f"file://{work}/store{dp}x{tp}",
+                            rank=rank, world_size=world)
+    res = {"rank": rank}
+    t0 = time.perf_counter()
+    try:
+        torch.zeros((), device=dev).item()  # the context, apart
+        res["context_s"] = time.perf_counter() - t0
+        mesh = init_device_mesh(device_type, (dp, tp),
+                                mesh_dim_names=("data", "model"))
+        res["mesh_s"] = time.perf_counter() - t0 - res["context_s"]
+        res["coords"] = {ax: mesh.get_local_rank(ax) for ax in ("data",
+                                                                 "model")}
+        for variant in LAYOUT_VARIANTS:
+            t1 = time.perf_counter()
+            cfg = layout_cfg(variant, tp)
+            whole = lm.lm_init(cfg, SEED, device=dev)
+            laid = distribute_tree(whole, specs_to_shardings(
+                reg.param_specs(cfg), whole, mesh))
+            del whole
+            torch.cuda.empty_cache()
+            leaves = [t for t in _leaves(laid)]
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            reset_launch_counts()
+            got = layout_run(cfg, laid, dev, mesh)
+            torch.cuda.synchronize()
+            counts = {k.name: k.launches for k in KERNELS if k.launches}
+            t3 = time.perf_counter()
+            ref = torch.load(work / f"ref_{variant}.pt", map_location=dev)
+            times = {}
+            if variant == LAYOUT_VARIANTS[0]:
+                prompt = torch.from_numpy(np.random.default_rng(
+                    SEED + 60).integers(0, cfg.vocab_size, LAYOUT_PROMPT,
+                                        dtype=np.int32)).to(dev)
+                with torch.no_grad():
+                    times["prefill_ms"] = _event_ms(lambda: reg.prefill_fn(
+                        cfg)(laid, {"tokens": prompt}))
+                    cache = reg.cache_init_fn(cfg, LAYOUT_PROMPT[0],
+                                              LAYOUT_PROMPT[1] + 1,
+                                              device=dev, mesh=mesh)()
+                    times["decode_ms"] = _event_ms(lambda: reg.decode_fn(cfg)(
+                        laid, cache, prompt[:, -1:], LAYOUT_PROMPT[1]))
+                    del cache
+            res[variant] = {
+                "counts": counts,
+                "score_err": rel_err(got["score_logits"], ref["score_logits"]),
+                "steps_err": rel_err(got["steps"], ref["steps"]),
+                "nll": got["nll"], "nll_ref": float(ref["nll"]),
+                "tokens_equal": bool(torch.equal(got["tokens"],
+                                                 ref["tokens"])),
+                "tokens": got["tokens"].tolist(),
+                "local_bytes": sum(local(t).numel() * t.element_size()
+                                   for t in leaves),
+                "whole_bytes": sum(t.numel() * t.element_size()
+                                   for t in leaves),
+                "init_s": t2 - t1, "run_s": t3 - t2,
+                "timed_s": time.perf_counter() - t3, **times}
+            del laid, got, ref, leaves
+            torch.cuda.empty_cache()
+    except Exception:  # reported to the parent through the results file
+        import traceback
+
+        res["error"] = traceback.format_exc()
+    finally:
+        (work / f"rank{rank}.json").write_text(json.dumps(res))
+        dist.destroy_process_group()
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def layout_world(dp: int, tp: int, work: Path, dev) -> list:
+    """Spawn a world of dp x tp ranks on the card; returns each rank's
+    results.  Any rank that fails or outlives LAYOUT_TIMEOUT_S ends the
+    world: every rank is killed."""
+    world = dp * tp
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    logs = [open(work / f"rank{r}.log", "w") for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", LAYOUT_CHILD, str(ROOT), str(r), str(world),
+         str(dp), str(tp), str(work), dev.type], env=env, stdout=logs[r],
+        stderr=subprocess.STDOUT) for r in range(world)]
+    t0 = time.perf_counter()
+    try:
+        while any(p.poll() is None for p in procs):
+            check(time.perf_counter() - t0 < LAYOUT_TIMEOUT_S,
+                  f"a rank of the {dp} x {tp} world outlived "
+                  f"{LAYOUT_TIMEOUT_S} s")
+            if any(p.poll() not in (None, 0) for p in procs):
+                break
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    out = []
+    for r, p in enumerate(procs):
+        path = work / f"rank{r}.json"
+        tail = (work / f"rank{r}.log").read_text()[-3000:]
+        check(path.exists(), f"rank {r} of {dp} x {tp} wrote no results "
+              f"(rc {p.returncode}): {tail}")
+        res = json.loads(path.read_text())
+        check("error" not in res, f"rank {r} of {dp} x {tp}: "
+              f"{res.get('error', '')[-3000:]}")
+        check(p.returncode == 0, f"rank {r} of {dp} x {tp} rc "
+              f"{p.returncode}: {tail}")
+        out.append(res)
+    return out
+
+
+def run_layout(dev) -> dict:
+    """Phase 20.  Returns the launches of the laid-out main path (each
+    rank's, summed)."""
+    from repro_torch.models import lm
+
+    t0 = time.perf_counter()
+    card = card_line()
+    bits = layout_bits(dev)
+    print(f"  (c) bit for bit against the whole launch: {bits}", flush=True)
+    work = Path(tempfile.mkdtemp(prefix="layout-", dir=ROOT / "build"))
+    launches = {}
+    try:
+        refs = {}
+        for variant in LAYOUT_VARIANTS:
+            cfg = layout_cfg(variant, 2)
+            params = lm.lm_init(cfg, SEED, device=dev)
+            ref = layout_run(cfg, params, dev)
+            torch.save({k: v.cpu() if torch.is_tensor(v) else v
+                        for k, v in ref.items()}, work / f"ref_{variant}.pt")
+            refs[variant] = {"nll": ref["nll"],
+                             "tokens": ref["tokens"].tolist()}
+            del params, ref
+            torch.cuda.empty_cache()
+        print(f"  whole params on this process (cfg.tp 2: 16 q heads): NLL "
+              f"{ {v: r['nll'] for v, r in refs.items()} }, greedy tokens "
+              f"{refs['compressed']['tokens']}", flush=True)
+        print(f"  (c) and the whole-params runs took "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        for dp, tp in LAYOUT_WORLDS:
+            t1 = time.perf_counter()
+            ranks = layout_world(dp, tp, work, dev)
+            split = {v: [round(ranks[0][v][k], 1)
+                         for k in ("init_s", "run_s", "timed_s")]
+                     for v in LAYOUT_VARIANTS}
+            print(f"  the {dp} x {tp} world took "
+                  f"{time.perf_counter() - t1:.1f} s: rank 0's context "
+                  f"{ranks[0]['context_s']:.1f} s and mesh "
+                  f"{ranks[0]['mesh_s']:.1f} s, then each variant's init, "
+                  f"run and timed calls {split} s", flush=True)
+            for variant in LAYOUT_VARIANTS:
+                cfg = layout_cfg(variant, tp)
+                tol = LAYOUT_TOL
+                want = layout_expected(cfg)
+                for res in ranks:
+                    r = res[variant]
+                    tag = (f"{variant} {dp} x {tp} rank {res['rank']} "
+                           f"{res['coords']}")
+                    check(r["counts"] == want,
+                          f"{tag}: launches {r['counts']}, want {want}")
+                    check(r["score_err"] <= tol and r["steps_err"] <= tol,
+                          f"{tag}: logits rel err {r['score_err']}, "
+                          f"{r['steps_err']} > {tol}")
+                    nll_err = abs(r["nll"] - r["nll_ref"]) / abs(r["nll_ref"])
+                    check(nll_err <= LAYOUT_NLL_RTOL,
+                          f"{tag}: NLL {r['nll']} vs {r['nll_ref']}")
+                    check(r["tokens_equal"], f"{tag}: tokens {r['tokens']} "
+                          f"vs {refs[variant]['tokens']}")
+                    for name, n in r["counts"].items():
+                        launches[name] = launches.get(name, 0) + n
+                    print(f"  ({'a' if variant == 'compressed' else 'b'}) "
+                          f"{tag}: launches {r['counts']} (want {want}); "
+                          f"scoring logits rel err {r['score_err']:.3e}, "
+                          f"prefill and decode logits {r['steps_err']:.3e} "
+                          f"(<= {tol} of max|logit|); NLL {r['nll']!r} vs "
+                          f"{r['nll_ref']!r} (rel {nll_err:.2e}); "
+                          f"{LAYOUT_NEW} greedy tokens equal", flush=True)
+                    times = (f"; device ms by CUDA events, prefill of "
+                             f"{LAYOUT_PROMPT[0]} x {LAYOUT_PROMPT[1]} "
+                             f"{r['prefill_ms']:.3f}, decode step "
+                             f"{r['decode_ms']:.3f} ({LAYOUT_LABEL}); {card}"
+                             if "decode_ms" in r else "")
+                    print(f"  (d) {tag}: local params {r['local_bytes']} of "
+                          f"{r['whole_bytes']} bytes "
+                          f"({r['local_bytes'] / r['whole_bytes']:.3f})"
+                          + times, flush=True)
+            print("LAYOUT " + json.dumps({"world": [dp, tp], "ranks": ranks}),
+                  flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"  (b) at model 2 the all-reduce adds the two REDUCE groups' "
+          f"partial products, where the whole run's einsum sums both groups "
+          f"in one product: held within {LAYOUT_TOL} of max|logit|, as at "
+          f"model 2; phase 20 took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return {"launches": launches}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -6278,7 +6677,13 @@ def main() -> int:
           "group", flush=True)
     contracts = run_contracts(dev)
 
-    print("== 20. report", flush=True)
+    print("== 20. layout: pruned smollm-360m whole (cfg.tp 2) laid out on "
+          "worlds of 2 (model 2) and 4 (data 2 x model 2) gloo ranks on the "
+          "card: scored, prefilled and decoded on each rank's shards against "
+          "whole params", flush=True)
+    layout = run_layout(dev)
+
+    print("== 21. report", flush=True)
     launches = {
         "conv2d_fused": fused_route["conv2d_fused"],
         "conv2d_fused_tiled": counts["default"]["conv2d_fused_tiled"],
@@ -6311,7 +6716,8 @@ def main() -> int:
                     + list(recurrent["launches"].items())
                     + list(encdec_vlm["launches"].items())
                     + list(moe_train["launches"].items())
-                    + list(contracts["launches"].items())):
+                    + list(contracts["launches"].items())
+                    + list(layout["launches"].items())):
         launches[name] += n
     print(f"  the linear phase (5) launched {linear_launches}; the served runs "
           f"(phases 7 and 12) colwise_nm_matmul_tiled "
@@ -6327,7 +6733,9 @@ def main() -> int:
                                 "prune_and_finetune (tile 8), and phase 16's "
                                 "zamba2-7b (its in_proj, T = 14576, 1 per "
                                 "Mamba2 layer per token step: generate, "
-                                "scored)",
+                                "scored), and phase 20's laid-out "
+                                "smollm-360m (k and v on a rank's 160 "
+                                "columns: 2 a layer a pass, every rank)",
            "colwise_nm_matmul_tiled": "ms etc.: sum over the 960->2560 and "
                                       "2560->960 layers at 256 rows (T = "
                                       "d_out); launches: the served "
@@ -6349,7 +6757,11 @@ def main() -> int:
                                       "qwen2-vl-72b (14 a step: served "
                                       "paged, generate, scored) and phase "
                                       "18's smollm-360m scored with the "
-                                      "REDUCE format (160 a forward); "
+                                      "REDUCE format (160 a forward) and "
+                                      "phase 20's laid-out smollm-360m "
+                                      "(q, gate, up on a rank's columns, "
+                                      "o, down whole: 5 a layer a pass, 3 "
+                                      "with REDUCE; every rank); "
                                       "train_launches also phase 18's "
                                       "olmoe-1b-7b train steps (32 a step) "
                                       "and its 2-layer Trainer (8 a step)",
@@ -6383,7 +6795,10 @@ def main() -> int:
                                     "scored whisper-small (12 non-causal "
                                     "encoder and 12 causal decoder "
                                     "launches a forward, S 1500 and 448) "
-                                    "and qwen2-vl-72b (D 128)",
+                                    "and qwen2-vl-72b (D 128), and phase "
+                                    "20's laid-out smollm-360m (a rank's 8 "
+                                    "q heads, 1 a layer a scoring forward, "
+                                    "every rank)",
            "colwise_nm_matmul_strips": "ms etc.: sum over the 5 pruned convs "
                                        "of one batch-256 forward, called "
                                        "directly (the tiled kernel's bitwise "

@@ -27,6 +27,8 @@ from repro_torch.core.pruning import (SparsityConfig, choose_group,
                                       colwise_nm_mask, kept_per_group,
                                       rowwise_nm_mask)
 from repro_torch.roofline.counter import counted
+from repro_torch.sharding.api import (all_gather, all_reduce_sum,
+                                      current_layout, gather_leaf, split_dim)
 from repro_torch.roofline.kernels import linear_work
 
 
@@ -176,8 +178,9 @@ def forward_masked(x: torch.Tensor, w: torch.Tensor,
     return x @ (w * mask.to(w.dtype))
 
 
-def linear_apply(params, x: torch.Tensor, *,
-                 impl: Optional[str] = None) -> torch.Tensor:
+def linear_apply(params, x: torch.Tensor, *, impl: Optional[str] = None,
+                 split: Optional[str] = None,
+                 d_in: Optional[int] = None) -> torch.Tensor:
     """Apply a layer created by ``linear_init`` to ``x`` [..., d_in].
 
     A compressed layer runs the candidate ``repro_torch.dispatch`` resolves
@@ -187,7 +190,16 @@ def linear_apply(params, x: torch.Tensor, *,
     through ``dispatch.run_guarded``: a candidate that refuses to run is
     quarantined and the next one runs; raises when none is left.  A
     REDUCE-format layer runs :func:`forward_compressed_reduce`.
+
+    Inside ``sharding.layout_scope`` (a call on laid-out params) ``split``
+    says how the layer divides over the model axis (:func:`_split_apply`):
+    ``"cols"`` or ``"rows"``, the latter with the layer's whole ``d_in``.
+    Elsewhere ``split`` and ``d_in`` change nothing.
     """
+    if split is not None:
+        lay = current_layout()
+        if lay is not None:
+            return _split_apply(params, x, split, d_in, impl, lay)
     if "values_r" in params:
         y = forward_compressed_reduce(x, params["values_r"], params["idx_r"])
     elif "values" in params:
@@ -215,6 +227,86 @@ def linear_apply(params, x: torch.Tensor, *,
         y = x @ params["w"]
     if "b" in params:
         y = y + params["b"]
+    return y
+
+
+def _plain(params, x, impl):
+    """The layer without its bias on plain local leaves."""
+    return linear_apply({k: v for k, v in params.items() if k != "b"}, x,
+                        impl=impl)
+
+
+def _split_apply(params, x: torch.Tensor, split: str, d_in: Optional[int],
+                 impl: Optional[str], lay) -> torch.Tensor:
+    """The layer on laid-out leaves (the twin of the JAX ``shd`` of its
+    output).  Every leaf is first gathered over the data-parallel axes that
+    split it (FSDP); what the model axis splits stays split.
+
+    ``split="cols"`` (q, k, v, gate, up): returns the rank's columns of
+    d_out where the model axis splits d_out (``Layout.model_chunk``), else
+    every column.  A dense or masked ``w`` holds those columns already; a
+    compressed layer, whose T dim no axis splits, computes only them by
+    slicing ``values[..., cols]`` (whole tiles where T < d_out).
+
+    ``split="rows"`` (o, down): ``x`` holds the rank's columns of ``d_in``
+    where the model axis splits ``d_in``, and every rank gets the whole
+    output.  A dense or masked ``w`` split on d_in multiplies its rows and
+    the ranks' partial products are summed over the model axis (one
+    all-reduce); a REDUCE layer whose groups the model axis splits
+    multiplies its own groups and sums likewise; a compressed layer, whose
+    ``idx`` addresses the whole d_in, first gathers ``x`` over the model
+    axis.
+    """
+    mesh = lay.mesh
+    model_dim = {k: split_dim(v) for k, v in params.items()}
+    p = {k: gather_leaf(v, keep=("model",)) for k, v in params.items()}
+    if split == "cols":
+        if "values_r" in p:
+            raise ValueError("a REDUCE-format layer is row parallel")
+        if "values" in p and model_dim["values"] is None:
+            n_tiles, _, tile = p["values"].shape
+            chunk = lay.model_chunk(n_tiles * tile)
+            if chunk is None:
+                return linear_apply(p, x, impl=impl)
+            lo, hi = chunk
+            if n_tiles == 1:
+                sub = {"values": p["values"][..., lo:hi].contiguous(),
+                       "idx": p["idx"]}
+            elif lo % tile == 0 and hi % tile == 0:
+                sub = {"values": p["values"][lo // tile:hi // tile],
+                       "idx": p["idx"][lo // tile:hi // tile]}
+            else:
+                sub = None
+            y = (_plain(p, x, impl)[..., lo:hi] if sub is None
+                 else linear_apply(sub, x, impl=impl))
+            if "b" in p:
+                y = y + (p["b"] if model_dim["b"] is not None
+                         else p["b"][lo:hi])
+            return y
+        y = linear_apply(p, x, impl=impl)
+        if "w" in p and model_dim["w"] is None:
+            chunk = lay.model_chunk(y.shape[-1])
+            if chunk is not None:
+                y = y[..., chunk[0]:chunk[1]]
+        return y
+    if split != "rows":
+        raise ValueError(f"split must be 'cols' or 'rows', got {split!r}")
+    x_split = d_in is not None and lay.model_chunk(d_in) is not None
+    if "values_r" in p and model_dim["values_r"] is not None:
+        y = all_reduce_sum(
+            forward_compressed_reduce(x, p["values_r"], p["idx_r"]), "model",
+            mesh)
+    elif "w" in p and model_dim["w"] == 0:
+        y = all_reduce_sum(_plain(p, x, impl), "model", mesh)
+    else:
+        if x_split:
+            x = all_gather(x, -1, "model", mesh)
+        y = _plain(p, x, impl)
+        out = model_dim.get("values", model_dim.get("w"))
+        if out is not None:  # the layer's output columns split over model
+            y = all_gather(y, -1, "model", mesh)
+    if "b" in params:
+        y = y + gather_leaf(params["b"])
     return y
 
 

@@ -14,9 +14,13 @@ x 16), inside the ``ShardingCtx`` of ``make_production_mesh``:
   decode_32k, long_500k    ``make_decode_step``
 
 The port builds the step, so the per-rank numbers are the port's, not
-JAX's: every rank holds the params whole and the train step computes this
-rank's rows of the global batch, data parallel over the pod and data axes
-(each record's ``layout``), where JAX's GSPMD shards the params too.
+JAX's (each record's ``layout``).  The serving cells of the dense
+attention LMs (``prefill_32k``, ``decode_32k``, ``long_500k``) run on rank
+0's shards of params, batch and cache laid out by ``serve_shardings``
+(``cache_auto=False``), with the layout's all-gathers and all-reduces
+counted; every other cell holds the params whole on every rank and
+computes this rank's rows of the global batch, data parallel over the pod
+and data axes, where JAX's GSPMD shards the params too.
 
 The records go to ``build/dryrun`` by default (JAX's ``artifacts/dryrun``
 holds the JAX package's records under the same names).
@@ -36,6 +40,7 @@ from pathlib import Path
 import torch
 
 from repro_torch._tree import tree_leaves
+from repro_torch.sharding.api import lay_out, local
 from repro_torch.configs import LONG_CONTEXT_ARCHS, SHAPES, get_config, list_archs
 from repro_torch.core.pruning import SparsityConfig
 from repro_torch.launch import steps as steps_mod
@@ -45,7 +50,9 @@ from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.roofline import Roofline, count, model_flops_for
 from repro_torch.sharding import ShardingCtx, use_ctx
 
-LAYOUT = "params whole on every rank; data parallel over pod×data"
+LAYOUT_WHOLE = "params whole on every rank; data parallel over pod×data"
+LAYOUT_LAID = ("laid out by serve_shardings: each rank holds its shard of "
+               "the params, batch and cache")
 TEMP_NOTE = ("temp_size_in_bytes: the counter's peak of live op outputs, an "
              "eager peak without the caching allocator")
 
@@ -94,7 +101,9 @@ def build_cfg(arch: str, sparsity: float, fmt: str, mesh, attn: str = "naive",
 
 
 def _nbytes(tree) -> int:
-    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+    """The bytes this rank holds of a tree's tensors (a laid-out leaf's
+    shard)."""
+    return sum(local(t).numel() * t.element_size() for t in tree_leaves(tree)
                if isinstance(t, torch.Tensor))
 
 
@@ -104,14 +113,27 @@ def run_step(arch: str, shape: str, mesh, sparsity: float, fmt: str,
              moe_impl: str = "auto"):
     """Run one step of the cell on ``meta`` under the op counter.  Returns
     (cfg, cell, counts, FlopCounterMode's total, argument bytes, output
-    bytes)."""
+    bytes, the layout)."""
     from torch.utils.flop_counter import FlopCounterMode
 
     cfg = build_cfg(arch, sparsity, fmt, mesh, attn, local_reduce,
                     remat_policy, attn_chunk, moe_impl)
     cell = SHAPES[shape]
     spec = reg.input_specs(cfg, cell)
-    params, _ = reg.abstract_params(cfg)
+    params, specs = reg.abstract_params(cfg)
+    layout = LAYOUT_WHOLE
+    if spec["kind"] != "train" and reg.layout_covers(cfg):
+        layout = LAYOUT_LAID
+        shs = steps_mod.serve_shardings(cfg, mesh, params, specs, spec,
+                                        cache_auto=False)
+        if spec["kind"] == "prefill":
+            p_sh, b_sh = shs
+            spec = dict(spec, batch=lay_out(spec["batch"], b_sh))
+        else:
+            (p_sh, c_sh, tok_sh, _), _ = shs
+            spec = dict(spec, cache=lay_out(spec["cache"], c_sh),
+                        tokens=lay_out(spec["tokens"], tok_sh))
+        params = lay_out(params, p_sh)
     if spec["kind"] == "train":
         step = steps_mod.make_train_step(
             cfg, AdamWConfig(), microbatches=MICROBATCH.get((arch, shape), 1))
@@ -132,11 +154,11 @@ def run_step(arch: str, shape: str, mesh, sparsity: float, fmt: str,
     with use_ctx(ShardingCtx(mesh=mesh)):
         counts = count(run)
     return (cfg, cell, counts, flop_counter.get_total_flops(), _nbytes(args),
-            _nbytes(outs))
+            _nbytes(outs), layout)
 
 
 def analyze(cfg, cell, counts, raw_flops, arg_bytes, out_bytes, chips: int,
-            sparsity: float):
+            sparsity: float, layout: str = LAYOUT_WHOLE):
     rl = Roofline(
         flops=counts["flops"],
         hlo_bytes=counts["bytes"],
@@ -161,7 +183,7 @@ def analyze(cfg, cell, counts, raw_flops, arg_bytes, out_bytes, chips: int,
         "roofline": rl.to_dict(),
         "by_kernel": counts["by_kernel"],
         "hlo_size_chars": None,
-        "layout": LAYOUT,
+        "layout": layout,
         "memory_note": TEMP_NOTE,
     }
 
@@ -203,11 +225,11 @@ def run_cell(arch, shape, multi_pod, sparsity, fmt, out_dir: Path, tag="", attn=
     t0 = time.time()
     try:
         mesh = _world(multi_pod)
-        cfg, cell, counts, raw, arg_b, out_b = run_step(
+        cfg, cell, counts, raw, arg_b, out_b, layout = run_step(
             arch, shape, mesh, sparsity, fmt, attn, local_reduce,
             remat_policy, attn_chunk, moe_impl)
         rec.update(analyze(cfg, cell, counts, raw, arg_b, out_b,
-                           mesh.size(), sparsity))
+                           mesh.size(), sparsity, layout))
         rec["compile_seconds"] = time.time() - t0
         out_path.write_text(json.dumps(rec, indent=1))
         rl = rec["roofline"]

@@ -4,13 +4,21 @@ engine and the launchers.
 
 A sharding here is a :class:`repro_torch.sharding.NamedSharding`, the
 resolved PartitionSpec entries and their DTensor placements on a mesh.  The
-port runs its collectives explicitly: under a ``ShardingCtx`` whose mesh
-has data-parallel ranks, the train step takes the global batch, computes
-on this rank's rows and averages the gradients and the loss over the
-ranks, and the MoE layers (``moe_impl="shard_map"``) sum over the model
-group themselves.  The params stay plain tensors, whole on every rank,
-since the hand-written kernels take plain tensors: ``train_shardings``
-says how JAX lays them out, and ``distribute_tree`` can lay a tree out so.
+port runs its collectives explicitly, over the mesh's axis groups.
+
+Serving: ``distribute_tree(params, serve_shardings(...)[0])`` lays the
+params out (each rank keeps its shard of every leaf), and the prefill and
+decode steps then run the dense attention LM on each rank's shards: each
+takes the global batch (and a laid-out cache), computes this rank's rows
+(``_data_shard``) and returns its logits and cache laid out;
+``sharding.full`` gives the global tensors.  Whole params run as before.
+
+Training keeps whole params on every rank: under a ``ShardingCtx`` whose
+mesh has data-parallel ranks, the train step takes the global batch,
+computes on this rank's rows and averages the gradients and the loss over
+the ranks, and the MoE layers (``moe_impl="shard_map"``) sum over the
+model group themselves.  A laid-out tree is refused there (training under
+the layout is slice 24).
 """
 from __future__ import annotations
 
@@ -22,21 +30,16 @@ from repro_torch._tree import tree_map, value_and_grad
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import registry as reg
 from repro_torch.optim import AdamWConfig, adamw_update, opt_state_specs
-from repro_torch.sharding.api import (NamedSharding, axis_sizes, get_ctx,
-                                      named, spec_map, specs_to_shardings)
+from repro_torch.sharding.api import (axis_sizes, get_ctx, lay_out,
+                                      laid_out_mesh, named, spec_map,
+                                      specs_to_shardings)
 
 
 def distribute_tree(tree, shardings):
-    """``tree``'s tensors laid out by ``shardings`` as DTensors; at world
-    size 1 the tree comes back as it is."""
-    from torch.distributed.tensor import distribute_tensor
-
-    def one(s: NamedSharding, t):
-        if s.mesh.size() == 1:
-            return t
-        return distribute_tensor(t, s.mesh, s.placements)
-
-    return spec_map(one, shardings, tree)
+    """``tree``'s tensors laid out by ``shardings`` (``sharding.lay_out``:
+    each rank keeps its own shard of the whole tree it holds, as a
+    DTensor); at world size 1 the tree comes back as it is."""
+    return lay_out(tree, shardings)
 
 
 # ---------------------------------------------------------------------------
@@ -54,22 +57,14 @@ def _data_axes():
 
 def _data_shard(batch):
     """This rank's rows of every batch leaf: the batch dim split over the
-    data-parallel ranks, ``"pod"`` major (JAX's ``act_batch`` layout);
-    without such ranks, the batch as it is."""
-    axes, sizes = _data_axes()
+    installed mesh's data-parallel ranks, ``"pod"`` major (JAX's
+    ``act_batch`` layout, ``registry.batch_rows``, which the laid-out serving
+    steps also take their rows by); without such ranks, the batch as it
+    is."""
+    axes, _ = _data_axes()
     if not axes:
         return batch
-    mesh = get_ctx().mesh
-    n, index = 1, 0
-    for ax in axes:
-        n *= sizes[ax]
-        index = index * sizes[ax] + mesh.get_local_rank(ax)
-    rows = {k: v.shape[0] for k, v in batch.items()}
-    if any(r % n for r in rows.values()):
-        raise ValueError(f"batch rows {rows} do not split over {n} "
-                         f"data-parallel ranks")
-    return {k: v[index * (v.shape[0] // n):(index + 1) * (v.shape[0] // n)]
-            for k, v in batch.items()}
+    return reg.batch_rows(batch, get_ctx().mesh)[0]
 
 
 def _data_mean(tree):
@@ -113,6 +108,11 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, microbatches: int = 
     lfn = reg.loss_fn(cfg)
 
     def step(params, opt_state, batch):
+        if laid_out_mesh(params) is not None:
+            raise ValueError(
+                "make_train_step takes whole params on every rank; training "
+                "on laid-out params (the backward through the collectives, "
+                "AdamW on shards) is slice 24")
         batch = _data_shard({k: torch.as_tensor(v) for k, v in batch.items()})
         if microbatches == 1:
             (loss, metrics), grads = value_and_grad(
@@ -165,12 +165,17 @@ def train_shardings(cfg: ModelConfig, mesh, param_shapes, param_specs, batch):
 
 
 def make_prefill_step(cfg: ModelConfig):
-    """(params, batch) -> (last-token logits, cache)."""
+    """(params, batch) -> (last-token logits, cache).  On laid-out params
+    (the dense attention LM) the batch is global and the logits and cache
+    come back laid out (``registry.prefill_fn``)."""
     return reg.prefill_fn(cfg)
 
 
 def make_decode_step(cfg: ModelConfig):
-    """(params, cache, tokens, pos) -> the decode step's output."""
+    """(params, cache, tokens, pos) -> (logits, cache).  On laid-out params
+    the cache is laid out (``registry.cache_init_fn(..., mesh=mesh)``, or
+    the prefill step's), tokens and pos are global, and the logits come
+    back laid out (``registry.decode_fn``)."""
     return reg.decode_fn(cfg)
 
 

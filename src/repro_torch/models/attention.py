@@ -16,9 +16,18 @@ paged one of ``[L, n_pages + 1, page_size, KV, D]``.  The port writes the
 step's new K/V into either in place (the JAX package returns a new cache
 and donates the old one): the engine or the scheduler owns the cache alone,
 so nothing else holds the old value.
+
+On laid-out params (``sharding.layout_scope``; the twin of JAX's ``shd``
+of q, k and v over ``act_heads``/``act_kv_heads``) a rank computes its
+``padded_heads / tp`` q heads (:func:`_heads`).  Where the model axis
+divides the KV heads it computes and caches its own KV heads, which are
+the ones its q heads read; else k/v split inside a head, so they are
+gathered whole over the model axis, cached whole, and each q head reads
+its KV head by JAX's map ``(h * KV) // H`` (:func:`_rank_kv`).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -29,6 +38,7 @@ from repro_torch._compat import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.sparse_linear import linear_apply, linear_init, unbox
 from repro_torch.models.common import apply_rope, mrope_cos_sin, rope_cos_sin
+from repro_torch.sharding.api import all_gather, current_layout
 
 NEG = -1e30
 
@@ -57,17 +67,66 @@ def attn_init(generator: torch.Generator, cfg: ModelConfig, device=None):
     return p
 
 
+def _heads(cfg: ModelConfig) -> Tuple[int, int]:
+    """(q heads, KV heads) this rank computes: ``(padded_heads,
+    n_kv_heads)``, or on laid-out params its ``padded_heads / tp`` q heads
+    and its ``KV / tp`` KV heads where the model axis divides them, else
+    every KV head."""
+    h, kv = cfg.padded_heads, cfg.n_kv_heads
+    lay = current_layout()
+    if lay is None or lay.tp == 1:
+        return h, kv
+    return h // lay.tp, (kv // lay.tp if kv % lay.tp == 0 else kv)
+
+
+def _kv_whole(k: torch.Tensor, v: torch.Tensor, kv: int, hd: int):
+    """The k and v projections' columns as the cache holds them: where the
+    model axis split them inside a head, gathered whole over it (one
+    all-gather for both)."""
+    if k.shape[-1] == kv * hd:
+        return k, v
+    both = all_gather(torch.stack([k, v]), -1, "model", current_layout().mesh)
+    return both[0], both[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _rank_kv_map(h: int, kv: int, tp: int, rank: int,
+                 device: torch.device) -> torch.Tensor:
+    hl = h // tp
+    return (torch.arange(rank * hl, (rank + 1) * hl, device=device) * kv) // h
+
+
+def _rank_kv(cfg: ModelConfig, t: torch.Tensor) -> torch.Tensor:
+    """K or V [B, S, KV', D] as this rank's q heads read it: as it is, or on
+    laid-out params where the cache holds every KV head and the rank only
+    some q heads, one KV head a q head by JAX's map ``(h * KV) // H``."""
+    lay = current_layout()
+    if lay is None or lay.tp == 1 or t.shape[2] != cfg.n_kv_heads:
+        return t
+    return t[:, :, _rank_kv_map(cfg.padded_heads, cfg.n_kv_heads, lay.tp,
+                                lay.model_rank(), t.device)]
+
+
+def _o_proj(params, cfg: ModelConfig, o: torch.Tensor) -> torch.Tensor:
+    """The o projection of o [..., heads * D]: row parallel on laid-out
+    params (the rank's heads in, the whole d_model out)."""
+    return linear_apply(params["o"], o, split="rows",
+                        d_in=cfg.padded_heads * cfg.resolved_head_dim)
+
+
 def _qkv(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
          mrope_positions: Optional[torch.Tensor] = None):
     """q [B, S, H, D], k/v [B, S, KV, D] of x [B, S, d], rotated by 1-D RoPE
     at ``positions`` [B, S], or by M-RoPE at ``mrope_positions`` [B, 3, S]
-    where the config has M-RoPE and the caller passes them."""
+    where the config has M-RoPE and the caller passes them.  On laid-out
+    params H and KV are the rank's (:func:`_heads`)."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    h, kv = cfg.padded_heads, cfg.n_kv_heads
-    q = linear_apply(params["q"], x).reshape(b, s, h, hd)
-    k = linear_apply(params["k"], x).reshape(b, s, kv, hd)
-    v = linear_apply(params["v"], x).reshape(b, s, kv, hd)
+    h, kv = _heads(cfg)
+    q = linear_apply(params["q"], x, split="cols").reshape(b, s, h, hd)
+    k, v = _kv_whole(linear_apply(params["k"], x, split="cols"),
+                     linear_apply(params["v"], x, split="cols"), kv, hd)
+    k, v = k.reshape(b, s, kv, hd), v.reshape(b, s, kv, hd)
     if cfg.use_rope:
         if cfg.mrope and mrope_positions is not None:
             cos, sin = mrope_cos_sin(mrope_positions, hd, cfg.rope_theta,
@@ -181,6 +240,7 @@ def attn_apply(params, cfg: ModelConfig, x: torch.Tensor, *,
     """
     b, s, _ = x.shape
     q, k, v = _qkv(params, cfg, x, positions, mrope_positions)
+    k, v = _rank_kv(cfg, k), _rank_kv(cfg, v)
     if cfg.attn_impl == "pallas":
         from repro_torch.kernels.flash_attn import flash_attention
 
@@ -189,7 +249,7 @@ def attn_apply(params, cfg: ModelConfig, x: torch.Tensor, *,
         o = sdpa_gqa_chunked(q, k, v, causal=causal, chunk=cfg.attn_chunk)
     else:
         o = sdpa_gqa(q, k, v, causal=causal)
-    return linear_apply(params["o"], o.reshape(b, s, -1))
+    return _o_proj(params, cfg, o.reshape(b, s, -1))
 
 
 # ---------------------------------------------------------------------------
@@ -272,7 +332,8 @@ def _cached_attention(q, k_new, v_new, kc, vc, *, limit: torch.Tensor,
 def cache_init(cfg: ModelConfig, batch: int, max_len: int, n_layers: int,
                dtype, device=None):
     """Contiguous decode cache, [L, B, max_len, KV, D] per leaf, on
-    ``device`` (``None``: the CUDA card)."""
+    ``device`` (``None``: the CUDA card).  The laid-out cache is
+    ``registry.cache_init_fn``'s with a mesh."""
     kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
     shape = (n_layers, batch, max_len, kv, hd)
     dev = resolve_device(device)
@@ -303,8 +364,10 @@ def attn_decode(params, cfg: ModelConfig, x: torch.Tensor,
     pos_b = _pos_vector(pos, b, x.device)
     q, k_new, v_new = _qkv(params, cfg, x, pos_b[:, None], mrope_positions)
     kc, vc = layer_cache
-    o = _cached_attention(q, k_new, v_new, kc, vc, limit=pos_b, causal=False)
-    return linear_apply(params["o"], o.reshape(b, 1, -1)), (k_new, v_new)
+    o = _cached_attention(q, _rank_kv(cfg, k_new), _rank_kv(cfg, v_new),
+                          _rank_kv(cfg, kc), _rank_kv(cfg, vc), limit=pos_b,
+                          causal=False)
+    return _o_proj(params, cfg, o.reshape(b, 1, -1)), (k_new, v_new)
 
 
 def attn_prefill_chunk(params, cfg: ModelConfig, x: torch.Tensor,

@@ -20,6 +20,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models.common import norm_apply, norm_init
 from repro_torch.models.mlp import mlp_apply, mlp_init
 from repro_torch.models.moe import moe_apply, moe_apply_shard_map, moe_init
+from repro_torch.sharding.api import current_layout, gather_tree, select_layer
 
 
 def stack_layers(layers: List[Dict[str, Any]]) -> Dict[str, Any]:
@@ -35,11 +36,23 @@ def stack_layers(layers: List[Dict[str, Any]]) -> Dict[str, Any]:
     return torch.stack(layers)
 
 
-def layer_params(stacked, l: int):
-    """Layer ``l``'s params: views into the stacked leaves."""
+def _select(stacked, l: int):
     if isinstance(stacked, dict):
-        return {k: layer_params(v, l) for k, v in stacked.items()}
-    return stacked[l]
+        return {k: _select(v, l) for k, v in stacked.items()}
+    if type(stacked) is torch.Tensor:
+        return stacked[l]
+    return select_layer(stacked, l)
+
+
+def layer_params(stacked, l: int):
+    """Layer ``l``'s params: views into the stacked leaves.  On laid-out
+    params (``sharding.layout_scope``) the layer's leaves keep their model
+    split and are gathered whole over the data axis, one all-gather a
+    dtype for the layer (FSDP)."""
+    layer = _select(stacked, l)
+    if isinstance(layer, dict) and current_layout() is not None:
+        return gather_tree(layer)
+    return layer
 
 
 def block_init(generator: torch.Generator, cfg: ModelConfig, device=None):

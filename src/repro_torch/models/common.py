@@ -12,6 +12,8 @@ import torch
 
 from repro_torch._compat import resolve_device
 from repro_torch.core.sparse_linear import box
+from repro_torch.sharding.api import (all_reduce_sum, gather_leaf,
+                                      is_laid_out, rank_chunk, split_dim)
 
 
 def norm_init(d: int, kind: str = "rmsnorm", dtype=torch.float32,
@@ -124,4 +126,19 @@ def embed_init(generator: torch.Generator, vocab: int, d: int,
 
 
 def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    return table[ids.long()]
+    """The rows of ``table`` at ``ids``.  A laid-out table (``("vocab",
+    "embed")``, the model and data axes) is gathered over the data axis; a
+    rank looks up the ids among its vocab rows, 0 for the rest, and the
+    ranks' rows are summed over the model axis: each sum has one nonzero
+    term, so it is exact."""
+    if not is_laid_out(table):
+        return table[ids.long()]
+    rows = gather_leaf(table, keep=("model",))
+    if split_dim(table) != 0:
+        return rows[ids.long()]
+    mesh = table.device_mesh
+    lo, hi = rank_chunk(table.shape[0], ("model",), mesh)
+    ids = ids.long()
+    inside = ((ids >= lo) & (ids < hi))[..., None]
+    out = torch.where(inside, rows[(ids - lo).clamp(0, hi - lo - 1)], 0.0)
+    return all_reduce_sum(out, "model", mesh)

@@ -36,7 +36,7 @@ from torch.utils import checkpoint as _ckpt
 
 from repro_torch._compat import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.sparse_linear import box, linear_apply
+from repro_torch.core.sparse_linear import box
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
@@ -55,6 +55,7 @@ from repro_torch.models.blocks import (
     stack_layers,
 )
 from repro_torch.models.common import embed_init, embed_lookup, norm_apply, norm_init
+from repro_torch.sharding.api import all_gather, current_layout, gather_leaf
 
 PATTERNS = ("attn", "xlstm", "mamba_shared_attn")
 
@@ -150,11 +151,22 @@ def _embed_tokens(params, cfg: ModelConfig, batch) -> torch.Tensor:
 
 def _unembed(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     """h [B, S, d] -> logits [B, S, padded_vocab]: by the embedding table
-    where the embeddings are tied, else by ``unembed``."""
+    where the embeddings are tied, else by ``unembed``.  A laid-out table
+    is gathered over the data axis and gives the rank's vocab columns."""
     _check_supported(cfg)
     if cfg.tie_embeddings:
-        return torch.matmul(h, params["embed"].to(h.dtype).T)
-    return torch.matmul(h, params["unembed"].to(h.dtype))
+        table = gather_leaf(params["embed"], keep=("model",))
+        return torch.matmul(h, table.to(h.dtype).T)
+    return torch.matmul(h, gather_leaf(params["unembed"],
+                                       keep=("model",)).to(h.dtype))
+
+
+def _whole_vocab(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
+    """Logits of the rank's vocab columns gathered whole over the model
+    axis (exact: a gather, no arithmetic); whole logits as they are."""
+    if logits.shape[-1] == cfg.padded_vocab:
+        return logits
+    return all_gather(logits, -1, "model", current_layout().mesh)
 
 
 # The outputs "dots" keeps: those of the matrix products.  JAX's
@@ -278,7 +290,7 @@ def loss_fn(params, cfg: ModelConfig, batch, aux_weight: float = 0.01):
     (:func:`next_token_nll`).  Returns (nll + aux_weight * aux, {"nll",
     "aux"})."""
     logits, aux = lm_forward(params, cfg, batch)
-    nll = next_token_nll(cfg, logits, batch["tokens"])
+    nll = next_token_nll(cfg, _whole_vocab(cfg, logits), batch["tokens"])
     return nll + aux_weight * aux, {"nll": nll, "aux": aux}
 
 
@@ -444,12 +456,13 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor):
         x = norm_apply(lp["ln1"], hh, cfg.norm)
         q, k, v = attn_mod._qkv(lp["attn"], cfg, x, positions,
                                 batch.get("mrope_positions"))
+        kr, vr = attn_mod._rank_kv(cfg, k), attn_mod._rank_kv(cfg, v)
         if cfg.attn_impl == "chunked" and s > cfg.attn_chunk:
-            o = attn_mod.sdpa_gqa_chunked(q, k, v, causal=True,
+            o = attn_mod.sdpa_gqa_chunked(q, kr, vr, causal=True,
                                           chunk=cfg.attn_chunk)
         else:
-            o = attn_mod.sdpa_gqa(q, k, v, causal=True)
-        hh = hh + linear_apply(lp["attn"]["o"], o.reshape(b, s, -1))
+            o = attn_mod.sdpa_gqa(q, kr, vr, causal=True)
+        hh = hh + attn_mod._o_proj(lp["attn"], cfg, o.reshape(b, s, -1))
         hh = hh + ffn_apply(lp, cfg, norm_apply(lp["ln2"], hh, cfg.norm))[0]
         return hh, k, v
 

@@ -32,11 +32,17 @@ def mlp_init(generator: torch.Generator, cfg: ModelConfig, device=None,
 
 
 def mlp_apply(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """On laid-out params (the twin of JAX's ``shd`` over ``act_ffn``) gate
+    and up give the rank's ``ffn`` columns and down is row parallel: the
+    REDUCE layer multiplies the rank's groups and sums over the model
+    axis, a dense one its rows likewise, and a compressed one gathers its
+    input whole first."""
     if cfg.mlp_act == "swiglu":
-        g = linear_apply(params["gate"], x)
-        h = F.silu(g) * linear_apply(params["up"], x)
+        g = linear_apply(params["gate"], x, split="cols")
+        h = F.silu(g) * linear_apply(params["up"], x, split="cols")
     elif cfg.mlp_act == "sq_relu":
-        h = torch.square(F.relu(linear_apply(params["up"], x)))
+        h = torch.square(F.relu(linear_apply(params["up"], x, split="cols")))
     else:  # gelu
-        h = F.gelu(linear_apply(params["up"], x), approximate="tanh")
-    return linear_apply(params["down"], h)
+        h = F.gelu(linear_apply(params["up"], x, split="cols"),
+                   approximate="tanh")
+    return linear_apply(params["down"], h, split="rows", d_in=cfg.d_ff)

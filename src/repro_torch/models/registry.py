@@ -5,7 +5,15 @@ decoder-only families (``lm.py``) and the encoder-decoder one
 the decoder-only attention families only, as in the JAX package.  And the
 logical specs of the params, batches and caches, which the sharding layer
 resolves on a mesh; and ``input_specs``, the ``meta`` inputs of one cell of
-the dry-run grid."""
+the dry-run grid.
+
+Params laid out on a mesh (``sharding.lay_out``) switch the dense attention
+LM's scoring forward and serving steps onto each rank's shards
+(:func:`laid_out`): each takes the global batch, as JAX's jitted steps
+do, computes this rank's rows, and returns its outputs laid out
+(``sharding.full`` gives the global tensors) and the loss averaged over
+the batch's ranks.  Whole params run as before, under a ``ShardingCtx``
+or not."""
 from __future__ import annotations
 
 from typing import Any, Dict
@@ -17,6 +25,7 @@ from repro_torch.core.sparse_linear import boxing, unbox_tree
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import lm as lm_mod
+from repro_torch.sharding import api as sh
 
 
 def init_params(cfg: ModelConfig, seed: int, device=None):
@@ -40,23 +49,180 @@ def param_specs(cfg: ModelConfig):
     return abstract_params(cfg)[1]
 
 
+# ---------------------------------------------------------------------------
+# Laid-out params: the dense attention LM on each rank's shards
+# ---------------------------------------------------------------------------
+
+
+LOGITS_NAMES = ("act_batch", None, "act_vocab")
+
+
+def layout_covers(cfg: ModelConfig) -> bool:
+    """The config is a dense attention LM, the family that runs on
+    laid-out params (smollm-360m, qwen2-0.5b, qwen2-7b, nemotron-4-15b)."""
+    return not (cfg.is_encoder_decoder or cfg.block_pattern != "attn"
+                or cfg.is_moe or cfg.mrope or cfg.family == "vlm")
+
+
+def laid_out(cfg: ModelConfig, params, what: str):
+    """The mesh of laid-out ``params``, else ``None``.  Raises
+    ``ValueError`` where they reach a family other than the dense attention
+    LM (slice 25), or heads that the model axis does not divide."""
+    mesh = sh.laid_out_mesh(params)
+    if mesh is None:
+        return None
+    if not layout_covers(cfg):
+        kind = ("encoder-decoder" if cfg.is_encoder_decoder else
+                f"{cfg.family} ({cfg.block_pattern})")
+        raise ValueError(
+            f"{what} of {cfg.name}: laid-out params run the dense attention "
+            f"LM only; the {kind} family under the layout is slice 25")
+    tp = sh.axis_sizes(mesh).get("model", 1)
+    if cfg.padded_heads % tp:
+        raise ValueError(
+            f"{what} of {cfg.name}: {cfg.padded_heads} heads (cfg.tp="
+            f"{cfg.tp}) do not split over the model axis of {tp}; set "
+            f"cfg.tp to {tp}")
+    return mesh
+
+
+def _local_params(params):
+    """Laid-out params as the layer loop takes them: every leaf but the
+    layers' through ``sharding.gather_tree`` once a call (the embedding and
+    unembedding gathered over the data axis); the layers go through it one
+    at a time (``blocks.layer_params``)."""
+    return dict(params, **sh.gather_tree({k: v for k, v in params.items()
+                                          if k != "layers"}))
+
+
+def _rules():
+    ctx = sh.get_ctx()
+    return ctx.rules if ctx is not None else sh.RULES
+
+
+def batch_rows(batch: Dict[str, Any], mesh):
+    """(this rank's rows of every leaf of a global batch, the mesh axes that
+    split the rows): each leaf's batch dim split as its logical spec
+    (``BATCH_NAMES``: ``act_batch``, ``"pod"`` major) resolves on ``mesh``.
+    A laid-out leaf is the rank's rows already.  Raises where the rows do
+    not split over every data-parallel axis of more than one rank: the
+    cache would then split its sequence over ``"data"`` (``act_kv_seq``),
+    which this port does not lay out."""
+    sizes = sh.axis_sizes(mesh)
+    want = tuple(ax for ax in ("pod", "data") if sizes.get(ax, 1) > 1)
+    rows = {}
+    for k, v in batch.items():
+        if sh.is_laid_out(v):
+            rows[k] = v.to_local()
+            continue
+        v = torch.as_tensor(v)
+        names = BATCH_NAMES.get(k, ("act_batch",) + (None,) * (v.dim() - 1))
+        spec = sh.resolve_spec(v.shape, names, _rules(), mesh)
+        split = tuple(ax for ax in sh.entry_axes(spec[0]) if sizes[ax] > 1)
+        if split != want:
+            raise ValueError(
+                f"batch leaf {k!r} of {v.shape[0]} rows splits over {split}, "
+                f"not over every data-parallel axis {want}")
+        rows[k] = sh.shard_of(v, spec, mesh)
+    return rows, want
+
+
+def _batch_mean(t: torch.Tensor, axes, mesh) -> torch.Tensor:
+    """A per-rank mean averaged over the ranks of ``axes`` (equal rows)."""
+    if not axes:
+        return t
+    out = t.reshape(1).clone()
+    n = 1
+    for ax in axes:
+        sh.all_reduce_sum(out, ax, mesh)
+        n *= sh.axis_sizes(mesh)[ax]
+    return (out / n).reshape(t.shape)
+
+
+def _laid_out_logits(cfg: ModelConfig, logits, b: int, mesh):
+    return sh.laid_out_as(logits, LOGITS_NAMES,
+                          (b,) + tuple(logits.shape[1:-1])
+                          + (cfg.padded_vocab,), mesh, _rules())
+
+
+def _laid_loss(cfg, mesh, params, batch):
+    rows, axes = batch_rows(batch, mesh)
+    with sh.layout_scope(mesh):
+        loss, m = lm_mod.loss_fn(_local_params(params), cfg, rows)
+    nll = _batch_mean(m["nll"], axes, mesh)
+    return nll + (loss - m["nll"]), {"nll": nll, "aux": m["aux"]}
+
+
+def _laid_forward(cfg, mesh, params, batch):
+    rows, _ = batch_rows(batch, mesh)
+    with sh.layout_scope(mesh):
+        logits, _ = lm_mod.lm_forward(_local_params(params), cfg, rows)
+    return _laid_out_logits(cfg, logits, torch.as_tensor(
+        batch["tokens"]).shape[0], mesh)
+
+
+def _laid_prefill(cfg, mesh, params, batch):
+    rows, _ = batch_rows({"tokens": batch["tokens"]}, mesh)
+    with sh.layout_scope(mesh):
+        logits, cache = lm_mod.prefill(_local_params(params), cfg,
+                                       rows["tokens"])
+    b = batch["tokens"].shape[0]
+    names = cache_specs(cfg, cache)
+    cache = {k: sh.laid_out_as(v, names[k], (v.shape[0], b, v.shape[2],
+                                             cfg.n_kv_heads, v.shape[4]),
+                               mesh, _rules())
+             for k, v in cache.items()}
+    return _laid_out_logits(cfg, logits, b, mesh), cache
+
+
+def _laid_decode(cfg, mesh, params, cache, tokens, pos):
+    if any(not sh.is_laid_out(t) or sh.split_dim(t, "data") == 2
+           for t in cache.values()):
+        raise ValueError("laid-out params decode against a laid-out cache "
+                         "whose rows split as the batch's: cache_init_fn("
+                         "..., mesh=mesh) or sharding.lay_out")
+    pos_t = torch.as_tensor(pos)
+    step_in = {"tokens": tokens}
+    if pos_t.dim():
+        step_in["pos"] = pos_t
+    rows, _ = batch_rows(step_in, mesh)
+    local = {k: v.to_local() for k, v in cache.items()}
+    with sh.layout_scope(mesh):
+        logits, _ = lm_mod.decode_step(_local_params(params), cfg,
+                                       local, rows["tokens"],
+                                       rows.get("pos", pos))
+    return _laid_out_logits(cfg, logits, tokens.shape[0], mesh), cache
+
+
 def loss_fn(cfg: ModelConfig):
     """(params, batch) -> (loss, {"nll", "aux"}): next-token cross-entropy
     of the scoring forward.  An encoder-decoder batch carries
-    ``"enc_embeds"`` beside ``"tokens"``."""
-    if cfg.is_encoder_decoder:
-        return lambda params, batch: encdec_mod.encdec_loss(params, cfg, batch)
-    return lambda params, batch: lm_mod.loss_fn(params, cfg, batch)
+    ``"enc_embeds"`` beside ``"tokens"``.  On laid-out params (the dense
+    attention LM): the global batch in, the NLL of the vocab gathered whole
+    and averaged over the batch's ranks out; forward only."""
+    def f(params, batch):
+        mesh = laid_out(cfg, params, "the loss")
+        if mesh is not None:
+            return _laid_loss(cfg, mesh, params, batch)
+        if cfg.is_encoder_decoder:
+            return encdec_mod.encdec_loss(params, cfg, batch)
+        return lm_mod.loss_fn(params, cfg, batch)
+    return f
 
 
 def forward_fn(cfg: ModelConfig):
-    """(params, batch) -> logits [B, S, padded_vocab]."""
-    if cfg.is_encoder_decoder:
-        def f(params, batch):
+    """(params, batch) -> logits [B, S, padded_vocab]; on laid-out params,
+    the logits laid out (rows over the batch's ranks, vocab over the model
+    axis)."""
+    def f(params, batch):
+        mesh = laid_out(cfg, params, "the forward")
+        if mesh is not None:
+            return _laid_forward(cfg, mesh, params, batch)
+        if cfg.is_encoder_decoder:
             enc = encdec_mod.encode(params, cfg, batch["enc_embeds"])
             return encdec_mod.decode_forward(params, cfg, batch["tokens"], enc)
-        return f
-    return lambda params, batch: lm_mod.lm_forward(params, cfg, batch)[0]
+        return lm_mod.lm_forward(params, cfg, batch)[0]
+    return f
 
 
 def prefill_fn(cfg: ModelConfig):
@@ -64,21 +230,34 @@ def prefill_fn(cfg: ModelConfig):
     prompt's [L, B, S, KV, D] rows, and an encoder-decoder's cross K/V of
     ``batch["enc_embeds"]``); a recurrent pattern's cache is ``None`` (the
     engine runs the prompt through the decode step).  A decoder-only model
-    reads only ``batch["tokens"]``."""
-    if cfg.is_encoder_decoder:
-        return lambda params, batch: encdec_mod.encdec_prefill(
-            params, cfg, batch["enc_embeds"], batch["tokens"])
-    return lambda params, batch: lm_mod.prefill(params, cfg, batch["tokens"])
+    reads only ``batch["tokens"]``.  On laid-out params the logits and the
+    cache come back laid out (``cache_specs`` resolved)."""
+    def f(params, batch):
+        mesh = laid_out(cfg, params, "prefill")
+        if mesh is not None:
+            return _laid_prefill(cfg, mesh, params, batch)
+        if cfg.is_encoder_decoder:
+            return encdec_mod.encdec_prefill(params, cfg, batch["enc_embeds"],
+                                             batch["tokens"])
+        return lm_mod.prefill(params, cfg, batch["tokens"])
+    return f
 
 
 def decode_fn(cfg: ModelConfig):
     """Decode step against the family's contiguous cache: tokens [B, 1],
-    pos a scalar or [B] (an encoder-decoder: a scalar)."""
-    if cfg.is_encoder_decoder:
-        return lambda params, cache, tokens, pos: encdec_mod.encdec_decode_step(
-            params, cfg, cache, tokens, pos)
-    return lambda params, cache, tokens, pos: lm_mod.decode_step(
-        params, cfg, cache, tokens, pos)
+    pos a scalar or [B] (an encoder-decoder: a scalar).  On laid-out
+    params the cache must be laid out too (:func:`cache_init_fn` with a
+    mesh); its shards are written in place and the logits come back laid
+    out."""
+    def f(params, cache, tokens, pos):
+        mesh = laid_out(cfg, params, "the decode step")
+        if mesh is not None:
+            return _laid_decode(cfg, mesh, params, cache, tokens, pos)
+        if cfg.is_encoder_decoder:
+            return encdec_mod.encdec_decode_step(params, cfg, cache, tokens,
+                                                 pos)
+        return lm_mod.decode_step(params, cfg, cache, tokens, pos)
+    return f
 
 
 def _require_attn_family(cfg: ModelConfig, what: str) -> None:
@@ -100,9 +279,34 @@ def prefill_chunk_fn(cfg: ModelConfig):
         lm_mod.prefill_chunk(params, cfg, cache, tokens, start, with_logits))
 
 
-def cache_init_fn(cfg: ModelConfig, batch: int, max_len: int, device=None):
+def cache_init_fn(cfg: ModelConfig, batch: int, max_len: int, device=None,
+                  mesh=None):
     """The family's contiguous decode cache on ``device``: ``lm.cache_init``,
-    or an encoder-decoder's with cross K/V of ``cfg.encoder_seq`` rows."""
+    or an encoder-decoder's with cross K/V of ``cfg.encoder_seq`` rows.
+    With a ``mesh`` of more than one rank, the dense attention LM's cache
+    laid out by ``cache_specs`` resolved (JAX's ``cache_auto=False``
+    layout): each rank allocates only its shard."""
+    if mesh is not None and mesh.size() > 1:
+        if not layout_covers(cfg):
+            raise ValueError(f"a laid-out cache of {cfg.name}: the dense "
+                             "attention LM only; the other families under "
+                             "the layout are slice 25")
+
+        def laid():
+            from repro_torch._compat import resolve_device
+
+            dev = resolve_device(device)
+            shapes = abstract_cache(cfg, batch, max_len)
+            names = cache_specs(cfg, shapes)
+            out = {}
+            for k, t in shapes.items():
+                spec = sh.resolve_spec(t.shape, names[k], _rules(), mesh)
+                local = torch.zeros(sh.shard_of(t, spec, mesh).shape,
+                                    dtype=t.dtype, device=dev)
+                out[k] = sh.laid_out_as(local, names[k], t.shape, mesh,
+                                        _rules())
+            return out
+        return laid
     if cfg.is_encoder_decoder:
         return lambda: encdec_mod.encdec_cache_init(cfg, batch, max_len,
                                                     cfg.encoder_seq, device)

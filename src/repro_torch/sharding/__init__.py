@@ -3,7 +3,10 @@ from repro_torch.sharding.api import (  # noqa: F401
     RULES,
     NamedSharding,
     ShardingCtx,
+    full,
     get_ctx,
+    lay_out,
+    local,
     logical_constraint,
     placements,
     resolve_spec,

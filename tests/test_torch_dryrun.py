@@ -8,7 +8,10 @@ keys of JAX's record, read from JAX's ``run_cell``/``analyze`` source (its
 dry run itself is a known failure here and is not run), and its model
 FLOPs equal JAX's ``model_flops_for``.  The train step counts at least its
 rank's share of the model FLOPs, and its gradient all-reduce moves exactly
-the float params' bytes plus the three averaged metrics.
+the float params' bytes plus the three averaged metrics.  The decode cell
+runs on rank 0's shards of the params, cache and tokens laid out by
+``serve_shardings``: its argument bytes are those shards' bytes, and its
+layout's collectives are counted.
 """
 import ast
 import json
@@ -60,6 +63,29 @@ SCRIPT = textwrap.dedent("""
         t.numel() * t.element_size()
         for t in tree_leaves(reg.abstract_params(cfg)[0])
         if t.is_floating_point())
+    # rank 0's shard bytes of the decode cell's arguments, from the
+    # resolved entries: each leaf's bytes over the sizes of its split axes
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch import steps
+    from repro_torch.sharding.api import axis_sizes, spec_map
+    mesh = dryrun._world(False)
+    sizes = axis_sizes(mesh)
+    spec = reg.input_specs(cfg, SHAPES["decode_32k"])
+    params, specs = reg.abstract_params(cfg)
+    (p_sh, c_sh, tok_sh, _), _ = steps.serve_shardings(
+        cfg, mesh, params, specs, spec, cache_auto=False)
+
+    def shard_bytes(sh, t):
+        n = t.numel() * t.element_size()
+        for part in sh.spec:
+            for ax in (part if isinstance(part, tuple) else (part,)):
+                n //= sizes[ax] if ax else 1
+        return n
+
+    out["decode_shard_bytes"] = sum(tree_leaves(
+        spec_map(shard_bytes, {"p": p_sh, "c": c_sh, "t": tok_sh},
+                 {"p": params, "c": spec["cache"], "t": spec["tokens"]}))) \
+        + spec["pos"].element_size()
     print(json.dumps(out))
 """)
 
@@ -106,14 +132,16 @@ def _jax_keys():
     return top | {"compile_seconds"}, nested
 
 
-def _check_ok(rec):
+def _check_ok(rec, laid_out=False):
     top, nested = _jax_keys()
     assert top <= set(rec), top - set(rec)
     assert set(rec) - top == {"layout", "by_kernel", "memory_note"}
     for k, keys in nested.items():
         assert set(rec[k]) == keys, k
-    assert rec["layout"] == ("params whole on every rank; data parallel "
-                             "over pod×data")
+    assert rec["layout"] == (
+        "laid out by serve_shardings: each rank holds its shard of the "
+        "params, batch and cache" if laid_out else
+        "params whole on every rank; data parallel over pod×data")
     assert rec["memory_analysis"]["generated_code_size_in_bytes"] is None
     want = j_model_flops_for(j_get_config(rec["arch"]).with_(tp=16),
                              J_SHAPES[rec["shape"]], rec["sparsity"])
@@ -125,7 +153,14 @@ def test_decode_cell_writes_an_ok_record_with_jax_keys(runs):
     assert runs["decode"]["rc"] == 0
     fname, rec = _record(runs, "decode")
     assert fname == "smollm-360m__decode_32k__pod16x16__s50.json"
-    _check_ok(rec)
+    _check_ok(rec, laid_out=True)
+    # rank 0's shards of the params, the cache and the tokens, and the
+    # layout's all-gathers (FSDP weights, k/v split inside a head) and
+    # the embedding's all-reduce over the model axis
+    assert rec["memory_analysis"]["argument_size_in_bytes"] == \
+        runs["decode_shard_bytes"]
+    assert rec["collectives"]["bytes"]["all-gather"] > 0
+    assert rec["collectives"]["bytes"]["all-reduce"] > 0
     # the H100 terms: bf16 peak, HBM rate, NVLink
     rl = rec["roofline"]
     assert rl["t_compute_s"] == pytest.approx(rl["flops_per_chip"] / 989e12)
