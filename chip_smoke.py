@@ -310,16 +310,28 @@ Phases:
               rank's local param bytes against the whole model's and (a)'s
               device ms for a prefill and a decode step (CUDA events; gloo
               stages every collective through the host, so these are a
-              layout check, not tensor-parallel speed)
+              layout check, not tensor-parallel speed); and in the data 2 x
+              model 2 world, on the same shards, training under naive
+              attention on 2 x 256 uniform tokens: the LM ``Trainer`` runs
+              step 1 and rank 0 alone writes its checkpoint (the trees
+              gathered whole), ``make_train_step`` runs step 2, and a new
+              ``Trainer`` restores the checkpoint and repeats step 2 bit
+              for bit; loss and grad_norm within 1e-5 of
+              ``make_train_step`` on whole params in this process, each
+              rank's params within the CPU tests' bound shard by shard,
+              the launches a rank a step exact (#1b 5 a layer, #1a 2), no
+              temporary directory and no card memory left behind; host
+              and device ms a step, local param and optimizer-state bytes
  21. report : one ``{"kernels": [...]}`` line (launches in the main runs and
-              phases 19 and 20, ``train_launches`` in phases 10, 11, 13, 14
-              and 18), then the ``{"ok": true, ...}`` line last
+              phases 19 and 20, ``train_launches`` in phases 10, 11, 13, 14,
+              18 and 20 (d)), then the ``{"ok": true, ...}`` line last
 
 Run from the repository root:  python3 chip_smoke.py
 Any failed check raises, so the script exits non-zero and prints no ok line.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import shutil
@@ -6156,6 +6168,18 @@ LAYOUT_CHILD = ("import sys; sys.path.insert(0, sys.argv[1]); "
                 "import chip_smoke; chip_smoke.layout_rank(*sys.argv[2:])")
 
 
+# (d): training under the layout in the data 2 x model 2 world, on the
+# params its ranks laid out: 2 AdamW steps on LAYOUT_TRAIN_BATCH rows of
+# LAYOUT_TRAIN_SEQ tokens of the LM pipeline (batch_at(step), a pure
+# function of the step), a checkpoint written by rank 0 after step 1 and a
+# resume in the same world that repeats step 2; held against
+# make_train_step on whole params in this process
+LAYOUT_TRAIN_BATCH, LAYOUT_TRAIN_SEQ = 2, 256
+LAYOUT_TRAIN_OPT = dict(lr=1e-3, weight_decay=0.1, grad_clip=1.0)
+LAYOUT_TRAIN_RTOL = 1e-5  # loss and grad_norm, against whole params
+LAYOUT_GRAD_TOL = 1e-5    # the CPU tests' gradient tolerance (of max|g|)
+
+
 def layout_cfg(variant: str, tp: int):
     """smollm-360m pruned as ``pruned_smollm`` prunes it, ``cfg.tp`` the
     model axis, scored under ``attn_impl="pallas"``; the "reduce" variant
@@ -6205,6 +6229,226 @@ def layout_run(cfg, params, dev, mesh=None) -> dict:
         out["steps"] = torch.stack(steps)
         out["tokens"] = torch.cat(toks, dim=1)
     return out
+
+
+def layout_train_cfg():
+    """(d)'s config: the "compressed" variant's, under naive attention
+    (the flash kernel has no gradient)."""
+    return layout_cfg("compressed", 2).with_(attn_impl="naive")
+
+
+def layout_train_data(cfg):
+    from repro_torch.data import DataConfig
+
+    # uniform tokens: the bigram table would be vocab x vocab (49152^2)
+    return DataConfig(vocab_size=cfg.vocab_size, batch=LAYOUT_TRAIN_BATCH,
+                      seq_len=LAYOUT_TRAIN_SEQ, seed=SEED, kind="uniform")
+
+
+def _cpu_tree(tree):
+    return {k: _cpu_tree(v) for k, v in tree.items()} if isinstance(
+        tree, dict) else (None if tree is None else tree.detach().cpu())
+
+
+def layout_train_ref(dev, work: Path) -> list:
+    """(d)'s reference in this process: make_train_step on whole params
+    drawn from SEED, 2 steps.  Writes the params after each step and the
+    first step's gradients to ``work``; returns each step's loss and
+    grad_norm."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.steps import make_grad_fn, make_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cfg = layout_train_cfg()
+    params = lm.lm_init(cfg, SEED, device=dev)
+    data = SyntheticLM(layout_train_data(cfg))
+    _, _, grads = make_grad_fn(cfg)(params, data.batch_at(0))
+    torch.save(_cpu_tree(grads), work / "train_grads1.pt")
+    del grads
+    step = make_train_step(cfg, AdamWConfig(**LAYOUT_TRAIN_OPT))
+    opt = adamw_init(params)
+    out = []
+    for k in range(2):
+        params, opt, m = step(params, opt, data.batch_at(k))
+        out.append({"loss": float(m["loss"]),
+                    "grad_norm": float(m["grad_norm"])})
+        torch.save(_cpu_tree(params), work / f"train_ref{k + 1}.pt")
+    del params, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def hold_update(got, want, grad, grad_norm) -> float:
+    """The CPU tests' bound on one AdamW step's params
+    (``tests/test_torch_layout_train.py::_hold_update``): where the whole
+    step's clipped gradient |g| exceeds its rounding d, lr * eps * d / ((|g|
+    - d + eps)(|g| + eps)); else 2 * lr; plus 1e-6 (|p| + lr).  Returns
+    the largest excess over the bound (<= 0 where it holds)."""
+    lr, eps = LAYOUT_TRAIN_OPT["lr"], 1e-8
+    scale = min(1.0, LAYOUT_TRAIN_OPT["grad_clip"] / grad_norm)
+    g = grad.double().abs() * scale
+    d = LAYOUT_GRAD_TOL * g.max() + LAYOUT_TRAIN_RTOL * g
+    bound = torch.where(g > d, lr * eps * d / ((g - d + eps) * (g + eps)),
+                        torch.full_like(g, 2 * lr)) \
+        + 1e-6 * (want.double().abs() + lr)
+    return float(((got.double() - want.double()).abs() - bound).max())
+
+
+def _timed_step(fn):
+    """(fn()'s result, host ms to its synchronize, device ms by events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3, start.elapsed_time(end)
+
+
+def layout_train(laid, mesh, dev, work: Path) -> dict:
+    """(d) on one rank: the LM Trainer on the rank's laid-out params runs
+    step 1 and checkpoints (rank 0 writes), its train step runs step 2;
+    then a new Trainer restores the checkpoint and repeats step 2.  Each
+    step's launches counted from 0; each step's params held shard by shard
+    against the whole-params reference (step 1 by the CPU tests' bound,
+    step 2 within 2 lr more than step 1's difference: one more step moves
+    an element at most 2 lr further)."""
+    from repro_torch.kernels import KERNELS, reset_launch_counts
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.sharding.api import lay_out_like, local
+    from repro_torch.train import TrainConfig, Trainer, checkpoint
+
+    cfg = layout_train_cfg()
+    ckpt = work / "train_ckpt"
+    saves = []
+    manager = checkpoint.CheckpointManager
+    save = manager.save
+    manager.save = lambda self, step, *a, **kw: (
+        saves.append(step), save(self, step, *a, **kw))[1]
+
+    def counts():
+        return {k.name: k.launches for k in KERNELS if k.launches}
+
+    def trainer():
+        return Trainer(cfg, layout_train_data(cfg),
+                       AdamWConfig(**LAYOUT_TRAIN_OPT),
+                       TrainConfig(steps=1, ckpt_dir=str(ckpt), ckpt_every=2,
+                                   log_every=1), params=laid)
+
+    res = {}
+    mem0 = _allocated()
+    try:
+        tr = trainer()
+        res["local_bytes"] = {
+            "params": sum(local(t).numel() * t.element_size()
+                          for t in _leaves(tr.params)),
+            "opt": sum(local(t).numel() * t.element_size()
+                       for t in _leaves(tr.opt_state))}
+        res["whole_bytes"] = {
+            "params": sum(t.numel() * t.element_size()
+                          for t in _leaves(tr.params)),
+            "opt": sum(t.numel() * t.element_size()
+                       for t in _leaves(tr.opt_state))}
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        tr.run(1)  # step 1, then rank 0 writes its checkpoint
+        torch.cuda.synchronize()
+        res["step1_and_save_s"] = time.perf_counter() - t0
+        res["counts"] = [counts()]
+        h = tr.history[0]
+        res["metrics"] = [{"loss": h["loss"], "grad_norm": h["grad_norm"]}]
+        res["host_ms"] = [h["sec_per_step"] * 1e3]
+        p1 = tr.params
+        batch = tr.data.batch_at(1)
+        reset_launch_counts()
+        (p2, o2, m2), host, devms = _timed_step(
+            lambda: tr.step_fn(tr.params, tr.opt_state, batch))
+        res["counts"].append(counts())
+        res["metrics"].append({"loss": float(m2["loss"]),
+                               "grad_norm": float(m2["grad_norm"])})
+        res["host_ms"].append(host)
+        res["device_ms"] = [None, devms]
+        t0 = time.perf_counter()
+        back = trainer()
+        res["restored_step"] = back.maybe_restore()
+        res["restore_s"] = time.perf_counter() - t0
+        reset_launch_counts()
+        (q2, u2, n2), host, devms = _timed_step(
+            lambda: back.step_fn(back.params, back.opt_state, batch))
+        res["counts"].append(counts())
+        res["host_ms"].append(host)
+        res["device_ms"].append(devms)
+        res["resume_bitwise"] = (
+            all(torch.equal(local(a), local(b)) for a, b in zip(
+                _leaves({"p": p2, "o": o2}), _leaves({"p": q2, "o": u2})))
+            and all(torch.equal(m2[k], n2[k]) for k in m2))
+        res["param_excess"] = layout_param_excess(p1, p2, work, dev)
+        res["saves"] = saves
+        res["leftover"] = sorted(p.name for p in ckpt.glob("tmp.*"))
+        del tr, back, p1, p2, o2, q2, u2
+    finally:
+        manager.save = save
+    gc.collect()
+    res["mem_before_after"] = [mem0, _allocated()]
+    return res
+
+
+def _allocated() -> int:
+    """The card's bytes held by live tensors, after PyTorch drops its cuBLAS
+    workspaces (a new thread's handle, as the autograd engine's, caches 32
+    MiB of its own for the life of the process)."""
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
+def layout_param_excess(p1, p2, work: Path, dev) -> list:
+    """Each step's largest excess of the rank's params over their bound
+    against the whole-params reference, shard by shard (<= 0 where every
+    element holds): step 1 by the CPU tests' bound (``hold_update``), step
+    2 within 2 lr more than step 1's difference; integer leaves equal."""
+    from repro_torch.sharding.api import lay_out_like, local
+
+    meta = json.loads((work / "train_ref.json").read_text())
+    grads = torch.load(work / "train_grads1.pt", map_location=dev)
+    lr = LAYOUT_TRAIN_OPT["lr"]
+    excess, diff1 = [], {}
+    for k, got in ((1, p1), (2, p2)):
+        ref = torch.load(work / f"train_ref{k}.pt", map_location=dev)
+        worst = -float("inf")
+        for path, g, w, gr in _paths(got, ref, grads):
+            want = local(lay_out_like(w, g))
+            if not g.is_floating_point():
+                worst = max(worst, 0.0 if torch.equal(local(g), want)
+                            else 1.0)
+                continue
+            err = (local(g).double() - want.double()).abs()
+            if k == 1:
+                worst = max(worst, hold_update(
+                    local(g), want, local(lay_out_like(gr, g)),
+                    meta[0]["grad_norm"]))
+                diff1[path] = err
+            else:
+                worst = max(worst, float((err - diff1[path] - 2 * lr - 1e-6
+                                          * (want.double().abs() + lr))
+                                         .max()))
+        excess.append(worst)
+    return excess
+
+
+def _paths(tree, *rest, prefix=()):
+    """(path, leaf, the leaves at the same place in ``rest``) of a dict
+    tree."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _paths(v, *(r[k] for r in rest), prefix=prefix + (k,))
+    else:
+        yield (prefix, tree, *rest)
 
 
 def layout_bits(dev) -> dict:
@@ -6286,8 +6530,9 @@ def layout_rank(rank, world, dp, tp, work, device_type) -> None:
     store in ``work``; every variant drawn whole from SEED, laid out by its
     shardings, run (``layout_run``) with the launch counts reset just
     before, held against this process's copy of the parent's whole-params
-    outputs; then (the first variant) a prefill and a decode step timed.
-    Writes ``rank<r>.json``."""
+    outputs; then (the first variant) a prefill and a decode step timed,
+    and in the data 2 x model 2 world (d), training on the same shards
+    (``layout_train``).  Writes ``rank<r>.json``."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -6352,6 +6597,8 @@ def layout_rank(rank, world, dp, tp, work, device_type) -> None:
                     times["decode_ms"] = _event_ms(lambda: reg.decode_fn(cfg)(
                         laid, cache, prompt[:, -1:], LAYOUT_PROMPT[1]))
                     del cache
+            if variant == "compressed" and dp == 2:
+                res["train"] = layout_train(laid, mesh, dev, work)
             res[variant] = {
                 "counts": counts,
                 "score_err": rel_err(got["score_logits"], ref["score_logits"]),
@@ -6427,9 +6674,63 @@ def layout_world(dp: int, tp: int, work: Path, dev) -> list:
     return out
 
 
+def layout_train_expected(cfg) -> dict:
+    """A rank's launches a train step of (d): the forward's q, gate, up (the
+    rank's columns), o and down (whole) through #1b, k and v on their 160
+    columns through #1a; the backward is the autograd twin's plain one."""
+    return {"colwise_nm_matmul_tiled": 5 * cfg.n_layers,
+            "colwise_nm_matmul": 2 * cfg.n_layers}
+
+
+def layout_train_checks(ranks, ref, card) -> dict:
+    """(d)'s checks over the data 2 x model 2 world's ranks; returns the
+    launches summed over ranks and steps."""
+    want = layout_train_expected(layout_train_cfg())
+    launches = {}
+    print("LAYOUT_TRAIN " + json.dumps([res["train"] for res in ranks]),
+          flush=True)
+    for res in ranks:
+        r, tag = res["train"], f"(d) rank {res['rank']} {res['coords']}"
+        errs = [max(abs(m[k] - w[k]) / abs(w[k]) for k in w)
+                for m, w in zip(r["metrics"], ref)]
+        lb, wb = r["local_bytes"], r["whole_bytes"]
+        print(f"  {tag}: launches a step {r['counts']} (want {want}); loss, "
+              f"grad_norm {r['metrics']} (rel err {max(errs):.2e} <= "
+              f"{LAYOUT_TRAIN_RTOL}); params within the bound (largest "
+              f"excess {max(r['param_excess']):.3e}); resumed from step "
+              f"{r['restored_step']}, step 2 bit for bit; wrote "
+              f"{r['saves']}; host ms a step {r['host_ms']} (step 1 by the "
+              f"Trainer's clock, then step 2 and its repeat), device ms by "
+              f"events {r['device_ms'][1:]}; step 1 and its checkpoint "
+              f"{r['step1_and_save_s']:.1f} s, the restore "
+              f"{r['restore_s']:.1f} s; local params {lb['params']} of "
+              f"{wb['params']} bytes ({lb['params'] / wb['params']:.3f}), "
+              f"optimizer state {lb['opt']} of {wb['opt']} "
+              f"({lb['opt'] / wb['opt']:.3f}); {LAYOUT_LABEL}; {card}",
+              flush=True)
+        check(max(errs) <= LAYOUT_TRAIN_RTOL,
+              f"{tag}: loss/grad_norm {r['metrics']} vs whole {ref}")
+        check(max(r["param_excess"]) <= 0,
+              f"{tag}: params past their bound by {r['param_excess']}")
+        check(r["restored_step"] == 1 and r["resume_bitwise"],
+              f"{tag}: the resume from step {r['restored_step']} differs "
+              "from the uninterrupted step 2")
+        check(r["saves"] == ([1] if res["rank"] == 0 else []),
+              f"{tag}: wrote checkpoints {r['saves']}")
+        check(not r["leftover"], f"{tag}: left {r['leftover']}")
+        before, after = r["mem_before_after"]
+        check(after - before <= 2 ** 20, f"{tag}: {after - before} bytes "
+              "of the card left allocated after training")
+        for k, c in enumerate(r["counts"]):
+            check(c == want, f"{tag}: step {k} launched {c}, want {want}")
+            for name, n in c.items():
+                launches[name] = launches.get(name, 0) + n
+    return launches
+
+
 def run_layout(dev) -> dict:
-    """Phase 20.  Returns the launches of the laid-out main path (each
-    rank's, summed)."""
+    """Phase 20.  Returns the launches of the laid-out main path and of
+    (d)'s training (each rank's, summed)."""
     from repro_torch.models import lm
 
     t0 = time.perf_counter()
@@ -6437,7 +6738,7 @@ def run_layout(dev) -> dict:
     bits = layout_bits(dev)
     print(f"  (c) bit for bit against the whole launch: {bits}", flush=True)
     work = Path(tempfile.mkdtemp(prefix="layout-", dir=ROOT / "build"))
-    launches = {}
+    launches, train_launches = {}, {}
     try:
         refs = {}
         for variant in LAYOUT_VARIANTS:
@@ -6453,6 +6754,11 @@ def run_layout(dev) -> dict:
         print(f"  whole params on this process (cfg.tp 2: 16 q heads): NLL "
               f"{ {v: r['nll'] for v, r in refs.items()} }, greedy tokens "
               f"{refs['compressed']['tokens']}", flush=True)
+        train_ref = layout_train_ref(dev, work)
+        (work / "train_ref.json").write_text(json.dumps(train_ref))
+        print(f"  (d) whole params on this process, make_train_step "
+              f"(naive attention), {LAYOUT_TRAIN_BATCH} x "
+              f"{LAYOUT_TRAIN_SEQ} tokens a step: {train_ref}", flush=True)
         print(f"  (c) and the whole-params runs took "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         for dp, tp in LAYOUT_WORLDS:
@@ -6502,6 +6808,8 @@ def run_layout(dev) -> dict:
                           f"{r['whole_bytes']} bytes "
                           f"({r['local_bytes'] / r['whole_bytes']:.3f})"
                           + times, flush=True)
+            if dp == 2:
+                train_launches = layout_train_checks(ranks, train_ref, card)
             print("LAYOUT " + json.dumps({"world": [dp, tp], "ranks": ranks}),
                   flush=True)
     finally:
@@ -6511,7 +6819,7 @@ def run_layout(dev) -> dict:
           f"in one product: held within {LAYOUT_TOL} of max|logit|, as at "
           f"model 2; phase 20 took {time.perf_counter() - t0:.1f} s",
           flush=True)
-    return {"launches": launches}
+    return {"launches": launches, "train_launches": train_launches}
 
 
 def main() -> int:
@@ -6680,8 +6988,11 @@ def main() -> int:
     print("== 20. layout: pruned smollm-360m whole (cfg.tp 2) laid out on "
           "worlds of 2 (model 2) and 4 (data 2 x model 2) gloo ranks on the "
           "card: scored, prefilled and decoded on each rank's shards against "
-          "whole params", flush=True)
+          "whole params; (d) trained 2 AdamW steps on the data 2 x model 2 "
+          "shards, checkpointed by rank 0 and resumed", flush=True)
     layout = run_layout(dev)
+    for name, n in layout["train_launches"].items():
+        train_launches[name] += n
 
     print("== 21. report", flush=True)
     launches = {
@@ -6735,7 +7046,9 @@ def main() -> int:
                                 "Mamba2 layer per token step: generate, "
                                 "scored), and phase 20's laid-out "
                                 "smollm-360m (k and v on a rank's 160 "
-                                "columns: 2 a layer a pass, every rank)",
+                                "columns: 2 a layer a pass, every rank); "
+                                "train_launches phase 20 (d)'s laid-out "
+                                "train steps (2 a layer a step a rank)",
            "colwise_nm_matmul_tiled": "ms etc.: sum over the 960->2560 and "
                                       "2560->960 layers at 256 rows (T = "
                                       "d_out); launches: the served "
@@ -6764,7 +7077,9 @@ def main() -> int:
                                       "with REDUCE; every rank); "
                                       "train_launches also phase 18's "
                                       "olmoe-1b-7b train steps (32 a step) "
-                                      "and its 2-layer Trainer (8 a step)",
+                                      "and its 2-layer Trainer (8 a step) "
+                                      "and phase 20 (d)'s laid-out train "
+                                      "steps (5 a layer a step a rank)",
            "paged_attention": "ms etc.: B 4, Sq 1, f32, H 15, KV 5, D 64, "
                               "page size 16 (the decode step's shape), "
                               "called directly (the split kernel's "

@@ -240,13 +240,20 @@ def _split_apply(params, x: torch.Tensor, split: str, d_in: Optional[int],
                  impl: Optional[str], lay) -> torch.Tensor:
     """The layer on laid-out leaves (the twin of the JAX ``shd`` of its
     output).  Every leaf is first gathered over the data-parallel axes that
-    split it (FSDP); what the model axis splits stays split.
+    split it (FSDP); what the model axis splits stays split.  Every
+    collective here is differentiable (``sharding.api``).
 
     ``split="cols"`` (q, k, v, gate, up): returns the rank's columns of
     d_out where the model axis splits d_out (``Layout.model_chunk``), else
     every column.  A dense or masked ``w`` holds those columns already; a
     compressed layer, whose T dim no axis splits, computes only them by
-    slicing ``values[..., cols]`` (whole tiles where T < d_out).
+    slicing ``values[..., cols]`` (whole tiles where T < d_out).  The
+    caller puts one ``Layout.copy_to_model`` at the input that its column
+    layers share, so their input's gradient is summed over the model axis
+    once.  A leaf that the model axis does not split (that ``values``, a
+    ``w`` or ``b`` whose d_out it does not divide) thereby gets a gradient
+    of this rank's columns only: the train step sums those leaves over the
+    model axis (``launch.steps``).
 
     ``split="rows"`` (o, down): ``x`` holds the rank's columns of ``d_in``
     where the model axis splits ``d_in``, and every rank gets the whole
@@ -293,18 +300,23 @@ def _split_apply(params, x: torch.Tensor, split: str, d_in: Optional[int],
         raise ValueError(f"split must be 'cols' or 'rows', got {split!r}")
     x_split = d_in is not None and lay.model_chunk(d_in) is not None
     if "values_r" in p and model_dim["values_r"] is not None:
+        # the sum feeds the residual stream, alike on every model rank
         y = all_reduce_sum(
             forward_compressed_reduce(x, p["values_r"], p["idx_r"]), "model",
             mesh)
     elif "w" in p and model_dim["w"] == 0:
-        y = all_reduce_sum(_plain(p, x, impl), "model", mesh)
+        y = all_reduce_sum(_plain(p, x, impl), "model", mesh)  # as above
     else:
-        if x_split:
-            x = all_gather(x, -1, "model", mesh)
-        y = _plain(p, x, impl)
         out = model_dim.get("values", model_dim.get("w"))
+        if x_split:
+            # every rank multiplies the whole x: alike where it computes
+            # every output column, in part where only its own
+            x = all_gather(x, -1, "model", mesh, cotangent=(
+                "replicated" if out is None else "partial"))
+        y = _plain(p, x, impl)
         if out is not None:  # the layer's output columns split over model
-            y = all_gather(y, -1, "model", mesh)
+            # the whole output feeds the residual stream, alike on every rank
+            y = all_gather(y, -1, "model", mesh, cotangent="replicated")
     if "b" in params:
         y = y + gather_leaf(params["b"])
     return y

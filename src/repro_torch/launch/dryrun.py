@@ -14,13 +14,16 @@ x 16), inside the ``ShardingCtx`` of ``make_production_mesh``:
   decode_32k, long_500k    ``make_decode_step``
 
 The port builds the step, so the per-rank numbers are the port's, not
-JAX's (each record's ``layout``).  The serving cells of the dense
-attention LMs (``prefill_32k``, ``decode_32k``, ``long_500k``) run on rank
-0's shards of params, batch and cache laid out by ``serve_shardings``
-(``cache_auto=False``), with the layout's all-gathers and all-reduces
-counted; every other cell holds the params whole on every rank and
-computes this rank's rows of the global batch, data parallel over the pod
-and data axes, where JAX's GSPMD shards the params too.
+JAX's (each record's ``layout``).  Every cell of the dense attention LMs
+runs on rank 0's shards: ``train_4k`` on its shards of params, optimizer
+state and batch laid out by ``train_shardings``, the serving cells
+(``prefill_32k``, ``decode_32k``, ``long_500k``) on its shards of params,
+batch and cache laid out by ``serve_shardings`` (``cache_auto=False``),
+with the layout's all-gathers and all-reduces counted (and, in training,
+those of the backward and the optimizer).  Every other cell holds the
+params whole on every rank and computes this rank's rows of the global
+batch, data parallel over the pod and data axes, where JAX's GSPMD shards
+the params too.
 
 The records go to ``build/dryrun`` by default (JAX's ``artifacts/dryrun``
 holds the JAX package's records under the same names).
@@ -53,6 +56,8 @@ from repro_torch.sharding import ShardingCtx, use_ctx
 LAYOUT_WHOLE = "params whole on every rank; data parallel over pod×data"
 LAYOUT_LAID = ("laid out by serve_shardings: each rank holds its shard of "
                "the params, batch and cache")
+LAYOUT_LAID_TRAIN = ("laid out by train_shardings: each rank holds its shard "
+                     "of the params, optimizer state and batch")
 TEMP_NOTE = ("temp_size_in_bytes: the counter's peak of live op outputs, an "
              "eager peak without the caching allocator")
 
@@ -122,7 +127,15 @@ def run_step(arch: str, shape: str, mesh, sparsity: float, fmt: str,
     spec = reg.input_specs(cfg, cell)
     params, specs = reg.abstract_params(cfg)
     layout = LAYOUT_WHOLE
-    if spec["kind"] != "train" and reg.layout_covers(cfg):
+    opt = None
+    if spec["kind"] == "train" and reg.layout_covers(cfg):
+        layout = LAYOUT_LAID_TRAIN
+        (p_sh, _, b_sh), _ = steps_mod.train_shardings(
+            cfg, mesh, params, specs, spec["batch"])
+        params = lay_out(params, p_sh)
+        opt = adamw_init(params)  # laid out as the params: opt_state_specs
+        spec = dict(spec, batch=lay_out(spec["batch"], b_sh))
+    elif spec["kind"] != "train" and reg.layout_covers(cfg):
         layout = LAYOUT_LAID
         shs = steps_mod.serve_shardings(cfg, mesh, params, specs, spec,
                                         cache_auto=False)
@@ -137,7 +150,8 @@ def run_step(arch: str, shape: str, mesh, sparsity: float, fmt: str,
     if spec["kind"] == "train":
         step = steps_mod.make_train_step(
             cfg, AdamWConfig(), microbatches=MICROBATCH.get((arch, shape), 1))
-        args = (params, adamw_init(params), spec["batch"])
+        args = (params, opt if opt is not None else adamw_init(params),
+                spec["batch"])
     elif spec["kind"] == "prefill":
         step = steps_mod.make_prefill_step(cfg)
         args = (params, spec["batch"])

@@ -13,12 +13,17 @@ takes the global batch (and a laid-out cache), computes this rank's rows
 (``_data_shard``) and returns its logits and cache laid out;
 ``sharding.full`` gives the global tensors.  Whole params run as before.
 
-Training keeps whole params on every rank: under a ``ShardingCtx`` whose
-mesh has data-parallel ranks, the train step takes the global batch,
-computes on this rank's rows and averages the gradients and the loss over
-the ranks, and the MoE layers (``moe_impl="shard_map"``) sum over the
-model group themselves.  A laid-out tree is refused there (training under
-the layout is slice 24).
+Training: on laid-out params of the dense attention LM (the same
+``distribute_tree`` of ``train_shardings``' params, and ``adamw_init`` of
+them) every rank holds its shard of every param and optimizer-state leaf,
+takes the global batch, computes on its rows, and differentiates its own
+rows' loss through the layout's differentiable collectives; AdamW then
+updates the shards (:func:`make_train_step`).  On whole params every rank
+holds the whole tree: under a ``ShardingCtx`` whose mesh has data-parallel
+ranks, the train step takes the global batch, computes on this rank's rows
+and averages the gradients and the loss over the ranks, and the MoE layers
+(``moe_impl="shard_map"``) sum over the model group themselves.  The
+other families under the layout are slice 25.
 """
 from __future__ import annotations
 
@@ -26,13 +31,14 @@ from typing import Dict
 
 import torch
 
-from repro_torch._tree import tree_map, value_and_grad
+from repro_torch._tree import tree_map, tree_map_with_path, value_and_grad
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import registry as reg
 from repro_torch.optim import AdamWConfig, adamw_update, opt_state_specs
-from repro_torch.sharding.api import (axis_sizes, get_ctx, lay_out,
-                                      laid_out_mesh, named, spec_map,
-                                      specs_to_shardings)
+from repro_torch.sharding.api import (as_laid_out, axis_sizes, get_ctx,
+                                      lay_out, local, named, spec_map,
+                                      specs_to_shardings, split_axes,
+                                      sum_over_axes)
 
 
 def distribute_tree(tree, shardings):
@@ -89,6 +95,76 @@ def _data_mean(tree):
     return tree_map(mean, tree)
 
 
+def _laid_grads(cfg: ModelConfig, mesh, params, batch, microbatches: int):
+    """(loss, metrics, grads) of the train step on laid-out ``params``: each
+    rank's gradient of its shards, laid out as the params, the whole step's.
+
+    Each rank differentiates its own rows' loss (``registry.rank_loss``)
+    with respect to its shards, through the layout's differentiable
+    collectives.  Then for each data-parallel axis: a leaf that the axis
+    splits came back summed over it (the FSDP gather's backward); every
+    other float leaf is summed over it here.  The one leaf-level sum over
+    the model axis: a column layer's leaf that the model axis does not
+    split (``registry.column_layers``: its compressed ``values``, or a
+    ``w``/``b`` whose d_out it does not divide) got this rank's columns'
+    part only, so it is summed over the model axis.  Each sum is one
+    all-reduce an axis and a dtype; then every gradient is divided by the
+    data-parallel ranks, once.  Metrics (``loss``, ``nll``, ``aux``) are
+    averaged over the data-parallel ranks."""
+    rows, data_axes = reg.batch_rows(batch, mesh)
+    live, paths = [], []
+
+    def track(path, p):
+        if not p.is_floating_point():
+            return p
+        leaf = local(p).detach().requires_grad_()
+        live.append(leaf)
+        paths.append((path, p))
+        return as_laid_out(leaf, p)
+
+    tracked = tree_map_with_path(track, params)
+    mb = {k: v.reshape(microbatches, v.shape[0] // microbatches,
+                       *v.shape[1:]) for k, v in rows.items()}
+    grads, loss = None, 0.0
+    for i in range(microbatches):
+        l, metrics = reg.rank_loss(cfg, mesh, tracked,
+                                   {k: v[i] for k, v in mb.items()})
+        found = torch.autograd.grad(l, live, allow_unused=True)
+        g = [torch.zeros_like(p) if gi is None else gi
+             for p, gi in zip(live, found)]
+        if microbatches > 1:  # summed in float32, as on whole params
+            g = [gi.to(torch.float32) for gi in g]
+            grads = g if grads is None else [a + b for a, b in zip(grads, g)]
+        else:
+            grads = g
+        loss = loss + l.detach()
+    if microbatches > 1:
+        grads = [g / microbatches for g in grads]
+        loss = loss / microbatches
+        metrics = {"nll": loss, "aux": torch.zeros((), device=loss.device)}
+    columns = reg.column_layers(cfg, axis_sizes(mesh).get("model", 1))
+    sums = []
+    for path, p in paths:
+        split = {a for axes in split_axes(p).values() for a in axes}
+        axes = tuple(ax for ax in data_axes if ax not in split)
+        if ("model" not in split and path[0] == "layers"
+                and path[1:3] in columns):
+            axes += ("model",)
+        sums.append(axes)
+    grads = sum_over_axes(grads, sums, mesh)
+    n = 1
+    for ax in data_axes:
+        n *= axis_sizes(mesh)[ax]
+    found = iter(grads)
+    grads = tree_map(lambda p: as_laid_out(next(found) / n, p)
+                     if p.is_floating_point() else None, params)
+    scalars = sum_over_axes([loss, metrics["nll"].detach(),
+                             metrics["aux"].detach()],
+                            [data_axes] * 3, mesh)
+    loss, nll, aux = (t / n for t in scalars)
+    return loss, {"nll": nll, "aux": aux}, grads
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, microbatches: int = 1):
     """(params, opt_state, batch) -> (params, opt_state, metrics).
 
@@ -102,44 +178,69 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, microbatches: int = 
     ``"aux": 0``, as JAX's.  Under a ``ShardingCtx`` with data-parallel
     ranks the step takes the global batch, as JAX's does, each rank
     computes on its rows (``_data_shard``), and the gradients and metrics
-    are averaged over the ranks before the update.  The step is
-    functional: it returns new trees and leaves its inputs as they were.
+    are averaged over the ranks before the update.  On laid-out params of
+    the dense attention LM (each rank's shards, and ``adamw_init`` of
+    them) the step takes the global batch too and returns laid-out params
+    and optimizer state: the gradients are the whole-params step's
+    (:func:`_laid_grads`), AdamW updates each rank's shards, and the
+    metrics are the whole step's on every rank.  The step is functional:
+    it returns new trees and leaves its inputs as they were.
     """
-    lfn = reg.loss_fn(cfg)
+    grad_fn = make_grad_fn(cfg, microbatches)
 
     def step(params, opt_state, batch):
-        if laid_out_mesh(params) is not None:
-            raise ValueError(
-                "make_train_step takes whole params on every rank; training "
-                "on laid-out params (the backward through the collectives, "
-                "AdamW on shards) is slice 24")
-        batch = _data_shard({k: torch.as_tensor(v) for k, v in batch.items()})
-        if microbatches == 1:
-            (loss, metrics), grads = value_and_grad(
-                lambda p: lfn(p, batch), params)
-        else:
-            mb = {k: v.reshape(microbatches, v.shape[0] // microbatches,
-                               *v.shape[1:]) for k, v in batch.items()}
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                   device=p.device)
-                             if p.is_floating_point() else None, params)
-            loss = 0.0
-            for i in range(microbatches):
-                chunk = {k: v[i] for k, v in mb.items()}
-                (l, _m), g = value_and_grad(
-                    lambda p: lfn(p, chunk), params)
-                grads = tree_map(lambda a, g2: a + g2.to(a.dtype), grads, g)
-                loss = loss + l
-            grads = tree_map(lambda g: g / microbatches, grads)
-            loss = loss / microbatches
-            metrics = {"nll": loss, "aux": torch.zeros((), device=loss.device)}
-        grads = _data_mean(grads)
-        loss, metrics = _data_mean((loss, metrics))
+        loss, metrics, grads = grad_fn(params, batch)
         new_params, new_opt, gnorm = adamw_update(params, grads, opt_state, opt_cfg)
         metrics = dict(metrics, loss=loss, grad_norm=gnorm)
         return new_params, new_opt, metrics
 
     return step
+
+
+def make_grad_fn(cfg: ModelConfig, microbatches: int = 1):
+    """(params, batch) -> (loss, metrics, grads): what :func:`make_train_step`
+    hands AdamW, the gradients before the clip.  On laid-out params the
+    gradients are laid out as the params (:func:`_laid_grads`); on whole
+    params they are averaged over the installed mesh's data-parallel
+    ranks, where it has some."""
+    lfn = reg.loss_fn(cfg)
+
+    def grad_fn(params, batch):
+        batch = {k: torch.as_tensor(v) for k, v in batch.items()}
+        mesh = reg.laid_out(cfg, params, "the train step")
+        if mesh is not None:
+            return _laid_grads(cfg, mesh, params, batch, microbatches)
+        return _whole_grads(lfn, params, batch, microbatches)
+
+    return grad_fn
+
+
+def _whole_grads(lfn, params, batch, microbatches: int):
+    """(loss, metrics, grads) of the train step on whole params, averaged
+    over the installed mesh's data-parallel ranks where it has some."""
+    batch = _data_shard(batch)
+    if microbatches == 1:
+        (loss, metrics), grads = value_and_grad(
+            lambda p: lfn(p, batch), params)
+    else:
+        mb = {k: v.reshape(microbatches, v.shape[0] // microbatches,
+                           *v.shape[1:]) for k, v in batch.items()}
+        grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                               device=p.device)
+                         if p.is_floating_point() else None, params)
+        loss = 0.0
+        for i in range(microbatches):
+            chunk = {k: v[i] for k, v in mb.items()}
+            (l, _m), g = value_and_grad(
+                lambda p: lfn(p, chunk), params)
+            grads = tree_map(lambda a, g2: a + g2.to(a.dtype), grads, g)
+            loss = loss + l
+        grads = tree_map(lambda g: g / microbatches, grads)
+        loss = loss / microbatches
+        metrics = {"nll": loss, "aux": torch.zeros((), device=loss.device)}
+    grads = _data_mean(grads)
+    loss, metrics = _data_mean((loss, metrics))
+    return loss, metrics, grads
 
 
 def train_shardings(cfg: ModelConfig, mesh, param_shapes, param_specs, batch):

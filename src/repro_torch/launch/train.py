@@ -9,11 +9,14 @@ versions on the CPU.  ``--smoke`` trains the reduced same-family config.
 ``--mesh host`` (the default) installs no sharding context; ``single`` and
 ``multi`` build the production mesh (256 or 512 ranks, one a card, in a
 world the caller started), set ``cfg.tp`` to its model axis and train under
-its ``ShardingCtx`` (:func:`train`): data parallel over the ``"pod"`` and
-``"data"`` ranks, each on its rows of the global batch, the MoE layers
-expert parallel over ``"model"`` under ``moe_impl="shard_map"``; every
-rank holds the whole params.  A world of another size exits with the size
-it needs.
+its ``ShardingCtx`` (:func:`train`).  The dense attention LM trains there
+on laid-out params: each rank holds its shard of every param and
+optimizer-state leaf, FSDP over ``"data"`` and tensor parallel over
+``"model"``, each on its rows of the global batch.  The other families
+(MoE, recurrent, encoder-decoder, VLM) keep the whole params on every rank
+until slice 25: data parallel over the ``"pod"`` and ``"data"`` ranks, the
+MoE layers expert parallel over ``"model"`` under ``moe_impl="shard_map"``.
+A world of another size exits with the size it needs.
 """
 from __future__ import annotations
 
@@ -32,8 +35,10 @@ from repro_torch.train import TrainConfig, Trainer
 def train(cfg, data_cfg: DataConfig, opt_cfg: AdamWConfig,
           train_cfg: TrainConfig, device=None, mesh=None) -> dict:
     """The LM ``Trainer``'s run, under ``mesh``'s ``ShardingCtx`` where
-    given (every rank of the mesh calls it alike).  Returns its result and
-    the trainer, as ``{"out": ..., "trainer": ...}``."""
+    given (every rank of the mesh calls it alike): a dense attention LM's
+    params laid out on the mesh, any other family's whole on every rank
+    (slice 25).  Returns its result and the trainer, as ``{"out": ...,
+    "trainer": ...}``."""
     with use_ctx(ShardingCtx(mesh=mesh) if mesh is not None else None):
         tr = Trainer(cfg, data_cfg, opt_cfg, train_cfg, device=device)
         return {"out": tr.run(), "trainer": tr}

@@ -85,7 +85,9 @@ def _kv_whole(k: torch.Tensor, v: torch.Tensor, kv: int, hd: int):
     all-gather for both)."""
     if k.shape[-1] == kv * hd:
         return k, v
-    both = all_gather(torch.stack([k, v]), -1, "model", current_layout().mesh)
+    # each rank's q heads read the whole k and v in part
+    both = all_gather(torch.stack([k, v]), -1, "model", current_layout().mesh,
+                      cotangent="partial")
     return both[0], both[1]
 
 
@@ -123,6 +125,11 @@ def _qkv(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     h, kv = _heads(cfg)
+    lay = current_layout()
+    if lay is not None:
+        # q, k and v feed only this rank's heads: their shared input's
+        # gradient is summed over the model axis once
+        x = lay.copy_to_model(x)
     q = linear_apply(params["q"], x, split="cols").reshape(b, s, h, hd)
     k, v = _kv_whole(linear_apply(params["k"], x, split="cols"),
                      linear_apply(params["v"], x, split="cols"), kv, hd)

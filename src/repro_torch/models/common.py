@@ -141,4 +141,5 @@ def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     ids = ids.long()
     inside = ((ids >= lo) & (ids < hi))[..., None]
     out = torch.where(inside, rows[(ids - lo).clamp(0, hi - lo - 1)], 0.0)
+    # the rows feed the residual stream, alike on every model rank
     return all_reduce_sum(out, "model", mesh)

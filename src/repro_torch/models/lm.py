@@ -55,7 +55,8 @@ from repro_torch.models.blocks import (
     stack_layers,
 )
 from repro_torch.models.common import embed_init, embed_lookup, norm_apply, norm_init
-from repro_torch.sharding.api import all_gather, current_layout, gather_leaf
+from repro_torch.sharding.api import (all_gather, current_layout, gather_leaf,
+                                      layout_scope, split_dim)
 
 PATTERNS = ("attn", "xlstm", "mamba_shared_attn")
 
@@ -154,6 +155,12 @@ def _unembed(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     where the embeddings are tied, else by ``unembed``.  A laid-out table
     is gathered over the data axis and gives the rank's vocab columns."""
     _check_supported(cfg)
+    table = params["embed" if cfg.tie_embeddings else "unembed"]
+    lay = current_layout()
+    if lay is not None and split_dim(table) is not None:
+        # the rank's vocab columns read h: its gradient is summed over the
+        # model axis once
+        h = lay.copy_to_model(h)
     if cfg.tie_embeddings:
         table = gather_leaf(params["embed"], keep=("model",))
         return torch.matmul(h, table.to(h.dtype).T)
@@ -166,7 +173,9 @@ def _whole_vocab(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
     axis (exact: a gather, no arithmetic); whole logits as they are."""
     if logits.shape[-1] == cfg.padded_vocab:
         return logits
-    return all_gather(logits, -1, "model", current_layout().mesh)
+    # the loss over the whole vocab is computed alike on every model rank
+    return all_gather(logits, -1, "model", current_layout().mesh,
+                      cotangent="replicated")
 
 
 # The outputs "dots" keeps: those of the matrix products.  JAX's
@@ -200,6 +209,13 @@ def _maybe_remat(fn, cfg: ModelConfig):
             _ckpt.create_selective_checkpoint_contexts, _dots_policy)
     elif cfg.remat_policy != "nothing":
         raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+    lay = current_layout()
+    if lay is not None:  # the backward's recompute runs on the shards too
+        inner = fn
+
+        def fn(*a):
+            with layout_scope(lay.mesh):
+                return inner(*a)
     # the blocks draw no random numbers, so no RNG state is kept for the
     # recompute
     return lambda *a: _ckpt.checkpoint(fn, *a, use_reentrant=False,

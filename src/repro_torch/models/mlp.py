@@ -8,6 +8,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.sparse_linear import linear_apply, linear_init
+from repro_torch.sharding.api import current_layout
 
 MLP_ACTS = ("swiglu", "sq_relu", "gelu")
 
@@ -36,7 +37,13 @@ def mlp_apply(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     and up give the rank's ``ffn`` columns and down is row parallel: the
     REDUCE layer multiplies the rank's groups and sums over the model
     axis, a dense one its rows likewise, and a compressed one gathers its
-    input whole first."""
+    input whole first.  Where the model axis does not divide d_ff, every
+    rank computes the whole MLP alike."""
+    lay = current_layout()
+    if lay is not None and lay.model_chunk(cfg.d_ff) is not None:
+        # gate and up give only this rank's columns: their shared input's
+        # gradient is summed over the model axis once
+        x = lay.copy_to_model(x)
     if cfg.mlp_act == "swiglu":
         g = linear_apply(params["gate"], x, split="cols")
         h = F.silu(g) * linear_apply(params["up"], x, split="cols")

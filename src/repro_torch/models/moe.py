@@ -190,43 +190,6 @@ def moe_apply(params, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 
-class _CopyToGroup(torch.autograd.Function):
-    """Identity forward; the backward sums the gradient over ``group``.  It
-    marks where a value replicated over the model group feeds work split
-    over it (this rank's experts), so each rank's part of the gradient
-    joins the others'."""
-
-    @staticmethod
-    def forward(ctx, t, group):
-        ctx.group = group
-        return t.view_as(t)
-
-    @staticmethod
-    def backward(ctx, grad):
-        import torch.distributed as dist
-
-        grad = grad.contiguous().clone()
-        dist.all_reduce(grad, group=ctx.group)
-        return grad, None
-
-
-class _SumOverGroup(torch.autograd.Function):
-    """Sum over ``group`` forward; identity backward: every rank of the group
-    goes on with the same sum, and so hands back the whole gradient."""
-
-    @staticmethod
-    def forward(ctx, t, group):
-        import torch.distributed as dist
-
-        out = t.contiguous().clone()
-        dist.all_reduce(out, group=group)
-        return out
-
-    @staticmethod
-    def backward(ctx, grad):
-        return grad, None
-
-
 def moe_apply_shard_map(params, cfg: ModelConfig,
                         x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Manual expert parallelism over the installed mesh's ``"model"``
@@ -243,10 +206,13 @@ def moe_apply_shard_map(params, cfg: ModelConfig,
     the whole cotangent, and the inputs of the split work (the dispatched
     tokens, the combine weights, all-E expert stacks) sum their gradient
     over the model group, while the routing and aux, computed alike on
-    every rank, are not summed.  With no context, a model axis of 1, or
-    ``E % tp != 0``, this is :func:`moe_apply`, as in JAX.
+    every rank, are not summed (``sharding.api``'s :class:`CopyToGroup`
+    and :class:`SumOverGroup`, which the laid-out params share).  With no
+    context, a model axis of 1, or ``E % tp != 0``, this is
+    :func:`moe_apply`, as in JAX.
     """
-    from repro_torch.sharding.api import axis_sizes, get_ctx
+    from repro_torch.sharding.api import (CopyToGroup, SumOverGroup,
+                                          axis_sizes, get_ctx)
 
     ctx = get_ctx()
     sizes = axis_sizes(ctx.mesh) if ctx is not None else {}
@@ -276,19 +242,19 @@ def moe_apply_shard_map(params, cfg: ModelConfig,
     el = torch.where(mine, top_i - e0, e_loc)
     cap = moe_capacity(t, cfg)
     buf, e_flat, pos, keep = _dispatch_group(
-        _CopyToGroup.apply(xt, model), el, e_loc + 1, cap, k)
+        CopyToGroup.apply(xt, model), el, e_loc + 1, cap, k)
     keep = keep & mine.reshape(1, -1)
 
     def local(leaf):
         if leaf.shape[0] != e:
             return leaf
         if leaf.is_floating_point():
-            leaf = _CopyToGroup.apply(leaf, model)
+            leaf = CopyToGroup.apply(leaf, model)
         return leaf[e0:e0 + e_loc]
 
     ew = {n: {kk: local(v) for kk, v in params[n].items()}
           for n in params if n != "router"}
     out_buf = _expert_ffn(ew, cfg, buf[:, :e_loc])
     y = _combine(out_buf, torch.clamp(e_flat, max=e_loc - 1), pos, keep,
-                 _CopyToGroup.apply(top_p, model), cap, k)
-    return _SumOverGroup.apply(y, model).reshape(b, s, d), aux
+                 CopyToGroup.apply(top_p, model), cap, k)
+    return SumOverGroup.apply(y, model).reshape(b, s, d), aux

@@ -8,12 +8,13 @@ resolves on a mesh; and ``input_specs``, the ``meta`` inputs of one cell of
 the dry-run grid.
 
 Params laid out on a mesh (``sharding.lay_out``) switch the dense attention
-LM's scoring forward and serving steps onto each rank's shards
-(:func:`laid_out`): each takes the global batch, as JAX's jitted steps
-do, computes this rank's rows, and returns its outputs laid out
-(``sharding.full`` gives the global tensors) and the loss averaged over
-the batch's ranks.  Whole params run as before, under a ``ShardingCtx``
-or not."""
+LM's scoring forward, its loss and its serving steps onto each rank's
+shards (:func:`laid_out`): each takes the global batch, as JAX's jitted
+steps do, computes this rank's rows, and returns its outputs laid out
+(``sharding.full`` gives the global tensors) and the NLL averaged over
+the batch's ranks.  Every collective on that path is differentiable, so
+the train step (``launch.steps``) differentiates :func:`rank_loss` on the
+shards.  Whole params run as before, under a ``ShardingCtx`` or not."""
 from __future__ import annotations
 
 from typing import Any, Dict
@@ -128,13 +129,15 @@ def batch_rows(batch: Dict[str, Any], mesh):
 
 
 def _batch_mean(t: torch.Tensor, axes, mesh) -> torch.Tensor:
-    """A per-rank mean averaged over the ranks of ``axes`` (equal rows)."""
+    """A per-rank mean averaged over the ranks of ``axes`` (equal rows): a
+    reported metric, with no gradient (the train step averages the
+    gradients over the data ranks itself)."""
     if not axes:
         return t
-    out = t.reshape(1).clone()
+    out = t.detach().reshape(1)
     n = 1
     for ax in axes:
-        sh.all_reduce_sum(out, ax, mesh)
+        out = sh.all_reduce_sum(out, ax, mesh)
         n *= sh.axis_sizes(mesh)[ax]
     return (out / n).reshape(t.shape)
 
@@ -145,12 +148,31 @@ def _laid_out_logits(cfg: ModelConfig, logits, b: int, mesh):
                           + (cfg.padded_vocab,), mesh, _rules())
 
 
+def rank_loss(cfg: ModelConfig, mesh, params, rows):
+    """(loss, {"nll", "aux"}) of this rank's ``rows`` (plain local tensors)
+    on laid-out ``params``: the loss that the train step differentiates.
+    Every model rank of a data group computes it alike."""
+    with sh.layout_scope(mesh):
+        return lm_mod.loss_fn(_local_params(params), cfg, rows)
+
+
+def column_layers(cfg: ModelConfig, tp: int):
+    """The layers (paths under a block) from which each model rank computes
+    only what its own heads or ``ffn`` columns read, so that a leaf of
+    theirs that the model axis does not split gets a gradient of this
+    rank's part only (``core.sparse_linear._split_apply``): attention's q,
+    k and v, and the MLP's gate and up where the model axis divides d_ff
+    (else every rank computes the whole MLP alike)."""
+    out = {("attn", "q"), ("attn", "k"), ("attn", "v")}
+    if tp > 1 and cfg.d_ff % tp == 0:
+        out |= {("mlp", "gate"), ("mlp", "up")}
+    return out
+
+
 def _laid_loss(cfg, mesh, params, batch):
     rows, axes = batch_rows(batch, mesh)
-    with sh.layout_scope(mesh):
-        loss, m = lm_mod.loss_fn(_local_params(params), cfg, rows)
-    nll = _batch_mean(m["nll"], axes, mesh)
-    return nll + (loss - m["nll"]), {"nll": nll, "aux": m["aux"]}
+    loss, m = rank_loss(cfg, mesh, params, rows)
+    return loss, {"nll": _batch_mean(m["nll"], axes, mesh), "aux": m["aux"]}
 
 
 def _laid_forward(cfg, mesh, params, batch):
@@ -198,8 +220,9 @@ def loss_fn(cfg: ModelConfig):
     """(params, batch) -> (loss, {"nll", "aux"}): next-token cross-entropy
     of the scoring forward.  An encoder-decoder batch carries
     ``"enc_embeds"`` beside ``"tokens"``.  On laid-out params (the dense
-    attention LM): the global batch in, the NLL of the vocab gathered whole
-    and averaged over the batch's ranks out; forward only."""
+    attention LM): the global batch in; out, the loss of this rank's rows
+    (:func:`rank_loss`, what the train step differentiates) and the NLL of
+    the vocab gathered whole, averaged over the batch's ranks."""
     def f(params, batch):
         mesh = laid_out(cfg, params, "the loss")
         if mesh is not None:

@@ -19,7 +19,11 @@ Accounting rules (per rank: the step as one rank runs it):
          elementwise ops that XLA fuses is one pass there, several here
   collectives  each ``c10d`` (or functional collective) op the mode sees,
          max(input, output) bytes, by kind (``all-reduce``, ``all-gather``,
-         ``reduce-scatter``, ``all-to-all``, ``collective-permute``)
+         ``reduce-scatter``, ``all-to-all``, ``collective-permute``).  The
+         input side leaves out the arguments the op writes (a c10d op takes
+         its output buffers as arguments): an all-gather into n parts
+         counts n shards, a reduce-scatter its n input shards, an
+         all-reduce its buffer once
   loops  a Python loop is counted each time round: the twin of the
          trip-count multipliers
   kernels  each entry point of a hand-written kernel family (``counted``)
@@ -96,6 +100,24 @@ def _aliases(func) -> bool:
     return any(r.alias_info is not None for r in func._schema.returns)
 
 
+def _written(arg) -> bool:
+    """A schema argument the op writes: marked ``Tensor(a!)`` where the
+    schema says so, else named as c10d names its output buffers."""
+    info = arg.alias_info
+    return (info is not None and info.is_write) or arg.name.startswith(
+        "output")
+
+
+def _read_side(func, args, kwargs):
+    """The tensors of a collective's arguments that it reads (every
+    argument but those it writes)."""
+    schema = func._schema.arguments
+    read = [a for a, s in zip(args, schema) if not _written(s)]
+    names = {s.name for s in schema if _written(s)}
+    read += [v for k, v in kwargs.items() if k not in names]
+    return _tensors(read)
+
+
 def _collective_kind(func):
     if func.namespace not in ("c10d", "_c10d_functional"):
         return None
@@ -156,7 +178,7 @@ class _Counter(TorchDispatchMode):
         kind = _collective_kind(func)
         if kind is not None:
             if kind:
-                traffic = max(_nbytes(_tensors((args, kwargs))),
+                traffic = max(_nbytes(_read_side(func, args, kwargs)),
                               _nbytes(_tensors(out)))
                 self.coll_counts[kind] = self.coll_counts.get(kind, 0) + 1
                 self.coll_bytes[kind] = self.coll_bytes.get(kind, 0) + traffic

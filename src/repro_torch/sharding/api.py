@@ -21,6 +21,9 @@ import dataclasses
 import sys
 from typing import Any, Dict, Optional, Sequence, Tuple
 
+import torch
+import torch.distributed as dist
+
 # Default logical->mesh rules. 'pod' appears only in the multi-pod mesh; axes
 # missing from the mesh are dropped at resolution time.
 RULES: Dict[str, Tuple[str, ...]] = {
@@ -288,42 +291,161 @@ def split_axes(t) -> Dict[int, Tuple[str, ...]]:
     return out
 
 
-def all_gather(t, dim: int, axis: str, mesh):
-    """The ranks' ``t`` along ``axis`` concatenated along ``dim`` in rank
-    order (``torch.distributed.all_gather``, which gloo also runs on CUDA
-    tensors, staged through the host)."""
-    import torch
-    import torch.distributed as dist
+# The differentiable collectives.  Every collective that a gradient can
+# reach runs inside one of these autograd Functions; a plain
+# ``torch.distributed`` call remains only where no gradient flows (serving,
+# ``full``, the optimizer's sums over gradients).  Each backward depends on
+# how the cotangent arriving at the output lies over the group: replicated
+# (every rank holds the whole cotangent, as where the output feeds work done
+# alike on every rank) or partial (each rank holds its own part of it, as
+# where each rank reads the output in part).
 
-    if axis_sizes(mesh)[axis] == 1:
+
+def _gathered(t, group, n: int):
+    """The ``n`` ranks' ``t`` of ``group`` in rank order (one all-gather;
+    gloo also runs it on CUDA tensors, staged through the host)."""
+    parts = [torch.empty_like(t) for _ in range(n)]
+    dist.all_gather(parts, t, group=group)
+    return parts
+
+
+def _summed(t, group):
+    """A contiguous copy of ``t`` summed over ``group`` (one all-reduce)."""
+    out = t.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, group=group)
+    return out
+
+
+class CopyToGroup(torch.autograd.Function):
+    """Identity forward; the backward sums the gradient over ``group``.  It
+    marks where a value replicated over the group feeds work split over it
+    (this rank's experts, columns or heads), so each rank's part of the
+    gradient joins the others'."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _summed(grad, ctx.group), None
+
+
+class SumOverGroup(torch.autograd.Function):
+    """Sum over ``group`` forward; identity backward: every rank of the group
+    goes on with the same sum, and so hands back the whole gradient (JAX's
+    ``psum`` under ``shard_map`` with a replicated output)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        return _summed(t, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _AllGather(torch.autograd.Function):
+    """The ranks' ``t`` concatenated along ``dim``; the backward hands each
+    rank its slice of the cotangent, summed over the group first where the
+    cotangent is ``partial``."""
+
+    @staticmethod
+    def forward(ctx, t, dim, group, n, index, partial):
+        ctx.dim, ctx.group, ctx.n, ctx.index, ctx.partial = (dim, group, n,
+                                                             index, partial)
+        return torch.cat(_gathered(t.contiguous(), group, n), dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if ctx.partial:
+            grad = _summed(grad, ctx.group)
+        size = grad.shape[ctx.dim] // ctx.n
+        return (grad.narrow(ctx.dim, ctx.index * size, size).contiguous(),
+                None, None, None, None, None)
+
+
+COTANGENTS = ("replicated", "partial")
+
+
+def all_gather(t, dim: int, axis: str, mesh, *, cotangent: str):
+    """The ranks' ``t`` along ``axis`` concatenated along ``dim`` in rank
+    order.  ``cotangent`` says how the gradient reaching the output lies
+    over ``axis``: ``"replicated"`` (the output feeds work done alike on
+    every rank: the backward is the rank's slice) or ``"partial"`` (each
+    rank reads the output in part: the backward sums over ``axis``, then
+    slices)."""
+    if cotangent not in COTANGENTS:
+        raise ValueError(f"cotangent must be one of {COTANGENTS}, got "
+                         f"{cotangent!r}")
+    n = axis_sizes(mesh)[axis]
+    if n == 1:
         return t
-    t = t.contiguous()
-    parts = [torch.empty_like(t) for _ in range(axis_sizes(mesh)[axis])]
-    dist.all_gather(parts, t, group=mesh.get_group(axis))
-    return torch.cat(parts, dim=dim)
+    return _AllGather.apply(t, dim, mesh.get_group(axis), n,
+                            mesh.get_local_rank(axis),
+                            cotangent == "partial")
 
 
 def all_reduce_sum(t, axis: str, mesh):
-    """``t`` summed over the ranks of ``axis`` (in place; returns ``t``)."""
-    import torch.distributed as dist
-
-    if axis_sizes(mesh)[axis] > 1:
-        dist.all_reduce(t, group=mesh.get_group(axis))
-    return t
+    """``t`` summed over the ranks of ``axis`` (a new tensor), with the
+    identity backward (:class:`SumOverGroup`): the sum feeds work done
+    alike on every rank of ``axis``."""
+    if axis_sizes(mesh)[axis] == 1:
+        return t
+    return SumOverGroup.apply(t, mesh.get_group(axis))
 
 
 def gather_leaf(t, keep: Tuple[str, ...] = ()):
     """A laid-out leaf gathered over every axis that splits it, except those
     in ``keep``, as a plain tensor (a dim split by several axes is gathered
-    minor axis first); a plain tensor comes back as it is."""
+    minor axis first); a plain tensor comes back as it is.  The backward is
+    FSDP's: the ranks that gathered the leaf each hold part of its
+    gradient, so each gathered axis sums the cotangent before its slice."""
     if not is_laid_out(t):
         return t
     mesh, x = t.device_mesh, t.to_local()
     for dim, axes in split_axes(t).items():
         for ax in reversed(axes):
             if ax not in keep:
-                x = all_gather(x, dim, ax, mesh)
+                x = all_gather(x, dim, ax, mesh, cotangent="partial")
     return x
+
+
+def as_laid_out(local_t, proto):
+    """``local_t`` as the shard of a leaf laid out as ``proto`` is (the same
+    mesh and placements); where ``proto`` is plain, ``local_t`` itself."""
+    if not is_laid_out(proto):
+        return local_t
+    return _dtensor_cls().from_local(local_t, proto.device_mesh,
+                                     proto.placements, run_check=False)
+
+
+def sum_over_axes(tensors, axes_of, mesh):
+    """Each of ``tensors`` summed over the mesh axes that ``axes_of`` names
+    for it, as new tensors: for each axis, one all-reduce a dtype of every
+    tensor it sums, flattened into one buffer.  For sums that no gradient
+    reaches (the optimizer's, over gradients and norms), so a plain
+    ``torch.distributed`` call."""
+    out = list(tensors)
+    sizes = axis_sizes(mesh) if mesh is not None else {}
+    with torch.no_grad():
+        for ax in sizes:
+            if sizes[ax] == 1:
+                continue
+            by_dtype: Dict[Any, list] = {}
+            for i, axes in enumerate(axes_of):
+                if ax in axes:
+                    by_dtype.setdefault(out[i].dtype, []).append(i)
+            for ids in by_dtype.values():
+                buf = torch.cat([out[i].reshape(-1) for i in ids])
+                dist.all_reduce(buf, group=mesh.get_group(ax))
+                off = 0
+                for i in ids:
+                    n = out[i].numel()
+                    out[i] = buf[off:off + n].view(out[i].shape)
+                    off += n
+    return out
 
 
 def full(t):
@@ -370,6 +492,14 @@ class Layout:
         if "model" not in self.sizes:
             return 0
         return self.mesh.get_local_rank("model")
+
+    def copy_to_model(self, x):
+        """``x`` as it is, its gradient summed over the model axis
+        (:class:`CopyToGroup`): the input that every model rank holds whole
+        of work each rank does on its own columns or heads."""
+        if self.tp == 1:
+            return x
+        return CopyToGroup.apply(x, self.mesh.get_group("model"))
 
     def model_chunk(self, size: int) -> Optional[Tuple[int, int]]:
         """(start, stop) of this rank's columns of a dim of ``size`` that the
@@ -429,6 +559,42 @@ def _set(tree, path, value):
     tree[path[-1]] = value
 
 
+def _gather_whole(group, n: int, dims, shards) -> tuple:
+    """Each of ``shards`` (one dtype) gathered whole along its ``dims``
+    entry over ``group``, in one all-gather of them flattened."""
+    parts = _gathered(torch.cat([s.reshape(-1) for s in shards]), group, n)
+    out, off = [], 0
+    for s, d in zip(shards, dims):
+        out.append(torch.cat([p[off:off + s.numel()].view(s.shape)
+                              for p in parts], dim=d))
+        off += s.numel()
+    return tuple(out)
+
+
+class _GatherShards(torch.autograd.Function):
+    """The FSDP gather of several leaves' shards of one dtype over
+    ``group``: forward, one all-gather of the shards flattened into one
+    buffer, each leaf whole along its ``dims`` entry; backward, one
+    all-reduce of the whole leaves' cotangents (each rank computed on its
+    own rows), then each leaf's slice."""
+
+    @staticmethod
+    def forward(ctx, group, n, index, dims, *shards):
+        ctx.group, ctx.n, ctx.index, ctx.dims = group, n, index, dims
+        return _gather_whole(group, n, dims, shards)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        buf = _summed(torch.cat([g.reshape(-1) for g in grads]), ctx.group)
+        out, off = [], 0
+        for g, d in zip(grads, ctx.dims):
+            whole = buf[off:off + g.numel()].view(g.shape)
+            off += g.numel()
+            size = g.shape[d] // ctx.n
+            out.append(whole.narrow(d, ctx.index * size, size).contiguous())
+        return (None, None, None, None, *out)
+
+
 def gather_tree(tree, axes: Tuple[str, ...] = ("pod", "data")):
     """A dict tree as the model code takes laid-out params: every laid-out
     leaf gathered over each of ``axes`` that alone splits one of its dims
@@ -436,9 +602,10 @@ def gather_tree(tree, axes: Tuple[str, ...] = ("pod", "data")):
     whole tree (each rank's shards flattened into one buffer).  A leaf keeps
     the splits of the other axes (a DTensor whose ``axes`` placements are
     ``Replicate()``); one that nothing splits comes back as its plain whole
-    tensor."""
-    import torch
-    import torch.distributed as dist
+    tensor.  The backward is FSDP's (:class:`_GatherShards`): one
+    all-reduce a dtype of the whole leaves' gradients, then each rank's
+    slice, so a data-split leaf's gradient comes back summed over the
+    ranks that gathered it."""
     from torch.distributed.tensor import Replicate
 
     out = spec_map(lambda t: t, tree)  # a copy of the dicts
@@ -452,16 +619,14 @@ def gather_tree(tree, axes: Tuple[str, ...] = ("pod", "data")):
                                                                  dims[0]))
         for items in todo.values():
             mesh = items[0][1].device_mesh
-            n = axis_sizes(mesh)[ax]
-            buf = torch.cat([t.to_local().reshape(-1) for _, t, _ in items])
-            parts = [torch.empty_like(buf) for _ in range(n)]
-            dist.all_gather(parts, buf, group=mesh.get_group(ax))
-            off = 0
-            for path, t, dim in items:
-                loc = t.to_local()
-                whole = torch.cat([p[off:off + loc.numel()].view(loc.shape)
-                                   for p in parts], dim=dim)
-                off += loc.numel()
+            args = (mesh.get_group(ax), axis_sizes(mesh)[ax],
+                    mesh.get_local_rank(ax), tuple(d for _, _, d in items))
+            shards = [t.to_local() for _, t, _ in items]
+            if shards[0].is_floating_point():
+                wholes = _GatherShards.apply(*args, *shards)
+            else:  # integer and bool leaves carry no gradient
+                wholes = _gather_whole(args[0], args[1], args[3], shards)
+            for (path, t, _), whole in zip(items, wholes):
                 placements = tuple(
                     Replicate() if name == ax else p for name, p in
                     zip(mesh.mesh_dim_names, t.placements))
@@ -471,3 +636,31 @@ def gather_tree(tree, axes: Tuple[str, ...] = ("pod", "data")):
         if is_laid_out(t) and not split_axes(t):
             _set(out, path, t.to_local())
     return out
+
+
+def full_tree(tree):
+    """Every leaf of a dict tree whole on every rank (a collective): the
+    gathers of :func:`gather_tree` over every axis, one all-gather an axis
+    and a dtype, then :func:`full` of any leaf that several axes split on
+    one dim.  Plain leaves come back as they are."""
+    out = gather_tree(tree, axes=("pod", "data", "model"))
+    return spec_map(full, out)
+
+
+def lay_out_like(tree, like):
+    """The whole tensors of ``tree`` laid out as the leaves at the same
+    places in ``like`` are: each rank keeps its own shard of a leaf whose
+    counterpart is laid out (the same placements on the same mesh), and a
+    leaf whose counterpart is plain comes back as it is.  Nothing is
+    sent."""
+    def one(t, proto):
+        if not is_laid_out(proto):
+            return t
+        mesh = proto.device_mesh
+        for d, axes in split_axes(proto).items():
+            lo, hi = rank_chunk(t.shape[d], axes, mesh)
+            t = t.narrow(d, lo, hi - lo)
+        return _dtensor_cls().from_local(t.clone(), mesh, proto.placements,
+                                         run_check=False)
+
+    return spec_map(one, tree, like)

@@ -11,7 +11,13 @@ gradient (nor has JAX's), so train under ``attn_impl="naive"`` or
 Under a ``ShardingCtx`` over more than one rank every rank runs the loop
 on the same global batches (the step computes on its own rows), every rank
 restores, only global rank 0 writes checkpoints, and ``run`` returns on
-every rank after its final checkpoint is written.
+every rank after its final checkpoint is written.  The dense attention LM
+(``registry.layout_covers``) trains there on laid-out params: each rank
+holds only its shard of every param and optimizer-state leaf.  A save
+gathers the trees whole on every rank (a collective) before rank 0 writes
+them, so the files are those of a whole-params run; a restore reads them
+whole on every rank and lays them out again.  The other families keep
+whole params there (slice 25).
 """
 from __future__ import annotations
 
@@ -24,23 +30,39 @@ from repro_torch._compat import resolve_device
 from repro_torch._tree import tree_leaves
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
-from repro_torch.launch.steps import make_train_step
+from repro_torch.launch.steps import distribute_tree, make_train_step
 from repro_torch.models import registry as reg
 from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.sharding import get_ctx
+from repro_torch.sharding.api import (full_tree, laid_out_mesh, lay_out_like,
+                                      specs_to_shardings)
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.fault import PreemptionGuard, StepWatchdog, StragglerMonitor
 
 
-def _ranks():
-    """(this process's global rank, whether the installed ``ShardingCtx``
-    spans more than one rank)."""
+def _ranks(params=None):
+    """(this process's global rank, whether the installed ``ShardingCtx``,
+    or the mesh that ``params`` are laid out on, spans more than one
+    rank)."""
     ctx = get_ctx()
-    if ctx is None or ctx.mesh is None or ctx.mesh.size() == 1:
+    mesh = laid_out_mesh(params) if params is not None else None
+    if mesh is None and ctx is not None:
+        mesh = ctx.mesh
+    if mesh is None or mesh.size() == 1:
         return 0, False
     import torch.distributed as dist
 
     return dist.get_rank(), True
+
+
+def _mesh_to_lay_out(cfg: ModelConfig):
+    """The installed ``ShardingCtx``'s mesh where the params of ``cfg`` are
+    laid out on it (more than one rank, the dense attention LM), else
+    ``None``."""
+    ctx = get_ctx()
+    if ctx is None or ctx.mesh is None or ctx.mesh.size() == 1:
+        return None
+    return ctx.mesh if reg.layout_covers(cfg) else None
 
 
 @dataclasses.dataclass
@@ -56,7 +78,9 @@ class TrainConfig:
 
 class Trainer:
     """The LM trainer on ``device`` (``None``: the CUDA card; given
-    ``params`` decide it)."""
+    ``params`` decide it).  Laid-out ``params`` stay laid out; drawn ones
+    are laid out on the installed ``ShardingCtx``'s mesh where the config
+    is a dense attention LM (``cfg.tp`` its model axis)."""
 
     def __init__(
         self,
@@ -73,6 +97,10 @@ class Trainer:
         if params is None:
             params = reg.init_params(cfg, train_cfg.seed,
                                      device=resolve_device(device))
+            mesh = _mesh_to_lay_out(cfg)
+            if mesh is not None:
+                params = distribute_tree(params, specs_to_shardings(
+                    reg.param_specs(cfg), params, mesh, get_ctx().rules))
         self.params = params
         self.device = tree_leaves(params)[0].device
         self.opt_state = adamw_init(params)
@@ -87,22 +115,33 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def maybe_restore(self) -> int:
+        """Restore the newest valid checkpoint, if any; returns its step.
+        Every rank reads the whole files; laid-out trees are laid out again
+        as they are now."""
         if self.ckpt is None or self.ckpt.latest_step() is None:
             return 0
-        trees, meta = self.ckpt.restore(
-            None, {"params": self.params, "opt": self.opt_state}
-        )
+        protos = {"params": self.params, "opt": self.opt_state}
+        trees, meta = self.ckpt.restore(None, protos)
+        trees = lay_out_like(trees, protos)
         self.params = trees["params"]
         self.opt_state = trees["opt"]
         self.start_step = int(meta["step"])
         return self.start_step
 
     def save(self, step: int, blocking: bool = True):
-        if self.ckpt is None or _ranks()[0] != 0:
+        """Checkpoint the params and optimizer state at ``step``.  Laid-out
+        trees are gathered whole on every rank first (every rank must
+        call); global rank 0 alone writes."""
+        if self.ckpt is None:
+            return
+        trees = {"params": self.params, "opt": self.opt_state}
+        if laid_out_mesh(self.params) is not None:
+            trees = full_tree(trees)
+        if _ranks(self.params)[0] != 0:
             return
         self.ckpt.save(
             step,
-            {"params": self.params, "opt": self.opt_state},
+            trees,
             metadata={"step": step, "data": self.data.state_dict(step),
                       "arch": self.cfg.name},
             blocking=blocking,
@@ -148,7 +187,7 @@ class Trainer:
             # crash mid-loop propagates WITHOUT this save: exactly a kill.
             if self.ckpt:
                 self.save(step, blocking=True)
-            if _ranks()[1]:
+            if _ranks(self.params)[1]:
                 import torch.distributed as dist
 
                 dist.barrier()

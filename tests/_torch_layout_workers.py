@@ -65,13 +65,12 @@ def run_case(cfg, params, mesh, inp) -> dict:
 
 
 def refusals(mesh, cfgs) -> dict:
-    """What a laid-out tree raises where this slice does not take it: the
-    loss of another family, and ``make_train_step``."""
+    """What a laid-out tree of another family raises where this slice does
+    not take it: the loss."""
     import torch
 
-    from repro_torch.launch.steps import distribute_tree, make_train_step
+    from repro_torch.launch.steps import distribute_tree
     from repro_torch.models import registry as reg
-    from repro_torch.optim import AdamWConfig, adamw_init
     from repro_torch.sharding.api import specs_to_shardings
 
     out = {}
@@ -81,11 +80,7 @@ def refusals(mesh, cfgs) -> dict:
         laid = distribute_tree(params, specs_to_shardings(
             reg.param_specs(cfg), params, mesh))
         try:
-            if name == "train":
-                make_train_step(cfg, AdamWConfig())(laid, adamw_init(params),
-                                                    batch)
-            else:
-                reg.loss_fn(cfg)(laid, batch)
+            reg.loss_fn(cfg)(laid, batch)
             out[name] = None
         except ValueError as e:
             out[name] = str(e)

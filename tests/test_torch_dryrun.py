@@ -6,12 +6,14 @@ that each step runs in is process-global: smollm-360m ``decode_32k`` and
 mesh, a ``long_500k`` skip, and a cell that fails.  Each record holds the
 keys of JAX's record, read from JAX's ``run_cell``/``analyze`` source (its
 dry run itself is a known failure here and is not run), and its model
-FLOPs equal JAX's ``model_flops_for``.  The train step counts at least its
-rank's share of the model FLOPs, and its gradient all-reduce moves exactly
-the float params' bytes plus the three averaged metrics.  The decode cell
-runs on rank 0's shards of the params, cache and tokens laid out by
-``serve_shardings``: its argument bytes are those shards' bytes, and its
-layout's collectives are counted.
+FLOPs equal JAX's ``model_flops_for``.  The train cell runs on rank 0's
+shards of the params, optimizer state and batch laid out by
+``train_shardings``: its argument bytes are those shards' bytes, it counts
+at least its rank's share of the model FLOPs, and its FSDP all-gathers and
+gradient all-reduces are counted.  The MoE cell keeps its params whole.
+The decode cell runs on rank 0's shards of the params, cache and tokens
+laid out by ``serve_shardings``: its argument bytes are those shards'
+bytes, and its layout's collectives are counted.
 """
 import ast
 import json
@@ -59,10 +61,6 @@ SCRIPT = textwrap.dedent("""
             out[name]["files"][f] = json.load(open(os.path.join(d, f)))
     cfg = dryrun.build_cfg("smollm-360m", 0.5, "compressed_xla",
                            dryrun._world(False))
-    out["float_param_bytes"] = sum(
-        t.numel() * t.element_size()
-        for t in tree_leaves(reg.abstract_params(cfg)[0])
-        if t.is_floating_point())
     # rank 0's shard bytes of the decode cell's arguments, from the
     # resolved entries: each leaf's bytes over the sizes of its split axes
     from repro_torch.configs import SHAPES
@@ -86,6 +84,15 @@ SCRIPT = textwrap.dedent("""
         spec_map(shard_bytes, {"p": p_sh, "c": c_sh, "t": tok_sh},
                  {"p": params, "c": spec["cache"], "t": spec["tokens"]}))) \
         + spec["pos"].element_size()
+    # the train cell's: params, AdamW state (m, v, master; the step a
+    # replicated scalar) and batch
+    from repro_torch.optim import adamw_init
+    spec = reg.input_specs(cfg, SHAPES["train_4k"])
+    (p_sh, o_sh, b_sh), _ = steps.train_shardings(cfg, mesh, params, specs,
+                                                  spec["batch"])
+    out["train_shard_bytes"] = sum(tree_leaves(
+        spec_map(shard_bytes, {"p": p_sh, "o": o_sh, "b": b_sh},
+                 {"p": params, "o": adamw_init(params), "b": spec["batch"]})))
     print(json.dumps(out))
 """)
 
@@ -132,16 +139,22 @@ def _jax_keys():
     return top | {"compile_seconds"}, nested
 
 
-def _check_ok(rec, laid_out=False):
+LAYOUTS = {
+    "whole": "params whole on every rank; data parallel over pod×data",
+    "serve": "laid out by serve_shardings: each rank holds its shard of the "
+             "params, batch and cache",
+    "train": "laid out by train_shardings: each rank holds its shard of the "
+             "params, optimizer state and batch",
+}
+
+
+def _check_ok(rec, layout="whole"):
     top, nested = _jax_keys()
     assert top <= set(rec), top - set(rec)
     assert set(rec) - top == {"layout", "by_kernel", "memory_note"}
     for k, keys in nested.items():
         assert set(rec[k]) == keys, k
-    assert rec["layout"] == (
-        "laid out by serve_shardings: each rank holds its shard of the "
-        "params, batch and cache" if laid_out else
-        "params whole on every rank; data parallel over pod×data")
+    assert rec["layout"] == LAYOUTS[layout]
     assert rec["memory_analysis"]["generated_code_size_in_bytes"] is None
     want = j_model_flops_for(j_get_config(rec["arch"]).with_(tp=16),
                              J_SHAPES[rec["shape"]], rec["sparsity"])
@@ -153,7 +166,7 @@ def test_decode_cell_writes_an_ok_record_with_jax_keys(runs):
     assert runs["decode"]["rc"] == 0
     fname, rec = _record(runs, "decode")
     assert fname == "smollm-360m__decode_32k__pod16x16__s50.json"
-    _check_ok(rec, laid_out=True)
+    _check_ok(rec, layout="serve")
     # rank 0's shards of the params, the cache and the tokens, and the
     # layout's all-gathers (FSDP weights, k/v split inside a head) and
     # the embedding's all-reduce over the model axis
@@ -175,12 +188,17 @@ def test_train_cell_counts_its_share_and_the_gradient_all_reduce(runs):
     assert runs["train"]["rc"] == 0
     fname, rec = _record(runs, "train")
     assert fname == "smollm-360m__train_4k__pod16x16__s50.json"
-    _check_ok(rec)
+    _check_ok(rec, layout="train")
+    assert rec["memory_analysis"]["argument_size_in_bytes"] == \
+        runs["train_shard_bytes"]
     rl = rec["roofline"]
-    assert rl["flops_per_chip"] >= rl["model_flops"] / 16  # dp = 16
-    # every float gradient (bf16, one microbatch) and loss, nll, aux (f32)
-    assert rec["collectives"]["bytes"] == {
-        "all-reduce": runs["float_param_bytes"] + 3 * 4}
+    # 16 x 16 ranks: data 16 x model 16
+    assert rl["flops_per_chip"] >= rl["model_flops"] / 256
+    # the FSDP weights and the activations that the model axis splits
+    # gathered; the gradients summed (FSDP, the column layers' inputs,
+    # the data-parallel sums)
+    assert rec["collectives"]["bytes"]["all-gather"] > 0
+    assert rec["collectives"]["bytes"]["all-reduce"] > 0
     assert rl["t_collective_s"] == pytest.approx(
         rl["collective_bytes_per_chip"] / 450e9)
 

@@ -26,8 +26,8 @@ per-sequence one, alternately).
 * Each rank's local shapes of every param and cache leaf equal the shard
   that JAX's ``resolve_spec`` gives, on JAX's spec trees, for the mesh's
   sizes.
-* A laid-out tree of another family (MoE, xLSTM) raises naming slice 25,
-  and one that reaches ``make_train_step`` raises naming slice 24.
+* A laid-out tree of another family (MoE, xLSTM) raises naming slice 25.
+  Training on laid-out params is held in ``test_torch_layout_train.py``.
 
 The layout's numbers differ from whole params by rounding only: column
 slices of a product, the row-parallel sums over the model axis and the
@@ -268,8 +268,7 @@ def runs(tmp_path_factory):
     cases = {_key(c): {"cfg": _cfgs(c[0], c[1], c[3][1], c[2])[1],
                        "mesh": c[3], "params": (c[0], c[1])} for c in CASES}
     refusal = {"moe": smoke_config("olmoe-1b-7b").with_(tp=2),
-               "xlstm": smoke_config("xlstm-350m"),
-               "train": _cfgs("divides", "dense", 2)[1]}
+               "xlstm": smoke_config("xlstm-350m")}
     (d / "cases.pkl").write_bytes(pickle.dumps({
         "meshes": MESHES, "cases": cases, "params": params, "inputs": inp,
         "refusal_mesh": (2, 2), "refusal_cfgs": refusal}))
@@ -382,8 +381,7 @@ def _flat_specs(tree, prefix=()):
     return {prefix: tuple(tree)}
 
 
-@pytest.mark.parametrize("what,slice_no", [("moe", 25), ("xlstm", 25),
-                                           ("train", 24)])
+@pytest.mark.parametrize("what,slice_no", [("moe", 25), ("xlstm", 25)])
 def test_laid_out_tree_refused_naming_the_slice(runs, what, slice_no):
     _, ranks = runs
     for res in ranks:

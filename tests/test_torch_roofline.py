@@ -10,6 +10,8 @@
   FLOPs within 15% of JAX's ``analyze_hlo`` of the jitted forward).
 - One call of each kernel family (#1-#8) counted as the ``Work`` worked by
   hand below, the same whichever plan or plain version dispatch runs.
+- A collective counts the bytes it reads or writes, the larger, once (a
+  world-1 gloo group; 2 ranks in ``test_torch_layout_train.py``).
 - ``remat``: the gradients equal the ones without it (bit for bit: the
   recompute runs the same ops in the same order) and JAX's remat gradients
   within 1e-5, and the train step's FLOPs rise by the recomputed forward.
@@ -208,6 +210,57 @@ def _qwen_flops(s):
         got = count(treg.forward_fn(tcfg), tp,
                     {"tokens": torch.ones((2, 32), dtype=torch.int32)})
     return analyze_hlo(txt)["flops"], got, tp
+
+
+@pytest.fixture(scope="module")
+def world1():
+    """A world-1 gloo group from a ``HashStore`` (no network), destroyed
+    after the module where this fixture started it."""
+    import torch.distributed as dist
+
+    started = not dist.is_initialized()
+    if started:
+        dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                                world_size=1)
+    assert dist.get_world_size() == 1
+    yield
+    if started:
+        dist.destroy_process_group()
+
+
+SHARD = torch.ones(1024)  # 4096 bytes
+
+
+def _all_gather():
+    import torch.distributed as dist
+
+    dist.all_gather([torch.empty_like(SHARD)], SHARD)
+
+
+def _all_reduce():
+    import torch.distributed as dist
+
+    dist.all_reduce(SHARD.clone())
+
+
+def _reduce_scatter():
+    import torch.distributed as dist
+
+    dist.reduce_scatter(torch.empty_like(SHARD), [SHARD.clone()])
+
+
+@pytest.mark.parametrize("kind,fn", [("all-gather", _all_gather),
+                                     ("all-reduce", _all_reduce),
+                                     ("reduce-scatter", _reduce_scatter)])
+def test_counter_counts_a_collective_once(world1, kind, fn):
+    """A collective counts max(what it reads, what it writes) once: the
+    output buffers a c10d op takes as arguments are not read.  Into one part
+    an all-gather counts its shard (n shards into n parts), a reduce-scatter
+    its one input shard, an all-reduce its buffer; the test file of the
+    layout's training counts the same over 2 ranks."""
+    got = count(fn)
+    assert got["collective_by_kind"] == {kind: 4096}
+    assert got["collective_counts"] == {kind: 1}
 
 
 def test_sparsity_reduces_counted_flops_as_jax():
